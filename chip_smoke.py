@@ -6,22 +6,28 @@
 Needs one sm_90 card (H100).  Phases, each fatal on failure:
 
 1. device: CUDA, capability 9.0, card name and power limit, TF32 off;
-2. build: both CUDA kernels from ``src/repro_torch/csrc`` (ptxas lines);
+2. build: the three CUDA kernels from ``src/repro_torch/csrc`` (ptxas
+   lines), one ``nvcc`` per source, all started together;
 3. kernels vs their plain PyTorch versions on the card at granite-3-2b
    widths (Qh 32, Kh 8, hsz 64) in f32 and bf16, plus pruned == dense and
-   fused == unfused append, bit for bit;
+   fused == unfused append, bit for bit, in the fp and the int8 mode of
+   flash_decode; w8a16_matmul at the lm_head shape and a ragged one;
 4. serve: granite-3-2b at full width (40 layers, bf16, seeded random
-   weights) through ``serve_demo``; the kernels' launch counts must equal
-   layers x decode steps and layers x prefills; then a 4-layer f32 run of
-   the same widths where the kernel path, the plain path and kvp = 4 must
-   agree;
-5. times (CUDA events) of each kernel, its plain version and the
-   ``scaled_dot_product_attention`` yardstick, beside the card's bound.
+   weights) through ``serve_demo``, twice, for the same 8 requests: the fp
+   path, then the int8 path (``HelixConfig(kv_cache_bits=8,
+   lm_head_w8=True)``).  The launch counts of each run, set to 0 just
+   before it, must equal layers x decode steps (flash_decode; int8 mode in
+   the int8 run), layers x prefills (flash_prefill) and decode steps
+   (w8a16_matmul, int8 run).  Then 4-layer f32 runs of the same widths
+   where the kernel path, the plain path and kvp = 4 agree, fp and int8;
+5. times (CUDA events) of each kernel, its plain version and a one-call
+   PyTorch yardstick where there is one, beside the card's bound.
 
 The last lines are the card line, one JSON object of kernel records and
 ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -38,15 +44,20 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.helix import append_kv  # noqa: E402
-from repro_torch.core.kvcache import init_decode_state  # noqa: E402
+from repro_torch.core.helix import (append_kv, append_kv_quant,  # noqa: E402
+                                    quantize_kv_token)
+from repro_torch.core.kvcache import (init_decode_state,  # noqa: E402
+                                      quantize_decode_state)
 from repro_torch.core.sharding import HelixConfig  # noqa: E402
 from repro_torch.kernels import build, registry  # noqa: E402
 from repro_torch.kernels.flash_decode.ops import (  # noqa: E402
     flash_decode_shards, flash_decode_shards_plain, kernel_block_s)
 from repro_torch.kernels.flash_prefill.ops import flash_prefill  # noqa: E402
 from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref  # noqa: E402
+from repro_torch.kernels.w8a16_matmul import (quantize_w8,  # noqa: E402
+                                              w8a16_matmul, w8a16_matmul_ref)
 from repro_torch.launch.serve import serve_demo  # noqa: E402
+from repro_torch.models.decode_model import prepare_decode_params  # noqa: E402
 from repro_torch.models.model_zoo import (build_serve_step,  # noqa: E402
                                           make_prefill_step)
 from repro_torch.models.transformer import init_params  # noqa: E402
@@ -57,10 +68,16 @@ PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense FLOP/s
 # rounded to bf16 (8 bits of mantissa), so one ulp at |x| <= 2 is 2^-6
 TOL = {torch.float32: dict(out=2e-5, lse=2e-5),
        torch.bfloat16: dict(out=1.6e-2, lse=1e-4)}
+# w8a16 kernel vs plain, relative to the largest |output|: f32 differs by
+# summation order only; a bf16 output may round to the neighbouring bf16
+# value, one ulp = 2^-7 of its magnitude at most
+MM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 # 4-layer f32 logits: attention differences of ~1e-6 pass through 4 layers
 # of width-2048/8192 matmuls and the 49k-row tied head
 LOGIT_TOL = 1e-3
 QH, KH, HSZ, RR = 32, 8, 64, 16
+D_MODEL, VP = 2048, 49664           # granite-3-2b lm_head [d_model, padded vocab]
+KV8_W8 = HelixConfig(kv_cache_bits=8, lm_head_w8=True)
 
 
 class SmokeFailure(RuntimeError):
@@ -95,6 +112,11 @@ def time_ms(fn, iters=50, warmup=5) -> float:
 
 def maxerr(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
+
+
+def bits(t):
+    """Integers as they are, f32 as their bit patterns."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
 # ------------------------------------------------------------- phase 3
@@ -151,6 +173,92 @@ def check_decode(dev, errs):
                   "fused == unfused, bit for bit")
 
 
+def check_decode_kv8(dev, errs):
+    """int8 mode: kernel vs plain (payload and scale appended as integers /
+    bits), pruned == dense, fused == append_kv_quant then attend."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    b, s_cap = 8, 4096
+    tl = torch.tensor([0, 1, 37, 511, 1000, 2049, 4095, 4096],
+                      dtype=torch.int32, device=dev)
+    k, ks = quantize_kv_token(torch.randn(b, KH, s_cap, HSZ, generator=g,
+                                          device=dev))
+    v, vs = quantize_kv_token(torch.randn(b, KH, s_cap, HSZ, generator=g,
+                                          device=dev))
+    for dt in (torch.float32, torch.bfloat16):
+        rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(dt)
+        q, kn, vn = rnd(b, QH, HSZ), rnd(b, KH, HSZ), rnd(b, KH, HSZ)
+        for kvp in (1, 4):
+            for fused in (False, True):
+                kw = dict(kvp=kvp, n_ranks=kvp, rank=0, rr_block=RR,
+                          window=0, contiguous=False, slot_offset=0)
+                app = dict(k_new=kn, v_new=vn) if fused else \
+                    dict(k_new=None, v_new=None)
+                c1, c2, c3 = ([t.clone() for t in (k, v, ks, vs)]
+                              for _ in range(3))
+                o1, l1 = flash_decode_shards(q, c1[0], c1[1], tl,
+                                             kscale=c1[2], vscale=c1[3],
+                                             prune=True, **kw, **app)
+                o3, l3 = flash_decode_shards(q, c3[0], c3[1], tl,
+                                             kscale=c3[2], vscale=c3[3],
+                                             prune=False, **kw, **app)
+                o2, l2 = flash_decode_shards_plain(
+                    q, c2[0], c2[1], tl, scale=HSZ ** -0.5,
+                    block_s=kernel_block_s(512, s_cap // kvp), kscale=c2[2],
+                    vscale=c2[3], **kw, **app)
+                torch.cuda.synchronize()
+                eo, el = maxerr(o1, o2), maxerr(l1, l2)
+                errs.append(eo)
+                tag = f"decode kv8 {str(dt)[6:]} kvp={kvp} fused={fused}"
+                print(f"  {tag}: max err out {eo:.3g} lse {el:.3g} "
+                      f"(tol {TOL[dt]['out']:g}/{TOL[dt]['lse']:g})")
+                need(eo <= TOL[dt]["out"] and el <= TOL[dt]["lse"],
+                     f"{tag}: kernel disagrees with plain")
+                need(torch.equal(o1, o3) and torch.equal(l1, l3),
+                     f"{tag}: pruned != dense")
+                need(all(torch.equal(bits(a), bits(p)) and
+                         torch.equal(bits(a), bits(d))
+                         for a, p, d in zip(c1, c2, c3)),
+                     f"{tag}: appended payload/scale differ from plain")
+            # fused == unfused (rows with a token to append: length >= 1)
+            tl1 = torch.clamp(tl, min=1)
+            kw = dict(kvp=kvp, n_ranks=kvp, rr_block=RR)
+            ca = [t.clone() for t in (k, v, ks, vs)]
+            oa, la = flash_decode_shards(q, ca[0], ca[1], tl1, kscale=ca[2],
+                                         vscale=ca[3], k_new=kn, v_new=vn,
+                                         **kw)
+            cb = [t.clone() for t in (k, v, ks, vs)]
+            append_kv_quant(*cb, kn, vn, tl1, kvp=kvp, rr_block=RR)
+            ob, lb = flash_decode_shards(q, cb[0], cb[1], tl1, kscale=cb[2],
+                                         vscale=cb[3], **kw)
+            torch.cuda.synchronize()
+            need(torch.equal(oa, ob) and torch.equal(la, lb)
+                 and all(torch.equal(bits(x), bits(y))
+                         for x, y in zip(ca, cb)),
+                 f"decode kv8 {dt} kvp={kvp}: fused != unfused append")
+            print(f"  decode kv8 {str(dt)[6:]} kvp={kvp}: pruned == dense and "
+                  "fused == unfused (payloads as integers, scales as bits), "
+                  "bit for bit")
+
+
+def check_w8a16(dev, errs):
+    g = torch.Generator(device=dev).manual_seed(6)
+    for m, k, n in ((4, D_MODEL, VP), (3, 200, 700)):
+        qw, scale = quantize_w8(torch.randn(k, n, generator=g, device=dev))
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(m, k, generator=g, device=dev).to(dt)
+            got = w8a16_matmul(x, qw, scale)
+            want = w8a16_matmul_ref(x, qw, scale)
+            torch.cuda.synchronize()
+            e = maxerr(got, want)
+            top = want.float().abs().max().item()
+            errs.append(e)
+            tag = f"w8a16 {str(dt)[6:]} M={m} K={k} N={n}"
+            print(f"  {tag}: max err {e:.3g} (|out| <= {top:.3g}, tol "
+                  f"{MM_TOL[dt]:g} x |out|)")
+            need(got.dtype == dt and got.shape == (m, n)
+                 and e <= MM_TOL[dt] * top, f"{tag}: kernel disagrees")
+
+
 def check_prefill(dev, errs):
     g = torch.Generator(device=dev).manual_seed(2)
     b, t = 2, 1024
@@ -180,51 +288,95 @@ def check_prefill(dev, errs):
 
 # ------------------------------------------------------------- phase 4
 def serve_full(dev):
+    """Both main paths at full width, the same 8 requests each, in turns
+    fp, int8, int8, fp (host times of one call are compared in turns); the
+    launch counts are set to 0 just before each run and read just after."""
     cfg = get_config("granite-3-2b")
-    torch.cuda.reset_peak_memory_stats()
     model = init_params(cfg, 0, dtype=torch.bfloat16, device=dev)
     torch.cuda.synchronize()
-    registry.reset_launch_counts()
-    fin, summ = serve_demo("granite-3-2b", n_requests=8,
-                           prompt_len=(128, 1024), max_new=32, max_batch=4,
-                           kvp=1, dtype=torch.bfloat16, device=dev,
-                           model=model, seed=0)
-    counts = registry.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    need(len(fin) == 8 and all(r.finish_reason == "max_tokens"
-                               and len(r.out_tokens) == 32 for r in fin),
-         f"serve: {len(fin)} finished, reasons "
-         f"{[r.finish_reason for r in fin]}")
-    need(all(0 <= t < cfg.vocab for r in fin for t in r.out_tokens),
-         "serve: token outside the vocabulary")
-    want = {"flash_decode": cfg.n_layers * summ["decode_syncs"],
-            "flash_prefill": cfg.n_layers * len(fin)}
-    print(f"  {len(fin)} requests finished, prompts "
-          f"{sorted(len(r.prompt) for r in fin)}; "
-          f"{summ['n_tokens']} tokens, {summ['tok_s']:.1f} tok/s, "
-          f"TTFT p50 {summ['ttft_s']['p50'] * 1e3:.1f} ms, "
-          f"TTL p50 {summ['ttl_s']['p50'] * 1e3:.2f} ms, "
-          f"{summ['engine_steps']} engine steps, "
-          f"{summ['decode_syncs']} decode steps, "
-          f"peak memory {peak / 2**30:.2f} GiB")
-    print(f"  launches {counts} (expected {want})")
-    need(counts == want and min(counts.values()) > 0,
-         f"serve: launch counts {counts} != expected {want}")
-    profile_decode(dev, cfg, model)
+    runs = {"fp": [], "int8": []}
+    for name, hx in (("fp", None), ("int8", KV8_W8), ("int8", KV8_W8),
+                     ("fp", None)):
+        first = not runs[name]
+        print(f"  -- {name} path: hx {hx or HelixConfig()}")
+        torch.cuda.reset_peak_memory_stats()
+        registry.reset_launch_counts()
+        fin, summ = serve_demo("granite-3-2b", n_requests=8,
+                               prompt_len=(128, 1024), max_new=32,
+                               max_batch=4, hx=hx, kvp=1,
+                               dtype=torch.bfloat16, device=dev, model=model,
+                               seed=0)
+        counts = registry.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        need(len(fin) == 8 and all(r.finish_reason == "max_tokens"
+                                   and len(r.out_tokens) == 32 for r in fin),
+             f"serve {name}: {len(fin)} finished, reasons "
+             f"{[r.finish_reason for r in fin]}")
+        need(all(0 <= t < cfg.vocab for r in fin for t in r.out_tokens),
+             f"serve {name}: token outside the vocabulary")
+        steps = summ["decode_syncs"]
+        int8 = hx is not None
+        want = {"flash_decode": cfg.n_layers * steps,
+                "flash_decode_kv8": cfg.n_layers * steps if int8 else 0,
+                "flash_prefill": cfg.n_layers * len(fin),
+                "w8a16_matmul": steps if int8 else 0}
+        ttl = summ["ttl_s"]
+        print(f"  {len(fin)} requests finished, prompts "
+              f"{sorted(len(r.prompt) for r in fin)}; "
+              f"{summ['n_tokens']} tokens, {summ['tok_s']:.1f} tok/s, "
+              f"TTFT p50 {summ['ttft_s']['p50'] * 1e3:.1f} ms, "
+              f"TTL p50 {ttl['p50'] * 1e3:.2f} ms p95 {ttl['p95'] * 1e3:.2f}"
+              f" ms, {summ['engine_steps']} engine steps, {steps} decode "
+              f"steps, KV cache {summ['kv_cache_dtype']}, "
+              f"peak memory {peak / 2**30:.2f} GiB")
+        print(f"  launches {counts} (expected {want})")
+        need(counts == want and steps > 0,
+             f"serve {name}: launch counts {counts} != expected {want}")
+        need(summ["kv_cache_dtype"] == ("torch.int8" if int8
+                                        else "torch.bfloat16"),
+             f"serve {name}: KV cache is {summ['kv_cache_dtype']}")
+        streams = {r.rid: r.out_tokens for r in fin}
+        if not first:
+            need(streams == runs[name][0]["streams"],
+                 f"serve {name}: greedy streams differ between two runs")
+        elif int8:
+            same = sum(streams[r] == runs["fp"][0]["streams"][r]
+                       for r in streams)
+            print(f"  int8 streams identical to the fp run's: {same} of 8 "
+                  "(int8 K/V and head change the numerics; not a check)")
+        if first:
+            profile_decode(dev, cfg, model, hx or HelixConfig())
+        runs[name].append({"counts": counts, "summ": summ, "peak": peak,
+                           "streams": streams})
+    for name, rs in runs.items():
+        print(f"  {name} runs: TTL p50 " + ", ".join(
+            f"{r['summ']['ttl_s']['p50'] * 1e3:.2f}" for r in rs)
+              + " ms; tok/s " + ", ".join(f"{r['summ']['tok_s']:.1f}"
+                                          for r in rs))
+    # what the engine's one-time head quantization adds to the peak
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    quantize_w8(model.embed.T)
+    torch.cuda.synchronize()
+    print(f"  head quantization (quantize_w8 of [{D_MODEL}, {VP}]) alone: "
+          f"peak {(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB"
+          " above what was allocated before it")
     del model
     torch.cuda.empty_cache()
-    return counts, summ, peak
+    return runs
 
 
-def profile_decode(dev, cfg, model):
+def profile_decode(dev, cfg, model, hx):
     """Host wall time vs device kernel time of one decode step at the serve
     shape (4 rows of 700-1000 tokens, cap 1088), from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
-    hx = HelixConfig()
     state = init_decode_state(cfg, 4, 1088, 1, RR, dtype=torch.bfloat16,
                               device=dev)
     state["kcache"].normal_()
     state["vcache"].normal_()
+    if hx.kv_cache_bits == 8:
+        state = quantize_decode_state(state)
     state["total_len"] = torch.tensor([1000, 900, 800, 700],
                                       dtype=torch.int32, device=dev)
     step = build_serve_step(cfg, hx)
@@ -246,14 +398,19 @@ def profile_decode(dev, cfg, model):
     device = sum(dev_us(e) for e in rows
                  if not e.key.startswith("aten::")) / n / 1e3
     ops = sum(e.count for e in rows if e.key.startswith("aten::")) / n
-    dec = [e for e in rows if "decode_kernel" in e.key]
-    per_call = (sum(dev_us(e) for e in dec) / max(sum(e.count for e in dec), 1)
-                / 1e3)
+    per_call = {}
+    for tag, key in (("flash_decode", "decode_kernel"),
+                     ("w8a16_matmul", "w8a16_kernel")):
+        ev = [e for e in rows if key in e.key]
+        n_ev = sum(e.count for e in ev)
+        if n_ev:
+            per_call[tag] = sum(dev_us(e) for e in ev) / n_ev / 1e3
     if device > 0:
+        calls = ", ".join(f"{k} {v:.4f} ms/call" for k, v in per_call.items())
         print(f"  decode step profile (B=4, lengths 700-1000): host wall "
               f"{wall:.2f} ms/step, device kernels {device:.2f} ms/step, "
               f"busy share {device / wall:.3f}, {ops:.0f} aten ops/step, "
-              f"flash_decode {per_call:.4f} ms/call")
+              f"{calls}")
     else:
         print(f"  decode step profile: host wall {wall:.2f} ms/step; device "
               "time not measured (the profiler saw no device events)")
@@ -265,12 +422,21 @@ def compare_paths(dev):
     g = torch.Generator(device=dev).manual_seed(3)
     toks = torch.randint(0, cfg.vocab, (1, 300), generator=g, device=dev)
     runs = {}
+    plain = dict(attn_backend="ref", prefill_backend="ref",
+                 matmul_backend="ref")
     for name, hx in (("kernel kvp=1", HelixConfig(kvp=1)),
-                     ("plain kvp=1", HelixConfig(kvp=1, attn_backend="ref",
-                                                 prefill_backend="ref")),
-                     ("kernel kvp=4", HelixConfig(kvp=4))):
+                     ("plain kvp=1", HelixConfig(kvp=1, **plain)),
+                     ("kernel kvp=4", HelixConfig(kvp=4)),
+                     ("int8 kernel kvp=1", KV8_W8),
+                     ("int8 plain kvp=1",
+                      dataclasses.replace(KV8_W8, **plain)),
+                     ("int8 kernel kvp=4",
+                      dataclasses.replace(KV8_W8, kvp=4))):
+        prepare_decode_params(model, hx)
         logits, state = make_prefill_step(cfg, hx, s_cap=512)(
             model, {"tokens": toks})
+        if hx.kv_cache_bits == 8:
+            state = quantize_decode_state(state)
         state["total_len"] = torch.full((1,), 300, dtype=torch.int32,
                                         device=dev)
         step = build_serve_step(cfg, hx, return_logits=True)
@@ -281,16 +447,19 @@ def compare_paths(dev):
             out.append(lg)
         runs[name] = torch.stack(out)[..., :cfg.vocab]   # real vocab rows
     torch.cuda.synchronize()
-    base = runs["kernel kvp=1"]
-    for name in ("plain kvp=1", "kernel kvp=4"):
-        e = maxerr(runs[name], base)
-        scale = base.abs().max().item()
-        print(f"  4-layer f32 prefill+4 decode logits, {name} vs kernel "
-              f"kvp=1: max err {e:.3g} (|logits| <= {scale:.3g}, tol "
-              f"{LOGIT_TOL:g} x max(1, |logits|))")
-        need(e <= LOGIT_TOL * max(1.0, scale), f"{name} disagrees")
-        need(torch.equal(runs[name].argmax(-1), base.argmax(-1)),
-             f"{name}: greedy tokens differ")
+    for base_name, names in (("kernel kvp=1", ("plain kvp=1", "kernel kvp=4")),
+                             ("int8 kernel kvp=1", ("int8 plain kvp=1",
+                                                    "int8 kernel kvp=4"))):
+        base = runs[base_name]
+        for name in names:
+            e = maxerr(runs[name], base)
+            scale = base.abs().max().item()
+            print(f"  4-layer f32 prefill+4 decode logits, {name} vs "
+                  f"{base_name}: max err {e:.3g} (|logits| <= {scale:.3g}, "
+                  f"tol {LOGIT_TOL:g} x max(1, |logits|))")
+            need(e <= LOGIT_TOL * max(1.0, scale), f"{name} disagrees")
+            need(torch.equal(runs[name].argmax(-1), base.argmax(-1)),
+                 f"{name}: greedy tokens differ")
 
 
 # ------------------------------------------------------------- phase 5
@@ -316,7 +485,34 @@ def times(dev):
         q[:, :, None], k, v, attn_mask=mask, enable_gqa=True))
     dbytes = (2 * b * KH * s * HSZ + 2 * b * QH * HSZ) * es + b * QH * 4
     dops = 4 * b * QH * HSZ * s
-    dec.update(_bound(dbytes, dops, PEAK[dt]))
+    dec.update(_bound(dbytes, dops, PEAK[dt]), library="sdpa")
+    # the same decode in int8 mode; the int8 K/V (34 MB) fits in the 50 MB
+    # L2, so three copies rotate to keep every launch's reads cold, as the
+    # 40 layers of a decode step find them
+    copies = [quantize_kv_token(k) + quantize_kv_token(v) for _ in range(3)]
+    kw8 = [dict(kscale=c[1], vscale=c[3], **kw) for c in copies]
+    dec8 = {
+        "ms": time_ms(rotating([
+            lambda c=c, w=w: flash_decode_shards(q, c[0], c[2], tl, **w)
+            for c, w in zip(copies, kw8)])),
+        "plain_ms": time_ms(lambda: flash_decode_shards_plain(
+            q, copies[0][0], copies[0][2], tl, scale=HSZ ** -0.5,
+            block_s=512, **kw8[0]), iters=10),
+        "library_ms": None,
+        "library": "no single PyTorch call attends over an int8 cache"}
+    d8bytes = (2 * b * KH * s * HSZ + 2 * b * KH * s * 4
+               + 2 * b * QH * HSZ * es + b * QH * 4 + 2 * b * KH * HSZ * es)
+    dec8.update(_bound(d8bytes, dops, PEAK[dt]))
+    # the int8 lm_head of one decode step: M = 4 rows (max_batch), bf16
+    m, kd, n = 4, D_MODEL, VP
+    x = rnd(m, kd)
+    qw, sc = quantize_w8(torch.randn(kd, n, generator=g, device=dev))
+    lib, lib_fn = w8a16_library(x, qw, sc)
+    mm = {"ms": time_ms(lambda: w8a16_matmul(x, qw, sc)),
+          "plain_ms": time_ms(lambda: w8a16_matmul_ref(x, qw, sc), iters=10),
+          "library_ms": time_ms(lib_fn), "library": lib}
+    mbytes = kd * n + n * 4 + m * kd * es + m * n * es
+    mm.update(_bound(mbytes, 2 * m * kd * n, PEAK[dt]))
     # prefill at B=1, T=1024 causal (the longest serve prompt)
     t = 1024
     qp, kp, vp = rnd(1, t, QH, HSZ), rnd(1, t, KH, HSZ), rnd(1, t, KH, HSZ)
@@ -330,13 +526,50 @@ def times(dev):
     }
     pbytes = (2 * t * QH * HSZ + 2 * t * KH * HSZ) * es
     pops = 4 * QH * HSZ * (t * (t + 1) // 2)
-    pre.update(_bound(pbytes, pops, PEAK[dt]))
-    for name, r in (("flash_decode B=8 S=4096 bf16", dec),
-                    ("flash_prefill B=1 T=1024 causal bf16", pre)):
-        print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
-              f" ms, sdpa {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f}"
-              f" ms ({r['bound_by']})")
-    return dec, pre
+    pre.update(_bound(pbytes, pops, PEAK[dt]), library="sdpa")
+    out = {"flash_decode": dec, "flash_decode_kv8": dec8,
+           "flash_prefill": pre, "w8a16_matmul": mm}
+    for name, shape in (("flash_decode", "B=8 S=4096 bf16, fused append"),
+                        ("flash_decode_kv8", "B=8 S=4096 int8 K/V, bf16 q, "
+                                             "fused quantized append"),
+                        ("flash_prefill", "B=1 T=1024 causal bf16"),
+                        ("w8a16_matmul", f"M={m} K={kd} N={n} bf16 x")):
+        r = out[name]
+        lib_ms = "none" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms"
+        print(f"  {name} {shape}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {lib_ms} ({r['library']}), "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return out
+
+
+def rotating(fns):
+    """One callable that calls ``fns`` in turn."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
+
+
+def w8a16_library(x, qw, scale):
+    """(label, fn): the one PyTorch call timed beside the w8a16 kernel.
+    ``aten._weight_int8pack_mm`` (int8 [N, K] weights, scales in x's type)
+    where this build runs it on the card and agrees with the plain version;
+    otherwise a matmul over the head dequantized to x's type."""
+    wt, sc = qw.t().contiguous(), scale.to(x.dtype)
+    want = w8a16_matmul_ref(x, qw, scale).float()
+    try:
+        got = torch.ops.aten._weight_int8pack_mm(x, wt, sc)
+        torch.cuda.synchronize()
+        ok = maxerr(got, want) <= 2.0 ** -6 * want.abs().max().item()
+    except (NotImplementedError, RuntimeError) as e:
+        print(f"  aten._weight_int8pack_mm not usable here: "
+              f"{str(e).splitlines()[0][:120]}")
+        ok = False
+    if ok:
+        return ("aten._weight_int8pack_mm",
+                lambda: torch.ops.aten._weight_int8pack_mm(x, wt, sc))
+    head = (qw.float() * scale).to(x.dtype)
+    return ("torch.matmul over the head dequantized to bf16",
+            lambda: x @ head)
 
 
 def _bound(nbytes, ops, peak):
@@ -372,26 +605,39 @@ def main() -> int:
             print(f"    {ln}")
 
     print("== 3 kernels vs plain on the card")
-    derr, perr = [], []
-    check_decode(dev, derr)
-    check_prefill(dev, perr)
+    errs = {name: [] for name in ("flash_decode", "flash_decode_kv8",
+                                  "flash_prefill", "w8a16_matmul")}
+    check_decode(dev, errs["flash_decode"])
+    check_decode_kv8(dev, errs["flash_decode_kv8"])
+    check_prefill(dev, errs["flash_prefill"])
+    check_w8a16(dev, errs["w8a16_matmul"])
 
-    print("== 4 serve granite-3-2b (40 layers, bf16)")
-    counts, summ, peak = serve_full(dev)
+    print("== 4 serve granite-3-2b (40 layers, bf16), fp path then int8 path")
+    runs = serve_full(dev)
     compare_paths(dev)
 
     print("== 5 times")
-    dec, pre = times(dev)
+    timed = times(dev)
 
+    # launches: each kernel's count in the run of the path it serves
+    fp, int8 = runs["fp"][0]["counts"], runs["int8"][0]["counts"]
+    launches = {"flash_decode": fp["flash_decode"],
+                "flash_decode_kv8": int8["flash_decode_kv8"],
+                "flash_prefill": fp["flash_prefill"],
+                "w8a16_matmul": int8["w8a16_matmul"]}
+    decode_src = ("src/repro_torch/csrc/flash_decode.cu",
+                  "src/repro/kernels/flash_decode/kernel.py:417")
+    sources = {"flash_decode": decode_src, "flash_decode_kv8": decode_src,
+               "flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
+                                 "src/repro/kernels/flash_prefill/kernel.py:205"),
+               "w8a16_matmul": ("src/repro_torch/csrc/w8a16_matmul.cu",
+                                "src/repro/kernels/w8a16_matmul/kernel.py:63")}
     records = []
-    for name, src, rep, err, r in (
-            ("flash_decode", "src/repro_torch/csrc/flash_decode.cu",
-             "src/repro/kernels/flash_decode/kernel.py:417", max(derr), dec),
-            ("flash_prefill", "src/repro_torch/csrc/flash_prefill.cu",
-             "src/repro/kernels/flash_prefill/kernel.py:205", max(perr), pre)):
+    for name, (src, replaces) in sources.items():
+        need(launches[name] > 0, f"{name}: no launch on its main path")
         records.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": counts[name],
-                        "max_abs_err": err, **r})
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": max(errs[name]), **timed[name]})
     print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,10 @@
 ``params_from_jax(params_np, cfg)`` takes the JAX parameter pytree as nested
 dicts of numpy arrays (``layers`` leaves stacked ``[L, ...]``) and returns a
 ``Transformer`` with the same values.  It fails on any leaf it does not
-consume and on any port parameter it does not fill.
+consume and on any port parameter it does not fill.  The reference's
+pre-quantized int8 head (``lm_head_q8`` [d, Vp] int8 and ``lm_head_scale``
+[Vp] f32, from its ``quantize_lm_head``) is taken when both are present and
+copied exactly into the model's buffers of those names.
 """
 from __future__ import annotations
 
@@ -31,6 +34,10 @@ def params_from_jax(params_np: dict, cfg: ArchConfig, *, dtype=None,
     model = Transformer(cfg)
     ours = dict(model.named_parameters())
     filled: set[str] = set()
+    params_np = dict(params_np)
+    head = [params_np.pop(k, None) for k in ("lm_head_q8", "lm_head_scale")]
+    if (head[0] is None) != (head[1] is None):
+        raise KeyError("lm_head_q8 and lm_head_scale come as a pair")
     for name, leaf in _flatten(params_np):
         leaf = np.asarray(leaf)
         if name.startswith("layers."):
@@ -55,4 +62,15 @@ def params_from_jax(params_np: dict, cfg: ArchConfig, *, dtype=None,
     missing = sorted(set(ours) - filled)
     if missing:
         raise KeyError(f"port parameters not filled: {missing[:8]}")
-    return model.to(device=device, dtype=dtype)
+    model = model.to(device=device, dtype=dtype)
+    if head[0] is not None:
+        qw, scale = np.asarray(head[0]), np.asarray(head[1])
+        want = ((cfg.d_model, cfg.padded_vocab), (cfg.padded_vocab,))
+        if (qw.shape, scale.shape) != want or qw.dtype != np.int8 \
+                or scale.dtype != np.float32:
+            raise ValueError(f"lm_head_q8/lm_head_scale must be int8 {want[0]}"
+                             f" and float32 {want[1]} (got {qw.dtype} "
+                             f"{qw.shape}, {scale.dtype} {scale.shape})")
+        model.lm_head_q8 = torch.from_numpy(qw.copy()).to(device)
+        model.lm_head_scale = torch.from_numpy(scale.copy()).to(device)
+    return model

@@ -10,12 +10,18 @@ launch (the rank is a grid dimension).
 Round-robin layout (§2.3): global position p lives on rank
 ``(p // rr) % kvp`` at local slot ``((p // rr) // kvp) * rr + p % rr``.
 
-Not ported: HOP-B batch chunking, ``torch.distributed``, int8, paged and
-grouped modes, and the reference's sliding-window cache-slice fast path
-(the decode kernel's block pruning covers it).
+int8 caches (``HelixConfig.kv_cache_bits == 8``) carry per-slot f32 scales
+``kscale``/``vscale`` [B, Kh, S_cap]; a new row is quantized per (B, Kh)
+over hsz (``quantize_kv_token``), by ``append_kv_quant`` or inside the
+decode kernel's fused append.
 
-Caches are updated **in place** (``append_kv`` and the fused append), where
-the reference returns new arrays.
+Not ported: HOP-B batch chunking, ``torch.distributed``, paged and grouped
+modes, and the reference's sliding-window cache-slice fast path (the decode
+kernel's block pruning covers it).
+
+Caches (and scales) are updated **in place** (``append_kv``,
+``append_kv_quant`` and the fused append), where the reference returns new
+arrays.
 """
 from __future__ import annotations
 
@@ -24,7 +30,8 @@ import torch
 from repro_torch.core.combine import combine_fragments
 from repro_torch.core.sharding import HelixConfig
 from repro_torch.kernels.flash_decode.ops import flash_decode_shards
-from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+from repro_torch.kernels.flash_decode.ref import (flash_decode_ref,
+                                                  quantize_kv_token)
 from repro_torch.utils import round_up
 
 
@@ -41,37 +48,45 @@ def rr_slot_of_position(pos, kvp: int, s_loc: int, rr_block: int):
     return rank * s_loc + local
 
 
-def fuse_append_applicable(hx: HelixConfig, *, contiguous: bool = False) -> bool:
+def fuse_append_applicable(hx: HelixConfig, *, quant: bool = False,
+                           contiguous: bool = False) -> bool:
     """Whether a decode step appends its K/V row inside the decode kernel:
     needs a kernel backend, ``hx.fuse_append`` and the round-robin layout.
+    int8 caches (``quant``) fuse too: the kernel quantizes the row itself.
     (The reference also excludes its window cache-slice path, which the
     port does not have.)"""
+    del quant
     return hx.attn_backend != "ref" and hx.fuse_append and not contiguous
 
 
 def _local_attend(q, k, v, total_len, rank, *, kvp, rr_block, window,
-                  contiguous: bool):
+                  contiguous: bool, kscale=None, vscale=None):
     """Per-rank partial attention + LSE over one local shard ``k``/``v``
-    [B, Kh, s_loc, hsz] with the plain oracle (the ``ref`` backend; the
-    ``cuda`` backend attends over all ranks in one kernel launch)."""
+    [B, Kh, s_loc, hsz] (int8 with ``kscale``/``vscale`` [B, Kh, s_loc])
+    with the plain oracle (the ``ref`` backend; the ``cuda`` backend
+    attends over all ranks in one kernel launch)."""
     if contiguous:
         return flash_decode_ref(q, k, v, total_len, 0, kvp=1,
                                 rr_block=rr_block, window=window,
-                                slot_offset=rank * k.shape[2])
+                                slot_offset=rank * k.shape[2], kscale=kscale,
+                                vscale=vscale)
     return flash_decode_ref(q, k, v, total_len, rank, kvp=kvp,
-                            rr_block=rr_block, window=window)
+                            rr_block=rr_block, window=window, kscale=kscale,
+                            vscale=vscale)
 
 
 def helix_attention(hx: HelixConfig, q, kcache, vcache, total_len, *,
                     window: int = 0, contiguous: bool = False,
-                    k_new=None, v_new=None):
+                    kscale=None, vscale=None, k_new=None, v_new=None):
     """Exact KVP-sharded decode attention, emulated on one card.
 
     q [B, Qh, hsz]; kcache/vcache [B, Kh, S_cap, hsz] (S_cap = kvp * s_loc,
     rank r's shard at slots ``[r*s_loc, (r+1)*s_loc)``); ``total_len`` an
     int or [B] tensor of global lengths including the new token.
+    ``kscale``/``vscale`` [B, Kh, S_cap] f32 with int8 caches.
     ``k_new``/``v_new`` [B, Kh, hsz]: fused append (the caller checked
-    ``fuse_append_applicable``); the row lands in the cache in place.
+    ``fuse_append_applicable``); the row (int8: payload and scale) lands in
+    the cache in place.
     Returns [B, helix_out_dim(Qh*hsz, kvp)] in q.dtype.
     """
     b, qh, hsz = q.shape
@@ -80,16 +95,20 @@ def helix_attention(hx: HelixConfig, q, kcache, vcache, total_len, *,
         outs, lses = flash_decode_shards(
             q, kcache, vcache, total_len, kvp=kvp, n_ranks=kvp, rank=0,
             rr_block=hx.rr_block, window=window, block_s=hx.attn_block_s,
-            contiguous=contiguous, k_new=k_new, v_new=v_new,
-            prune=hx.prune_blocks)
+            contiguous=contiguous, kscale=kscale, vscale=vscale,
+            k_new=k_new, v_new=v_new, prune=hx.prune_blocks)
     else:
         if k_new is not None:
             raise ValueError("fused append requires the cuda backend")
         s_loc = kcache.shape[2] // kvp
-        res = [_local_attend(q, kcache[:, :, r * s_loc:(r + 1) * s_loc],
-                             vcache[:, :, r * s_loc:(r + 1) * s_loc],
+
+        def shard(x, r):
+            return None if x is None else x[:, :, r * s_loc:(r + 1) * s_loc]
+
+        res = [_local_attend(q, shard(kcache, r), shard(vcache, r),
                              total_len, r, kvp=kvp, rr_block=hx.rr_block,
-                             window=window, contiguous=contiguous)
+                             window=window, contiguous=contiguous,
+                             kscale=shard(kscale, r), vscale=shard(vscale, r))
                for r in range(kvp)]
         outs = torch.stack([o for o, _ in res])
         lses = torch.stack([l for _, l in res])
@@ -125,6 +144,20 @@ def append_kv(kcache, vcache, k_new, v_new, total_len, *, kvp: int,
         kcache[rows, :, slot] = k_new.to(kcache.dtype)
         vcache[rows, :, slot] = v_new.to(vcache.dtype)
     return kcache, vcache
+
+
+def append_kv_quant(kcache, vcache, kscale, vscale, k_new, v_new, total_len,
+                    *, kvp: int, rr_block: int):
+    """int8 round-robin KV append, in place: quantize the new token per
+    (B, Kh) and write payload and scale at its round-robin slot.  kscale
+    [B, Kh, S_cap] f32.  Returns the four updated tensors."""
+    kq, ks = quantize_kv_token(k_new)
+    vq, vs = quantize_kv_token(v_new)
+    append_kv(kcache, vcache, kq, vq, total_len, kvp=kvp, rr_block=rr_block)
+    # the scale planes as caches of width-1 rows: the same slot, in place
+    append_kv(kscale[..., None], vscale[..., None], ks[..., None],
+              vs[..., None], total_len, kvp=kvp, rr_block=rr_block)
+    return kcache, vcache, kscale, vscale
 
 
 def prefill_to_rr_layout(cache, kvp: int, rr_block: int):

@@ -22,9 +22,15 @@ class HelixConfig:
     prefill_backend: str = "cuda"  # flash_prefill family
     fuse_append: bool = True     # the decode kernel appends the new K/V row
     prune_blocks: bool = True    # the decode kernel skips dead S blocks
+    kv_cache_bits: int = 16      # 8 => int8 KV cache + per-slot f32 scales
+    matmul_backend: str = "cuda"  # w8a16_matmul family (int8 lm_head)
+    lm_head_w8: bool = False     # int8 lm_head through w8a16_matmul
 
     def __post_init__(self):
-        for field in ("attn_backend", "prefill_backend"):
+        if self.kv_cache_bits not in (16, 8):
+            raise ValueError(f"kv_cache_bits={self.kv_cache_bits}; choose "
+                             "16 or 8")
+        for field in ("attn_backend", "prefill_backend", "matmul_backend"):
             if getattr(self, field) not in BACKENDS:
                 raise ValueError(f"{field}={getattr(self, field)!r}; choose "
                                  f"from {BACKENDS}")

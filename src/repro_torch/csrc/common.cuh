@@ -13,6 +13,7 @@ typedef __nv_bfloat16 bf16;
 template <typename T> struct VecN;
 template <> struct VecN<float> { static constexpr int N = 4; };
 template <> struct VecN<bf16> { static constexpr int N = 8; };
+template <> struct VecN<int8_t> { static constexpr int N = 16; };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -37,6 +38,14 @@ __device__ __forceinline__ void unpack(const uint4& u, float* f, bf16) {
     f[2 * i] = p.x;
     f[2 * i + 1] = p.y;
   }
+}
+
+// 16 int8 values (as floats; the caller applies the scale).
+__device__ __forceinline__ void unpack(const uint4& u, float* f, int8_t) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    f[i] = (float)(int8_t)((w[i / 4] >> (8 * (i % 4))) & 0xffu);
 }
 
 __device__ __forceinline__ int floordiv(int a, int b) {

@@ -1,9 +1,10 @@
 // flash_decode: Helix decode attention over KVP shards, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_decode/kernel.py
-// flash_decode_kernel (body _decode_kernel), fixed fp layout: per-request
+// flash_decode_kernel (body _decode_kernel), fixed layout: per-request
 // lengths, sliding window + slot_offset, round-robin or contiguous layout,
-// block pruning on/off, fused KV append.  (int8, paged and grouped-suffix
+// block pruning on/off, fused KV append, and int8 K/V with per-slot f32
+// scales and an in-kernel quantized append.  (Paged and grouped-suffix
 // modes are not ported.)
 //
 // One thread block per (batch row, kv head, rank): it holds the G query
@@ -24,7 +25,20 @@
 // Fused append: the owner rank ((tl-1)//rr % kvp == rank) substitutes the
 // new row into its tile and stores it at _append_slot in place; other ranks
 // write nothing.
+//
+// int8 mode (KT = int8_t; reference _quantize_row and kernel.py:330-371):
+// K/V tiles are loaded as int8 (16 slots' bytes per 16-byte load, half the
+// bytes of bf16) with their f32 scales, and each element is dequantized as
+// float(q) * scale[slot] -- the reference's product -- into shared memory
+// before the dot products.  The fused append quantizes the new row exactly
+// as core/helix.quantize_kv_token does: amax over hsz (exact in any order),
+// scale = fmaxf(amax / 127, 1e-30) and q = clamp(rint(x / scale), -127, 127)
+// with IEEE division and round-half-to-even, then substitutes q * scale into
+// the tile, so fused stays bit-exact with append-then-attend, and finally
+// stores the int8 payload and the f32 scale.
 #include "common.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -34,8 +48,10 @@ constexpr int MAXG = 8;   // query heads per kv head held by one block
 
 struct DecodeArgs {
   const void* q;      // [B, Kh, G, hsz]
-  void* k;            // [B, Kh, n_ranks * s_loc, hsz]
+  void* k;            // [B, Kh, n_ranks * s_loc, hsz] (T, or int8)
   void* v;
+  float* kscale;      // [B, Kh, n_ranks * s_loc] (int8 mode only)
+  float* vscale;
   const void* k_new;  // [B, Kh, hsz] (append only)
   const void* v_new;
   const int* tl;      // [B] global lengths incl. the new token
@@ -80,9 +96,23 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int HSZ>
+// Quantize one [HSZ] row held in shared memory (x) into q (int-valued
+// floats); returns the scale.  Called by one warp.
+template <int HSZ>
+__device__ __forceinline__ float quantize_row(const float* x, float* q, int lane) {
+  float amax = 0.f;
+  for (int d = lane; d < HSZ; d += 32) amax = fmaxf(amax, fabsf(x[d]));
+  amax = warp_max(amax);
+  const float s = fmaxf(amax / 127.0f, 1e-30f);
+  for (int d = lane; d < HSZ; d += 32)
+    q[d] = fminf(fmaxf(rintf(x[d] / s), -127.f), 127.f);
+  return s;
+}
+
+template <typename T, typename KT, int HSZ>
 __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
-  constexpr int VN = VecN<T>::N;
+  constexpr bool Q8 = std::is_same<KT, int8_t>::value;
+  constexpr int VN = VecN<KT>::N;
   constexpr int ROW_VECS = HSZ / VN;
   constexpr int TILE_VECS = TS * ROW_VECS;
   constexpr int LOADS = (TILE_VECS + NT - 1) / NT;
@@ -97,7 +127,10 @@ __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
   float* row_m = ps + MAXG * TS;      // [MAXG]
   float* row_l = row_m + MAXG;        // [MAXG]
   float* row_a = row_l + MAXG;        // [MAXG] alpha of the current tile
-  int* valid = reinterpret_cast<int*>(row_a + MAXG);  // [TS]
+  float* knq = row_a + MAXG;          // [HSZ] quantized new K row (int8 mode)
+  float* vnq = knq + HSZ;             // [HSZ]
+  float* nsc = vnq + HSZ;             // [2] new row scales
+  int* valid = reinterpret_cast<int*>(nsc + 2);  // [TS]
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;          // b * Kh + h
@@ -107,8 +140,10 @@ __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
   const int G = a.G;
   const int tl = a.tl[b];
   const long row0 = ((long)bh * a.n_ranks + z) * a.s_loc;
-  T* kp = reinterpret_cast<T*>(a.k) + row0 * HSZ;
-  T* vp = reinterpret_cast<T*>(a.v) + row0 * HSZ;
+  KT* kp = reinterpret_cast<KT*>(a.k) + row0 * HSZ;
+  KT* vp = reinterpret_cast<KT*>(a.v) + row0 * HSZ;
+  float* kscp = Q8 ? a.kscale + row0 : nullptr;
+  float* vscp = Q8 ? a.vscale + row0 : nullptr;
 
   const T* qp = reinterpret_cast<const T*>(a.q) + (long)bh * G * HSZ;
   for (int i = tid; i < G * HSZ; i += NT) qs[i] = to_f(qp[i]) * a.scale;
@@ -127,6 +162,17 @@ __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
     owner = floormod(blk, a.kvp) == rank;
     knp = reinterpret_cast<const T*>(a.k_new) + (long)bh * HSZ;
     vnp = reinterpret_cast<const T*>(a.v_new) + (long)bh * HSZ;
+    if (Q8) {
+      for (int i = tid; i < HSZ; i += NT) { knq[i] = to_f(knp[i]); vnq[i] = to_f(vnp[i]); }
+      __syncthreads();
+      const int w = tid / 32;
+      if (w < 2) {
+        float* row = w == 0 ? knq : vnq;
+        const float s = quantize_row<HSZ>(row, row, tid % 32);
+        if (tid % 32 == 0) nsc[w] = s;
+      }
+      __syncthreads();
+    }
   }
 
   const int tiles_per_block = a.block_s / TS;
@@ -139,18 +185,21 @@ __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
   }
 
   uint4 kr[LOADS], vr[LOADS];
+  float ksr[LOADS], vsr[LOADS];       // the slots' scales (int8 mode)
   auto gload = [&](int tile) {
 #pragma unroll
     for (int i = 0; i < LOADS; ++i) {
       const int e = tid + i * NT;
       kr[i] = make_uint4(0, 0, 0, 0);
       vr[i] = make_uint4(0, 0, 0, 0);
+      ksr[i] = vsr[i] = 0.f;
       if (e < TILE_VECS) {
         const int jj = tile * TS + e / ROW_VECS;
         const long off = (long)jj * HSZ + (e % ROW_VECS) * VN;
         if (jj < a.s_loc) {
           kr[i] = *reinterpret_cast<const uint4*>(kp + off);
           vr[i] = *reinterpret_cast<const uint4*>(vp + off);
+          if (Q8) { ksr[i] = kscp[jj]; vsr[i] = vscp[jj]; }
         }
       }
     }
@@ -164,11 +213,20 @@ __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
         const int c = (e % ROW_VECS) * VN;
         float kf[VN], vf[VN];
         if (owner && tile * TS + r == j_new) {
+          if (Q8) {
 #pragma unroll
-          for (int u = 0; u < VN; ++u) { kf[u] = to_f(knp[c + u]); vf[u] = to_f(vnp[c + u]); }
+            for (int u = 0; u < VN; ++u) { kf[u] = knq[c + u] * nsc[0]; vf[u] = vnq[c + u] * nsc[1]; }
+          } else {
+#pragma unroll
+            for (int u = 0; u < VN; ++u) { kf[u] = to_f(knp[c + u]); vf[u] = to_f(vnp[c + u]); }
+          }
         } else {
-          unpack(kr[i], kf, T());
-          unpack(vr[i], vf, T());
+          unpack(kr[i], kf, KT());
+          unpack(vr[i], vf, KT());
+          if (Q8) {
+#pragma unroll
+            for (int u = 0; u < VN; ++u) { kf[u] *= ksr[i]; vf[u] *= vsr[i]; }
+          }
         }
 #pragma unroll
         for (int u = 0; u < VN; ++u) { ks[r * SP + c + u] = kf[u]; vs[r * SP + c + u] = vf[u]; }
@@ -247,29 +305,36 @@ __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
   }
   if (owner && j_new < a.s_loc) {
     for (int i = tid; i < HSZ; i += NT) {
-      kp[(long)j_new * HSZ + i] = knp[i];
-      vp[(long)j_new * HSZ + i] = vnp[i];
+      if (Q8) {
+        kp[(long)j_new * HSZ + i] = (KT)knq[i];
+        vp[(long)j_new * HSZ + i] = (KT)vnq[i];
+      } else {
+        kp[(long)j_new * HSZ + i] = knp[i];
+        vp[(long)j_new * HSZ + i] = vnp[i];
+      }
     }
+    if (Q8 && tid == 0) { kscp[j_new] = nsc[0]; vscp[j_new] = nsc[1]; }
   }
 }
 
-template <typename T, int HSZ>
+template <typename T, typename KT, int HSZ>
 cudaError_t launch(const DecodeArgs& a, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (MAXG * HSZ + 2 * TS * (HSZ + 1) + MAXG * TS + 3 * MAXG)
+  const size_t smem = sizeof(float) * (MAXG * HSZ + 2 * TS * (HSZ + 1) + MAXG * TS + 3 * MAXG
+                                       + 2 * HSZ + 2)
                       + sizeof(int) * TS;
-  cudaError_t err = allow_smem(decode_kernel<T, HSZ>, smem);
+  cudaError_t err = allow_smem(decode_kernel<T, KT, HSZ>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(a.B * a.Kh, a.n_ranks);
-  decode_kernel<T, HSZ><<<grid, NT, smem, stream>>>(a);
+  decode_kernel<T, KT, HSZ><<<grid, NT, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename KT>
 cudaError_t launch_hsz(const DecodeArgs& a, int hsz, cudaStream_t stream) {
   switch (hsz) {
-    case 32: return launch<T, 32>(a, stream);
-    case 64: return launch<T, 64>(a, stream);
-    case 128: return launch<T, 128>(a, stream);
+    case 32: return launch<T, KT, 32>(a, stream);
+    case 64: return launch<T, KT, 64>(a, stream);
+    case 128: return launch<T, KT, 128>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -278,18 +343,26 @@ cudaError_t launch_hsz(const DecodeArgs& a, int hsz, cudaStream_t stream) {
 
 extern "C" int flash_decode_launch(
     const void* q, void* k, void* v, const void* k_new, const void* v_new,
-    const void* tl, void* out, void* lse, int dtype, int B, int Kh, int G,
-    int hsz, int s_loc, int n_ranks, int rank0, int kvp, int rr, int block_s,
-    int slot_offset, int window, int contiguous, int prune, int append,
-    float scale, void* stream) {
-  if (G < 1 || G > MAXG || block_s % TS != 0 || B * Kh == 0 || n_ranks < 1)
+    const void* tl, void* out, void* lse, void* kscale, void* vscale,
+    int dtype, int quant, int B, int Kh, int G, int hsz, int s_loc,
+    int n_ranks, int rank0, int kvp, int rr, int block_s, int slot_offset,
+    int window, int contiguous, int prune, int append, float scale,
+    void* stream) {
+  if (G < 1 || G > MAXG || block_s % TS != 0 || B * Kh == 0 || n_ranks < 1
+      || (quant && (kscale == nullptr || vscale == nullptr)))
     return (int)cudaErrorInvalidValue;
-  DecodeArgs a{q, k, v, k_new, v_new, static_cast<const int*>(tl), out,
+  DecodeArgs a{q, k, v, static_cast<float*>(kscale), static_cast<float*>(vscale),
+               k_new, v_new, static_cast<const int*>(tl), out,
                static_cast<float*>(lse), B, Kh, G, s_loc, n_ranks, rank0, kvp,
                rr, block_s, slot_offset, window, contiguous, prune, append, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 1 ? launch_hsz<bf16>(a, hsz, s)
-                               : launch_hsz<float>(a, hsz, s);
+  cudaError_t err;
+  if (quant)
+    err = dtype == 1 ? launch_hsz<bf16, int8_t>(a, hsz, s)
+                     : launch_hsz<float, int8_t>(a, hsz, s);
+  else
+    err = dtype == 1 ? launch_hsz<bf16, bf16>(a, hsz, s)
+                     : launch_hsz<float, float>(a, hsz, s);
   return (int)err;
 }
 

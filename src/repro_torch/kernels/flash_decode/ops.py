@@ -1,7 +1,9 @@
 """Wrapper of the flash_decode CUDA kernel (``csrc/flash_decode.cu``), the
-port of the reference's ``kernels/flash_decode/ops.py`` for the fixed fp
+port of the reference's ``kernels/flash_decode/ops.py`` for the fixed
 layout: per-request lengths, window, ``slot_offset``, round-robin or
-contiguous layout, block pruning on/off and the fused KV append.
+contiguous layout, block pruning on/off, the fused KV append, and int8 K/V
+with per-slot f32 scales (``kscale``/``vscale``), where the fused append
+quantizes the new row in the kernel.
 
 ``flash_decode_shards`` is the kernel's full interface: it attends over
 ``n_ranks`` consecutive KVP shards of one cache in ONE launch (the rank is a
@@ -12,7 +14,8 @@ signature.
 Tensors on the CPU take the plain version (``ref.flash_decode_ref`` per
 shard plus the same append rule); CUDA tensors launch the kernel or raise.
 Unlike the reference (immutable arrays, aliased outputs), the fused append
-writes the new K/V row into the cache tensors **in place**.
+writes the new K/V row (and, int8, its scales) into the cache tensors **in
+place**.
 """
 from __future__ import annotations
 
@@ -21,11 +24,13 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+from repro_torch.kernels.flash_decode.ref import (flash_decode_ref,
+                                                  quantize_kv_token)
 from repro_torch.kernels.pruning import append_owner, append_slot
 from repro_torch.utils import round_up
 
-counter = build.Launches()
+counter = build.Launches()         # every launch of the kernel
+counter_kv8 = build.Launches()     # the launches in int8 mode among them
 TILE_S = 32                 # slots per shared-memory tile inside the kernel
 MAX_G = 8                   # query heads per KV head the kernel holds
 HSZ = (32, 64, 128)         # head sizes the kernel is compiled for
@@ -35,7 +40,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 def _bind(lib):
     fn = lib.flash_decode_launch
-    fn.argtypes = [_P] * 8 + [_I] * 16 + [ctypes.c_float, _P]
+    fn.argtypes = [_P] * 10 + [_I] * 17 + [ctypes.c_float, _P]
     fn.restype = _I
     lib.kernel_error_string.argtypes = [_I]
     lib.kernel_error_string.restype = ctypes.c_char_p
@@ -52,7 +57,8 @@ def flash_decode_shards(q, k, v, total_len, *, kvp: int, n_ranks: int = 1,
                         rank: int = 0, rr_block: int = 16, window: int = 0,
                         scale: float | None = None, block_s: int = 512,
                         contiguous: bool = False, slot_offset: int = 0,
-                        k_new=None, v_new=None, prune: bool = True):
+                        kscale=None, vscale=None, k_new=None, v_new=None,
+                        prune: bool = True):
     """Decode attention over ``n_ranks`` KVP shards in one call.
 
     q [B, Qh, hsz]; k, v [B, Kh, n_ranks * s_loc, hsz]: shard z holds slots
@@ -60,8 +66,10 @@ def flash_decode_shards(q, k, v, total_len, *, kvp: int, n_ranks: int = 1,
     is an int or a [B] int tensor (global lengths including the new token).
     ``k_new``/``v_new`` [B, Kh, hsz] engage the fused append: the owner rank
     of position ``total_len - 1`` writes the row into its shard in place and
-    attends over it.  Returns ``out [R, B, Qh, hsz]`` (q.dtype) and
-    ``lse [R, B, Qh]`` (f32).
+    attends over it.  ``kscale``/``vscale`` [B, Kh, n_ranks * s_loc] f32
+    with int8 ``k``/``v``: the int8 mode (the fused append then quantizes
+    the row and writes its payload and scale).  Returns
+    ``out [R, B, Qh, hsz]`` (q.dtype) and ``lse [R, B, Qh]`` (f32).
     """
     b, qh, hsz = q.shape
     kh = k.shape[1]
@@ -72,48 +80,56 @@ def flash_decode_shards(q, k, v, total_len, *, kvp: int, n_ranks: int = 1,
     if append and (v_new is None or contiguous):
         raise ValueError("fused append needs k_new and v_new and excludes "
                          "the contiguous layout")
+    if (kscale is None) != (vscale is None):
+        raise ValueError("the int8 mode needs both kscale and vscale")
     if scale is None:
         scale = float(hsz) ** -0.5
     s_loc = k.shape[2] // n_ranks
     block_s = kernel_block_s(block_s, s_loc)
-    if build.route(q, k, v, k_new, v_new) == "plain":
+    if build.route(q, k, v, kscale, vscale, k_new, v_new) == "plain":
         return flash_decode_shards_plain(
             q, k, v, total_len, kvp=kvp, n_ranks=n_ranks, rank=rank,
             rr_block=rr_block, window=window, scale=scale, block_s=block_s,
-            contiguous=contiguous, slot_offset=slot_offset, k_new=k_new,
-            v_new=v_new)
+            contiguous=contiguous, slot_offset=slot_offset, kscale=kscale,
+            vscale=vscale, k_new=k_new, v_new=v_new)
     return _launch(q, k, v, total_len, kvp=kvp, n_ranks=n_ranks, rank=rank,
                    rr_block=rr_block, window=window, scale=scale,
                    block_s=block_s, contiguous=contiguous,
-                   slot_offset=slot_offset, k_new=k_new, v_new=v_new,
-                   prune=prune)
+                   slot_offset=slot_offset, kscale=kscale, vscale=vscale,
+                   k_new=k_new, v_new=v_new, prune=prune)
 
 
 def flash_decode(q, k, v, total_len, rank, *, kvp: int = 1,
                  rr_block: int = 16, window: int = 0,
                  scale: float | None = None, block_s: int = 512,
                  contiguous: bool = False, slot_offset: int = 0,
-                 k_new=None, v_new=None, prune: bool = True):
+                 kscale=None, vscale=None, k_new=None, v_new=None,
+                 prune: bool = True):
     """Decode attention over one KV shard (the reference's
     ``flash_decode`` signature).  Returns ``(out [B, Qh, hsz], lse [B, Qh])``
     and, with ``k_new``/``v_new``, also the caches ``(k, v)`` the row was
-    appended to in place."""
+    appended to in place (and, int8, the scales ``(kscale, vscale)``)."""
     out, lse = flash_decode_shards(
         q, k, v, total_len, kvp=kvp, n_ranks=1, rank=rank, rr_block=rr_block,
         window=window, scale=scale, block_s=block_s, contiguous=contiguous,
-        slot_offset=slot_offset, k_new=k_new, v_new=v_new, prune=prune)
-    if k_new is not None:
+        slot_offset=slot_offset, kscale=kscale, vscale=vscale, k_new=k_new,
+        v_new=v_new, prune=prune)
+    if k_new is None:
+        return out[0], lse[0]
+    if kscale is None:
         return out[0], lse[0], k, v
-    return out[0], lse[0]
+    return out[0], lse[0], k, v, kscale, vscale
 
 
 def flash_decode_shards_plain(q, k, v, total_len, *, kvp, n_ranks, rank,
                               rr_block, window, scale, block_s, contiguous,
-                              slot_offset, k_new, v_new):
+                              slot_offset, k_new, v_new, kscale=None,
+                              vscale=None):
     """Plain PyTorch version of the kernel behind ``flash_decode_shards``
-    (any device): the append rule of the kernel, then ``flash_decode_ref``
-    per shard.  ``block_s`` is the kernel's S-block (it bounds the slot the
-    append may clamp to)."""
+    (any device): the append rule of the kernel (int8: ``quantize_kv_token``
+    payload and scale), then ``flash_decode_ref`` per shard.  ``block_s`` is
+    the kernel's S-block (it bounds the slot the append may clamp to)."""
+    quant = kscale is not None
     b = q.shape[0]
     s_loc = k.shape[2] // n_ranks
     tl = torch.as_tensor(total_len, dtype=torch.int32,
@@ -122,35 +138,61 @@ def flash_decode_shards_plain(q, k, v, total_len, *, kvp, n_ranks, rank,
         j_new = append_slot(tl.cpu(), kvp, rr_block,
                             round_up(s_loc, block_s)).to(q.device)
         owner = append_owner(tl.cpu(), kvp, rr_block).to(q.device)
+        if quant:
+            kq, ksn = quantize_kv_token(k_new)
+            vq, vsn = quantize_kv_token(v_new)
     outs, lses = [], []
     for z in range(n_ranks):
         r = rank + z
         ks = k[:, :, z * s_loc:(z + 1) * s_loc]
         vs = v[:, :, z * s_loc:(z + 1) * s_loc]
+        sc = {}
+        if quant:
+            sc = dict(kscale=kscale[:, :, z * s_loc:(z + 1) * s_loc],
+                      vscale=vscale[:, :, z * s_loc:(z + 1) * s_loc])
         if k_new is not None:
             rows = torch.nonzero((owner == r) & (j_new < s_loc)).flatten()
-            ks[rows, :, j_new[rows]] = k_new[rows].to(k.dtype)
-            vs[rows, :, j_new[rows]] = v_new[rows].to(v.dtype)
+            if quant:
+                ks[rows, :, j_new[rows]] = kq[rows]
+                vs[rows, :, j_new[rows]] = vq[rows]
+                sc["kscale"][rows, :, j_new[rows]] = ksn[rows]
+                sc["vscale"][rows, :, j_new[rows]] = vsn[rows]
+            else:
+                ks[rows, :, j_new[rows]] = k_new[rows].to(k.dtype)
+                vs[rows, :, j_new[rows]] = v_new[rows].to(v.dtype)
         if contiguous:
             o, l = flash_decode_ref(q, ks, vs, tl, 0, kvp=1, rr_block=rr_block,
                                     window=window, scale=scale,
-                                    slot_offset=r * s_loc + slot_offset)
+                                    slot_offset=r * s_loc + slot_offset, **sc)
         else:
             o, l = flash_decode_ref(q, ks, vs, tl, r, kvp=kvp,
                                     rr_block=rr_block, window=window,
-                                    scale=scale, slot_offset=slot_offset)
+                                    scale=scale, slot_offset=slot_offset, **sc)
         outs.append(o)
         lses.append(l)
     return torch.stack(outs), torch.stack(lses)
 
 
 def _launch(q, k, v, total_len, *, kvp, n_ranks, rank, rr_block, window, scale,
-            block_s, contiguous, slot_offset, k_new, v_new, prune):
+            block_s, contiguous, slot_offset, kscale, vscale, k_new, v_new,
+            prune):
     b, qh, hsz = q.shape
     kh = k.shape[1]
     g = qh // kh
     code = build.dtype_code(q.dtype)
-    if not (k.dtype == v.dtype == q.dtype):
+    quant = kscale is not None
+    if quant:
+        if not (k.dtype == v.dtype == torch.int8):
+            raise ValueError(f"the int8 mode takes int8 k/v (got {k.dtype} "
+                             f"{v.dtype})")
+        if not (kscale.dtype == vscale.dtype == torch.float32
+                and kscale.shape == vscale.shape == k.shape[:3]
+                and kscale.is_contiguous() and vscale.is_contiguous()):
+            raise ValueError("kscale/vscale must be contiguous float32 "
+                             f"{tuple(k.shape[:3])}")
+        if k_new is not None and not (k_new.dtype == v_new.dtype == q.dtype):
+            raise ValueError(f"k_new/v_new must have q's dtype {q.dtype}")
+    elif not (k.dtype == v.dtype == q.dtype):
         raise ValueError(f"q/k/v dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
     if hsz not in HSZ or g > MAX_G or block_s % TILE_S:
         raise ValueError(f"flash_decode kernel takes hsz in {HSZ}, "
@@ -159,8 +201,8 @@ def _launch(q, k, v, total_len, *, kvp, n_ranks, rank, rr_block, window, scale,
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_decode kernel needs contiguous q/k/v")
     if k_new is not None:
-        k_new = k_new.to(k.dtype).contiguous()
-        v_new = v_new.to(v.dtype).contiguous()
+        k_new = k_new.to(q.dtype).contiguous()
+        v_new = v_new.to(q.dtype).contiguous()
     tl = torch.as_tensor(total_len, dtype=torch.int32, device=q.device)
     tl = tl.reshape(-1).expand(b).contiguous()
     out = torch.empty((n_ranks, b, qh, hsz), dtype=q.dtype, device=q.device)
@@ -169,9 +211,10 @@ def _launch(q, k, v, total_len, *, kvp, n_ranks, rank, rr_block, window, scale,
     rc = _bind(lib)(
         build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(k_new),
         build.ptr(v_new), build.ptr(tl), build.ptr(out), build.ptr(lse),
-        code, b, kh, g, hsz, k.shape[2] // n_ranks, n_ranks, rank, kvp,
-        rr_block, block_s, slot_offset, window, int(contiguous), int(prune),
+        build.ptr(kscale), build.ptr(vscale), code, int(quant), b, kh, g,
+        hsz, k.shape[2] // n_ranks, n_ranks, rank, kvp, rr_block, block_s, slot_offset, window, int(contiguous), int(prune),
         int(k_new is not None), float(scale), build.stream())
     build.check(rc, lib, "flash_decode")
     counter.n += 1
+    counter_kv8.n += int(quant)
     return out, lse

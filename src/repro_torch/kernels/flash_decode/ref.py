@@ -8,13 +8,26 @@ round-robin layout (block ``rr_block``) slot j holds global position
 
 A slot is valid iff ``pos < total_len`` and, with a window ``w > 0``,
 ``pos >= total_len - w``.  Returns the normalised partial output and the
-log-sum-exp (f32) that the Helix combine needs.
+log-sum-exp (f32) that the Helix combine needs.  An int8 shard comes with
+per-slot f32 scales and is dequantized as ``float(q) * scale`` first.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.utils import NEG_INF
+from repro_torch.utils import NEG_INF, int8_scale
+
+
+def quantize_kv_token(x):
+    """Symmetric int8 quantization over the last (hsz) axis: [..., hsz] ->
+    (int8 [..., hsz], f32 scale [...]), the formula of the reference's
+    ``core/helix.quantize_kv_token`` and of the kernel's in-kernel
+    ``_quantize_row``: ``scale = max(max|x| / 127, 1e-30)``,
+    ``q = clip(round(x / scale), -127, 127)`` (round half to even)."""
+    xf = x.float()
+    scale = int8_scale(xf, -1)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
 
 
 def shard_positions(s_cap: int, rank, kvp: int, rr_block: int, slot_offset=0,
@@ -26,14 +39,19 @@ def shard_positions(s_cap: int, rank, kvp: int, rr_block: int, slot_offset=0,
 
 def flash_decode_ref(q, k, v, total_len, rank, *, kvp: int = 1,
                      rr_block: int = 16, window: int = 0,
-                     scale: float | None = None, slot_offset=0):
+                     scale: float | None = None, slot_offset=0,
+                     kscale=None, vscale=None):
     """Decode attention over one KV shard.
 
     q [B, Qh, hsz]; k, v [B, Kh, S_cap, hsz]; ``total_len`` an int or a [B]
-    tensor (global length including the new token).  Returns
+    tensor (global length including the new token); ``kscale``/``vscale``
+    [B, Kh, S_cap] f32 with int8 ``k``/``v``.  Returns
     ``(out [B, Qh, hsz] in q.dtype, lse [B, Qh] f32)``; rows with no valid
     slot give ``out = 0`` and ``lse = NEG_INF``.
     """
+    if kscale is not None:
+        k = k.float() * kscale[..., None]
+        v = v.float() * vscale[..., None]
     b, qh, hsz = q.shape
     kh, s_cap = k.shape[1], k.shape[2]
     g = qh // kh

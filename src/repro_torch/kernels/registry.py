@@ -1,7 +1,7 @@
 """Kernel-backend registry of the port (counterpart of the reference's
 ``kernels/registry.py``).
 
-Two families are ported, each with backends ``ref`` (plain PyTorch) and
+Three families are ported, each with backends ``ref`` (plain PyTorch) and
 ``cuda`` (hand-written kernel for sm_90a):
 
   ============== =============================== ==========================
@@ -11,6 +11,8 @@ Two families are ported, each with backends ``ref`` (plain PyTorch) and
                  (core/helix.helix_attention)
   flash_prefill  prefill attention               csrc/flash_prefill.cu
                  (models/attention.prefill_attention)
+  w8a16_matmul   int8 lm_head of the decode step csrc/w8a16_matmul.cu
+                 (models/decode_model.head_matmul)
   ============== =============================== ==========================
 
 The reference's other kernel families are listed in ``NOT_PORTED``; they
@@ -27,27 +29,33 @@ BACKENDS = ("ref", "cuda")
 FAMILIES = {
     "flash_decode": "Helix decode attention (core/helix.helix_attention)",
     "flash_prefill": "prefill attention (models/attention.prefill_attention)",
+    "w8a16_matmul": "int8 lm_head (models/decode_model.head_matmul)",
 }
 
 # reference kernels (src/repro/kernels/...) that have no port yet
 NOT_PORTED = {
     "ssd_prefill": "ssd_prefill/kernel.py ssd_prefill_kernel (Mamba2 SSD scan)",
-    "w8a16_matmul": "w8a16_matmul/kernel.py w8a16_matmul_kernel (int8 lm_head)",
     "prefix_pass": "flash_decode/kernel.py prefix_pass_kernel (grouped decode)",
 }
 
 
-def launch_counts() -> dict[str, int]:
-    """Launches of each ported kernel so far in this process."""
-    from repro_torch.kernels.flash_decode.ops import counter as dec
+def _counters():
+    from repro_torch.kernels.flash_decode import ops as dec
     from repro_torch.kernels.flash_prefill.ops import counter as pre
-    return {"flash_decode": dec.n, "flash_prefill": pre.n}
+    from repro_torch.kernels.w8a16_matmul.ops import counter as mm
+    return {"flash_decode": dec.counter, "flash_decode_kv8": dec.counter_kv8,
+            "flash_prefill": pre, "w8a16_matmul": mm}
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of each ported kernel so far in this process
+    (``flash_decode_kv8``: the int8-mode launches among ``flash_decode``'s)."""
+    return {name: c.n for name, c in _counters().items()}
 
 
 def reset_launch_counts() -> None:
-    from repro_torch.kernels.flash_decode.ops import counter as dec
-    from repro_torch.kernels.flash_prefill.ops import counter as pre
-    dec.n = pre.n = 0
+    for c in _counters().values():
+        c.n = 0
 
 
 def available(family: str, backend: str) -> tuple[bool, str]:

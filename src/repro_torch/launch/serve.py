@@ -8,7 +8,9 @@ engine on one card (counterpart of the reference's ``launch/serve.py``).
 Runs on ``cuda`` unless ``--device cpu`` is given (the kernels' plain
 PyTorch versions then run).  Only the flags of the ported main path exist:
 one-shot prefill, fixed KV layout, greedy decoding, FCFS/SJF admission,
-batch arrivals.
+batch arrivals, and the int8 lm_head (``--lm-head-w8 [--matmul-backend]``).
+The int8 KV cache is reached through ``serve_demo(hx=HelixConfig(
+kv_cache_bits=8, ...))``, as in the reference, which has no flag for it.
 """
 from __future__ import annotations
 
@@ -67,9 +69,12 @@ def prompt_tokens(row: TraceRow, vocab: int) -> list[int]:
 
 def serve_demo(arch: str = "granite-3-2b", *, reduced: bool = False,
                n_requests: int = 8, prompt_len=32, max_new=16,
-               max_batch: int = 8, kvp: int = 1,
+               max_batch: int = 8, hx: HelixConfig | None = None,
+               kvp: int | None = None,
                attn_backend: str | None = None,
                prefill_backend: str | None = None,
+               matmul_backend: str | None = None,
+               lm_head_w8: bool | None = None,
                sched_policy: str = "fcfs", dtype=torch.float32,
                device="cuda", model=None, seed: int = 0, log=print):
     """Serve ``n_requests`` synthetic prompts through the engine.  Returns
@@ -78,8 +83,10 @@ def serve_demo(arch: str = "granite-3-2b", *, reduced: bool = False,
     ``prompt_len`` / ``max_new`` are ints or inclusive ``(lo, hi)`` ranges.
     ``model`` (a ``Transformer`` on ``device``) overrides the seeded random
     weights, e.g. weights carried over with ``convert.params_from_jax``.
-    The ``*_backend`` arguments override the ``HelixConfig`` default
-    (``cuda`` kernels, with fused append and block pruning).  Raises on a host without CUDA unless ``device="cpu"``.
+    ``hx`` defaults to ``HelixConfig()`` (``cuda`` kernels, fused append,
+    block pruning, bf16/f32 KV cache); ``kvp``, the ``*_backend`` arguments
+    and ``lm_head_w8`` override its fields (``None`` keeps them).  Raises on
+    a host without CUDA unless ``device="cpu"``.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -88,10 +95,13 @@ def serve_demo(arch: str = "granite-3-2b", *, reduced: bool = False,
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
-    overrides = {k: v for k, v in (("attn_backend", attn_backend),
-                                   ("prefill_backend", prefill_backend))
+    overrides = {k: v for k, v in (("kvp", kvp),
+                                   ("attn_backend", attn_backend),
+                                   ("prefill_backend", prefill_backend),
+                                   ("matmul_backend", matmul_backend),
+                                   ("lm_head_w8", lm_head_w8))
                  if v is not None}
-    hx = HelixConfig(kvp=kvp, **overrides)
+    hx = dataclasses.replace(hx or HelixConfig(), **overrides)
     if model is None:
         model = init_params(cfg, seed, dtype=dtype, device=device)
     rows = generate_rows(n_requests, prompt_len=prompt_len,
@@ -117,7 +127,8 @@ def serve_demo(arch: str = "granite-3-2b", *, reduced: bool = False,
     toks = sum(len(r.out_tokens) for r in finished)
     summary = engine.metrics.summary()
     summary.update(decode_syncs=engine.decode_syncs, engine_steps=steps,
-                   wall_s=dt, tok_s=toks / max(dt, 1e-9))
+                   wall_s=dt, tok_s=toks / max(dt, 1e-9),
+                   kv_cache_dtype=str(engine.state["kcache"].dtype))
     log(f"[serve] {len(finished)} requests, {toks} tokens in {dt:.2f}s "
         f"({toks / max(dt, 1e-9):.1f} tok/s, {steps} engine steps)")
     return finished, summary
@@ -137,6 +148,12 @@ def main(argv=None):
     ap.add_argument("--sched-policy", default="fcfs", choices=POLICIES)
     ap.add_argument("--attn-backend", default=None, choices=BACKENDS)
     ap.add_argument("--prefill-backend", default=None, choices=BACKENDS)
+    ap.add_argument("--matmul-backend", default=None, choices=BACKENDS,
+                    help="w8a16_matmul backend of the int8 lm_head (only "
+                         "used with --lm-head-w8)")
+    ap.add_argument("--lm-head-w8", action="store_true",
+                    help="int8-quantize the lm_head and run the logits "
+                         "matmul through the w8a16_matmul family")
     ap.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
@@ -153,6 +170,8 @@ def main(argv=None):
         prompt_len=args.prompt_len, max_new=args.max_new,
         max_batch=args.max_batch, kvp=args.kvp,
         attn_backend=args.attn_backend, prefill_backend=args.prefill_backend,
+        matmul_backend=args.matmul_backend,
+        lm_head_w8=args.lm_head_w8 or None,
         sched_policy=args.sched_policy, dtype=DTYPES[args.dtype],
         device=args.device, seed=args.seed)
     if args.metrics:

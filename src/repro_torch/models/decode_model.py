@@ -12,17 +12,55 @@ out-projection and the gated FFN; then the tied lm_head, the vocab pad mask
 and a greedy argmax.  The layer scan of the reference is a Python loop.
 The KV caches in ``state`` are updated **in place**; the returned state
 shares them.
+
+``hx.kv_cache_bits == 8``: the caches are int8 with per-slot f32 scales
+(``kscale``/``vscale`` in ``state``); the new row is quantized inside the
+decode kernel (fused) or by ``append_kv_quant``.  ``hx.lm_head_w8``: the
+logits go through the ``w8a16_matmul`` family over the int8 head that
+``prepare_decode_params`` makes once.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs import ArchConfig
-from repro_torch.core.helix import (append_kv, fuse_append_applicable,
-                                    helix_attention, helix_out_dim)
+from repro_torch.core.helix import (append_kv, append_kv_quant,
+                                    fuse_append_applicable, helix_attention,
+                                    helix_out_dim)
 from repro_torch.core.sharding import HelixConfig
+from repro_torch.kernels.w8a16_matmul import (quantize_w8, w8a16_matmul,
+                                              w8a16_matmul_ref)
 from repro_torch.models.layers import apply_rope, rms_norm
 from repro_torch.models.transformer import ffn_block, vocab_mask
+
+
+def quantize_lm_head(model):
+    """Quantize the tied head ``embed.T`` [d, Vp] per column into the
+    model's ``lm_head_q8``/``lm_head_scale`` buffers (in place)."""
+    model.lm_head_q8, model.lm_head_scale = quantize_w8(model.embed.T)
+    return model
+
+
+def prepare_decode_params(model, hx: HelixConfig | None):
+    """One-time decode preparation every ``serve_step`` caller runs before
+    stepping: with ``hx.lm_head_w8`` it quantizes the head unless the model
+    already carries it (idempotent); otherwise nothing."""
+    if hx is not None and hx.lm_head_w8 and model.lm_head_q8 is None:
+        quantize_lm_head(model)
+    return model
+
+
+def head_matmul(hx: HelixConfig, model, x):
+    """Logits matmul ``x @ embed.T``; with ``hx.lm_head_w8`` through the
+    ``w8a16_matmul`` family (``hx.matmul_backend``) over the prepared int8
+    head, or over a head quantized in the step when it was not prepared."""
+    if not hx.lm_head_w8:
+        return x @ model.embed.T
+    qw, scale = model.lm_head_q8, model.lm_head_scale
+    if qw is None:
+        qw, scale = quantize_w8(model.embed.T)
+    fn = w8a16_matmul if hx.matmul_backend == "cuda" else w8a16_matmul_ref
+    return fn(x, qw, scale)
 
 
 def _next_token(logits):
@@ -33,10 +71,11 @@ def _next_token(logits):
 def _build_step_logits(cfg: ArchConfig, hx: HelixConfig):
     """``step_logits(model, state, tokens) -> logits [B, Vp]`` (caches in
     ``state`` appended in place)."""
-    fused = fuse_append_applicable(hx)
+    kv8 = hx.kv_cache_bits == 8
+    fused = fuse_append_applicable(hx, quant=kv8)
     o_dim = helix_out_dim(cfg.q_dim, hx.kvp)
 
-    def attn_phase(ap, h, kc, vc, tl_attn):
+    def attn_phase(ap, h, kc, vc, ks, vs, tl_attn):
         b = h.shape[0]
         q = (h @ ap.wq).reshape(b, cfg.n_heads, cfg.hsz)
         kn = (h @ ap.wk).reshape(b, cfg.n_kv_heads, cfg.hsz)
@@ -45,11 +84,17 @@ def _build_step_logits(cfg: ArchConfig, hx: HelixConfig):
         q = apply_rope(q[:, None], pos, cfg.rope_theta)[:, 0]
         kn = apply_rope(kn[:, None], pos, cfg.rope_theta)[:, 0]
         if fused:
-            out = helix_attention(hx, q, kc, vc, tl_attn, k_new=kn, v_new=vn)
+            out = helix_attention(hx, q, kc, vc, tl_attn, kscale=ks,
+                                  vscale=vs, k_new=kn, v_new=vn)
         else:
-            append_kv(kc, vc, kn, vn, tl_attn, kvp=hx.kvp,
-                      rr_block=hx.rr_block)
-            out = helix_attention(hx, q, kc, vc, tl_attn)
+            if kv8:
+                append_kv_quant(kc, vc, ks, vs, kn, vn, tl_attn, kvp=hx.kvp,
+                                rr_block=hx.rr_block)
+            else:
+                append_kv(kc, vc, kn, vn, tl_attn, kvp=hx.kvp,
+                          rr_block=hx.rr_block)
+            out = helix_attention(hx, q, kc, vc, tl_attn, kscale=ks,
+                                  vscale=vs)
         wo = ap.wo
         if o_dim != wo.shape[0]:
             wo = torch.nn.functional.pad(wo, (0, 0, 0, o_dim - wo.shape[0]))
@@ -62,11 +107,14 @@ def _build_step_logits(cfg: ArchConfig, hx: HelixConfig):
         x = model.embed[tokens]
         for i, lp in enumerate(model.layers):
             h = rms_norm(x, lp.ln1)
+            ks = state["kscale"][i] if kv8 else None
+            vs = state["vscale"][i] if kv8 else None
             x = x + attn_phase(lp.attn, h, state["kcache"][i],
-                               state["vcache"][i], tl_attn)
+                               state["vcache"][i], ks, vs, tl_attn)
             x = x + ffn_block(cfg, lp.ffn, rms_norm(x, lp.ln2))
         x = rms_norm(x, model.ln_f)
-        return x @ model.embed.T + vocab_mask(cfg, x.dtype, x.device)
+        return (head_matmul(hx, model, x)
+                + vocab_mask(cfg, x.dtype, x.device))
 
     return step_logits
 

@@ -5,7 +5,10 @@ Parameter names and shapes follow the reference's pytree, with the stacked
 ``layers`` leaves split per layer: ``embed [Vp, d]``, ``ln_f [d]``,
 ``layers.{i}.ln1``, ``layers.{i}.attn.{wq [d, Qh*hsz], wk, wv [d, Kh*hsz],
 wo [Qh*hsz, d]}``, ``layers.{i}.ln2``, ``layers.{i}.ffn.{w1, w3 [d, f],
-w2 [f, d]}``.  Projections are ``x @ w``; embeddings are tied.
+w2 [f, d]}``.  Projections are ``x @ w``; embeddings are tied.  The int8
+lm_head of the decode step (``decode_model.prepare_decode_params``) is held
+in the buffers ``lm_head_q8`` [d, Vp] int8 and ``lm_head_scale`` [Vp] f32,
+``None`` until prepared.
 """
 from __future__ import annotations
 
@@ -64,6 +67,8 @@ class Transformer(nn.Module):
         self.ln_f = _param(cfg.d_model)
         self.layers = nn.ModuleList(DecoderLayer(cfg)
                                     for _ in range(cfg.n_layers))
+        self.register_buffer("lm_head_q8", None)
+        self.register_buffer("lm_head_scale", None)
 
 
 @torch.no_grad()

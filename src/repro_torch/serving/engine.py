@@ -1,7 +1,10 @@
 """Scheduler-driven continuous-batching engine over the Helix serve step
 (port of the reference's ``serving/engine.py`` ``DecodeEngine``, main path):
 fixed-layout decode state with one request per slot and per-request
-lengths, FCFS/SJF admission, one-shot prefill, greedy decoding.
+lengths, FCFS/SJF admission, one-shot prefill, greedy decoding, and the
+int8 KV cache (``hx.kv_cache_bits == 8``: each admitted request's fp prefill
+cache is quantized per slot row at the handoff) and int8 lm_head
+(``hx.lm_head_w8``: the head is quantized once, here).
 
 One engine ``step()``: admit queued requests into free slots (each one-shot
 prefilled, all first tokens fetched in ONE device->host transfer), then one
@@ -19,9 +22,11 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs import ArchConfig
-from repro_torch.core.kvcache import cache_capacity, init_decode_state
+from repro_torch.core.kvcache import (cache_capacity, init_decode_state,
+                                      quantize_decode_state)
 from repro_torch.core.sharding import HelixConfig
 from repro_torch.kernels import registry
+from repro_torch.models.decode_model import prepare_decode_params
 from repro_torch.serving.metrics import EngineMetrics
 from repro_torch.serving.scheduler import DECODE, DONE, Request, Scheduler
 
@@ -42,20 +47,27 @@ class DecodeEngine:
                  sched_policy: str = "fcfs", clock=time.monotonic):
         device = torch.device(device)
         if device.type == "cuda":
-            for field, family in (("attn_backend", "flash_decode"),
-                                  ("prefill_backend", "flash_prefill")):
+            families = [("attn_backend", "flash_decode"),
+                        ("prefill_backend", "flash_prefill")]
+            if hx.lm_head_w8:
+                families.append(("matmul_backend", "w8a16_matmul"))
+            for field, family in families:
                 ok, why = registry.available(family, getattr(hx, field))
                 if not ok:
                     raise RuntimeError(
                         f"{field}={getattr(hx, field)!r} unavailable: {why}")
-        self.cfg, self.model, self.hx, self.device = cfg, model, hx, device
+        self.cfg, self.hx, self.device = cfg, hx, device
+        # the int8 head is made once here, never per decode step
+        self.model = prepare_decode_params(model, hx)
         self.serve_step = serve_step
         self.prefill_step = prefill_step
         self.max_batch = max_batch
         self.kvp, self.rr = hx.kvp, hx.rr_block
         self.cap = cache_capacity(max_seq, self.kvp, self.rr)
+        self.kv8 = hx.kv_cache_bits == 8
         self.state = init_decode_state(cfg, max_batch, self.cap, self.kvp,
-                                       self.rr, dtype=dtype, device=device)
+                                       self.rr, dtype=dtype, device=device,
+                                       kv_bits=hx.kv_cache_bits)
         # per-request lengths: [B]; empty slots keep 0
         self.state["total_len"] = torch.zeros(max_batch, dtype=torch.int32,
                                               device=device)
@@ -113,9 +125,23 @@ class DecodeEngine:
     def _scatter_state(self, pstate: dict, slot: int, t: int) -> None:
         """Copy a single-request prefill state into ``slot``: the common
         round-robin prefix of every rank's local slots (the two capacities
-        may differ; layouts match)."""
-        for key in ("kcache", "vcache"):
-            _copy_rr(pstate[key][:, 0], self.state[key][:, slot], self.kvp)
+        may differ; layouts match).  int8 engines copy the fp cache into a
+        zero f32 slot row first and quantize that whole row
+        (``quantize_decode_state``), as the reference does."""
+        if self.kv8:
+            row = {}
+            for key in ("kcache", "vcache"):
+                dst = self.state[key][:, slot]
+                row[key] = torch.zeros(dst.shape, dtype=torch.float32,
+                                       device=dst.device)
+                _copy_rr(pstate[key][:, 0], row[key], self.kvp)
+            q = quantize_decode_state(row)
+            for key in ("kcache", "vcache", "kscale", "vscale"):
+                self.state[key][:, slot] = q[key]
+        else:
+            for key in ("kcache", "vcache"):
+                _copy_rr(pstate[key][:, 0], self.state[key][:, slot],
+                         self.kvp)
         self.state["total_len"][slot] = t
 
     def _commit_first_token(self, req: Request, slot: int,

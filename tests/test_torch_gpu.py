@@ -5,16 +5,21 @@ imports no JAX, so it also runs where only PyTorch is installed:
 
 Elsewhere each test skips from its fixture.  Tolerance 2e-5 at f32: kernel
 and plain version compute the same softmax in f32 and differ only in
-summation order.
+summation order; the w8a16 product 1e-5 of its largest |value| for the same
+reason.  int8 payloads and scales, pruned == dense and fused == unfused are
+bit for bit.
 """
 import pytest
 import torch
 
+from repro_torch.core.helix import append_kv_quant, quantize_kv_token
 from repro_torch.kernels import registry
 from repro_torch.kernels.flash_decode.ops import (flash_decode_shards,
                                                   flash_decode_shards_plain,
                                                   kernel_block_s)
 from repro_torch.kernels.flash_prefill import flash_prefill, flash_prefill_ref
+from repro_torch.kernels.w8a16_matmul import (quantize_w8, w8a16_matmul,
+                                              w8a16_matmul_ref)
 from repro_torch.launch.serve import serve_demo
 from repro_torch.models.transformer import init_params
 from repro_torch.configs import get_config
@@ -84,4 +89,54 @@ def test_serve_on_card_matches_cpu_and_counts_launches(h100):
     assert ({r.rid: r.out_tokens for r in gpu}
             == {r.rid: r.out_tokens for r in cpu})
     assert counts == {"flash_decode": cfg.n_layers * summ["decode_syncs"],
-                      "flash_prefill": cfg.n_layers * 5}
+                      "flash_decode_kv8": 0, "flash_prefill": cfg.n_layers * 5,
+                      "w8a16_matmul": 0}
+
+
+@pytest.mark.gpu
+def test_w8a16_kernel_matches_plain_on_card(h100):
+    g = torch.Generator(device=h100).manual_seed(1)
+    for m, k, n in ((4, 2048, 49664), (3, 200, 700), (9, 130, 257)):
+        x = torch.randn(m, k, generator=g, device=h100)
+        qw, scale = quantize_w8(torch.randn(k, n, generator=g, device=h100))
+        got = w8a16_matmul(x, qw, scale)
+        want = w8a16_matmul_ref(x, qw, scale)
+        torch.cuda.synchronize()
+        tol = 1e-5 * want.abs().max().item()
+        assert (got - want).abs().max().item() <= tol, (m, k, n)
+
+
+@pytest.mark.gpu
+def test_int8_decode_kernel_matches_plain_on_card(h100):
+    """int8 mode: kernel vs plain, pruned == dense, the fused quantized
+    append equal to ``append_kv_quant`` then attend, bit for bit."""
+    g = torch.Generator(device=h100).manual_seed(2)
+    b, kvp, s_loc = 4, 2, 256
+    q = torch.randn(b, 32, 64, generator=g, device=h100)
+    k, ks = quantize_kv_token(torch.randn(b, 8, kvp * s_loc, 64, generator=g,
+                                          device=h100))
+    v, vs = quantize_kv_token(torch.randn(b, 8, kvp * s_loc, 64, generator=g,
+                                          device=h100))
+    kn = torch.randn(b, 8, 64, generator=g, device=h100)
+    tl = torch.tensor([1, 2, 37, kvp * s_loc], dtype=torch.int32, device=h100)
+    kw = dict(kvp=kvp, n_ranks=kvp, rank=0, rr_block=RR, window=0,
+              contiguous=False, slot_offset=0, k_new=kn, v_new=-kn)
+    c1 = [t.clone() for t in (k, v, ks, vs)]
+    c2 = [t.clone() for t in (k, v, ks, vs)]
+    c3 = [t.clone() for t in (k, v, ks, vs)]
+    o1, l1 = flash_decode_shards(q, c1[0], c1[1], tl, kscale=c1[2],
+                                 vscale=c1[3], **kw)
+    o2, l2 = flash_decode_shards_plain(q, c2[0], c2[1], tl, scale=64 ** -0.5,
+                                       block_s=kernel_block_s(512, s_loc),
+                                       kscale=c2[2], vscale=c2[3], **kw)
+    append_kv_quant(*c3, kn, -kn, tl, kvp=kvp, rr_block=RR)
+    kw.update(k_new=None, v_new=None)
+    o3, l3 = flash_decode_shards(q, c3[0], c3[1], tl, kscale=c3[2],
+                                 vscale=c3[3], prune=False, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o1, o2, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(l1, l2, atol=ATOL, rtol=RTOL)
+    assert torch.equal(o1, o3) and torch.equal(l1, l3)
+    bits = lambda t: t.view(torch.int32) if t.is_floating_point() else t
+    for a, b2, c in zip(c1, c2, c3):       # payloads and scales
+        assert torch.equal(bits(a), bits(c)) and torch.equal(bits(a), bits(b2))
