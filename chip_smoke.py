@@ -11,15 +11,21 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
 3. kernels vs their plain PyTorch versions on the card at granite-3-2b
    widths (Qh 32, Kh 8, hsz 64) in f32 and bf16, plus pruned == dense and
    fused == unfused append, bit for bit, in the fp and the int8 mode of
-   flash_decode; w8a16_matmul at the lm_head shape and a ragged one;
+   flash_decode, and the same lattice in its paged mode (a shuffled block
+   table with 0 tails), where paged == fixed bit for bit as well;
+   w8a16_matmul at the lm_head shape and a ragged one;
 4. serve: granite-3-2b at full width (40 layers, bf16, seeded random
-   weights) through ``serve_demo``, twice, for the same 8 requests: the fp
-   path, then the int8 path (``HelixConfig(kv_cache_bits=8,
-   lm_head_w8=True)``).  The launch counts of each run, set to 0 just
-   before it, must equal layers x decode steps (flash_decode; int8 mode in
-   the int8 run), layers x prefills (flash_prefill) and decode steps
-   (w8a16_matmul, int8 run).  Then 4-layer f32 runs of the same widths
-   where the kernel path, the plain path and kvp = 4 agree, fp and int8;
+   weights) through ``serve_demo`` for the same 8 requests: the fp path and
+   the int8 path (``HelixConfig(kv_cache_bits=8, lm_head_w8=True)``) in
+   turns fp, int8, int8, fp; then both from the paged pool
+   (``paged_kv=True``), whose streams must equal the fixed runs'; then a
+   paged run with half the default pool, where an admission waits for
+   pages.  The launch counts of each run, set to 0 just before it, must
+   equal layers x decode steps (flash_decode; int8 mode in the int8 runs,
+   paged mode in the paged runs), layers x prefills (flash_prefill) and
+   decode steps (w8a16_matmul, int8 runs).  Then 4-layer f32 runs of the
+   same widths where the kernel path, the plain path and kvp = 4 agree, fp
+   and int8;
 5. times (CUDA events) of each kernel, its plain version and a one-call
    PyTorch yardstick where there is one, beside the card's bound.
 
@@ -34,6 +40,7 @@ import subprocess
 import sys
 import time
 
+T0 = time.perf_counter()
 HERE = os.path.dirname(os.path.abspath(__file__))
 if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
     sys.exit("chip_smoke.py: src/repro_torch not found beside this script "
@@ -46,8 +53,9 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.helix import (append_kv, append_kv_quant,  # noqa: E402
                                     quantize_kv_token)
-from repro_torch.core.kvcache import (init_decode_state,  # noqa: E402
-                                      quantize_decode_state)
+from repro_torch.core.kvcache import (cache_capacity,  # noqa: E402
+                                      init_decode_state, page_positions,
+                                      quantize_decode_state, state_to_paged)
 from repro_torch.core.sharding import HelixConfig  # noqa: E402
 from repro_torch.kernels import build, registry  # noqa: E402
 from repro_torch.kernels.flash_decode.ops import (  # noqa: E402
@@ -56,7 +64,7 @@ from repro_torch.kernels.flash_prefill.ops import flash_prefill  # noqa: E402
 from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref  # noqa: E402
 from repro_torch.kernels.w8a16_matmul import (quantize_w8,  # noqa: E402
                                               w8a16_matmul, w8a16_matmul_ref)
-from repro_torch.launch.serve import serve_demo  # noqa: E402
+from repro_torch.launch.serve import generate_rows, serve_demo  # noqa: E402
 from repro_torch.models.decode_model import prepare_decode_params  # noqa: E402
 from repro_torch.models.model_zoo import (build_serve_step,  # noqa: E402
                                           make_prefill_step)
@@ -115,8 +123,24 @@ def maxerr(a, b) -> float:
 
 
 def bits(t):
-    """Integers as they are, f32 as their bit patterns."""
-    return t.view(torch.int32) if t.dtype == torch.float32 else t
+    """Integers as they are, f32 and bf16 as their bit patterns."""
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def shuffled_tables(gen, tl, page: int, max_pages: int):
+    """[B, max_pages] int32 block tables (CPU) with shuffled physical pages
+    1.., row b holding the ceil(tl[b] / page) pages its length needs and 0
+    (the sink page) after them; and the pool size, sink included."""
+    need = [-(-int(x) // page) for x in tl.tolist()]
+    perm = torch.randperm(sum(need), generator=gen).to(torch.int32) + 1
+    tab = torch.zeros(len(need), max_pages, dtype=torch.int32)
+    i = 0
+    for r, n in enumerate(need):
+        tab[r, :n] = perm[i:i + n]
+        i += n
+    return tab, 1 + sum(need)
 
 
 # ------------------------------------------------------------- phase 3
@@ -240,6 +264,104 @@ def check_decode_kv8(dev, errs):
                   "bit for bit")
 
 
+def check_decode_paged(dev, errs, errs_kv8):
+    """Paged mode over its lattice (f32, bf16 and int8; kvp 1 and 4; fused
+    and unfused; a shuffled table with 0 tails): kernel vs plain within the
+    tolerance, pruned == dense, and paged == fixed bit for bit -- the same
+    cache laid out both ways (``state_to_paged``), outputs, LSEs and the
+    appended pages (payloads as integers, scales as bits) compared, the
+    sink page 0 left out; then fused == unfused in paged mode."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    gt = torch.Generator().manual_seed(8)
+    b, s_cap = 8, 4096
+    tl = torch.tensor([0, 1, 37, 511, 1000, 2049, 4095, 4096],
+                      dtype=torch.int32, device=dev)
+    for mode in ("f32", "bf16", "int8"):
+        dt = torch.float32 if mode == "f32" else torch.bfloat16
+        rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(dt)
+        q, kn, vn = rnd(b, QH, HSZ), rnd(b, KH, HSZ), rnd(b, KH, HSZ)
+        fixed = {"kcache": rnd(1, b, KH, s_cap, HSZ),
+                 "vcache": rnd(1, b, KH, s_cap, HSZ)}
+        if mode == "int8":
+            fixed = quantize_decode_state(fixed)
+        keys = [k for k in ("kcache", "vcache", "kscale", "vscale")
+                if k in fixed]
+        for kvp in (1, 4):
+            page = page_positions(kvp, RR)
+            tab, n_pool = shuffled_tables(gt, tl, page, s_cap // page)
+            paged = state_to_paged(fixed, tab, n_pool, kvp, page)
+            tables = paged["block_tables"]
+            kw = dict(kvp=kvp, n_ranks=kvp, rank=0, rr_block=RR, window=0,
+                      contiguous=False, slot_offset=0)
+
+            def planes(st):
+                c = [st[k][0].clone() for k in keys]
+                return c, (dict(kscale=c[2], vscale=c[3]) if len(c) == 4
+                           else {})
+
+            def same_pages(c, d):      # pool planes without the sink page
+                return all(torch.equal(bits(x[1:]), bits(y[1:]))
+                           for x, y in zip(c, d))
+
+            for fused in (False, True):
+                app = dict(k_new=kn, v_new=vn) if fused else \
+                    dict(k_new=None, v_new=None)
+                (c1, s1), (c2, s2), (c3, s3), (cf, sf) = (
+                    planes(paged), planes(paged), planes(paged), planes(fixed))
+                o1, l1 = flash_decode_shards(q, c1[0], c1[1], tl, prune=True,
+                                             block_tables=tables, **s1, **kw,
+                                             **app)
+                o3, l3 = flash_decode_shards(q, c3[0], c3[1], tl, prune=False,
+                                             block_tables=tables, **s3, **kw,
+                                             **app)
+                o2, l2 = flash_decode_shards_plain(
+                    q, c2[0], c2[1], tl, scale=HSZ ** -0.5,
+                    block_s=kernel_block_s(512, s_cap // kvp),
+                    block_tables=tables, **s2, **kw, **app)
+                of, lf = flash_decode_shards(q, cf[0], cf[1], tl, prune=True,
+                                             **sf, **kw, **app)
+                torch.cuda.synchronize()
+                eo, el = maxerr(o1, o2), maxerr(l1, l2)
+                (errs_kv8 if mode == "int8" else errs).append(eo)
+                tag = f"paged decode {mode} kvp={kvp} fused={fused}"
+                print(f"  {tag}: max err out {eo:.3g} lse {el:.3g} "
+                      f"(tol {TOL[dt]['out']:g}/{TOL[dt]['lse']:g})")
+                need(eo <= TOL[dt]["out"] and el <= TOL[dt]["lse"],
+                     f"{tag}: kernel disagrees with plain")
+                need(torch.equal(bits(o1), bits(o3))
+                     and torch.equal(bits(l1), bits(l3)),
+                     f"{tag}: pruned != dense")
+                need(same_pages(c1, c2) and same_pages(c1, c3),
+                     f"{tag}: appended pages differ from plain / dense")
+                back = state_to_paged({k: c[None] for k, c in zip(keys, cf)},
+                                      tab, n_pool, kvp, page)
+                need(torch.equal(bits(o1), bits(of))
+                     and torch.equal(bits(l1), bits(lf))
+                     and same_pages(c1, [back[k][0] for k in keys]),
+                     f"{tag}: paged != fixed")
+            # fused == unfused (rows with a token to append: length >= 1)
+            tl1 = torch.clamp(tl, min=1)
+            kw = dict(kvp=kvp, n_ranks=kvp, rr_block=RR, block_tables=tables)
+            (ca, sa), (cb, sb) = planes(paged), planes(paged)
+            oa, la = flash_decode_shards(q, ca[0], ca[1], tl1, k_new=kn,
+                                         v_new=vn, **sa, **kw)
+            if mode == "int8":
+                append_kv_quant(*cb, kn, vn, tl1, kvp=kvp, rr_block=RR,
+                                block_tables=tables)
+            else:
+                append_kv(cb[0], cb[1], kn, vn, tl1, kvp=kvp, rr_block=RR,
+                          block_tables=tables)
+            ob, lb = flash_decode_shards(q, cb[0], cb[1], tl1, **sb, **kw)
+            torch.cuda.synchronize()
+            need(torch.equal(bits(oa), bits(ob)) and torch.equal(bits(la),
+                                                                 bits(lb))
+                 and same_pages(ca, cb),
+                 f"paged decode {mode} kvp={kvp}: fused != unfused append")
+            print(f"  paged decode {mode} kvp={kvp} ({n_pool} pages, shuffled"
+                  "): pruned == dense, paged == fixed and fused == unfused, "
+                  "bit for bit")
+
+
 def check_w8a16(dev, errs):
     g = torch.Generator(device=dev).manual_seed(6)
     for m, k, n in ((4, D_MODEL, VP), (3, 200, 700)):
@@ -288,24 +410,37 @@ def check_prefill(dev, errs):
 
 # ------------------------------------------------------------- phase 4
 def serve_full(dev):
-    """Both main paths at full width, the same 8 requests each, in turns
-    fp, int8, int8, fp (host times of one call are compared in turns); the
-    launch counts are set to 0 just before each run and read just after."""
+    """Every main path at full width, the same 8 requests each: fixed fp and
+    int8 in turns fp, int8, int8, fp (host times of one call are compared in
+    turns); then both from the paged pool at its default size, whose streams
+    must equal the fixed runs' (the same admission schedule); then a paged
+    fp run at half the default pool, where admissions wait for pages and
+    every request must still finish.  The launch counts are set to 0 just
+    before each run and read just after."""
     cfg = get_config("granite-3-2b")
     model = init_params(cfg, 0, dtype=torch.bfloat16, device=dev)
     torch.cuda.synchronize()
-    runs = {"fp": [], "int8": []}
-    for name, hx in (("fp", None), ("int8", KV8_W8), ("int8", KV8_W8),
-                     ("fp", None)):
+    reqs = dict(n_requests=8, prompt_len=(128, 1024), max_new=32)
+    rows = generate_rows(reqs["n_requests"], prompt_len=reqs["prompt_len"],
+                         max_tokens=reqs["max_new"], seed=0)
+    cap = cache_capacity(max(r.prompt_len for r in rows)
+                         + max(r.max_tokens for r in rows) + 1, 1, RR)
+    half_pool = (4 * (cap // page_positions(1, RR)) + 1) // 2
+    paged = dict(paged_kv=True)
+    plan = (("fp", None, {}), ("int8", KV8_W8, {}), ("int8", KV8_W8, {}),
+            ("fp", None, {}), ("paged fp", None, paged),
+            ("paged int8", KV8_W8, paged),
+            ("pressure", None, dict(paged, pool_blocks=half_pool)))
+    runs = {name: [] for name, _, _ in plan}
+    for name, hx, extra in plan:
         first = not runs[name]
-        print(f"  -- {name} path: hx {hx or HelixConfig()}")
+        int8 = hx is not None
+        print(f"  -- {name} path: hx {hx or HelixConfig()} {extra}")
         torch.cuda.reset_peak_memory_stats()
         registry.reset_launch_counts()
-        fin, summ = serve_demo("granite-3-2b", n_requests=8,
-                               prompt_len=(128, 1024), max_new=32,
-                               max_batch=4, hx=hx, kvp=1,
-                               dtype=torch.bfloat16, device=dev, model=model,
-                               seed=0)
+        fin, summ = serve_demo("granite-3-2b", **reqs, max_batch=4, hx=hx,
+                               kvp=1, dtype=torch.bfloat16, device=dev,
+                               model=model, seed=0, **extra)
         counts = registry.launch_counts()
         peak = torch.cuda.max_memory_allocated()
         need(len(fin) == 8 and all(r.finish_reason == "max_tokens"
@@ -315,9 +450,9 @@ def serve_full(dev):
         need(all(0 <= t < cfg.vocab for r in fin for t in r.out_tokens),
              f"serve {name}: token outside the vocabulary")
         steps = summ["decode_syncs"]
-        int8 = hx is not None
         want = {"flash_decode": cfg.n_layers * steps,
                 "flash_decode_kv8": cfg.n_layers * steps if int8 else 0,
+                "flash_decode_paged": cfg.n_layers * steps if extra else 0,
                 "flash_prefill": cfg.n_layers * len(fin),
                 "w8a16_matmul": steps if int8 else 0}
         ttl = summ["ttl_s"]
@@ -329,6 +464,12 @@ def serve_full(dev):
               f" ms, {summ['engine_steps']} engine steps, {steps} decode "
               f"steps, KV cache {summ['kv_cache_dtype']}, "
               f"peak memory {peak / 2**30:.2f} GiB")
+        if extra:
+            print(f"  pool: {extra.get('pool_blocks') or 'default'} pages, "
+                  f"occupancy peak {summ['pool_occupancy_peak']:.4f}, "
+                  f"fragmentation mean {summ['pool_frag_mean']:.4f}, "
+                  f"{summ['pool_waits']} admissions waited for pages, "
+                  f"{summ['capacity_retired']} capacity retirements")
         print(f"  launches {counts} (expected {want})")
         need(counts == want and steps > 0,
              f"serve {name}: launch counts {counts} != expected {want}")
@@ -339,13 +480,28 @@ def serve_full(dev):
         if not first:
             need(streams == runs[name][0]["streams"],
                  f"serve {name}: greedy streams differ between two runs")
+        elif name.startswith("paged"):
+            fixed = runs[name[len("paged "):]]
+            need(streams == fixed[0]["streams"],
+                 f"serve {name}: streams differ from the fixed layout's")
+            print(f"  {name} streams identical to the fixed {name[6:]} run's "
+                  f"(8 of 8); peak memory {peak / 2**30:.2f} GiB, fixed runs "
+                  + ", ".join(f"{r['peak'] / 2**30:.2f}" for r in fixed)
+                  + " GiB")
+        elif name == "pressure":
+            need(summ["pool_waits"] >= 1,
+                 f"serve {name}: no admission waited for pages")
+            print(f"  pressure run: peak memory {peak / 2**30:.2f} GiB, "
+                  f"paged fp {runs['paged fp'][0]['peak'] / 2**30:.2f} GiB, "
+                  f"fixed fp {runs['fp'][0]['peak'] / 2**30:.2f} GiB")
         elif int8:
             same = sum(streams[r] == runs["fp"][0]["streams"][r]
                        for r in streams)
             print(f"  int8 streams identical to the fp run's: {same} of 8 "
                   "(int8 K/V and head change the numerics; not a check)")
-        if first:
-            profile_decode(dev, cfg, model, hx or HelixConfig())
+        if first and name in ("fp", "int8", "paged fp"):
+            profile_decode(dev, cfg, model, dataclasses.replace(
+                hx or HelixConfig(), paged_kv="paged_kv" in extra))
         runs[name].append({"counts": counts, "summ": summ, "peak": peak,
                            "streams": streams})
     for name, rs in runs.items():
@@ -369,7 +525,8 @@ def serve_full(dev):
 
 def profile_decode(dev, cfg, model, hx):
     """Host wall time vs device kernel time of one decode step at the serve
-    shape (4 rows of 700-1000 tokens, cap 1088), from torch.profiler."""
+    shape (4 rows of 700-1000 tokens, cap 1088), from torch.profiler; with
+    ``hx.paged_kv`` the same caches in a pool under a shuffled table."""
     from torch.profiler import ProfilerActivity, profile
     state = init_decode_state(cfg, 4, 1088, 1, RR, dtype=torch.bfloat16,
                               device=dev)
@@ -377,6 +534,11 @@ def profile_decode(dev, cfg, model, hx):
     state["vcache"].normal_()
     if hx.kv_cache_bits == 8:
         state = quantize_decode_state(state)
+    if hx.paged_kv:
+        full = torch.full((4,), 1088, dtype=torch.int32)
+        tab, n_pool = shuffled_tables(torch.Generator().manual_seed(10), full,
+                                      RR, 1088 // RR)
+        state = state_to_paged(state, tab, n_pool, 1, RR)
     state["total_len"] = torch.tensor([1000, 900, 800, 700],
                                       dtype=torch.int32, device=dev)
     step = build_serve_step(cfg, hx)
@@ -407,7 +569,8 @@ def profile_decode(dev, cfg, model, hx):
             per_call[tag] = sum(dev_us(e) for e in ev) / n_ev / 1e3
     if device > 0:
         calls = ", ".join(f"{k} {v:.4f} ms/call" for k, v in per_call.items())
-        print(f"  decode step profile (B=4, lengths 700-1000): host wall "
+        print(f"  decode step profile ({'paged, ' * hx.paged_kv}B=4, "
+              f"lengths 700-1000): host wall "
               f"{wall:.2f} ms/step, device kernels {device:.2f} ms/step, "
               f"busy share {device / wall:.3f}, {ops:.0f} aten ops/step, "
               f"{calls}")
@@ -503,6 +666,40 @@ def times(dev):
     d8bytes = (2 * b * KH * s * HSZ + 2 * b * KH * s * 4
                + 2 * b * QH * HSZ * es + b * QH * 4 + 2 * b * KH * HSZ * es)
     dec8.update(_bound(d8bytes, dops, PEAK[dt]))
+    # the paged mode at the same shape, in the same call: the same caches in
+    # a pool of 1 + B*S/16 pages under a shuffled table; the int8 pools
+    # rotate as the int8 caches do
+    tab, n_pool = shuffled_tables(torch.Generator().manual_seed(9), tl, RR,
+                                  s // RR)
+    tab = tab.to(dev)
+
+    def pool_of(x):
+        return state_to_paged({"kcache": x[None]}, tab, n_pool, 1,
+                              RR)["kcache"][0]
+
+    pk, pv = pool_of(k), pool_of(v)
+    decp = {
+        "ms": time_ms(lambda: flash_decode_shards(q, pk, pv, tl,
+                                                  block_tables=tab, **kw)),
+        "plain_ms": time_ms(lambda: flash_decode_shards_plain(
+            q, pk, pv, tl, scale=HSZ ** -0.5, block_s=512, block_tables=tab,
+            **kw), iters=10),
+        "library_ms": None,
+        "library": "no single PyTorch call attends through a block table"}
+    tbytes = tab.numel() * 4
+    decp.update(_bound(dbytes + tbytes, dops, PEAK[dt]))
+    pcopies = [tuple(pool_of(x) for x in c) for c in copies]
+    decp8 = {
+        "ms": time_ms(rotating([
+            lambda c=c: flash_decode_shards(q, c[0], c[2], tl, kscale=c[1],
+                                            vscale=c[3], block_tables=tab,
+                                            **kw) for c in pcopies])),
+        "plain_ms": time_ms(lambda: flash_decode_shards_plain(
+            q, pcopies[0][0], pcopies[0][2], tl, scale=HSZ ** -0.5,
+            block_s=512, kscale=pcopies[0][1], vscale=pcopies[0][3],
+            block_tables=tab, **kw), iters=10),
+        "library_ms": None, "library": decp["library"]}
+    decp8.update(_bound(d8bytes + tbytes, dops, PEAK[dt]))
     # the int8 lm_head of one decode step: M = 4 rows (max_batch), bf16
     m, kd, n = 4, D_MODEL, VP
     x = rnd(m, kd)
@@ -528,10 +725,15 @@ def times(dev):
     pops = 4 * QH * HSZ * (t * (t + 1) // 2)
     pre.update(_bound(pbytes, pops, PEAK[dt]), library="sdpa")
     out = {"flash_decode": dec, "flash_decode_kv8": dec8,
+           "flash_decode_paged": decp, "flash_decode_paged_kv8": decp8,
            "flash_prefill": pre, "w8a16_matmul": mm}
     for name, shape in (("flash_decode", "B=8 S=4096 bf16, fused append"),
                         ("flash_decode_kv8", "B=8 S=4096 int8 K/V, bf16 q, "
                                              "fused quantized append"),
+                        ("flash_decode_paged", f"B=8 S=4096 bf16, fused "
+                                               f"append, {n_pool}-page pool, "
+                                               "shuffled table"),
+                        ("flash_decode_paged_kv8", "the same, int8 K/V"),
                         ("flash_prefill", "B=1 T=1024 causal bf16"),
                         ("w8a16_matmul", f"M={m} K={kd} N={n} bf16 x")):
         r = out[name]
@@ -595,7 +797,7 @@ def main() -> int:
           f"matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
 
-    print("== 2 build")
+    print(f"== 2 build (t = {time.perf_counter() - T0:.1f} s)")
     t0 = time.perf_counter()
     built = build.build_all()
     print(f"  built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
@@ -604,30 +806,42 @@ def main() -> int:
         for ln in bk.ptxas:
             print(f"    {ln}")
 
-    print("== 3 kernels vs plain on the card")
+    print(f"== 3 kernels vs plain on the card (t = "
+          f"{time.perf_counter() - T0:.1f} s)")
     errs = {name: [] for name in ("flash_decode", "flash_decode_kv8",
-                                  "flash_prefill", "w8a16_matmul")}
+                                  "flash_decode_paged",
+                                  "flash_decode_paged_kv8", "flash_prefill",
+                                  "w8a16_matmul")}
     check_decode(dev, errs["flash_decode"])
     check_decode_kv8(dev, errs["flash_decode_kv8"])
+    check_decode_paged(dev, errs["flash_decode_paged"],
+                       errs["flash_decode_paged_kv8"])
     check_prefill(dev, errs["flash_prefill"])
     check_w8a16(dev, errs["w8a16_matmul"])
 
-    print("== 4 serve granite-3-2b (40 layers, bf16), fp path then int8 path")
+    print(f"== 4 (t = {time.perf_counter() - T0:.1f} s) serve granite-3-2b "
+          "(40 layers, bf16): fixed fp and int8, "
+          "paged fp and int8, paged fp under pool pressure")
     runs = serve_full(dev)
     compare_paths(dev)
 
-    print("== 5 times")
+    print(f"== 5 times (t = {time.perf_counter() - T0:.1f} s)")
     timed = times(dev)
 
     # launches: each kernel's count in the run of the path it serves
     fp, int8 = runs["fp"][0]["counts"], runs["int8"][0]["counts"]
+    pfp, pint8 = runs["paged fp"][0]["counts"], runs["paged int8"][0]["counts"]
     launches = {"flash_decode": fp["flash_decode"],
                 "flash_decode_kv8": int8["flash_decode_kv8"],
+                "flash_decode_paged": pfp["flash_decode_paged"],
+                "flash_decode_paged_kv8": pint8["flash_decode_paged"],
                 "flash_prefill": fp["flash_prefill"],
                 "w8a16_matmul": int8["w8a16_matmul"]}
     decode_src = ("src/repro_torch/csrc/flash_decode.cu",
                   "src/repro/kernels/flash_decode/kernel.py:417")
     sources = {"flash_decode": decode_src, "flash_decode_kv8": decode_src,
+               "flash_decode_paged": decode_src,
+               "flash_decode_paged_kv8": decode_src,
                "flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
                                  "src/repro/kernels/flash_prefill/kernel.py:205"),
                "w8a16_matmul": ("src/repro_torch/csrc/w8a16_matmul.cu",
@@ -638,6 +852,7 @@ def main() -> int:
         records.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": max(errs[name]), **timed[name]})
+    print(f"  done at t = {time.perf_counter() - T0:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

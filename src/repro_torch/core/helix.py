@@ -15,9 +15,15 @@ int8 caches (``HelixConfig.kv_cache_bits == 8``) carry per-slot f32 scales
 over hsz (``quantize_kv_token``), by ``append_kv_quant`` or inside the
 decode kernel's fused append.
 
-Not ported: HOP-B batch chunking, ``torch.distributed``, paged and grouped
-modes, and the reference's sliding-window cache-slice fast path (the decode
-kernel's block pruning covers it).
+Paged pool (``block_tables`` [B, max_pages]): the caches are pool planes
+``[n_pool, Kh, page, hsz]`` (``core/kvcache.py`` layout; rank r's rows of a
+page are ``[r*rr, (r+1)*rr)``).  The ``cuda`` backend reads them through
+the table in its one launch; the ``ref`` backend gathers each rank's pages
+into a dense shard first; appends go through ``paged_slot_of_position``.
+
+Not ported: HOP-B batch chunking, ``torch.distributed``, the grouped
+shared-prefix decode, and the reference's sliding-window cache-slice fast
+path (the decode kernel's block pruning covers it).
 
 Caches (and scales) are updated **in place** (``append_kv``,
 ``append_kv_quant`` and the fused append), where the reference returns new
@@ -28,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.combine import combine_fragments
+from repro_torch.core.kvcache import gather_pages
 from repro_torch.core.sharding import HelixConfig
 from repro_torch.kernels.flash_decode.ops import flash_decode_shards
 from repro_torch.kernels.flash_decode.ref import (flash_decode_ref,
@@ -49,13 +56,15 @@ def rr_slot_of_position(pos, kvp: int, s_loc: int, rr_block: int):
 
 
 def fuse_append_applicable(hx: HelixConfig, *, quant: bool = False,
-                           contiguous: bool = False) -> bool:
+                           contiguous: bool = False,
+                           paged: bool = False) -> bool:
     """Whether a decode step appends its K/V row inside the decode kernel:
     needs a kernel backend, ``hx.fuse_append`` and the round-robin layout.
-    int8 caches (``quant``) fuse too: the kernel quantizes the row itself.
-    (The reference also excludes its window cache-slice path, which the
-    port does not have.)"""
-    del quant
+    int8 caches (``quant``) fuse too: the kernel quantizes the row itself,
+    and so does the paged pool (``paged``): the kernel writes through the
+    table.  (The reference also excludes its window cache-slice path, which
+    the port does not have.)"""
+    del quant, paged
     return hx.attn_backend != "ref" and hx.fuse_append and not contiguous
 
 
@@ -77,7 +86,8 @@ def _local_attend(q, k, v, total_len, rank, *, kvp, rr_block, window,
 
 def helix_attention(hx: HelixConfig, q, kcache, vcache, total_len, *,
                     window: int = 0, contiguous: bool = False,
-                    kscale=None, vscale=None, k_new=None, v_new=None):
+                    kscale=None, vscale=None, k_new=None, v_new=None,
+                    block_tables=None):
     """Exact KVP-sharded decode attention, emulated on one card.
 
     q [B, Qh, hsz]; kcache/vcache [B, Kh, S_cap, hsz] (S_cap = kvp * s_loc,
@@ -86,24 +96,34 @@ def helix_attention(hx: HelixConfig, q, kcache, vcache, total_len, *,
     ``kscale``/``vscale`` [B, Kh, S_cap] f32 with int8 caches.
     ``k_new``/``v_new`` [B, Kh, hsz]: fused append (the caller checked
     ``fuse_append_applicable``); the row (int8: payload and scale) lands in
-    the cache in place.
+    the cache in place.  ``block_tables`` [B, max_pages] int32: the paged
+    pool, ``kcache``/``vcache`` pool planes ``[n_pool, Kh, kvp * rr, hsz]``
+    (scales without hsz); excludes ``contiguous``.
     Returns [B, helix_out_dim(Qh*hsz, kvp)] in q.dtype.
     """
     b, qh, hsz = q.shape
     kvp = hx.kvp
+    if block_tables is not None and contiguous:
+        raise ValueError("the paged pool excludes the contiguous layout")
     if hx.attn_backend == "cuda":
         outs, lses = flash_decode_shards(
             q, kcache, vcache, total_len, kvp=kvp, n_ranks=kvp, rank=0,
             rr_block=hx.rr_block, window=window, block_s=hx.attn_block_s,
             contiguous=contiguous, kscale=kscale, vscale=vscale,
-            k_new=k_new, v_new=v_new, prune=hx.prune_blocks)
+            k_new=k_new, v_new=v_new, prune=hx.prune_blocks,
+            block_tables=block_tables)
     else:
         if k_new is not None:
             raise ValueError("fused append requires the cuda backend")
         s_loc = kcache.shape[2] // kvp
 
         def shard(x, r):
-            return None if x is None else x[:, :, r * s_loc:(r + 1) * s_loc]
+            if x is None:
+                return None
+            x = x[:, :, r * s_loc:(r + 1) * s_loc]
+            # paged: this rank's rows of every page, gathered per request
+            return x if block_tables is None else gather_pages(x,
+                                                               block_tables)
 
         res = [_local_attend(q, shard(kcache, r), shard(vcache, r),
                              total_len, r, kvp=kvp, rr_block=hx.rr_block,
@@ -128,13 +148,43 @@ def helix_attention(hx: HelixConfig, q, kcache, vcache, total_len, *,
     return out.reshape(b, d_pad)
 
 
+def paged_slot_of_position(pos, block_tables, *, kvp: int, rr_block: int,
+                           page: int):
+    """(physical page [B], in-page row [B]) holding global position ``pos``
+    (an int or [B] tensor): position p lives on rank ``r = (p//rr) % kvp``
+    at local slot j, i.e. logical page ``j // ps`` at row ``r*ps + j % ps``
+    (``ps = page / kvp``).  Negative positions (idle rows) clamp to logical
+    page 0, whose table entry is the sink page."""
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=block_tables.device)
+    ps = page // kvp
+    blk = pos // rr_block
+    rank = blk % kvp
+    j = (blk // kvp) * rr_block + pos % rr_block
+    lpage = torch.clamp(j // ps, 0, block_tables.shape[1] - 1)
+    row = rank * ps + j % ps
+    b = block_tables.shape[0]
+    phys = block_tables[torch.arange(b, device=block_tables.device),
+                        lpage.expand(b)]
+    return phys.long(), row.expand(b)
+
+
 def append_kv(kcache, vcache, k_new, v_new, total_len, *, kvp: int,
-              rr_block: int):
+              rr_block: int, block_tables=None):
     """Round-robin KV append (§2.3), in place.  kcache [B, Kh, S_cap, hsz];
     k_new [B, Kh, hsz] for the token at position ``total_len - 1``
-    (``total_len`` an int or a [B] tensor)."""
-    s_loc = kcache.shape[2] // kvp
+    (``total_len`` an int or a [B] tensor).  Paged (``block_tables``): the
+    caches are pool planes ``[n_pool, Kh, page, hsz]`` and the row goes to
+    the page and row ``paged_slot_of_position`` names (idle rows of length
+    0 land on the sink page)."""
     tl = torch.as_tensor(total_len, dtype=torch.int64, device=kcache.device)
+    if block_tables is not None:
+        phys, row = paged_slot_of_position(tl - 1, block_tables, kvp=kvp,
+                                           rr_block=rr_block,
+                                           page=kcache.shape[2])
+        kcache[phys, :, row] = k_new.to(kcache.dtype)
+        vcache[phys, :, row] = v_new.to(vcache.dtype)
+        return kcache, vcache
+    s_loc = kcache.shape[2] // kvp
     slot = rr_slot_of_position(tl - 1, kvp, s_loc, rr_block)
     if slot.ndim == 0:
         kcache[:, :, slot] = k_new.to(kcache.dtype)
@@ -147,16 +197,19 @@ def append_kv(kcache, vcache, k_new, v_new, total_len, *, kvp: int,
 
 
 def append_kv_quant(kcache, vcache, kscale, vscale, k_new, v_new, total_len,
-                    *, kvp: int, rr_block: int):
+                    *, kvp: int, rr_block: int, block_tables=None):
     """int8 round-robin KV append, in place: quantize the new token per
-    (B, Kh) and write payload and scale at its round-robin slot.  kscale
-    [B, Kh, S_cap] f32.  Returns the four updated tensors."""
+    (B, Kh) and write payload and scale at its round-robin slot (paged:
+    through ``block_tables``, like ``append_kv``).  kscale [B, Kh, S_cap]
+    f32 (paged: ``[n_pool, Kh, page]``).  Returns the four updated
+    tensors."""
     kq, ks = quantize_kv_token(k_new)
     vq, vs = quantize_kv_token(v_new)
-    append_kv(kcache, vcache, kq, vq, total_len, kvp=kvp, rr_block=rr_block)
+    kw = dict(kvp=kvp, rr_block=rr_block, block_tables=block_tables)
+    append_kv(kcache, vcache, kq, vq, total_len, **kw)
     # the scale planes as caches of width-1 rows: the same slot, in place
     append_kv(kscale[..., None], vscale[..., None], ks[..., None],
-              vs[..., None], total_len, kvp=kvp, rr_block=rr_block)
+              vs[..., None], total_len, **kw)
     return kcache, vcache, kscale, vscale
 
 

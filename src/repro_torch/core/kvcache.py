@@ -1,16 +1,29 @@
-"""Fixed-layout decode state (port of the reference's ``core/kvcache.py``,
-fixed layout only): round-robin KV caches ``[L, B, Kh, S_cap, hsz]`` plus
-``total_len``; with ``kv_bits=8`` the caches are int8 and per-slot f32
-scales ``kscale``/``vscale`` ``[L, B, Kh, S_cap]`` ride beside them."""
+"""Decode state (port of the reference's ``core/kvcache.py``): round-robin
+KV caches ``[L, B, Kh, S_cap, hsz]`` plus ``total_len`` in the fixed layout,
+or shared pool planes plus per-request block tables in the paged layout;
+with ``kv_bits=8`` the caches are int8 and f32 scales
+``kscale``/``vscale`` (the caches' shape without hsz) ride beside them.
+
+Paged layout (the reference's layout comment, ``core/kvcache.py:23-42``):
+K/V live in pool planes ``[L, n_pool, Kh, page, hsz]``, where one page holds
+``page = kvp * rr_block`` consecutive global positions of whichever request
+owns it, and a ``[B, max_pages]`` int32 block table maps logical page i to
+its physical page.  Rank r holds rows ``[r*rr, (r+1)*rr)`` of every page,
+which are exactly its round-robin local slots ``[i*rr, (i+1)*rr)`` of
+logical page i, so the pool is a page-granularity permutation of the fixed
+layout.  Page 0 is the sink that idle rows append to (``serving/pool.py``).
+"""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs import ArchConfig
-from repro_torch.kernels.flash_decode.ref import quantize_kv_token
+from repro_torch.kernels.flash_decode.ref import (gather_pages,  # noqa: F401
+                                                  quantize_kv_token)
 from repro_torch.utils import round_up
 
 KV_BITS = (16, 8)
+CACHE_KEYS = ("kcache", "vcache", "kscale", "vscale")
 
 
 def cache_capacity(cfg_seq_len: int, kvp: int, rr_block: int) -> int:
@@ -18,15 +31,89 @@ def cache_capacity(cfg_seq_len: int, kvp: int, rr_block: int) -> int:
     return round_up(cfg_seq_len, kvp * rr_block)
 
 
+def page_positions(kvp: int, rr_block: int) -> int:
+    """Global positions per pool page: one round-robin cycle, so each KVP
+    rank holds ``rr_block`` rows of every page."""
+    return kvp * rr_block
+
+
+def cache_to_pages(row, kvp: int, page: int):
+    """One request's fixed-layout cache ``[L, Kh, S_cap, ...]`` (rank-major
+    round robin, slot ``r*S_loc + j``) -> its page stack ``[L, P, Kh, page,
+    ...]``, ``P = ceil(S_cap / page)``: in-page row ``r*ps + jj`` holds rank
+    r's local slot ``i*ps + jj`` (``ps = page / kvp``).  K/V payloads and
+    scale planes alike."""
+    l, kh, s_cap = row.shape[:3]
+    trail = row.shape[3:]
+    ps = page // kvp
+    s_pad = round_up(s_cap, page)
+    if s_pad != s_cap:
+        pad = torch.zeros((l, kh, s_pad - s_cap, *trail), dtype=row.dtype,
+                          device=row.device)
+        row = torch.cat([row, pad], dim=2)
+    p = s_pad // page
+    r = row.reshape(l, kh, kvp, p, ps, *trail)
+    r = r.movedim(3, 1)                             # [L, P, Kh, kvp, ps, ...]
+    return r.reshape(l, p, kh, page, *trail)
+
+
+def pages_to_cache(pages, kvp: int):
+    """Inverse of ``cache_to_pages``: ``[L, P, Kh, page, ...]`` ->
+    ``[L, Kh, P*page, ...]`` fixed rank-major round-robin cache."""
+    l, p, kh, page = pages.shape[:4]
+    trail = pages.shape[4:]
+    r = pages.reshape(l, p, kh, kvp, page // kvp, *trail)
+    r = r.movedim(1, 3)                             # [L, Kh, kvp, P, ps, ...]
+    return r.reshape(l, kh, p * page, *trail)
+
+
+def state_to_paged(state: dict, tables, n_pool: int, kvp: int,
+                   page: int) -> dict:
+    """Fixed-layout decode state -> the equivalent paged state (test
+    helper): every slot's cache rows go to the physical pages ``tables``
+    [B, max_pages] names (entry 0 = sink, never written), and
+    ``block_tables`` joins the state.  Slot data beyond a row's table extent
+    is dropped (it must be dead).  Other leaves pass through."""
+    tables = torch.as_tensor(tables, dtype=torch.int32)
+    out = dict(state)
+    for key in CACHE_KEYS:
+        if key not in state:
+            continue
+        plane = state[key]                          # [L, B, Kh, S_cap, ...]
+        l, b, kh = plane.shape[:3]
+        pool = torch.zeros((l, n_pool, kh, page, *plane.shape[4:]),
+                           dtype=plane.dtype, device=plane.device)
+        for i in range(b):
+            pages = cache_to_pages(plane[:, i], kvp, page)
+            idx = torch.nonzero(tables[i] > 0).flatten()
+            idx = idx[idx < pages.shape[1]]
+            if idx.numel():
+                phys = tables[i, idx].long().to(plane.device)
+                pool[:, phys] = pages[:, idx.to(plane.device)]
+        out[key] = pool
+    out["block_tables"] = tables.to(state["kcache"].device)
+    return out
+
+
 def decode_state_shapes(cfg: ArchConfig, batch: int, seq_len: int, kvp: int,
-                        rr_block: int = 16,
-                        kv_bits: int = 16) -> dict[str, tuple[int, ...]]:
-    """Shape of every decode-state leaf."""
+                        rr_block: int = 16, kv_bits: int = 16,
+                        pool_blocks: int = 0,
+                        max_pages: int = 0) -> dict[str, tuple[int, ...]]:
+    """Shape of every decode-state leaf.  ``pool_blocks > 0``: the paged
+    layout, pool planes ``[L, pool_blocks, Kh, page, hsz]`` and
+    ``block_tables [batch, max_pages]`` (``max_pages`` defaults to
+    ``pool_blocks``)."""
     if kv_bits not in KV_BITS:
         raise ValueError(f"kv_bits={kv_bits}; choose from {KV_BITS}")
-    cap = cache_capacity(seq_len, kvp, rr_block)
-    kv = (cfg.n_layers, batch, cfg.n_kv_heads, cap, cfg.hsz)
+    if pool_blocks > 0:
+        kv = (cfg.n_layers, pool_blocks, cfg.n_kv_heads,
+              page_positions(kvp, rr_block), cfg.hsz)
+    else:
+        kv = (cfg.n_layers, batch, cfg.n_kv_heads,
+              cache_capacity(seq_len, kvp, rr_block), cfg.hsz)
     shapes = {"total_len": (), "kcache": kv, "vcache": kv}
+    if pool_blocks > 0:
+        shapes["block_tables"] = (batch, max_pages or pool_blocks)
     if kv_bits == 8:
         shapes["kscale"] = shapes["vscale"] = kv[:-1]
     return shapes
@@ -35,12 +122,15 @@ def decode_state_shapes(cfg: ArchConfig, batch: int, seq_len: int, kvp: int,
 def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int, kvp: int,
                       rr_block: int = 16, *, dtype=torch.bfloat16,
                       device="cuda", total_len: int = 0,
-                      kv_bits: int = 16) -> dict:
+                      kv_bits: int = 16, pool_blocks: int = 0,
+                      max_pages: int = 0) -> dict:
     """Zero-initialised decode state on ``device`` (``kv_bits=8``: int8
-    caches and f32 scale planes)."""
-    shapes = decode_state_shapes(cfg, batch, seq_len, kvp, rr_block, kv_bits)
+    caches and f32 scale planes; ``pool_blocks > 0``: the paged layout, with
+    every table row parked on the sink page 0)."""
+    shapes = decode_state_shapes(cfg, batch, seq_len, kvp, rr_block, kv_bits,
+                                 pool_blocks, max_pages)
     types = {"kcache": torch.int8 if kv_bits == 8 else dtype,
-             "kscale": torch.float32}
+             "kscale": torch.float32, "block_tables": torch.int32}
     types["vcache"], types["vscale"] = types["kcache"], types["kscale"]
     state = {k: torch.zeros(s, dtype=types[k], device=device)
              for k, s in shapes.items() if k != "total_len"}
@@ -50,11 +140,12 @@ def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int, kvp: int,
 
 
 def quantize_decode_state(state: dict) -> dict:
-    """fp round-robin caches -> int8 payloads + per-slot f32 scales, over
-    the trailing hsz axis with the decode append's formula, so a prefilled
-    then quantized cache and one grown token by token agree.  Zero slots
-    quantize to payload 0 with scale 1e-30.  Returns a copy of ``state``
-    with ``kcache``/``vcache`` replaced and ``kscale``/``vscale`` added."""
+    """fp caches -> int8 payloads + f32 scales, over the trailing hsz axis
+    with the decode append's formula, so a prefilled then quantized cache
+    and one grown token by token agree.  Works on fixed caches and on pool
+    planes alike.  Zero slots quantize to payload 0 with scale 1e-30.
+    Returns a copy of ``state`` with ``kcache``/``vcache`` replaced and
+    ``kscale``/``vscale`` added."""
     out = dict(state)
     for key, skey in (("kcache", "kscale"), ("vcache", "vscale")):
         out[key], out[skey] = quantize_kv_token(state[key])

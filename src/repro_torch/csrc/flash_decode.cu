@@ -1,11 +1,12 @@
 // flash_decode: Helix decode attention over KVP shards, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_decode/kernel.py
-// flash_decode_kernel (body _decode_kernel), fixed layout: per-request
-// lengths, sliding window + slot_offset, round-robin or contiguous layout,
-// block pruning on/off, fused KV append, and int8 K/V with per-slot f32
-// scales and an in-kernel quantized append.  (Paged and grouped-suffix
-// modes are not ported.)
+// flash_decode_kernel (body _decode_kernel): per-request lengths, sliding
+// window + slot_offset, round-robin or contiguous layout, block pruning
+// on/off, fused KV append, int8 K/V with per-slot f32 scales and an
+// in-kernel quantized append, and the paged mode (K/V in shared pool pages
+// reached through per-request block tables).  (The grouped-suffix mode is
+// not ported.)
 //
 // One thread block per (batch row, kv head, rank): it holds the G query
 // rows of that kv head and sweeps the rank's shard IN ORDER, keeping the
@@ -36,6 +37,18 @@
 // with IEEE division and round-half-to-even, then substitutes q * scale into
 // the tile, so fused stays bit-exact with append-then-attend, and finally
 // stores the int8 payload and the f32 scale.
+//
+// Paged mode (tables != null; reference decode_index_maps kv_idx/row_idx,
+// kernel.py:172-236): K/V (and scales) are pool planes [n_pool, Kh,
+// n_ranks * ps, hsz] and rank z holds rows [z*ps, (z+1)*ps) of every page.
+// Logical slot jj of a request's shard lives in physical page
+// tables[b, jj / ps] at row z*ps + jj % ps.  Only the load and store
+// addresses change: the sweep, the tiles, the masks and every position are
+// those of the fixed layout over the logical capacity s_loc = max_pages *
+// ps, so paged == fixed bit for bit at any block_s.  A tile of TS slots may
+// span several pages; a K/V row never straddles one, so the 16-byte loads
+// stay as they are.  Table entries past a request's pages must be 0 (the
+// sink page the engine reserves), since a dense sweep reads them masked.
 #include "common.cuh"
 
 #include <type_traits>
@@ -48,17 +61,19 @@ constexpr int MAXG = 8;   // query heads per kv head held by one block
 
 struct DecodeArgs {
   const void* q;      // [B, Kh, G, hsz]
-  void* k;            // [B, Kh, n_ranks * s_loc, hsz] (T, or int8)
-  void* v;
-  float* kscale;      // [B, Kh, n_ranks * s_loc] (int8 mode only)
+  void* k;            // [B, Kh, n_ranks * s_loc, hsz], or the paged pool
+  void* v;            // [n_pool, Kh, n_ranks * ps, hsz] (T, or int8)
+  float* kscale;      // k's shape without hsz (int8 mode only)
   float* vscale;
   const void* k_new;  // [B, Kh, hsz] (append only)
   const void* v_new;
   const int* tl;      // [B] global lengths incl. the new token
+  const int* tables;  // [B, max_pages] physical pages (paged mode), else null
   void* out;          // [n_ranks, B, Kh, G, hsz]
   float* lse;         // [n_ranks, B, Kh, G]
   int B, Kh, G, s_loc, n_ranks, rank0, kvp, rr, block_s;
   int slot_offset, window, contiguous, prune, append;
+  int max_pages, ps;  // paged: table width, rows per rank and page
   float scale;
 };
 
@@ -135,15 +150,22 @@ __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;          // b * Kh + h
   const int b = bh / a.Kh;
+  const int h = bh % a.Kh;
   const int z = blockIdx.y;
   const int rank = a.rank0 + z;
   const int G = a.G;
   const int tl = a.tl[b];
   const long row0 = ((long)bh * a.n_ranks + z) * a.s_loc;
-  KT* kp = reinterpret_cast<KT*>(a.k) + row0 * HSZ;
-  KT* vp = reinterpret_cast<KT*>(a.v) + row0 * HSZ;
-  float* kscp = Q8 ? a.kscale + row0 : nullptr;
-  float* vscp = Q8 ? a.vscale + row0 : nullptr;
+  const int* tab = a.tables != nullptr ? a.tables + (long)b * a.max_pages : nullptr;
+  // storage row (in rows of hsz elements) of this shard's logical slot jj
+  auto slot_row = [&](int jj) -> long {
+    if (tab == nullptr) return row0 + jj;
+    return (((long)tab[jj / a.ps] * a.Kh + h) * a.n_ranks + z) * a.ps + jj % a.ps;
+  };
+  KT* kp = reinterpret_cast<KT*>(a.k);
+  KT* vp = reinterpret_cast<KT*>(a.v);
+  float* kscp = Q8 ? a.kscale : nullptr;
+  float* vscp = Q8 ? a.vscale : nullptr;
 
   const T* qp = reinterpret_cast<const T*>(a.q) + (long)bh * G * HSZ;
   for (int i = tid; i < G * HSZ; i += NT) qs[i] = to_f(qp[i]) * a.scale;
@@ -195,11 +217,12 @@ __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
       ksr[i] = vsr[i] = 0.f;
       if (e < TILE_VECS) {
         const int jj = tile * TS + e / ROW_VECS;
-        const long off = (long)jj * HSZ + (e % ROW_VECS) * VN;
         if (jj < a.s_loc) {
+          const long row = slot_row(jj);
+          const long off = row * HSZ + (e % ROW_VECS) * VN;
           kr[i] = *reinterpret_cast<const uint4*>(kp + off);
           vr[i] = *reinterpret_cast<const uint4*>(vp + off);
-          if (Q8) { ksr[i] = kscp[jj]; vsr[i] = vscp[jj]; }
+          if (Q8) { ksr[i] = kscp[row]; vsr[i] = vscp[row]; }
         }
       }
     }
@@ -304,16 +327,17 @@ __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
     a.lse[ob * G + tid] = l > 0.f ? row_m[tid] + logf(fmaxf(l, 1e-37f)) : REPRO_NEG_INF;
   }
   if (owner && j_new < a.s_loc) {
+    const long row = slot_row(j_new);
     for (int i = tid; i < HSZ; i += NT) {
       if (Q8) {
-        kp[(long)j_new * HSZ + i] = (KT)knq[i];
-        vp[(long)j_new * HSZ + i] = (KT)vnq[i];
+        kp[row * HSZ + i] = (KT)knq[i];
+        vp[row * HSZ + i] = (KT)vnq[i];
       } else {
-        kp[(long)j_new * HSZ + i] = knp[i];
-        vp[(long)j_new * HSZ + i] = vnp[i];
+        kp[row * HSZ + i] = knp[i];
+        vp[row * HSZ + i] = vnp[i];
       }
     }
-    if (Q8 && tid == 0) { kscp[j_new] = nsc[0]; vscp[j_new] = nsc[1]; }
+    if (Q8 && tid == 0) { kscp[row] = nsc[0]; vscp[row] = nsc[1]; }
   }
 }
 
@@ -341,20 +365,24 @@ cudaError_t launch_hsz(const DecodeArgs& a, int hsz, cudaStream_t stream) {
 
 }  // namespace
 
+// s_loc: slots per rank (paged: max_pages * ps, the logical capacity).
 extern "C" int flash_decode_launch(
     const void* q, void* k, void* v, const void* k_new, const void* v_new,
     const void* tl, void* out, void* lse, void* kscale, void* vscale,
-    int dtype, int quant, int B, int Kh, int G, int hsz, int s_loc,
-    int n_ranks, int rank0, int kvp, int rr, int block_s, int slot_offset,
-    int window, int contiguous, int prune, int append, float scale,
-    void* stream) {
+    const void* tables, int dtype, int quant, int B, int Kh, int G, int hsz,
+    int s_loc, int n_ranks, int rank0, int kvp, int rr, int block_s,
+    int slot_offset, int window, int contiguous, int prune, int append,
+    int max_pages, int ps, float scale, void* stream) {
   if (G < 1 || G > MAXG || block_s % TS != 0 || B * Kh == 0 || n_ranks < 1
-      || (quant && (kscale == nullptr || vscale == nullptr)))
+      || (quant && (kscale == nullptr || vscale == nullptr))
+      || (tables != nullptr && (max_pages < 1 || ps < 1 || s_loc != max_pages * ps
+                                || contiguous || slot_offset != 0)))
     return (int)cudaErrorInvalidValue;
   DecodeArgs a{q, k, v, static_cast<float*>(kscale), static_cast<float*>(vscale),
-               k_new, v_new, static_cast<const int*>(tl), out,
-               static_cast<float*>(lse), B, Kh, G, s_loc, n_ranks, rank0, kvp,
-               rr, block_s, slot_offset, window, contiguous, prune, append, scale};
+               k_new, v_new, static_cast<const int*>(tl),
+               static_cast<const int*>(tables), out, static_cast<float*>(lse),
+               B, Kh, G, s_loc, n_ranks, rank0, kvp, rr, block_s, slot_offset,
+               window, contiguous, prune, append, max_pages, ps, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (quant)

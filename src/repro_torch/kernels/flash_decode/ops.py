@@ -1,9 +1,9 @@
 """Wrapper of the flash_decode CUDA kernel (``csrc/flash_decode.cu``), the
-port of the reference's ``kernels/flash_decode/ops.py`` for the fixed
-layout: per-request lengths, window, ``slot_offset``, round-robin or
-contiguous layout, block pruning on/off, the fused KV append, and int8 K/V
-with per-slot f32 scales (``kscale``/``vscale``), where the fused append
-quantizes the new row in the kernel.
+port of the reference's ``kernels/flash_decode/ops.py``: per-request
+lengths, window, ``slot_offset``, round-robin or contiguous layout, block
+pruning on/off, the fused KV append, int8 K/V with per-slot f32 scales
+(``kscale``/``vscale``), where the fused append quantizes the new row in the
+kernel, and the paged mode (``block_tables``: K/V in shared pool pages).
 
 ``flash_decode_shards`` is the kernel's full interface: it attends over
 ``n_ranks`` consecutive KVP shards of one cache in ONE launch (the rank is a
@@ -12,7 +12,8 @@ grid dimension), which is how ``core/helix.py`` emulates KVP on one card.
 signature.
 
 Tensors on the CPU take the plain version (``ref.flash_decode_ref`` per
-shard plus the same append rule); CUDA tensors launch the kernel or raise.
+shard plus the same append rule; paged: the append through the table, then
+``gather_pages``); CUDA tensors launch the kernel or raise.
 Unlike the reference (immutable arrays, aliased outputs), the fused append
 writes the new K/V row (and, int8, its scales) into the cache tensors **in
 place**.
@@ -25,12 +26,14 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_decode.ref import (flash_decode_ref,
+                                                  gather_pages,
                                                   quantize_kv_token)
 from repro_torch.kernels.pruning import append_owner, append_slot
 from repro_torch.utils import round_up
 
 counter = build.Launches()         # every launch of the kernel
 counter_kv8 = build.Launches()     # the launches in int8 mode among them
+counter_paged = build.Launches()   # the launches in paged mode among them
 TILE_S = 32                 # slots per shared-memory tile inside the kernel
 MAX_G = 8                   # query heads per KV head the kernel holds
 HSZ = (32, 64, 128)         # head sizes the kernel is compiled for
@@ -40,7 +43,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 def _bind(lib):
     fn = lib.flash_decode_launch
-    fn.argtypes = [_P] * 10 + [_I] * 17 + [ctypes.c_float, _P]
+    fn.argtypes = [_P] * 11 + [_I] * 19 + [ctypes.c_float, _P]
     fn.restype = _I
     lib.kernel_error_string.argtypes = [_I]
     lib.kernel_error_string.restype = ctypes.c_char_p
@@ -58,7 +61,7 @@ def flash_decode_shards(q, k, v, total_len, *, kvp: int, n_ranks: int = 1,
                         scale: float | None = None, block_s: int = 512,
                         contiguous: bool = False, slot_offset: int = 0,
                         kscale=None, vscale=None, k_new=None, v_new=None,
-                        prune: bool = True):
+                        prune: bool = True, block_tables=None):
     """Decode attention over ``n_ranks`` KVP shards in one call.
 
     q [B, Qh, hsz]; k, v [B, Kh, n_ranks * s_loc, hsz]: shard z holds slots
@@ -68,8 +71,18 @@ def flash_decode_shards(q, k, v, total_len, *, kvp: int, n_ranks: int = 1,
     of position ``total_len - 1`` writes the row into its shard in place and
     attends over it.  ``kscale``/``vscale`` [B, Kh, n_ranks * s_loc] f32
     with int8 ``k``/``v``: the int8 mode (the fused append then quantizes
-    the row and writes its payload and scale).  Returns
-    ``out [R, B, Qh, hsz]`` (q.dtype) and ``lse [R, B, Qh]`` (f32).
+    the row and writes its payload and scale).
+
+    Paged mode (``block_tables`` [B, max_pages] int32): k, v are pool planes
+    ``[n_pool, Kh, n_ranks * ps, hsz]`` (scales ``[n_pool, Kh, n_ranks *
+    ps]``) and shard z holds rows ``[z*ps, (z+1)*ps)`` of every page:
+    request b's logical slot j of shard z lives in page
+    ``block_tables[b, j // ps]`` at row ``z*ps + j % ps``, and the logical
+    capacity per shard is ``s_loc = max_pages * ps``.  Table entries past a
+    request's pages must be 0 (the sink page).  Excludes the contiguous
+    layout and a non-zero ``slot_offset``.
+
+    Returns ``out [R, B, Qh, hsz]`` (q.dtype) and ``lse [R, B, Qh]`` (f32).
     """
     b, qh, hsz = q.shape
     kh = k.shape[1]
@@ -85,18 +98,29 @@ def flash_decode_shards(q, k, v, total_len, *, kvp: int, n_ranks: int = 1,
     if scale is None:
         scale = float(hsz) ** -0.5
     s_loc = k.shape[2] // n_ranks
+    if block_tables is not None:
+        if contiguous or slot_offset != 0:
+            raise ValueError("the paged mode excludes the contiguous layout "
+                             "and a non-zero slot_offset")
+        if block_tables.ndim != 2 or block_tables.shape[0] != b:
+            raise ValueError(f"block_tables must be [B={b}, max_pages] (got "
+                             f"{tuple(block_tables.shape)})")
+        s_loc *= block_tables.shape[1]
     block_s = kernel_block_s(block_s, s_loc)
-    if build.route(q, k, v, kscale, vscale, k_new, v_new) == "plain":
+    if build.route(q, k, v, kscale, vscale, k_new, v_new,
+                   block_tables) == "plain":
         return flash_decode_shards_plain(
             q, k, v, total_len, kvp=kvp, n_ranks=n_ranks, rank=rank,
             rr_block=rr_block, window=window, scale=scale, block_s=block_s,
             contiguous=contiguous, slot_offset=slot_offset, kscale=kscale,
-            vscale=vscale, k_new=k_new, v_new=v_new)
+            vscale=vscale, k_new=k_new, v_new=v_new,
+            block_tables=block_tables)
     return _launch(q, k, v, total_len, kvp=kvp, n_ranks=n_ranks, rank=rank,
                    rr_block=rr_block, window=window, scale=scale,
                    block_s=block_s, contiguous=contiguous,
                    slot_offset=slot_offset, kscale=kscale, vscale=vscale,
-                   k_new=k_new, v_new=v_new, prune=prune)
+                   k_new=k_new, v_new=v_new, prune=prune,
+                   block_tables=block_tables)
 
 
 def flash_decode(q, k, v, total_len, rank, *, kvp: int = 1,
@@ -104,16 +128,18 @@ def flash_decode(q, k, v, total_len, rank, *, kvp: int = 1,
                  scale: float | None = None, block_s: int = 512,
                  contiguous: bool = False, slot_offset: int = 0,
                  kscale=None, vscale=None, k_new=None, v_new=None,
-                 prune: bool = True):
+                 prune: bool = True, block_tables=None):
     """Decode attention over one KV shard (the reference's
-    ``flash_decode`` signature).  Returns ``(out [B, Qh, hsz], lse [B, Qh])``
-    and, with ``k_new``/``v_new``, also the caches ``(k, v)`` the row was
-    appended to in place (and, int8, the scales ``(kscale, vscale)``)."""
+    ``flash_decode`` signature; paged: ``k``/``v`` are the rank's pool
+    planes ``[n_pool, Kh, ps, hsz]``).  Returns ``(out [B, Qh, hsz], lse
+    [B, Qh])`` and, with ``k_new``/``v_new``, also the caches ``(k, v)`` the
+    row was appended to in place (and, int8, the scales ``(kscale,
+    vscale)``)."""
     out, lse = flash_decode_shards(
         q, k, v, total_len, kvp=kvp, n_ranks=1, rank=rank, rr_block=rr_block,
         window=window, scale=scale, block_s=block_s, contiguous=contiguous,
         slot_offset=slot_offset, kscale=kscale, vscale=vscale, k_new=k_new,
-        v_new=v_new, prune=prune)
+        v_new=v_new, prune=prune, block_tables=block_tables)
     if k_new is None:
         return out[0], lse[0]
     if kscale is None:
@@ -124,16 +150,30 @@ def flash_decode(q, k, v, total_len, rank, *, kvp: int = 1,
 def flash_decode_shards_plain(q, k, v, total_len, *, kvp, n_ranks, rank,
                               rr_block, window, scale, block_s, contiguous,
                               slot_offset, k_new, v_new, kscale=None,
-                              vscale=None):
+                              vscale=None, block_tables=None):
     """Plain PyTorch version of the kernel behind ``flash_decode_shards``
     (any device): the append rule of the kernel (int8: ``quantize_kv_token``
     payload and scale), then ``flash_decode_ref`` per shard.  ``block_s`` is
-    the kernel's S-block (it bounds the slot the append may clamp to)."""
+    the kernel's S-block (it bounds the slot the append may clamp to).
+    Paged: the append through the table, then ``gather_pages`` into the
+    dense per-request shards the fixed layout would hold."""
     quant = kscale is not None
     b = q.shape[0]
-    s_loc = k.shape[2] // n_ranks
     tl = torch.as_tensor(total_len, dtype=torch.int32,
                          device=q.device).reshape(-1).expand(b)
+    if block_tables is not None:
+        if k_new is not None:
+            _append_paged(k, v, kscale, vscale, k_new, v_new, tl,
+                          block_tables, kvp=kvp, n_ranks=n_ranks, rank=rank,
+                          rr_block=rr_block, block_s=block_s)
+        dense = [None if x is None else _dense_shards(x, block_tables, n_ranks)
+                 for x in (k, v, kscale, vscale)]
+        return flash_decode_shards_plain(
+            q, dense[0], dense[1], tl, kvp=kvp, n_ranks=n_ranks, rank=rank,
+            rr_block=rr_block, window=window, scale=scale, block_s=block_s,
+            contiguous=False, slot_offset=0, k_new=None, v_new=None,
+            kscale=dense[2], vscale=dense[3])
+    s_loc = k.shape[2] // n_ranks
     if k_new is not None:
         j_new = append_slot(tl.cpu(), kvp, rr_block,
                             round_up(s_loc, block_s)).to(q.device)
@@ -173,14 +213,60 @@ def flash_decode_shards_plain(q, k, v, total_len, *, kvp, n_ranks, rank,
     return torch.stack(outs), torch.stack(lses)
 
 
+def _dense_shards(pool, block_tables, n_ranks: int):
+    """Pool plane ``[n_pool, Kh, n_ranks * ps, ...]`` -> the dense caches
+    ``[B, Kh, n_ranks * max_pages * ps, ...]`` of the fixed layout (shard z
+    at slots ``[z*s_loc, (z+1)*s_loc)``), gathered through the tables."""
+    g = gather_pages(pool, block_tables)      # [B, Kh, MP * n_ranks * ps, ..]
+    b, kh, mp = g.shape[0], g.shape[1], block_tables.shape[1]
+    ps = pool.shape[2] // n_ranks
+    g = g.reshape(b, kh, mp, n_ranks, ps, *pool.shape[3:])
+    return g.transpose(2, 3).reshape(b, kh, n_ranks * mp * ps,
+                                     *pool.shape[3:])
+
+
+def _append_paged(k, v, kscale, vscale, k_new, v_new, tl, block_tables, *,
+                  kvp, n_ranks, rank, rr_block, block_s):
+    """The kernel's fused append in paged mode, in place: the logical slot
+    and owner rank of the fixed layout (``append_slot``, ``append_owner``),
+    translated through the table to (page, row) as ``core.helix.
+    paged_slot_of_position`` does for every position >= 0."""
+    ps = k.shape[2] // n_ranks
+    s_loc = block_tables.shape[1] * ps
+    dev = k.device
+    j_new = append_slot(tl.cpu(), kvp, rr_block,
+                        round_up(s_loc, block_s)).to(dev)
+    owner = append_owner(tl.cpu(), kvp, rr_block).to(dev)
+    rows = torch.nonzero((owner >= rank) & (owner < rank + n_ranks)
+                         & (j_new < s_loc)).flatten()
+    j = j_new[rows].long()
+    page = block_tables[rows, j // ps].long()
+    row = (owner[rows].long() - rank) * ps + j % ps
+    if kscale is not None:
+        kq, ksn = quantize_kv_token(k_new[rows])
+        vq, vsn = quantize_kv_token(v_new[rows])
+        k[page, :, row] = kq
+        v[page, :, row] = vq
+        kscale[page, :, row] = ksn
+        vscale[page, :, row] = vsn
+    else:
+        k[page, :, row] = k_new[rows].to(k.dtype)
+        v[page, :, row] = v_new[rows].to(v.dtype)
+
+
 def _launch(q, k, v, total_len, *, kvp, n_ranks, rank, rr_block, window, scale,
             block_s, contiguous, slot_offset, kscale, vscale, k_new, v_new,
-            prune):
+            prune, block_tables):
     b, qh, hsz = q.shape
     kh = k.shape[1]
     g = qh // kh
     code = build.dtype_code(q.dtype)
     quant = kscale is not None
+    paged = block_tables is not None
+    if paged and not (block_tables.dtype == torch.int32
+                      and block_tables.is_contiguous()):
+        raise ValueError("block_tables must be a contiguous int32 tensor "
+                         f"(got {block_tables.dtype})")
     if quant:
         if not (k.dtype == v.dtype == torch.int8):
             raise ValueError(f"the int8 mode takes int8 k/v (got {k.dtype} "
@@ -207,14 +293,19 @@ def _launch(q, k, v, total_len, *, kvp, n_ranks, rank, rr_block, window, scale,
     tl = tl.reshape(-1).expand(b).contiguous()
     out = torch.empty((n_ranks, b, qh, hsz), dtype=q.dtype, device=q.device)
     lse = torch.empty((n_ranks, b, qh), dtype=torch.float32, device=q.device)
+    ps = k.shape[2] // n_ranks
+    max_pages = block_tables.shape[1] if paged else 0
+    s_loc = max_pages * ps if paged else ps
     lib = build.load("flash_decode")
     rc = _bind(lib)(
         build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(k_new),
         build.ptr(v_new), build.ptr(tl), build.ptr(out), build.ptr(lse),
-        build.ptr(kscale), build.ptr(vscale), code, int(quant), b, kh, g,
-        hsz, k.shape[2] // n_ranks, n_ranks, rank, kvp, rr_block, block_s, slot_offset, window, int(contiguous), int(prune),
-        int(k_new is not None), float(scale), build.stream())
+        build.ptr(kscale), build.ptr(vscale), build.ptr(block_tables), code,
+        int(quant), b, kh, g, hsz, s_loc, n_ranks, rank, kvp, rr_block,
+        block_s, slot_offset, window, int(contiguous), int(prune),
+        int(k_new is not None), max_pages, ps, float(scale), build.stream())
     build.check(rc, lib, "flash_decode")
     counter.n += 1
     counter_kv8.n += int(quant)
+    counter_paged.n += int(paged)
     return out, lse

@@ -30,6 +30,18 @@ def quantize_kv_token(x):
     return q.to(torch.int8), scale
 
 
+def gather_pages(pool, tables):
+    """Dense per-request view of a pool plane: ``pool [n_pool, Kh, page,
+    ...]`` and ``tables [B, max_pages]`` -> ``[B, Kh, max_pages * page,
+    ...]``, logical page i of request b taken from physical page
+    ``tables[b, i]`` (one gather; the kernel reads through the table
+    instead)."""
+    b, mp = tables.shape
+    g = pool[tables.long()]                       # [B, MP, Kh, page, ...]
+    g = g.transpose(1, 2)                         # [B, Kh, MP, page, ...]
+    return g.reshape(b, pool.shape[1], mp * pool.shape[2], *pool.shape[3:])
+
+
 def shard_positions(s_cap: int, rank, kvp: int, rr_block: int, slot_offset=0,
                     device=None):
     """Global positions of the local KV slots on ``rank``.  [S_cap] int32."""

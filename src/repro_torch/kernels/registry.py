@@ -8,7 +8,8 @@ Three families are ported, each with backends ``ref`` (plain PyTorch) and
   family         used by                         kernel source
   ============== =============================== ==========================
   flash_decode   Helix decode attention          csrc/flash_decode.cu
-                 (core/helix.helix_attention)
+                 (core/helix.helix_attention;    (fixed and paged layouts,
+                 fp and int8 caches)             fp and int8 modes)
   flash_prefill  prefill attention               csrc/flash_prefill.cu
                  (models/attention.prefill_attention)
   w8a16_matmul   int8 lm_head of the decode step csrc/w8a16_matmul.cu
@@ -32,10 +33,14 @@ FAMILIES = {
     "w8a16_matmul": "int8 lm_head (models/decode_model.head_matmul)",
 }
 
-# reference kernels (src/repro/kernels/...) that have no port yet
+# reference kernels (src/repro/kernels/...) and modes that have no port yet
 NOT_PORTED = {
-    "ssd_prefill": "ssd_prefill/kernel.py ssd_prefill_kernel (Mamba2 SSD scan)",
     "prefix_pass": "flash_decode/kernel.py prefix_pass_kernel (grouped decode)",
+    "flash_decode grouped suffix": "flash_decode/kernel.py flash_decode_kernel"
+                                   " sfx_start/init_state mode",
+    "ssd_prefill": "ssd_prefill/kernel.py ssd_prefill_kernel (Mamba2 SSD scan)",
+    "flash_prefill paged": "flash_prefill/kernel.py flash_prefill_kernel "
+                           "block_tables mode",
 }
 
 
@@ -44,12 +49,14 @@ def _counters():
     from repro_torch.kernels.flash_prefill.ops import counter as pre
     from repro_torch.kernels.w8a16_matmul.ops import counter as mm
     return {"flash_decode": dec.counter, "flash_decode_kv8": dec.counter_kv8,
+            "flash_decode_paged": dec.counter_paged,
             "flash_prefill": pre, "w8a16_matmul": mm}
 
 
 def launch_counts() -> dict[str, int]:
     """Launches of each ported kernel so far in this process
-    (``flash_decode_kv8``: the int8-mode launches among ``flash_decode``'s)."""
+    (``flash_decode_kv8`` / ``flash_decode_paged``: the int8-mode / paged
+    launches among ``flash_decode``'s)."""
     return {name: c.n for name, c in _counters().items()}
 
 

@@ -7,10 +7,11 @@ engine on one card (counterpart of the reference's ``launch/serve.py``).
 
 Runs on ``cuda`` unless ``--device cpu`` is given (the kernels' plain
 PyTorch versions then run).  Only the flags of the ported main path exist:
-one-shot prefill, fixed KV layout, greedy decoding, FCFS/SJF admission,
-batch arrivals, and the int8 lm_head (``--lm-head-w8 [--matmul-backend]``).
-The int8 KV cache is reached through ``serve_demo(hx=HelixConfig(
-kv_cache_bits=8, ...))``, as in the reference, which has no flag for it.
+one-shot prefill, greedy decoding, FCFS/SJF admission, batch arrivals, the
+fixed or the paged KV layout (``--paged-kv [--pool-blocks N]``), and the
+int8 lm_head (``--lm-head-w8 [--matmul-backend]``).  The int8 KV cache is
+reached through ``serve_demo(hx=HelixConfig(kv_cache_bits=8, ...))``, as in
+the reference, which has no flag for it.
 """
 from __future__ import annotations
 
@@ -75,6 +76,7 @@ def serve_demo(arch: str = "granite-3-2b", *, reduced: bool = False,
                prefill_backend: str | None = None,
                matmul_backend: str | None = None,
                lm_head_w8: bool | None = None,
+               paged_kv: bool | None = None, pool_blocks: int = 0,
                sched_policy: str = "fcfs", dtype=torch.float32,
                device="cuda", model=None, seed: int = 0, log=print):
     """Serve ``n_requests`` synthetic prompts through the engine.  Returns
@@ -84,9 +86,12 @@ def serve_demo(arch: str = "granite-3-2b", *, reduced: bool = False,
     ``model`` (a ``Transformer`` on ``device``) overrides the seeded random
     weights, e.g. weights carried over with ``convert.params_from_jax``.
     ``hx`` defaults to ``HelixConfig()`` (``cuda`` kernels, fused append,
-    block pruning, bf16/f32 KV cache); ``kvp``, the ``*_backend`` arguments
-    and ``lm_head_w8`` override its fields (``None`` keeps them).  Raises on
-    a host without CUDA unless ``device="cpu"``.
+    block pruning, bf16/f32 KV cache); ``kvp``, the ``*_backend`` arguments,
+    ``lm_head_w8`` and ``paged_kv`` override its fields (``None`` keeps
+    them).  ``paged_kv`` serves from a shared pool of ``pool_blocks`` pages
+    of ``kvp * rr_block`` positions (0: the fixed layout's memory plus the
+    sink page); the summary carries the engine's ``pool_stats()``.  Raises
+    on a host without CUDA unless ``device="cpu"``.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -99,7 +104,8 @@ def serve_demo(arch: str = "granite-3-2b", *, reduced: bool = False,
                                    ("attn_backend", attn_backend),
                                    ("prefill_backend", prefill_backend),
                                    ("matmul_backend", matmul_backend),
-                                   ("lm_head_w8", lm_head_w8))
+                                   ("lm_head_w8", lm_head_w8),
+                                   ("paged_kv", paged_kv))
                  if v is not None}
     hx = dataclasses.replace(hx or HelixConfig(), **overrides)
     if model is None:
@@ -111,7 +117,7 @@ def serve_demo(arch: str = "granite-3-2b", *, reduced: bool = False,
     engine = DecodeEngine(cfg, model, build_serve_step(cfg, hx),
                           make_prefill_step(cfg, hx), max_batch=max_batch,
                           max_seq=max_seq, hx=hx, dtype=dtype, device=device,
-                          sched_policy=sched_policy)
+                          sched_policy=sched_policy, pool_blocks=pool_blocks)
     for r in rows:
         engine.submit(Request(rid=r.rid, prompt=prompt_tokens(r, cfg.vocab),
                               max_new_tokens=r.max_tokens))
@@ -126,6 +132,7 @@ def serve_demo(arch: str = "granite-3-2b", *, reduced: bool = False,
     dt = time.perf_counter() - t0
     toks = sum(len(r.out_tokens) for r in finished)
     summary = engine.metrics.summary()
+    summary.update(engine.pool_stats())
     summary.update(decode_syncs=engine.decode_syncs, engine_steps=steps,
                    wall_s=dt, tok_s=toks / max(dt, 1e-9),
                    kv_cache_dtype=str(engine.state["kcache"].dtype))
@@ -154,6 +161,12 @@ def main(argv=None):
     ap.add_argument("--lm-head-w8", action="store_true",
                     help="int8-quantize the lm_head and run the logits "
                          "matmul through the w8a16_matmul family")
+    ap.add_argument("--paged-kv", action="store_true",
+                    help="serve from a shared pool of KV pages (block "
+                         "tables) instead of one fixed row per slot")
+    ap.add_argument("--pool-blocks", type=int, default=0,
+                    help="pages in the pool with --paged-kv, the sink page "
+                         "included (0: the fixed layout's memory)")
     ap.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
@@ -172,6 +185,7 @@ def main(argv=None):
         attn_backend=args.attn_backend, prefill_backend=args.prefill_backend,
         matmul_backend=args.matmul_backend,
         lm_head_w8=args.lm_head_w8 or None,
+        paged_kv=args.paged_kv or None, pool_blocks=args.pool_blocks,
         sched_policy=args.sched_policy, dtype=DTYPES[args.dtype],
         device=args.device, seed=args.seed)
     if args.metrics:

@@ -17,7 +17,10 @@ shares them.
 (``kscale``/``vscale`` in ``state``); the new row is quantized inside the
 decode kernel (fused) or by ``append_kv_quant``.  ``hx.lm_head_w8``: the
 logits go through the ``w8a16_matmul`` family over the int8 head that
-``prepare_decode_params`` makes once.
+``prepare_decode_params`` makes once.  ``hx.paged_kv``: the caches are pool
+planes and ``state["block_tables"]`` [B, max_pages] reaches every layer's
+attention and append; the step passes it through unchanged (the engine owns
+page allocation).
 """
 from __future__ import annotations
 
@@ -72,10 +75,10 @@ def _build_step_logits(cfg: ArchConfig, hx: HelixConfig):
     """``step_logits(model, state, tokens) -> logits [B, Vp]`` (caches in
     ``state`` appended in place)."""
     kv8 = hx.kv_cache_bits == 8
-    fused = fuse_append_applicable(hx, quant=kv8)
+    fused = fuse_append_applicable(hx, quant=kv8, paged=hx.paged_kv)
     o_dim = helix_out_dim(cfg.q_dim, hx.kvp)
 
-    def attn_phase(ap, h, kc, vc, ks, vs, tl_attn):
+    def attn_phase(ap, h, kc, vc, ks, vs, tl_attn, tables):
         b = h.shape[0]
         q = (h @ ap.wq).reshape(b, cfg.n_heads, cfg.hsz)
         kn = (h @ ap.wk).reshape(b, cfg.n_kv_heads, cfg.hsz)
@@ -85,16 +88,17 @@ def _build_step_logits(cfg: ArchConfig, hx: HelixConfig):
         kn = apply_rope(kn[:, None], pos, cfg.rope_theta)[:, 0]
         if fused:
             out = helix_attention(hx, q, kc, vc, tl_attn, kscale=ks,
-                                  vscale=vs, k_new=kn, v_new=vn)
+                                  vscale=vs, k_new=kn, v_new=vn,
+                                  block_tables=tables)
         else:
             if kv8:
                 append_kv_quant(kc, vc, ks, vs, kn, vn, tl_attn, kvp=hx.kvp,
-                                rr_block=hx.rr_block)
+                                rr_block=hx.rr_block, block_tables=tables)
             else:
                 append_kv(kc, vc, kn, vn, tl_attn, kvp=hx.kvp,
-                          rr_block=hx.rr_block)
+                          rr_block=hx.rr_block, block_tables=tables)
             out = helix_attention(hx, q, kc, vc, tl_attn, kscale=ks,
-                                  vscale=vs)
+                                  vscale=vs, block_tables=tables)
         wo = ap.wo
         if o_dim != wo.shape[0]:
             wo = torch.nn.functional.pad(wo, (0, 0, 0, o_dim - wo.shape[0]))
@@ -104,13 +108,14 @@ def _build_step_logits(cfg: ArchConfig, hx: HelixConfig):
     def step_logits(model, state, tokens):
         tl = state["total_len"]
         tl_attn = (tl + 1).reshape(-1).expand(tokens.shape[0])  # incl. new token
+        tables = state["block_tables"] if hx.paged_kv else None
         x = model.embed[tokens]
         for i, lp in enumerate(model.layers):
             h = rms_norm(x, lp.ln1)
             ks = state["kscale"][i] if kv8 else None
             vs = state["vscale"][i] if kv8 else None
             x = x + attn_phase(lp.attn, h, state["kcache"][i],
-                               state["vcache"][i], ks, vs, tl_attn)
+                               state["vcache"][i], ks, vs, tl_attn, tables)
             x = x + ffn_block(cfg, lp.ffn, rms_norm(x, lp.ln2))
         x = rms_norm(x, model.ln_f)
         return (head_matmul(hx, model, x)

@@ -6,13 +6,14 @@ imports no JAX, so it also runs where only PyTorch is installed:
 Elsewhere each test skips from its fixture.  Tolerance 2e-5 at f32: kernel
 and plain version compute the same softmax in f32 and differ only in
 summation order; the w8a16 product 1e-5 of its largest |value| for the same
-reason.  int8 payloads and scales, pruned == dense and fused == unfused are
-bit for bit.
+reason.  int8 payloads and scales, pruned == dense, fused == unfused and
+paged == fixed are bit for bit.
 """
 import pytest
 import torch
 
 from repro_torch.core.helix import append_kv_quant, quantize_kv_token
+from repro_torch.core.kvcache import quantize_decode_state, state_to_paged
 from repro_torch.kernels import registry
 from repro_torch.kernels.flash_decode.ops import (flash_decode_shards,
                                                   flash_decode_shards_plain,
@@ -89,8 +90,8 @@ def test_serve_on_card_matches_cpu_and_counts_launches(h100):
     assert ({r.rid: r.out_tokens for r in gpu}
             == {r.rid: r.out_tokens for r in cpu})
     assert counts == {"flash_decode": cfg.n_layers * summ["decode_syncs"],
-                      "flash_decode_kv8": 0, "flash_prefill": cfg.n_layers * 5,
-                      "w8a16_matmul": 0}
+                      "flash_decode_kv8": 0, "flash_decode_paged": 0,
+                      "flash_prefill": cfg.n_layers * 5, "w8a16_matmul": 0}
 
 
 @pytest.mark.gpu
@@ -140,3 +141,49 @@ def test_int8_decode_kernel_matches_plain_on_card(h100):
     bits = lambda t: t.view(torch.int32) if t.is_floating_point() else t
     for a, b2, c in zip(c1, c2, c3):       # payloads and scales
         assert torch.equal(bits(a), bits(c)) and torch.equal(bits(a), bits(b2))
+
+
+@pytest.mark.gpu
+def test_paged_decode_kernel_matches_plain_and_fixed_on_card(h100):
+    """Paged mode, fp and int8, kvp 2, fused append, a shuffled table with 0
+    tails: kernel vs plain within 2e-5, and paged == fixed bit for bit
+    (outputs, LSEs and the appended pages without the sink page 0)."""
+    g = torch.Generator(device=h100).manual_seed(3)
+    b, kvp, s_loc, page = 4, 2, 256, 2 * RR
+    tl = torch.tensor([1, 2, 37, kvp * s_loc], dtype=torch.int32, device=h100)
+    n_pages = [-(-int(x) // page) for x in tl.tolist()]
+    perm = torch.randperm(sum(n_pages)).to(torch.int32) + 1
+    tab = torch.zeros(b, kvp * s_loc // page, dtype=torch.int32)
+    for r, n in enumerate(n_pages):
+        tab[r, :n] = perm[sum(n_pages[:r]):sum(n_pages[:r + 1])]
+    q = torch.randn(b, 32, 64, generator=g, device=h100)
+    kn = torch.randn(b, 8, 64, generator=g, device=h100)
+    fixed = {k: torch.randn(1, b, 8, kvp * s_loc, 64, generator=g,
+                            device=h100) for k in ("kcache", "vcache")}
+    bits = lambda t: t.view(torch.int32) if t.is_floating_point() else t
+    for quant in (False, True):
+        st = quantize_decode_state(fixed) if quant else fixed
+        keys = [k for k in ("kcache", "vcache", "kscale", "vscale") if k in st]
+        paged = state_to_paged(st, tab, 1 + sum(n_pages), kvp, page)
+        c1, c2, cf = ([p[k][0].clone() for k in keys]
+                      for p in (paged, paged, st))
+        sc = lambda c: dict(kscale=c[2], vscale=c[3]) if quant else {}
+        kw = dict(kvp=kvp, n_ranks=kvp, rank=0, rr_block=RR, window=0,
+                  contiguous=False, slot_offset=0, k_new=kn, v_new=-kn)
+        o1, l1 = flash_decode_shards(q, c1[0], c1[1], tl, **sc(c1), **kw,
+                                     block_tables=paged["block_tables"])
+        o2, l2 = flash_decode_shards_plain(
+            q, c2[0], c2[1], tl, scale=64 ** -0.5,
+            block_s=kernel_block_s(512, s_loc), **sc(c2), **kw,
+            block_tables=paged["block_tables"])
+        of, lf = flash_decode_shards(q, cf[0], cf[1], tl, **sc(cf), **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(o1, o2, atol=ATOL, rtol=RTOL)
+        torch.testing.assert_close(l1, l2, atol=ATOL, rtol=RTOL)
+        assert torch.equal(bits(o1), bits(of)) and torch.equal(bits(l1),
+                                                                bits(lf))
+        back = state_to_paged({k: c[None] for k, c in zip(keys, cf)}, tab,
+                              1 + sum(n_pages), kvp, page)
+        for a, p2, f in zip(c1, c2, (back[k][0] for k in keys)):
+            assert torch.equal(bits(a[1:]), bits(p2[1:]))
+            assert torch.equal(bits(a[1:]), bits(f[1:]))
