@@ -6,26 +6,36 @@
 Needs one sm_90 card (H100).  Phases, each fatal on failure:
 
 1. device: CUDA, capability 9.0, card name and power limit, TF32 off;
-2. build: the three CUDA kernels from ``src/repro_torch/csrc`` (ptxas
+2. build: the four CUDA kernels from ``src/repro_torch/csrc`` (ptxas
    lines), one ``nvcc`` per source, all started together;
 3. kernels vs their plain PyTorch versions on the card at granite-3-2b
    widths (Qh 32, Kh 8, hsz 64) in f32 and bf16, plus pruned == dense and
    fused == unfused append, bit for bit, in the fp and the int8 mode of
    flash_decode, and the same lattice in its paged mode (a shuffled block
    table with 0 tails), where paged == fixed bit for bit as well;
-   w8a16_matmul at the lm_head shape and a ragged one;
+   w8a16_matmul at the lm_head shape and a ragged one; grouped decode
+   (prefix_pass, then flash_decode's grouped-suffix mode) against the
+   ungrouped paged kernel bit for bit and the plain grouped decode within
+   the tolerance, f32, bf16 and int8, kvp 1 and 4, windows 0 and 512, a
+   split inside a tile and one group holding the whole batch;
 4. serve: granite-3-2b at full width (40 layers, bf16, seeded random
    weights) through ``serve_demo`` for the same 8 requests: the fp path and
    the int8 path (``HelixConfig(kv_cache_bits=8, lm_head_w8=True)``) in
    turns fp, int8, int8, fp; then both from the paged pool
    (``paged_kv=True``), whose streams must equal the fixed runs'; then a
    paged run with half the default pool, where an admission waits for
-   pages.  The launch counts of each run, set to 0 just before it, must
-   equal layers x decode steps (flash_decode; int8 mode in the int8 runs,
-   paged mode in the paged runs), layers x prefills (flash_prefill) and
-   decode steps (w8a16_matmul, int8 runs).  Then 4-layer f32 runs of the
-   same widths where the kernel path, the plain path and kvp = 4 agree, fp
-   and int8;
+   pages.  Then 8 requests of 768-1024 tokens whose first 512 are shared,
+   budgets 16-48, chunks of 256 from the paged pool: (a) unshared, (b)
+   with prefix sharing, (c) with grouped decode as well, whose streams must
+   be equal; and (d) the fp run's requests chunked on the fixed layout,
+   whose streams must equal the one-shot fp run's.  The launch counts of
+   each run, set to 0 just before it, must equal layers x decode steps
+   (flash_decode; int8 mode in the int8 runs, paged mode in the paged
+   runs, grouped-suffix mode and prefix_pass in run c), layers x prefill
+   calls (flash_prefill; one-shot prefills or chunks) and decode steps
+   (w8a16_matmul, int8 runs).  Then 4-layer f32 runs of the same widths
+   where the kernel path, the plain path, kvp = 4 and a chunked prefill
+   agree, fp and int8;
 5. times (CUDA events) of each kernel, its plain version and a one-call
    PyTorch yardstick where there is one, beside the card's bound.
 
@@ -59,16 +69,21 @@ from repro_torch.core.kvcache import (cache_capacity,  # noqa: E402
 from repro_torch.core.sharding import HelixConfig  # noqa: E402
 from repro_torch.kernels import build, registry  # noqa: E402
 from repro_torch.kernels.flash_decode.ops import (  # noqa: E402
-    flash_decode_shards, flash_decode_shards_plain, kernel_block_s)
+    flash_decode_shards, flash_decode_shards_plain, kernel_block_s,
+    prefix_pass, prefix_pass_plain)
 from repro_torch.kernels.flash_prefill.ops import flash_prefill  # noqa: E402
 from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref  # noqa: E402
 from repro_torch.kernels.w8a16_matmul import (quantize_w8,  # noqa: E402
                                               w8a16_matmul, w8a16_matmul_ref)
-from repro_torch.launch.serve import generate_rows, serve_demo  # noqa: E402
+from repro_torch.launch.serve import (generate_rows,  # noqa: E402
+                                     prompt_tokens, serve_demo)
 from repro_torch.models.decode_model import prepare_decode_params  # noqa: E402
-from repro_torch.models.model_zoo import (build_serve_step,  # noqa: E402
-                                          make_prefill_step)
-from repro_torch.models.transformer import init_params  # noqa: E402
+from repro_torch.models.model_zoo import (  # noqa: E402
+    build_serve_step, finalize_chunked_prefill, init_prefill_buffers,
+    make_chunk_prefill_step, make_prefill_step)
+from repro_torch.models.transformer import forward, init_params  # noqa: E402
+from repro_torch.serving.engine import DecodeEngine  # noqa: E402
+from repro_torch.serving.scheduler import DECODE, Request  # noqa: E402
 
 HBM_BPS = 3.35e12          # H100 SXM HBM3 bytes/s (data sheet)
 PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense FLOP/s
@@ -83,6 +98,10 @@ MM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 # 4-layer f32 logits: attention differences of ~1e-6 pass through 4 layers
 # of width-2048/8192 matmuls and the 49k-row tied head
 LOGIT_TOL = 1e-3
+# full-width bf16 logits of a chunked vs a one-shot prefill: cuBLAS may take
+# another kernel for a chunk's M, so cache rows differ in their last bits and
+# reach the logits through 40 layers; one bf16 ulp is 0.03-0.06 at |x| 4-8
+BF16_LOGIT_TOL = 0.25
 QH, KH, HSZ, RR = 32, 8, 64, 16
 D_MODEL, VP = 2048, 49664           # granite-3-2b lm_head [d_model, padded vocab]
 KV8_W8 = HelixConfig(kv_cache_bits=8, lm_head_w8=True)
@@ -362,6 +381,95 @@ def check_decode_paged(dev, errs, errs_kv8):
                   "bit for bit")
 
 
+def grouped_case(gen, gt, dev, *, mode, kvp, whole):
+    """Paged operands of a grouped decode at granite widths, B = 8: rows 0-3
+    share 33 pages and rows 4-6 share 20, row 7 decodes alone (``whole``:
+    all 8 share 17); every row has 1-299 positions of its own after the
+    shared ones (the appended row lands there).  33 and 17 pages of 16
+    rows per rank put the split inside a tile."""
+    dt = torch.float32 if mode == "f32" else torch.bfloat16
+    page = page_positions(kvp, RR)
+    gid = [0] * 8 if whole else [0, 0, 0, 0, 4, 4, 4, 7]
+    npg = {0: 17} if whole else {0: 33, 4: 20, 7: 0}
+    tl = [npg[gid[i]] * page + int(x) for i, x in
+          enumerate(torch.randint(1, 300, (8,), generator=gt))]
+    need = [-(-t // page) for t in tl]
+    mp = max(need)
+    perm = (torch.randperm(sum(need), generator=gt) + 1).tolist()
+    common = {gr: [perm.pop() for _ in range(n)] for gr, n in npg.items()}
+    tab = torch.zeros(8, mp, dtype=torch.int32)
+    for i in range(8):
+        row = common[gid[i]] + [perm.pop() for _ in range(need[i]
+                                                         - npg[gid[i]])]
+        tab[i, :need[i]] = torch.tensor(row, dtype=torch.int32)
+    n_pool = 1 + sum(need)
+    rnd = lambda *sh: torch.randn(*sh, generator=gen, device=dev).to(dt)
+    cache = {"kcache": rnd(n_pool, KH, page, HSZ),
+             "vcache": rnd(n_pool, KH, page, HSZ)}
+    if mode == "int8":
+        cache = quantize_decode_state(cache)
+    gnp = [npg[gid[i]] if gid.count(gid[i]) > 1 else 0 for i in range(8)]
+    as_dev = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)
+    return dict(q=rnd(8, QH, HSZ), kn=rnd(8, KH, HSZ), vn=rnd(8, KH, HSZ),
+                tl=as_dev(tl), tab=tab.to(dev), cache=cache,
+                groups=(as_dev(gid), as_dev(gnp)), mp=mp)
+
+
+def check_grouped(dev, errs):
+    """Grouped decode: prefix_pass then flash_decode's grouped-suffix mode,
+    with the fused append, against the ungrouped paged kernel (outputs,
+    LSEs and appended pages bit for bit) and the plain grouped decode
+    (within the tolerance): f32, bf16, int8; kvp 1 and 4; windows 0 and
+    512; two groups and a loner, then one group of the whole batch."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    gt = torch.Generator().manual_seed(12)
+    for mode in ("f32", "bf16", "int8"):
+        dt = torch.float32 if mode == "f32" else torch.bfloat16
+        for kvp in (1, 4):
+            for whole in (False, True):
+                c = grouped_case(gen, gt, dev, mode=mode, kvp=kvp,
+                                 whole=whole)
+                keys = [k for k in ("kcache", "vcache", "kscale", "vscale")
+                        if k in c["cache"]]
+                for window in (0, 512):
+                    kw = dict(kvp=kvp, n_ranks=kvp, rank=0, rr_block=RR,
+                              window=window, block_tables=c["tab"],
+                              k_new=c["kn"], v_new=c["vn"])
+
+                    def run(fn, groups, **extra):
+                        p = [c["cache"][k].clone() for k in keys]
+                        sc = (dict(kscale=p[2], vscale=p[3]) if len(p) == 4
+                              else {})
+                        o, l = fn(c["q"], p[0], p[1], c["tl"], groups=groups,
+                                  **sc, **kw, **extra)
+                        return o, l, p
+
+                    og, lg, pg = run(flash_decode_shards, c["groups"])
+                    of, lf, pf = run(flash_decode_shards, None)
+                    op, lp, pp = run(
+                        flash_decode_shards_plain, c["groups"],
+                        scale=HSZ ** -0.5, contiguous=False, slot_offset=0,
+                        block_s=kernel_block_s(512, c["mp"] * RR))
+                    torch.cuda.synchronize()
+                    eo, el = maxerr(og, op), maxerr(lg, lp)
+                    errs.append(eo)
+                    tag = (f"grouped decode {mode} kvp={kvp} window={window}"
+                           f" {'whole batch' if whole else '2 groups + 1'}")
+                    print(f"  {tag}: max err out {eo:.3g} lse {el:.3g} "
+                          f"(tol {TOL[dt]['out']:g}/{TOL[dt]['lse']:g})")
+                    need(eo <= TOL[dt]["out"] and el <= TOL[dt]["lse"],
+                         f"{tag}: kernel disagrees with plain")
+                    need(torch.equal(bits(og), bits(of))
+                         and torch.equal(bits(lg), bits(lf)),
+                         f"{tag}: grouped != ungrouped")
+                    need(all(torch.equal(bits(a[1:]), bits(b[1:]))
+                             and torch.equal(bits(a[1:]), bits(d[1:]))
+                             for a, b, d in zip(pg, pf, pp)),
+                         f"{tag}: appended pages differ")
+        print(f"  grouped decode {mode}: grouped == ungrouped (outputs, LSEs,"
+              " appended pages) bit for bit in every case")
+
+
 def check_w8a16(dev, errs):
     g = torch.Generator(device=dev).manual_seed(6)
     for m, k, n in ((4, D_MODEL, VP), (3, 200, 700)):
@@ -453,6 +561,7 @@ def serve_full(dev):
         want = {"flash_decode": cfg.n_layers * steps,
                 "flash_decode_kv8": cfg.n_layers * steps if int8 else 0,
                 "flash_decode_paged": cfg.n_layers * steps if extra else 0,
+                "flash_decode_grouped": 0, "prefix_pass": 0,
                 "flash_prefill": cfg.n_layers * len(fin),
                 "w8a16_matmul": steps if int8 else 0}
         ttl = summ["ttl_s"]
@@ -518,15 +627,199 @@ def serve_full(dev):
     print(f"  head quantization (quantize_w8 of [{D_MODEL}, {VP}]) alone: "
           f"peak {(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB"
           " above what was allocated before it")
+    runs.update(serve_prefix(dev, cfg, model, runs["fp"][0]["streams"]))
     del model
     torch.cuda.empty_cache()
     return runs
 
 
+def serve_prefix(dev, cfg, model, fp_streams):
+    """Chunked prefill, prefix sharing and grouped decode at full width: 8
+    requests of 768-1024 tokens, the first 512 shared, budgets 16-48
+    (retirements stagger, so later admissions map live shared pages),
+    chunks of 256, max_batch 4, the default pool: (a) paged chunked, (b) +
+    prefix_share, (c) + grouped_decode, with equal streams; then (d) the
+    fp run's requests chunked on the fixed layout against the one-shot
+    fp run (``chunked_vs_oneshot``).  Counts set to 0 just before each
+    run."""
+    paged = dict(paged_kv=True, n_requests=8, prompt_len=(768, 1024),
+                 max_new=(16, 48), shared_prefix_len=512)
+    plan = (("a paged chunked", paged),
+            ("b + prefix_share", dict(paged, prefix_share=True)),
+            ("c + grouped_decode", dict(paged, prefix_share=True,
+                                        grouped_decode=True)))
+    out = {}
+    for name, extra in plan:
+        print(f"  -- {name}: {extra}")
+        registry.reset_launch_counts()
+        fin, summ = serve_demo("granite-3-2b", max_batch=4, kvp=1,
+                               chunk_tokens=256, dtype=torch.bfloat16,
+                               device=dev, model=model, seed=0, **extra)
+        counts = registry.launch_counts()
+        steps = summ["decode_syncs"]
+        need(len(fin) == 8 and all(r.finish_reason == "max_tokens"
+                                   for r in fin),
+             f"serve {name}: {[r.finish_reason for r in fin]}")
+        grouped = "grouped_decode" in extra
+        want = {"flash_decode": cfg.n_layers * steps, "flash_decode_kv8": 0,
+                "flash_decode_paged": cfg.n_layers * steps,
+                "flash_decode_grouped": cfg.n_layers * steps if grouped
+                else 0,
+                "prefix_pass": cfg.n_layers * steps if grouped else 0,
+                "flash_prefill": cfg.n_layers * summ["prefill_calls"],
+                "w8a16_matmul": 0}
+        live = summ["grouped_steps"] * cfg.n_layers
+        print(f"  {len(fin)} requests, prompts "
+              f"{sorted(len(r.prompt) for r in fin)}, {summ['n_tokens']} "
+              f"tokens, TTFT p50 {summ['ttft_s']['p50'] * 1e3:.1f} ms, TTL "
+              f"p50 {summ['ttl_s']['p50'] * 1e3:.2f} ms, {steps} decode "
+              f"steps, {summ['prefill_calls']} prefill chunks; "
+              f"prefix_hit_rate {summ['prefix_hit_rate']:.4f}, "
+              f"pages_shared_peak {summ['pages_shared_peak']}, "
+              f"prefix_pass launches with gnp > 0: {live}")
+        print(f"  launches {counts} (expected {want})")
+        need(counts == want and steps > 0,
+             f"serve {name}: launch counts {counts} != expected {want}")
+        streams = {r.rid: r.out_tokens for r in fin}
+        if name != "a paged chunked":
+            base = out["a paged chunked"]["streams"]
+            same = sum(streams[r] == base[r] for r in streams)
+            print(f"  streams equal the unshared run's: {same} of 8")
+            need(same == 8, f"serve {name}: streams differ from unshared")
+            need(summ["pages_shared_peak"] > 0
+                 and summ["prefix_hit_rate"] > 0,
+                 f"serve {name}: nothing was shared")
+            need(not grouped or live > 0,
+                 f"serve {name}: no prefix_pass launch had a group")
+        out[name] = {"counts": counts, "summ": summ, "streams": streams}
+        if grouped:
+            profile_decode(dev, cfg, model, HelixConfig(paged_kv=True,
+                                                        grouped_decode=True))
+    out.update(chunked_vs_oneshot(dev, cfg, model, fp_streams))
+    return out
+
+
+def recorded_run(dev, cfg, model, prompts, chunk):
+    """The fp path's engine over ``prompts`` (32 tokens each, max_batch 4,
+    the fixed layout), one-shot (``chunk`` 0) or chunked, with a decode
+    step that keeps each decoding request's logits row.  Returns (streams,
+    logits by rid, prefill calls, decode steps)."""
+    hx = HelixConfig()
+    logits: dict[int, list] = {}
+    inner = build_serve_step(cfg, hx, return_logits=True)
+    holder = {}
+
+    def step(model_, state, tokens):
+        (nxt, lg), state = inner(model_, state, tokens)
+        for i, r in enumerate(holder["engine"].slots):
+            if r is not None and r.state == DECODE:
+                logits.setdefault(r.rid, []).append(lg[i, :cfg.vocab])
+        return nxt, state
+
+    eng = DecodeEngine(
+        cfg, model, step, make_prefill_step(cfg, hx), max_batch=4,
+        max_seq=max(len(p) for p in prompts) + 33, hx=hx,
+        dtype=torch.bfloat16, device=dev, chunk_tokens=chunk,
+        chunk_prefill_step=make_chunk_prefill_step(cfg, hx) if chunk
+        else None)
+    holder["engine"] = eng
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=32)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    while eng.pending():
+        eng.step()
+    return ({r.rid: r.out_tokens for r in reqs}, logits, eng.prefill_calls,
+            eng.decode_syncs)
+
+
+def chunked_vs_oneshot(dev, cfg, model, fp_streams):
+    """(d): the fp run's 8 requests chunked (256) on the fixed layout
+    against the same requests prefilled one-shot, both with their decode
+    logits recorded.  The one-shot streams must be the fp run's.  Greedy
+    streams must be equal, and the logits of every decode step up to a
+    request's first differing token within BF16_LOGIT_TOL, so a stream
+    may part only at a near-tie (the two tokens' logits within twice the
+    tolerance).  Then which level of chunked == one-shot holds: the decode
+    caches of one 1000-token prompt both ways, and bf16 products of the
+    model's projection shapes over the first M of 1024 rows against the
+    same rows of the 1024-row product."""
+    rows = generate_rows(8, prompt_len=(128, 1024), max_tokens=32, seed=0)
+    prompts = [prompt_tokens(r, cfg.vocab) for r in rows]
+    one, lone, _, _ = recorded_run(dev, cfg, model, prompts, 0)
+    need(one == fp_streams, "(d) one-shot recorded run differs from the fp "
+                            "run")
+    print("  -- d fixed chunked: the fp run's requests, chunks of 256")
+    registry.reset_launch_counts()
+    ch, lch, calls, steps = recorded_run(dev, cfg, model, prompts, 256)
+    counts = registry.launch_counts()
+    want = {"flash_decode": cfg.n_layers * steps, "flash_decode_kv8": 0,
+            "flash_decode_paged": 0, "flash_decode_grouped": 0,
+            "prefix_pass": 0, "flash_prefill": cfg.n_layers * calls,
+            "w8a16_matmul": 0}
+    print(f"  {steps} decode steps, {calls} prefill chunks; launches "
+          f"{counts} (expected {want})")
+    need(counts == want, f"(d) launch counts {counts} != expected {want}")
+    same, flips, worst, exact = 0, [], 0.0, 0
+    for rid in range(8):
+        a, b = one[rid], ch[rid]
+        first = next((i for i in range(len(a)) if a[i] != b[i]), None)
+        same += first is None
+        n = len(a) - 1 if first is None else first
+        need(first is None or first >= 1,
+             f"(d) rid {rid}: the first tokens differ")
+        errs = [maxerr(lone[rid][j], lch[rid][j]) for j in range(n)]
+        exact += all(torch.equal(lone[rid][j], lch[rid][j])
+                     for j in range(n))
+        worst = max([worst] + errs)
+        if first is not None:
+            lg = lone[rid][first - 1].float()
+            flips.append((rid, first,
+                          float(lg[a[first]] - lg[b[first]])))
+    print(f"  chunked streams equal the one-shot streams: {same} of 8; "
+          f"decode logits bit-equal for {exact} of 8 requests; max logit "
+          f"err up to the first differing token {worst:.4g} (tol "
+          f"{BF16_LOGIT_TOL:g}); streams parting at a near-tie (rid, token,"
+          f" one-shot logit gap): {flips}")
+    need(worst <= BF16_LOGIT_TOL, "(d) logits beyond the tolerance")
+    # which level holds: caches of one 1000-token prompt, one-shot vs
+    # chunked; and the M of each chunk product against one product of all
+    hx = HelixConfig()
+    toks = torch.randint(0, cfg.vocab, (1, 1000), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(5))
+    _, st1 = make_prefill_step(cfg, hx)(model, {"tokens": toks})
+    bufs = init_prefill_buffers(cfg, 1, 1000, dtype=torch.bfloat16,
+                                device=dev)
+    cstep = make_chunk_prefill_step(cfg, hx)
+    for p in range(0, 1000, 256):
+        _, bufs = cstep(model, toks[:, p:p + 256], bufs,
+                        torch.tensor([p], dtype=torch.int32, device=dev))
+    st2 = finalize_chunked_prefill(cfg, hx, bufs, 1000)
+    bit = all(torch.equal(bits(st1[k]), bits(st2[k]))
+              for k in ("kcache", "vcache"))
+    print(f"  full width bf16, 1000 tokens, chunks of 256: decode caches "
+          f"{'bit-equal' if bit else 'not bit-equal'} to the one-shot "
+          f"prefill's (max err "
+          f"{max(maxerr(st1[k], st2[k]) for k in ('kcache', 'vcache')):.3g})")
+    g = torch.Generator(device=dev).manual_seed(6)
+    for k_, n_ in ((D_MODEL, D_MODEL), (D_MODEL, 512), (D_MODEL, 8192),
+                   (8192, D_MODEL)):
+        x = torch.randn(1024, k_, generator=g, device=dev).to(torch.bfloat16)
+        w = torch.randn(k_, n_, generator=g, device=dev).to(torch.bfloat16)
+        full = x @ w
+        eq = [m for m in (1, 4, 100, 142, 161, 180, 232, 255, 256, 512, 768)
+              if torch.equal(x[:m] @ w, full[:m])]
+        print(f"  bf16 [M, {k_}] @ [{k_}, {n_}]: rows bit-equal to the "
+              f"1024-row product at M = {eq}")
+    return {"d fixed chunked": {"counts": counts, "streams": ch}}
+
+
 def profile_decode(dev, cfg, model, hx):
     """Host wall time vs device kernel time of one decode step at the serve
     shape (4 rows of 700-1000 tokens, cap 1088), from torch.profiler; with
-    ``hx.paged_kv`` the same caches in a pool under a shuffled table."""
+    ``hx.paged_kv`` the same caches in a pool under a shuffled table; with
+    ``hx.grouped_decode`` the 4 rows also map the same first 32 pages (512
+    positions) and form one group."""
     from torch.profiler import ProfilerActivity, profile
     state = init_decode_state(cfg, 4, 1088, 1, RR, dtype=torch.bfloat16,
                               device=dev)
@@ -538,7 +831,13 @@ def profile_decode(dev, cfg, model, hx):
         full = torch.full((4,), 1088, dtype=torch.int32)
         tab, n_pool = shuffled_tables(torch.Generator().manual_seed(10), full,
                                       RR, 1088 // RR)
+        if hx.grouped_decode:
+            tab[:, :32] = tab[0, :32]
         state = state_to_paged(state, tab, n_pool, 1, RR)
+        if hx.grouped_decode:
+            state["group_id"] = torch.zeros(4, dtype=torch.int32, device=dev)
+            state["group_np"] = torch.full((4,), 32, dtype=torch.int32,
+                                           device=dev)
     state["total_len"] = torch.tensor([1000, 900, 800, 700],
                                       dtype=torch.int32, device=dev)
     step = build_serve_step(cfg, hx)
@@ -562,6 +861,7 @@ def profile_decode(dev, cfg, model, hx):
     ops = sum(e.count for e in rows if e.key.startswith("aten::")) / n
     per_call = {}
     for tag, key in (("flash_decode", "decode_kernel"),
+                     ("prefix_pass", "prefix_kernel"),
                      ("w8a16_matmul", "w8a16_kernel")):
         ev = [e for e in rows if key in e.key]
         n_ev = sum(e.count for e in ev)
@@ -569,7 +869,9 @@ def profile_decode(dev, cfg, model, hx):
             per_call[tag] = sum(dev_us(e) for e in ev) / n_ev / 1e3
     if device > 0:
         calls = ", ".join(f"{k} {v:.4f} ms/call" for k, v in per_call.items())
-        print(f"  decode step profile ({'paged, ' * hx.paged_kv}B=4, "
+        mode = ("grouped, " if hx.grouped_decode else "") + \
+            ("paged, " if hx.paged_kv else "")
+        print(f"  decode step profile ({mode}B=4, "
               f"lengths 700-1000): host wall "
               f"{wall:.2f} ms/step, device kernels {device:.2f} ms/step, "
               f"busy share {device / wall:.3f}, {ops:.0f} aten ops/step, "
@@ -594,10 +896,14 @@ def compare_paths(dev):
                      ("int8 plain kvp=1",
                       dataclasses.replace(KV8_W8, **plain)),
                      ("int8 kernel kvp=4",
-                      dataclasses.replace(KV8_W8, kvp=4))):
+                      dataclasses.replace(KV8_W8, kvp=4)),
+                     ("chunked (128) kernel kvp=1", HelixConfig(kvp=1))):
         prepare_decode_params(model, hx)
-        logits, state = make_prefill_step(cfg, hx, s_cap=512)(
-            model, {"tokens": toks})
+        if name.startswith("chunked"):
+            logits, state = chunked_prefill(cfg, hx, model, toks, 128, 512)
+        else:
+            logits, state = make_prefill_step(cfg, hx, s_cap=512)(
+                model, {"tokens": toks})
         if hx.kv_cache_bits == 8:
             state = quantize_decode_state(state)
         state["total_len"] = torch.full((1,), 300, dtype=torch.int32,
@@ -610,7 +916,8 @@ def compare_paths(dev):
             out.append(lg)
         runs[name] = torch.stack(out)[..., :cfg.vocab]   # real vocab rows
     torch.cuda.synchronize()
-    for base_name, names in (("kernel kvp=1", ("plain kvp=1", "kernel kvp=4")),
+    for base_name, names in (("kernel kvp=1", ("plain kvp=1", "kernel kvp=4",
+                                               "chunked (128) kernel kvp=1")),
                              ("int8 kernel kvp=1", ("int8 plain kvp=1",
                                                     "int8 kernel kvp=4"))):
         base = runs[base_name]
@@ -623,6 +930,22 @@ def compare_paths(dev):
             need(e <= LOGIT_TOL * max(1.0, scale), f"{name} disagrees")
             need(torch.equal(runs[name].argmax(-1), base.argmax(-1)),
                  f"{name}: greedy tokens differ")
+    print("  4-layer f32 chunked prefill + 4 decode logits bit-equal to the "
+          "one-shot run's: "
+          f"{torch.equal(bits(runs['chunked (128) kernel kvp=1']), bits(runs['kernel kvp=1']))}")
+
+
+def chunked_prefill(cfg, hx, model, toks, c, s_cap):
+    """Prefill ``toks`` [1, T] in chunks of ``c`` through ``forward``'s carry
+    buffers; returns the last position's logits and the decode state."""
+    t = toks.shape[1]
+    bufs = init_prefill_buffers(cfg, 1, t, dtype=model.embed.dtype,
+                                device=toks.device)
+    for p in range(0, t, c):
+        logits, _ = forward(cfg, model, toks[:, p:p + c], return_cache=True,
+                            prefill_backend=hx.prefill_backend,
+                            prefix_state=bufs, q_offset=p)
+    return logits[:, -1], finalize_chunked_prefill(cfg, hx, bufs, t, s_cap)
 
 
 # ------------------------------------------------------------- phase 5
@@ -641,7 +964,8 @@ def times(dev):
     dec = {
         "ms": time_ms(lambda: flash_decode_shards(q, k, v, tl, **kw)),
         "plain_ms": time_ms(lambda: flash_decode_shards_plain(
-            q, k, v, tl, scale=HSZ ** -0.5, block_s=512, **kw), iters=10),
+            q, k, v, tl, scale=HSZ ** -0.5, block_s=512, **kw), iters=3,
+            warmup=1),
     }
     mask = torch.ones(b, 1, 1, s, dtype=torch.bool, device=dev)
     dec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
@@ -660,7 +984,7 @@ def times(dev):
             for c, w in zip(copies, kw8)])),
         "plain_ms": time_ms(lambda: flash_decode_shards_plain(
             q, copies[0][0], copies[0][2], tl, scale=HSZ ** -0.5,
-            block_s=512, **kw8[0]), iters=10),
+            block_s=512, **kw8[0]), iters=3, warmup=1),
         "library_ms": None,
         "library": "no single PyTorch call attends over an int8 cache"}
     d8bytes = (2 * b * KH * s * HSZ + 2 * b * KH * s * 4
@@ -683,7 +1007,7 @@ def times(dev):
                                                   block_tables=tab, **kw)),
         "plain_ms": time_ms(lambda: flash_decode_shards_plain(
             q, pk, pv, tl, scale=HSZ ** -0.5, block_s=512, block_tables=tab,
-            **kw), iters=10),
+            **kw), iters=3, warmup=1),
         "library_ms": None,
         "library": "no single PyTorch call attends through a block table"}
     tbytes = tab.numel() * 4
@@ -697,7 +1021,7 @@ def times(dev):
         "plain_ms": time_ms(lambda: flash_decode_shards_plain(
             q, pcopies[0][0], pcopies[0][2], tl, scale=HSZ ** -0.5,
             block_s=512, kscale=pcopies[0][1], vscale=pcopies[0][3],
-            block_tables=tab, **kw), iters=10),
+            block_tables=tab, **kw), iters=3, warmup=1),
         "library_ms": None, "library": decp["library"]}
     decp8.update(_bound(d8bytes + tbytes, dops, PEAK[dt]))
     # the int8 lm_head of one decode step: M = 4 rows (max_batch), bf16
@@ -727,6 +1051,7 @@ def times(dev):
     out = {"flash_decode": dec, "flash_decode_kv8": dec8,
            "flash_decode_paged": decp, "flash_decode_paged_kv8": decp8,
            "flash_prefill": pre, "w8a16_matmul": mm}
+    out.update(times_grouped(dev))
     for name, shape in (("flash_decode", "B=8 S=4096 bf16, fused append"),
                         ("flash_decode_kv8", "B=8 S=4096 int8 K/V, bf16 q, "
                                              "fused quantized append"),
@@ -743,6 +1068,97 @@ def times(dev):
               f"{r['plain_ms']:.4f} ms, library {lib_ms} ({r['library']}), "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return out
+
+
+def times_grouped(dev):
+    """prefix_pass and the grouped-suffix mode at 2 groups of 4 members
+    sharing 4096 positions, 256 of their own each (the new token included),
+    kvp 1, fused append, bf16 and int8 K/V, with the ungrouped paged launch
+    on the same requests beside them.  Six copies of each pool rotate so
+    that every launch reads cold, as the 40 layers of a step find them."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    b, shared, own = 8, 4096, 256
+    sp, op = shared // RR, own // RR
+    tab = torch.zeros(b, sp + op, dtype=torch.int32)
+    for i in range(b):
+        tab[i, :sp] = torch.arange(sp) + 1 + (i // 4) * sp
+        tab[i, sp:] = torch.arange(op) + 1 + 2 * sp + i * op
+    tab = tab.to(dev)
+    n_pool = 1 + 2 * sp + b * op
+    as_dev = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)
+    groups = (as_dev([0] * 4 + [4] * 4), as_dev([sp] * b))
+    tl = torch.full((b,), shared + own, dtype=torch.int32, device=dev)
+    q = torch.randn(b, QH, HSZ, generator=g, device=dev).to(torch.bfloat16)
+    kn = torch.randn(b, KH, HSZ, generator=g, device=dev).to(torch.bfloat16)
+    es = 2
+    qbytes = b * QH * HSZ * es
+    state_bytes = b * QH * (HSZ + 2) * 4
+    res = {}
+    for mode in ("bf16", "int8"):
+        pools = []
+        for _ in range(6):
+            c = {k: torch.randn(n_pool, KH, RR, HSZ, generator=g,
+                                device=dev).to(torch.bfloat16)
+                 for k in ("kcache", "vcache")}
+            if mode == "int8":
+                c = quantize_decode_state(c)
+            pools.append(c)
+        kv_es = 1 if mode == "int8" else es
+        slot_bytes = KH * HSZ * 2 * kv_es + (KH * 2 * 4 if mode == "int8"
+                                              else 0)
+
+        def sc(c):
+            return ({"kscale": c["kscale"], "vscale": c["vscale"]}
+                    if mode == "int8" else {})
+
+        def pre(c, fn=prefix_pass, **kw):
+            return fn(q, c["kcache"], c["vcache"], tl, tab, *groups, kvp=1,
+                      n_ranks=1, rank=0, rr_block=RR, window=0, **sc(c), **kw)
+
+        st = pre(pools[0])
+        kw = dict(kvp=1, n_ranks=1, rank=0, rr_block=RR, window=0,
+                  contiguous=False, slot_offset=0, k_new=kn, v_new=kn,
+                  block_tables=tab)
+
+        def dec(c, fn=flash_decode_shards, grouped=True, **extra):
+            gk = dict(groups=groups, prefix_state=st) if grouped else {}
+            return fn(q, c["kcache"], c["vcache"], tl, **sc(c), **kw, **gk,
+                      **extra)
+
+        plain = dict(scale=HSZ ** -0.5, block_s=512)
+        pr = {"ms": time_ms(rotating([lambda c=c: pre(c) for c in pools])),
+              "plain_ms": time_ms(lambda: pre(pools[0], fn=prefix_pass_plain,
+                                              scale=HSZ ** -0.5),
+                                  iters=3, warmup=1),
+              "library_ms": None,
+              "library": "no single PyTorch call attends through a block "
+                         "table"}
+        pr.update(_bound(2 * shared * slot_bytes + qbytes + state_bytes,
+                         4 * HSZ * QH * shared * b, PEAK[torch.bfloat16]))
+        sx = {"ms": time_ms(rotating([lambda c=c: dec(c) for c in pools])),
+              "plain_ms": time_ms(lambda: dec(
+                  pools[0], fn=flash_decode_shards_plain, **plain),
+                  iters=3, warmup=1),
+              "library_ms": None, "library": pr["library"]}
+        sx.update(_bound(b * own * slot_bytes + state_bytes + 2 * qbytes
+                         + b * QH * 4 + b * KH * HSZ * 2 * kv_es,
+                         4 * HSZ * QH * own * b, PEAK[torch.bfloat16]))
+        flat = time_ms(rotating([lambda c=c: dec(c, grouped=False)
+                                 for c in pools]))
+        flat_bound = _bound(b * (shared + own) * slot_bytes + 2 * qbytes
+                            + b * QH * 4 + b * KH * HSZ * 2 * kv_es,
+                            4 * HSZ * QH * (shared + own) * b,
+                            PEAK[torch.bfloat16])["bound_ms"]
+        print(f"  grouped decode {mode} (2 groups x 4 members share 4096 "
+              f"positions, 256 own each): prefix_pass {pr['ms']:.4f} ms "
+              f"(bound {pr['bound_ms']:.4f}), grouped suffix "
+              f"{sx['ms']:.4f} ms (bound {sx['bound_ms']:.4f}), together "
+              f"{pr['ms'] + sx['ms']:.4f} ms; ungrouped paged launch "
+              f"{flat:.4f} ms (bound {flat_bound:.4f}); plain prefix "
+              f"{pr['plain_ms']:.1f} ms, plain suffix {sx['plain_ms']:.1f} ms")
+        res[mode] = (pr, sx)
+    return {"prefix_pass": res["bf16"][0],
+            "flash_decode_grouped": res["bf16"][1]}
 
 
 def rotating(fns):
@@ -810,18 +1226,21 @@ def main() -> int:
           f"{time.perf_counter() - T0:.1f} s)")
     errs = {name: [] for name in ("flash_decode", "flash_decode_kv8",
                                   "flash_decode_paged",
-                                  "flash_decode_paged_kv8", "flash_prefill",
+                                  "flash_decode_paged_kv8",
+                                  "flash_decode_grouped", "flash_prefill",
                                   "w8a16_matmul")}
     check_decode(dev, errs["flash_decode"])
     check_decode_kv8(dev, errs["flash_decode_kv8"])
     check_decode_paged(dev, errs["flash_decode_paged"],
                        errs["flash_decode_paged_kv8"])
+    check_grouped(dev, errs["flash_decode_grouped"])
     check_prefill(dev, errs["flash_prefill"])
     check_w8a16(dev, errs["w8a16_matmul"])
 
     print(f"== 4 (t = {time.perf_counter() - T0:.1f} s) serve granite-3-2b "
           "(40 layers, bf16): fixed fp and int8, "
-          "paged fp and int8, paged fp under pool pressure")
+          "paged fp and int8, paged fp under pool pressure; chunked, "
+          "prefix-shared and grouped runs")
     runs = serve_full(dev)
     compare_paths(dev)
 
@@ -831,10 +1250,13 @@ def main() -> int:
     # launches: each kernel's count in the run of the path it serves
     fp, int8 = runs["fp"][0]["counts"], runs["int8"][0]["counts"]
     pfp, pint8 = runs["paged fp"][0]["counts"], runs["paged int8"][0]["counts"]
+    grp = runs["c + grouped_decode"]["counts"]
     launches = {"flash_decode": fp["flash_decode"],
                 "flash_decode_kv8": int8["flash_decode_kv8"],
                 "flash_decode_paged": pfp["flash_decode_paged"],
                 "flash_decode_paged_kv8": pint8["flash_decode_paged"],
+                "flash_decode_grouped": grp["flash_decode_grouped"],
+                "prefix_pass": grp["prefix_pass"],
                 "flash_prefill": fp["flash_prefill"],
                 "w8a16_matmul": int8["w8a16_matmul"]}
     decode_src = ("src/repro_torch/csrc/flash_decode.cu",
@@ -842,6 +1264,9 @@ def main() -> int:
     sources = {"flash_decode": decode_src, "flash_decode_kv8": decode_src,
                "flash_decode_paged": decode_src,
                "flash_decode_paged_kv8": decode_src,
+               "flash_decode_grouped": decode_src,
+               "prefix_pass": ("src/repro_torch/csrc/prefix_pass.cu",
+                               "src/repro/kernels/flash_decode/kernel.py:702"),
                "flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
                                  "src/repro/kernels/flash_prefill/kernel.py:205"),
                "w8a16_matmul": ("src/repro_torch/csrc/w8a16_matmul.cu",
@@ -849,9 +1274,11 @@ def main() -> int:
     records = []
     for name, (src, replaces) in sources.items():
         need(launches[name] > 0, f"{name}: no launch on its main path")
+        err = max(errs["flash_decode_grouped" if name == "prefix_pass"
+                       else name])
         records.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": max(errs[name]), **timed[name]})
+                        "max_abs_err": err, **timed[name]})
     print(f"  done at t = {time.perf_counter() - T0:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))

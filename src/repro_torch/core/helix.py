@@ -21,9 +21,14 @@ page are ``[r*rr, (r+1)*rr)``).  The ``cuda`` backend reads them through
 the table in its one launch; the ``ref`` backend gathers each rank's pages
 into a dense shard first; appends go through ``paged_slot_of_position``.
 
-Not ported: HOP-B batch chunking, ``torch.distributed``, the grouped
-shared-prefix decode, and the reference's sliding-window cache-slice fast
-path (the decode kernel's block pruning covers it).
+Grouped shared-prefix decode (``groups``, paged only): the ``cuda``
+backend runs the prefix pass and the decode kernel's grouped-suffix mode;
+the ``ref`` backend ignores the grouping, which is the oracle's semantics
+(grouped == ungrouped).
+
+Not ported: HOP-B batch chunking, ``torch.distributed``, and the
+reference's sliding-window cache-slice fast path (the decode kernel's
+block pruning covers it).
 
 Caches (and scales) are updated **in place** (``append_kv``,
 ``append_kv_quant`` and the fused append), where the reference returns new
@@ -87,7 +92,7 @@ def _local_attend(q, k, v, total_len, rank, *, kvp, rr_block, window,
 def helix_attention(hx: HelixConfig, q, kcache, vcache, total_len, *,
                     window: int = 0, contiguous: bool = False,
                     kscale=None, vscale=None, k_new=None, v_new=None,
-                    block_tables=None):
+                    block_tables=None, groups=None):
     """Exact KVP-sharded decode attention, emulated on one card.
 
     q [B, Qh, hsz]; kcache/vcache [B, Kh, S_cap, hsz] (S_cap = kvp * s_loc,
@@ -98,20 +103,23 @@ def helix_attention(hx: HelixConfig, q, kcache, vcache, total_len, *,
     ``fuse_append_applicable``); the row (int8: payload and scale) lands in
     the cache in place.  ``block_tables`` [B, max_pages] int32: the paged
     pool, ``kcache``/``vcache`` pool planes ``[n_pool, Kh, kvp * rr, hsz]``
-    (scales without hsz); excludes ``contiguous``.
+    (scales without hsz); excludes ``contiguous``.  ``groups`` (paged):
+    the grouped decode's ``(group_id, group_np)`` [B] int32 pair.
     Returns [B, helix_out_dim(Qh*hsz, kvp)] in q.dtype.
     """
     b, qh, hsz = q.shape
     kvp = hx.kvp
     if block_tables is not None and contiguous:
         raise ValueError("the paged pool excludes the contiguous layout")
+    if groups is not None and block_tables is None:
+        raise ValueError("grouped decode needs the paged pool")
     if hx.attn_backend == "cuda":
         outs, lses = flash_decode_shards(
             q, kcache, vcache, total_len, kvp=kvp, n_ranks=kvp, rank=0,
             rr_block=hx.rr_block, window=window, block_s=hx.attn_block_s,
             contiguous=contiguous, kscale=kscale, vscale=vscale,
             k_new=k_new, v_new=v_new, prune=hx.prune_blocks,
-            block_tables=block_tables)
+            block_tables=block_tables, groups=groups)
     else:
         if k_new is not None:
             raise ValueError("fused append requires the cuda backend")

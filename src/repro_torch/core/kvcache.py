@@ -97,12 +97,13 @@ def state_to_paged(state: dict, tables, n_pool: int, kvp: int,
 
 def decode_state_shapes(cfg: ArchConfig, batch: int, seq_len: int, kvp: int,
                         rr_block: int = 16, kv_bits: int = 16,
-                        pool_blocks: int = 0,
-                        max_pages: int = 0) -> dict[str, tuple[int, ...]]:
+                        pool_blocks: int = 0, max_pages: int = 0,
+                        grouped: bool = False) -> dict[str, tuple[int, ...]]:
     """Shape of every decode-state leaf.  ``pool_blocks > 0``: the paged
     layout, pool planes ``[L, pool_blocks, Kh, page, hsz]`` and
     ``block_tables [batch, max_pages]`` (``max_pages`` defaults to
-    ``pool_blocks``)."""
+    ``pool_blocks``); with ``grouped`` also the grouped decode's
+    ``group_id``/``group_np`` [batch] int32 leaves."""
     if kv_bits not in KV_BITS:
         raise ValueError(f"kv_bits={kv_bits}; choose from {KV_BITS}")
     if pool_blocks > 0:
@@ -114,6 +115,8 @@ def decode_state_shapes(cfg: ArchConfig, batch: int, seq_len: int, kvp: int,
     shapes = {"total_len": (), "kcache": kv, "vcache": kv}
     if pool_blocks > 0:
         shapes["block_tables"] = (batch, max_pages or pool_blocks)
+        if grouped:
+            shapes["group_id"] = shapes["group_np"] = (batch,)
     if kv_bits == 8:
         shapes["kscale"] = shapes["vscale"] = kv[:-1]
     return shapes
@@ -123,14 +126,16 @@ def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int, kvp: int,
                       rr_block: int = 16, *, dtype=torch.bfloat16,
                       device="cuda", total_len: int = 0,
                       kv_bits: int = 16, pool_blocks: int = 0,
-                      max_pages: int = 0) -> dict:
+                      max_pages: int = 0, grouped: bool = False) -> dict:
     """Zero-initialised decode state on ``device`` (``kv_bits=8``: int8
     caches and f32 scale planes; ``pool_blocks > 0``: the paged layout, with
-    every table row parked on the sink page 0)."""
+    every table row parked on the sink page 0; ``grouped``: every row its
+    own group of no shared page, which decodes as ungrouped)."""
     shapes = decode_state_shapes(cfg, batch, seq_len, kvp, rr_block, kv_bits,
-                                 pool_blocks, max_pages)
+                                 pool_blocks, max_pages, grouped)
     types = {"kcache": torch.int8 if kv_bits == 8 else dtype,
-             "kscale": torch.float32, "block_tables": torch.int32}
+             "kscale": torch.float32, "block_tables": torch.int32,
+             "group_id": torch.int32, "group_np": torch.int32}
     types["vcache"], types["vscale"] = types["kcache"], types["kscale"]
     state = {k: torch.zeros(s, dtype=types[k], device=device)
              for k, s in shapes.items() if k != "total_len"}

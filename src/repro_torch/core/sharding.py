@@ -26,6 +26,7 @@ class HelixConfig:
     matmul_backend: str = "cuda"  # w8a16_matmul family (int8 lm_head)
     lm_head_w8: bool = False     # int8 lm_head through w8a16_matmul
     paged_kv: bool = False       # KV in a shared pool of pages (block tables)
+    grouped_decode: bool = False  # shared-prefix pages once per group (paged)
 
     def __post_init__(self):
         if self.kv_cache_bits not in (16, 8):

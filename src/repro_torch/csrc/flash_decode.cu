@@ -4,17 +4,18 @@
 // flash_decode_kernel (body _decode_kernel): per-request lengths, sliding
 // window + slot_offset, round-robin or contiguous layout, block pruning
 // on/off, fused KV append, int8 K/V with per-slot f32 scales and an
-// in-kernel quantized append, and the paged mode (K/V in shared pool pages
-// reached through per-request block tables).  (The grouped-suffix mode is
-// not ported.)
+// in-kernel quantized append, the paged mode (K/V in shared pool pages
+// reached through per-request block tables) and the grouped-suffix mode
+// (resume the raw state of prefix_pass.cu above the shared prefix).
 //
 // One thread block per (batch row, kv head, rank): it holds the G query
 // rows of that kv head and sweeps the rank's shard IN ORDER, keeping the
 // online softmax (m, l, acc) in f32.  The S blocks visited are
 // [lo, lo + nb) from prune_block_range (all blocks when prune == 0); each
-// block is walked in tiles of TS slots.  A fully masked tile is an exact
-// identity update (alpha = exp(0) = 1, p = 0), so pruned and dense sweeps,
-// and fused and unfused appends, give bit-identical results.  No split-K.
+// block is walked in tiles of TS slots by decode_tile.cuh's tile_update.  A
+// fully masked tile is an exact identity update (alpha = exp(0) = 1,
+// p = 0), so pruned and dense sweeps, and fused and unfused appends, give
+// bit-identical results.  No split-K.
 //
 // Bound: decode reads every K/V byte of the valid span once and does
 // ~4*G*hsz flops per slot, far below Hopper's ~295 flop/byte ridge, so it is
@@ -49,14 +50,25 @@
 // span several pages; a K/V row never straddles one, so the 16-byte loads
 // stay as they are.  Table entries past a request's pages must be 0 (the
 // sink page the engine reserves), since a dense sweep reads them masked.
-#include "common.cuh"
-
-#include <type_traits>
+//
+// Grouped-suffix mode (gnp != null, paged only; reference sfx_start and
+// init_state, kernel.py:421, :447-503): row b's first tile is
+// split = gnp[b] * ps / TS, the whole tiles below its shared pages.  When
+// split > 0 the block starts from prefix_pass's raw (acc, m, l) of its rows
+// (st_acc/st_m/st_l at [z, b, h]) instead of the cold state and sweeps only
+// the tiles at or above split; rows with split == 0 decode exactly as
+// ungrouped.  The split falls on a tile boundary, never mid-tile, so every
+// row sees the ungrouped sequence of tile updates and grouped == ungrouped
+// bit for bit.  The fused append stays in the suffix: the engine caps gnp
+// at each member's committed pages.
+#include "decode_tile.cuh"
 
 namespace {
 
-constexpr int NT = 128;   // threads per block (4 warps)
-constexpr int TS = 32;    // slots per tile (one per lane in the softmax)
+using decode_tile::NT;
+using decode_tile::TS;
+using decode_tile::TilePipe;
+using decode_tile::warp_max;
 constexpr int MAXG = 8;   // query heads per kv head held by one block
 
 struct DecodeArgs {
@@ -69,6 +81,10 @@ struct DecodeArgs {
   const void* v_new;
   const int* tl;      // [B] global lengths incl. the new token
   const int* tables;  // [B, max_pages] physical pages (paged mode), else null
+  const int* gnp;     // [B] shared leading pages (grouped suffix), else null
+  const float* st_acc;  // [n_ranks, B, Kh, G, hsz] prefix state (grouped)
+  const float* st_m;    // [n_ranks, B, Kh, G]
+  const float* st_l;
   void* out;          // [n_ranks, B, Kh, G, hsz]
   float* lse;         // [n_ranks, B, Kh, G]
   int B, Kh, G, s_loc, n_ranks, rank0, kvp, rr, block_s;
@@ -100,17 +116,6 @@ __device__ __forceinline__ void prune_block_range(const DecodeArgs& a, int tl, i
   nb = max((jj_hi + a.block_s - 1) / a.block_s - lo, 0);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 // Quantize one [HSZ] row held in shared memory (x) into q (int-valued
 // floats); returns the scale.  Called by one warp.
 template <int HSZ>
@@ -126,25 +131,22 @@ __device__ __forceinline__ float quantize_row(const float* x, float* q, int lane
 
 template <typename T, typename KT, int HSZ>
 __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
-  constexpr bool Q8 = std::is_same<KT, int8_t>::value;
-  constexpr int VN = VecN<KT>::N;
-  constexpr int ROW_VECS = HSZ / VN;
-  constexpr int TILE_VECS = TS * ROW_VECS;
-  constexpr int LOADS = (TILE_VECS + NT - 1) / NT;
-  constexpr int SP = HSZ + 1;                       // padded smem row
-  constexpr int ACC = (MAXG * HSZ + NT - 1) / NT;   // (g, d) pairs per thread
+  using Pipe = TilePipe<KT, HSZ>;
+  constexpr bool Q8 = Pipe::Q8;
+  constexpr int SP = Pipe::SP;
 
   extern __shared__ float smem[];
   float* qs = smem;                   // [MAXG][HSZ] scaled queries
-  float* ks = qs + MAXG * HSZ;        // [TS][SP]
+  float* acc = qs + MAXG * HSZ;       // [MAXG][HSZ] raw output sums
+  float* ks = acc + MAXG * HSZ;       // [TS][SP]
   float* vs = ks + TS * SP;           // [TS][SP]
   float* ps = vs + TS * SP;           // [MAXG][TS] scores, then p
   float* row_m = ps + MAXG * TS;      // [MAXG]
   float* row_l = row_m + MAXG;        // [MAXG]
   float* row_a = row_l + MAXG;        // [MAXG] alpha of the current tile
-  float* knq = row_a + MAXG;          // [HSZ] quantized new K row (int8 mode)
+  float* knq = row_a + MAXG;          // [HSZ] new K row (int8: quantized)
   float* vnq = knq + HSZ;             // [HSZ]
-  float* nsc = vnq + HSZ;             // [2] new row scales
+  float* nsc = vnq + HSZ;             // [2] new row scales (int8 mode)
   int* valid = reinterpret_cast<int*>(nsc + 2);  // [TS]
 
   const int tid = threadIdx.x;
@@ -155,21 +157,34 @@ __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
   const int rank = a.rank0 + z;
   const int G = a.G;
   const int tl = a.tl[b];
-  const long row0 = ((long)bh * a.n_ranks + z) * a.s_loc;
-  const int* tab = a.tables != nullptr ? a.tables + (long)b * a.max_pages : nullptr;
-  // storage row (in rows of hsz elements) of this shard's logical slot jj
-  auto slot_row = [&](int jj) -> long {
-    if (tab == nullptr) return row0 + jj;
-    return (((long)tab[jj / a.ps] * a.Kh + h) * a.n_ranks + z) * a.ps + jj % a.ps;
-  };
+  const long ob = (long)z * a.B * a.Kh + bh;   // [z, b, h] of out/lse/state
   KT* kp = reinterpret_cast<KT*>(a.k);
   KT* vp = reinterpret_cast<KT*>(a.v);
-  float* kscp = Q8 ? a.kscale : nullptr;
-  float* vscp = Q8 ? a.vscale : nullptr;
+  Pipe pipe;
+  pipe.kp = kp;
+  pipe.vp = vp;
+  pipe.ksc = Q8 ? a.kscale : nullptr;
+  pipe.vsc = Q8 ? a.vscale : nullptr;
+  pipe.tab = a.tables != nullptr ? a.tables + (long)b * a.max_pages : nullptr;
+  pipe.row0 = ((long)bh * a.n_ranks + z) * a.s_loc;
+  pipe.Kh = a.Kh;
+  pipe.h = h;
+  pipe.n_ranks = a.n_ranks;
+  pipe.z = z;
+  pipe.ps = a.ps;
+  pipe.s_loc = a.s_loc;
 
+  // grouped suffix: resume the prefix pass's raw state above its split
+  const int split = a.gnp != nullptr ? a.gnp[b] * a.ps / TS : 0;
   const T* qp = reinterpret_cast<const T*>(a.q) + (long)bh * G * HSZ;
-  for (int i = tid; i < G * HSZ; i += NT) qs[i] = to_f(qp[i]) * a.scale;
-  if (tid < MAXG) { row_m[tid] = REPRO_NEG_INF; row_l[tid] = 0.f; }
+  for (int i = tid; i < G * HSZ; i += NT) {
+    qs[i] = to_f(qp[i]) * a.scale;
+    acc[i] = split > 0 ? a.st_acc[ob * G * HSZ + i] : 0.f;
+  }
+  if (tid < G) {
+    row_m[tid] = split > 0 ? a.st_m[ob * G + tid] : REPRO_NEG_INF;
+    row_l[tid] = split > 0 ? a.st_l[ob * G + tid] : 0.f;
+  }
 
   const int n_blocks = (a.s_loc + a.block_s - 1) / a.block_s;
   int j_new = -1;
@@ -184,8 +199,8 @@ __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
     owner = floormod(blk, a.kvp) == rank;
     knp = reinterpret_cast<const T*>(a.k_new) + (long)bh * HSZ;
     vnp = reinterpret_cast<const T*>(a.v_new) + (long)bh * HSZ;
+    for (int i = tid; i < HSZ; i += NT) { knq[i] = to_f(knp[i]); vnq[i] = to_f(vnp[i]); }
     if (Q8) {
-      for (int i = tid; i < HSZ; i += NT) { knq[i] = to_f(knp[i]); vnq[i] = to_f(vnp[i]); }
       __syncthreads();
       const int w = tid / 32;
       if (w < 2) {
@@ -193,9 +208,10 @@ __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
         const float s = quantize_row<HSZ>(row, row, tid % 32);
         if (tid % 32 == 0) nsc[w] = s;
       }
-      __syncthreads();
     }
+    __syncthreads();
   }
+  const int j_sub = owner ? j_new : -1;
 
   const int tiles_per_block = a.block_s / TS;
   int t0 = 0, t1 = n_blocks * tiles_per_block;
@@ -205,129 +221,40 @@ __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
     t0 = lo * tiles_per_block;
     t1 = (lo + nb) * tiles_per_block;
   }
+  t0 = max(t0, split);
 
-  uint4 kr[LOADS], vr[LOADS];
-  float ksr[LOADS], vsr[LOADS];       // the slots' scales (int8 mode)
-  auto gload = [&](int tile) {
-#pragma unroll
-    for (int i = 0; i < LOADS; ++i) {
-      const int e = tid + i * NT;
-      kr[i] = make_uint4(0, 0, 0, 0);
-      vr[i] = make_uint4(0, 0, 0, 0);
-      ksr[i] = vsr[i] = 0.f;
-      if (e < TILE_VECS) {
-        const int jj = tile * TS + e / ROW_VECS;
-        if (jj < a.s_loc) {
-          const long row = slot_row(jj);
-          const long off = row * HSZ + (e % ROW_VECS) * VN;
-          kr[i] = *reinterpret_cast<const uint4*>(kp + off);
-          vr[i] = *reinterpret_cast<const uint4*>(vp + off);
-          if (Q8) { ksr[i] = kscp[row]; vsr[i] = vscp[row]; }
-        }
-      }
-    }
-  };
-  auto sstore = [&](int tile) {
-#pragma unroll
-    for (int i = 0; i < LOADS; ++i) {
-      const int e = tid + i * NT;
-      if (e < TILE_VECS) {
-        const int r = e / ROW_VECS;
-        const int c = (e % ROW_VECS) * VN;
-        float kf[VN], vf[VN];
-        if (owner && tile * TS + r == j_new) {
-          if (Q8) {
-#pragma unroll
-            for (int u = 0; u < VN; ++u) { kf[u] = knq[c + u] * nsc[0]; vf[u] = vnq[c + u] * nsc[1]; }
-          } else {
-#pragma unroll
-            for (int u = 0; u < VN; ++u) { kf[u] = to_f(knp[c + u]); vf[u] = to_f(vnp[c + u]); }
-          }
-        } else {
-          unpack(kr[i], kf, KT());
-          unpack(vr[i], vf, KT());
-          if (Q8) {
-#pragma unroll
-            for (int u = 0; u < VN; ++u) { kf[u] *= ksr[i]; vf[u] *= vsr[i]; }
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < VN; ++u) { ks[r * SP + c + u] = kf[u]; vs[r * SP + c + u] = vf[u]; }
-      }
-    }
+  auto stage = [&](int tile) {
+    pipe.sstore(tile, tid, ks, vs, j_sub, knq, vnq, nsc);
     if (tid < TS) {
       const int jj = tile * TS + tid;
       const int j = jj + a.slot_offset;
       const int pos = a.contiguous ? rank * a.s_loc + j
-                                   : ((j / a.rr) * a.kvp + rank) * a.rr + j % a.rr;
+                                   : decode_tile::rr_position(j, rank, a.kvp, a.rr);
       valid[tid] = jj < a.s_loc && pos < tl && (a.window <= 0 || pos >= tl - a.window);
     }
   };
 
-  float acc[ACC];
-#pragma unroll
-  for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
-
-  if (t0 < t1) { gload(t0); sstore(t0); }
+  if (t0 < t1) { pipe.gload(t0, tid); stage(t0); }
   __syncthreads();
-  const int warp = tid / 32, lane = tid % 32;
   for (int t = t0; t < t1; ++t) {
     const bool more = t + 1 < t1;
-    if (more) gload(t + 1);           // next tile's loads in flight
-    for (int idx = tid; idx < G * TS; idx += NT) {
-      const int g = idx / TS, j = idx % TS;
-      float s = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < HSZ; ++d) s = fmaf(qs[g * HSZ + d], ks[j * SP + d], s);
-      ps[g * TS + j] = valid[j] ? s : REPRO_NEG_INF;
-    }
-    __syncthreads();
-    for (int g = warp; g < G; g += NT / 32) {
-      const float s = ps[g * TS + lane];
-      const float m_prev = row_m[g];
-      const float m_new = fmaxf(m_prev, warp_max(s));
-      const float alpha = expf(m_prev - m_new);
-      const float p = valid[lane] ? expf(s - m_new) : 0.f;
-      const float sum = warp_sum(p);
-      ps[g * TS + lane] = p;
-      if (lane == 0) {
-        row_l[g] = alpha * row_l[g] + sum;
-        row_m[g] = m_new;
-        row_a[g] = alpha;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < ACC; ++i) {
-      const int idx = tid + i * NT;
-      if (idx < G * HSZ) {
-        const int g = idx / HSZ, d = idx % HSZ;
-        float pv = 0.f;
-#pragma unroll 8
-        for (int j = 0; j < TS; ++j) pv = fmaf(ps[g * TS + j], vs[j * SP + d], pv);
-        acc[i] = row_a[g] * acc[i] + pv;
-      }
-    }
-    __syncthreads();
-    if (more) { sstore(t + 1); __syncthreads(); }
+    if (more) pipe.gload(t + 1, tid);   // next tile's loads in flight
+    decode_tile::tile_update<HSZ>(qs, ks, vs, ps, row_m, row_l, row_a, acc,
+                                  valid, G, G, tid);
+    if (more) { stage(t + 1); __syncthreads(); }
   }
 
-  const long ob = (long)z * a.B * a.Kh + bh;
   T* op = reinterpret_cast<T*>(a.out) + ob * G * HSZ;
-#pragma unroll
-  for (int i = 0; i < ACC; ++i) {
-    const int idx = tid + i * NT;
-    if (idx < G * HSZ) {
-      const float l = row_l[idx / HSZ];
-      op[idx] = from_f<T>(l > 0.f ? acc[i] / fmaxf(l, 1e-37f) : 0.f);
-    }
+  for (int i = tid; i < G * HSZ; i += NT) {
+    const float l = row_l[i / HSZ];
+    op[i] = from_f<T>(l > 0.f ? acc[i] / fmaxf(l, 1e-37f) : 0.f);
   }
   if (tid < G) {
     const float l = row_l[tid];
     a.lse[ob * G + tid] = l > 0.f ? row_m[tid] + logf(fmaxf(l, 1e-37f)) : REPRO_NEG_INF;
   }
   if (owner && j_new < a.s_loc) {
-    const long row = slot_row(j_new);
+    const long row = pipe.slot_row(j_new);
     for (int i = tid; i < HSZ; i += NT) {
       if (Q8) {
         kp[row * HSZ + i] = (KT)knq[i];
@@ -337,14 +264,14 @@ __global__ void __launch_bounds__(NT) decode_kernel(DecodeArgs a) {
         vp[row * HSZ + i] = vnp[i];
       }
     }
-    if (Q8 && tid == 0) { kscp[row] = nsc[0]; vscp[row] = nsc[1]; }
+    if (Q8 && tid == 0) { a.kscale[row] = nsc[0]; a.vscale[row] = nsc[1]; }
   }
 }
 
 template <typename T, typename KT, int HSZ>
 cudaError_t launch(const DecodeArgs& a, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (MAXG * HSZ + 2 * TS * (HSZ + 1) + MAXG * TS + 3 * MAXG
-                                       + 2 * HSZ + 2)
+  const size_t smem = sizeof(float) * (2 * MAXG * HSZ + 2 * TS * (HSZ + 1) + MAXG * TS
+                                       + 3 * MAXG + 2 * HSZ + 2)
                       + sizeof(int) * TS;
   cudaError_t err = allow_smem(decode_kernel<T, KT, HSZ>, smem);
   if (err != cudaSuccess) return err;
@@ -366,21 +293,27 @@ cudaError_t launch_hsz(const DecodeArgs& a, int hsz, cudaStream_t stream) {
 }  // namespace
 
 // s_loc: slots per rank (paged: max_pages * ps, the logical capacity).
+// gnp/st_*: the grouped-suffix mode (paged only), else null.
 extern "C" int flash_decode_launch(
     const void* q, void* k, void* v, const void* k_new, const void* v_new,
     const void* tl, void* out, void* lse, void* kscale, void* vscale,
-    const void* tables, int dtype, int quant, int B, int Kh, int G, int hsz,
+    const void* tables, const void* gnp, const void* st_acc, const void* st_m,
+    const void* st_l, int dtype, int quant, int B, int Kh, int G, int hsz,
     int s_loc, int n_ranks, int rank0, int kvp, int rr, int block_s,
     int slot_offset, int window, int contiguous, int prune, int append,
     int max_pages, int ps, float scale, void* stream) {
   if (G < 1 || G > MAXG || block_s % TS != 0 || B * Kh == 0 || n_ranks < 1
       || (quant && (kscale == nullptr || vscale == nullptr))
       || (tables != nullptr && (max_pages < 1 || ps < 1 || s_loc != max_pages * ps
-                                || contiguous || slot_offset != 0)))
+                                || contiguous || slot_offset != 0))
+      || (gnp != nullptr && (tables == nullptr || st_acc == nullptr
+                             || st_m == nullptr || st_l == nullptr)))
     return (int)cudaErrorInvalidValue;
   DecodeArgs a{q, k, v, static_cast<float*>(kscale), static_cast<float*>(vscale),
                k_new, v_new, static_cast<const int*>(tl),
-               static_cast<const int*>(tables), out, static_cast<float*>(lse),
+               static_cast<const int*>(tables), static_cast<const int*>(gnp),
+               static_cast<const float*>(st_acc), static_cast<const float*>(st_m),
+               static_cast<const float*>(st_l), out, static_cast<float*>(lse),
                B, Kh, G, s_loc, n_ranks, rank0, kvp, rr, block_s, slot_offset,
                window, contiguous, prune, append, max_pages, ps, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

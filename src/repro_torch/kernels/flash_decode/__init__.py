@@ -1,5 +1,7 @@
 from repro_torch.kernels.flash_decode.ops import (flash_decode,
-                                                  flash_decode_shards)
+                                                  flash_decode_shards,
+                                                  prefix_pass)
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 
-__all__ = ["flash_decode", "flash_decode_shards", "flash_decode_ref"]
+__all__ = ["flash_decode", "flash_decode_shards", "flash_decode_ref",
+           "prefix_pass"]

@@ -10,12 +10,86 @@ A slot is valid iff ``pos < total_len`` and, with a window ``w > 0``,
 ``pos >= total_len - w``.  Returns the normalised partial output and the
 log-sum-exp (f32) that the Helix combine needs.  An int8 shard comes with
 per-slot f32 scales and is dequantized as ``float(q) * scale`` first.
+
+``flash_decode_ref`` is the oracle: one softmax over the whole shard.
+``sweep_tiles`` and ``finish_rows`` are the plain version of the kernels'
+own arithmetic order (``csrc/decode_tile.cuh``): an online softmax over
+tiles of ``TILE_S`` slots with a raw ``(acc, m, l)`` state, so a sweep may
+be split at a tile boundary and resumed (the grouped decode) without
+changing a bit.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.utils import NEG_INF, int8_scale
+
+
+TILE_S = 32                 # slots per tile, as in the CUDA kernels
+
+
+def cold_state(n: int, rows: int, hsz: int, device=None):
+    """The online softmax's start: acc 0, m = NEG_INF, l 0 for ``[n, rows]``
+    query rows."""
+    return (torch.zeros(n, rows, hsz, device=device),
+            torch.full((n, rows), NEG_INF, device=device),
+            torch.zeros(n, rows, device=device))
+
+
+def _lane0_sum(p):
+    """Sum over the last axis (32 lanes) in the order lane 0 of the
+    kernels' xor-butterfly ``warp_sum`` adds: halves, then quarters, ..."""
+    while p.shape[-1] > 1:
+        h = p.shape[-1] // 2
+        p = p[..., :h] + p[..., h:]
+    return p[..., 0]
+
+
+def sweep_tiles(q, k, v, valid, state):
+    """The decode kernels' tile loop in plain PyTorch.
+
+    q [N, R, hsz] f32 scaled queries; k, v [N, S, hsz] f32; valid [N, R | 1,
+    S] bool; state ``(acc [N, R, hsz], m [N, R], l [N, R])``.  Updates the
+    raw state tile by tile in slot order (products summed over hsz, then
+    over the tile's slots, one element at a time; slots past S are masked)
+    and returns it.  Tiles with no valid slot in any row are skipped: for
+    every row they are the exact identity update."""
+    acc, m, l = state
+    n, r, hsz = q.shape
+    pad = -k.shape[1] % TILE_S
+    k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+    v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    valid = torch.nn.functional.pad(valid, (0, pad)).expand(n, r, k.shape[1])
+    live = valid.reshape(-1, k.shape[1] // TILE_S, TILE_S).any(-1).any(0)
+    for t in torch.nonzero(live).flatten().tolist():
+        sl = slice(t * TILE_S, (t + 1) * TILE_S)
+        kt, vt, ok = k[:, sl], v[:, sl], valid[:, :, sl]
+        s = torch.zeros(n, r, TILE_S, device=q.device)
+        for d in range(hsz):
+            s = s + q[:, :, d, None] * kt[:, None, :, d]
+        s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(ok, torch.exp(s - m_new[..., None]),
+                        torch.zeros_like(s))
+        l = alpha * l + _lane0_sum(p)
+        pv = torch.zeros_like(acc)
+        for j in range(TILE_S):
+            pv = pv + p[:, :, j, None] * vt[:, None, j, :]
+        acc = alpha[..., None] * acc + pv
+        m = m_new
+    return acc, m, l
+
+
+def finish_rows(state, dtype):
+    """Raw state -> ``(out [N, R, hsz] in dtype, lse [N, R] f32)``; rows
+    with nothing valid give 0 and NEG_INF, as in the kernels."""
+    acc, m, l = state
+    den = torch.clamp(l, min=1e-37)
+    out = torch.where((l > 0)[..., None], acc / den[..., None],
+                      torch.zeros_like(acc))
+    lse = torch.where(l > 0, m + torch.log(den), torch.full_like(l, NEG_INF))
+    return out.to(dtype), lse
 
 
 def quantize_kv_token(x):

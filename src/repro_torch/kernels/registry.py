@@ -1,7 +1,7 @@
 """Kernel-backend registry of the port (counterpart of the reference's
 ``kernels/registry.py``).
 
-Three families are ported, each with backends ``ref`` (plain PyTorch) and
+Four families are ported, each with backends ``ref`` (plain PyTorch) and
 ``cuda`` (hand-written kernel for sm_90a):
 
   ============== =============================== ==========================
@@ -9,7 +9,10 @@ Three families are ported, each with backends ``ref`` (plain PyTorch) and
   ============== =============================== ==========================
   flash_decode   Helix decode attention          csrc/flash_decode.cu
                  (core/helix.helix_attention;    (fixed and paged layouts,
-                 fp and int8 caches)             fp and int8 modes)
+                 fp and int8 caches)             fp and int8 modes,
+                                                 grouped-suffix mode)
+  prefix_pass    shared-prefix pass of grouped   csrc/prefix_pass.cu
+                 decode (flash_decode groups=)
   flash_prefill  prefill attention               csrc/flash_prefill.cu
                  (models/attention.prefill_attention)
   w8a16_matmul   int8 lm_head of the decode step csrc/w8a16_matmul.cu
@@ -29,15 +32,13 @@ BACKENDS = ("ref", "cuda")
 
 FAMILIES = {
     "flash_decode": "Helix decode attention (core/helix.helix_attention)",
+    "prefix_pass": "grouped shared-prefix decode (flash_decode groups=)",
     "flash_prefill": "prefill attention (models/attention.prefill_attention)",
     "w8a16_matmul": "int8 lm_head (models/decode_model.head_matmul)",
 }
 
 # reference kernels (src/repro/kernels/...) and modes that have no port yet
 NOT_PORTED = {
-    "prefix_pass": "flash_decode/kernel.py prefix_pass_kernel (grouped decode)",
-    "flash_decode grouped suffix": "flash_decode/kernel.py flash_decode_kernel"
-                                   " sfx_start/init_state mode",
     "ssd_prefill": "ssd_prefill/kernel.py ssd_prefill_kernel (Mamba2 SSD scan)",
     "flash_prefill paged": "flash_prefill/kernel.py flash_prefill_kernel "
                            "block_tables mode",
@@ -50,12 +51,15 @@ def _counters():
     from repro_torch.kernels.w8a16_matmul.ops import counter as mm
     return {"flash_decode": dec.counter, "flash_decode_kv8": dec.counter_kv8,
             "flash_decode_paged": dec.counter_paged,
+            "flash_decode_grouped": dec.counter_grouped,
+            "prefix_pass": dec.counter_prefix,
             "flash_prefill": pre, "w8a16_matmul": mm}
 
 
 def launch_counts() -> dict[str, int]:
     """Launches of each ported kernel so far in this process
-    (``flash_decode_kv8`` / ``flash_decode_paged``: the int8-mode / paged
+    (``flash_decode_kv8`` / ``flash_decode_paged`` /
+    ``flash_decode_grouped``: the int8-mode / paged / grouped-suffix
     launches among ``flash_decode``'s)."""
     return {name: c.n for name, c in _counters().items()}
 

@@ -7,9 +7,12 @@ engine on one card (counterpart of the reference's ``launch/serve.py``).
 
 Runs on ``cuda`` unless ``--device cpu`` is given (the kernels' plain
 PyTorch versions then run).  Only the flags of the ported main path exist:
-one-shot prefill, greedy decoding, FCFS/SJF admission, batch arrivals, the
-fixed or the paged KV layout (``--paged-kv [--pool-blocks N]``), and the
-int8 lm_head (``--lm-head-w8 [--matmul-backend]``).  The int8 KV cache is
+one-shot or chunked prefill (``--chunk-tokens N``), greedy decoding,
+FCFS/SJF admission, batch arrivals, the fixed or the paged KV layout
+(``--paged-kv [--pool-blocks N]``), prefix sharing and grouped
+shared-prefix decode over prompts with a common head (``--prefix-share
+--grouped-decode --shared-prefix-len N``, paged and chunked), and the int8
+lm_head (``--lm-head-w8 [--matmul-backend]``).  The int8 KV cache is
 reached through ``serve_demo(hx=HelixConfig(kv_cache_bits=8, ...))``, as in
 the reference, which has no flag for it.
 """
@@ -26,7 +29,10 @@ import torch
 from repro_torch.configs import get_config, list_archs
 from repro_torch.core.sharding import HelixConfig
 from repro_torch.kernels.registry import BACKENDS, backend_table
-from repro_torch.models.model_zoo import build_serve_step, make_prefill_step
+from repro_torch.models.model_zoo import (build_serve_step,
+                                          chunked_prefill_supported,
+                                          make_chunk_prefill_step,
+                                          make_prefill_step)
 from repro_torch.models.transformer import init_params
 from repro_torch.serving import DecodeEngine, Request
 from repro_torch.serving.scheduler import POLICIES
@@ -62,10 +68,14 @@ def generate_rows(n: int, *, prompt_len, max_tokens, seed: int = 0):
     return rows
 
 
-def prompt_tokens(row: TraceRow, vocab: int) -> list[int]:
-    """Materialise ``row``'s synthetic prompt from its own seed."""
-    return np.random.default_rng(row.seed).integers(
-        0, vocab, row.prompt_len).tolist()
+def prompt_tokens(row: TraceRow, vocab: int, shared_prefix=()) -> list[int]:
+    """Materialise ``row``'s synthetic prompt: the workload-wide
+    ``shared_prefix`` (cut to the row's length) plus a suffix drawn from the
+    row's own seed (the reference's ``serving/workload.prompt_tokens``)."""
+    shared = list(shared_prefix)[:row.prompt_len]
+    suffix = np.random.default_rng(row.seed).integers(
+        0, vocab, row.prompt_len - len(shared)).tolist()
+    return shared + suffix
 
 
 def serve_demo(arch: str = "granite-3-2b", *, reduced: bool = False,
@@ -77,6 +87,9 @@ def serve_demo(arch: str = "granite-3-2b", *, reduced: bool = False,
                matmul_backend: str | None = None,
                lm_head_w8: bool | None = None,
                paged_kv: bool | None = None, pool_blocks: int = 0,
+               grouped_decode: bool | None = None,
+               chunk_tokens: int = 0, prefix_share: bool = False,
+               shared_prefix_len: int = 0,
                sched_policy: str = "fcfs", dtype=torch.float32,
                device="cuda", model=None, seed: int = 0, log=print):
     """Serve ``n_requests`` synthetic prompts through the engine.  Returns
@@ -90,7 +103,12 @@ def serve_demo(arch: str = "granite-3-2b", *, reduced: bool = False,
     ``lm_head_w8`` and ``paged_kv`` override its fields (``None`` keeps
     them).  ``paged_kv`` serves from a shared pool of ``pool_blocks`` pages
     of ``kvp * rr_block`` positions (0: the fixed layout's memory plus the
-    sink page); the summary carries the engine's ``pool_stats()``.  Raises
+    sink page); the summary carries the engine's ``pool_stats()``.
+    ``chunk_tokens`` > 0 prefills in chunks of that many tokens.
+    ``shared_prefix_len`` starts every prompt with the same that-many
+    tokens (drawn from ``seed``); ``prefix_share`` turns on the prefix
+    index over them (needs ``paged_kv`` and chunked prefill) and
+    ``grouped_decode`` decodes the shared pages once per group.  Raises
     on a host without CUDA unless ``device="cpu"``.
     """
     device = torch.device(device)
@@ -105,7 +123,8 @@ def serve_demo(arch: str = "granite-3-2b", *, reduced: bool = False,
                                    ("prefill_backend", prefill_backend),
                                    ("matmul_backend", matmul_backend),
                                    ("lm_head_w8", lm_head_w8),
-                                   ("paged_kv", paged_kv))
+                                   ("paged_kv", paged_kv),
+                                   ("grouped_decode", grouped_decode))
                  if v is not None}
     hx = dataclasses.replace(hx or HelixConfig(), **overrides)
     if model is None:
@@ -114,12 +133,20 @@ def serve_demo(arch: str = "granite-3-2b", *, reduced: bool = False,
                          max_tokens=max_new, seed=seed)
     max_seq = (max(r.prompt_len for r in rows)
                + max(r.max_tokens for r in rows) + 1)
+    chunked = chunk_tokens > 0 and chunked_prefill_supported(cfg)
     engine = DecodeEngine(cfg, model, build_serve_step(cfg, hx),
                           make_prefill_step(cfg, hx), max_batch=max_batch,
                           max_seq=max_seq, hx=hx, dtype=dtype, device=device,
-                          sched_policy=sched_policy, pool_blocks=pool_blocks)
+                          sched_policy=sched_policy, pool_blocks=pool_blocks,
+                          chunk_tokens=chunk_tokens if chunked else 0,
+                          chunk_prefill_step=(make_chunk_prefill_step(cfg, hx)
+                                              if chunked else None),
+                          prefix_share=prefix_share)
+    shared = np.random.default_rng(seed).integers(
+        0, cfg.vocab, shared_prefix_len).tolist()
     for r in rows:
-        engine.submit(Request(rid=r.rid, prompt=prompt_tokens(r, cfg.vocab),
+        engine.submit(Request(rid=r.rid,
+                              prompt=prompt_tokens(r, cfg.vocab, shared),
                               max_new_tokens=r.max_tokens))
     finished: list[Request] = []
     t0 = time.perf_counter()
@@ -133,7 +160,8 @@ def serve_demo(arch: str = "granite-3-2b", *, reduced: bool = False,
     toks = sum(len(r.out_tokens) for r in finished)
     summary = engine.metrics.summary()
     summary.update(engine.pool_stats())
-    summary.update(decode_syncs=engine.decode_syncs, engine_steps=steps,
+    summary.update(decode_syncs=engine.decode_syncs,
+                   prefill_calls=engine.prefill_calls, engine_steps=steps,
                    wall_s=dt, tok_s=toks / max(dt, 1e-9),
                    kv_cache_dtype=str(engine.state["kcache"].dtype))
     log(f"[serve] {len(finished)} requests, {toks} tokens in {dt:.2f}s "
@@ -150,6 +178,9 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--chunk-tokens", type=int, default=0,
+                    help="prefill prompts in chunks of this many tokens, "
+                         "one chunk per engine step (0: one-shot prefill)")
     ap.add_argument("--kvp", type=int, default=1,
                     help="KV-parallel ranks, emulated on one card")
     ap.add_argument("--sched-policy", default="fcfs", choices=POLICIES)
@@ -167,6 +198,18 @@ def main(argv=None):
     ap.add_argument("--pool-blocks", type=int, default=0,
                     help="pages in the pool with --paged-kv, the sink page "
                          "included (0: the fixed layout's memory)")
+    ap.add_argument("--prefix-share", action="store_true",
+                    help="prefix index + refcounted copy-on-write page "
+                         "sharing: prompts matching a finished prefill's "
+                         "prefix map its pages and prefill only their "
+                         "suffix (needs --paged-kv and --chunk-tokens)")
+    ap.add_argument("--grouped-decode", action="store_true",
+                    help="grouped shared-prefix decode: requests whose "
+                         "tables share leading pages read them once per "
+                         "group (needs --paged-kv)")
+    ap.add_argument("--shared-prefix-len", type=int, default=0,
+                    help="every synthetic prompt starts with the same "
+                         "this-many tokens")
     ap.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
@@ -186,6 +229,9 @@ def main(argv=None):
         matmul_backend=args.matmul_backend,
         lm_head_w8=args.lm_head_w8 or None,
         paged_kv=args.paged_kv or None, pool_blocks=args.pool_blocks,
+        grouped_decode=args.grouped_decode or None,
+        chunk_tokens=args.chunk_tokens, prefix_share=args.prefix_share,
+        shared_prefix_len=args.shared_prefix_len,
         sched_policy=args.sched_policy, dtype=DTYPES[args.dtype],
         device=args.device, seed=args.seed)
     if args.metrics:

@@ -20,7 +20,9 @@ logits go through the ``w8a16_matmul`` family over the int8 head that
 ``prepare_decode_params`` makes once.  ``hx.paged_kv``: the caches are pool
 planes and ``state["block_tables"]`` [B, max_pages] reaches every layer's
 attention and append; the step passes it through unchanged (the engine owns
-page allocation).
+page allocation).  ``hx.grouped_decode`` (paged): the state's ``group_id``/
+``group_np`` [B] leaves, which the engine refreshes every step, reach every
+layer's attention (grouped shared-prefix decode).
 """
 from __future__ import annotations
 
@@ -78,7 +80,7 @@ def _build_step_logits(cfg: ArchConfig, hx: HelixConfig):
     fused = fuse_append_applicable(hx, quant=kv8, paged=hx.paged_kv)
     o_dim = helix_out_dim(cfg.q_dim, hx.kvp)
 
-    def attn_phase(ap, h, kc, vc, ks, vs, tl_attn, tables):
+    def attn_phase(ap, h, kc, vc, ks, vs, tl_attn, tables, groups):
         b = h.shape[0]
         q = (h @ ap.wq).reshape(b, cfg.n_heads, cfg.hsz)
         kn = (h @ ap.wk).reshape(b, cfg.n_kv_heads, cfg.hsz)
@@ -89,7 +91,7 @@ def _build_step_logits(cfg: ArchConfig, hx: HelixConfig):
         if fused:
             out = helix_attention(hx, q, kc, vc, tl_attn, kscale=ks,
                                   vscale=vs, k_new=kn, v_new=vn,
-                                  block_tables=tables)
+                                  block_tables=tables, groups=groups)
         else:
             if kv8:
                 append_kv_quant(kc, vc, ks, vs, kn, vn, tl_attn, kvp=hx.kvp,
@@ -98,7 +100,8 @@ def _build_step_logits(cfg: ArchConfig, hx: HelixConfig):
                 append_kv(kc, vc, kn, vn, tl_attn, kvp=hx.kvp,
                           rr_block=hx.rr_block, block_tables=tables)
             out = helix_attention(hx, q, kc, vc, tl_attn, kscale=ks,
-                                  vscale=vs, block_tables=tables)
+                                  vscale=vs, block_tables=tables,
+                                  groups=groups)
         wo = ap.wo
         if o_dim != wo.shape[0]:
             wo = torch.nn.functional.pad(wo, (0, 0, 0, o_dim - wo.shape[0]))
@@ -109,13 +112,17 @@ def _build_step_logits(cfg: ArchConfig, hx: HelixConfig):
         tl = state["total_len"]
         tl_attn = (tl + 1).reshape(-1).expand(tokens.shape[0])  # incl. new token
         tables = state["block_tables"] if hx.paged_kv else None
+        groups = None
+        if hx.grouped_decode and hx.paged_kv and "group_id" in state:
+            groups = (state["group_id"], state["group_np"])
         x = model.embed[tokens]
         for i, lp in enumerate(model.layers):
             h = rms_norm(x, lp.ln1)
             ks = state["kscale"][i] if kv8 else None
             vs = state["vscale"][i] if kv8 else None
             x = x + attn_phase(lp.attn, h, state["kcache"][i],
-                               state["vcache"][i], ks, vs, tl_attn, tables)
+                               state["vcache"][i], ks, vs, tl_attn, tables,
+                               groups)
             x = x + ffn_block(cfg, lp.ffn, rms_norm(x, lp.ln2))
         x = rms_norm(x, model.ln_f)
         return (head_matmul(hx, model, x)

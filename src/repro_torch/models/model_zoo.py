@@ -1,6 +1,7 @@
-"""Prefill step and its handoff into the round-robin decode layout (port of
-the reference's ``models/model_zoo.py`` ``prefill_cache_to_rr`` and
-``make_prefill_step``)."""
+"""Prefill steps and their handoff into the round-robin decode layout (port
+of the reference's ``models/model_zoo.py``: ``prefill_cache_to_rr``,
+``make_prefill_step`` and the chunked prefill, ``init_prefill_buffers``,
+``make_chunk_prefill_step`` (greedy) and ``finalize_chunked_prefill``)."""
 from __future__ import annotations
 
 import torch
@@ -10,9 +11,11 @@ from repro_torch.core.helix import prefill_to_rr_layout
 from repro_torch.core.kvcache import cache_capacity
 from repro_torch.core.sharding import HelixConfig
 from repro_torch.models.decode_model import build_serve_step  # noqa: F401
-from repro_torch.models.transformer import forward
+from repro_torch.models.transformer import chunked_prefill_supported, forward
 
-__all__ = ["prefill_cache_to_rr", "make_prefill_step", "build_serve_step"]
+__all__ = ["prefill_cache_to_rr", "make_prefill_step", "build_serve_step",
+           "init_prefill_buffers", "make_chunk_prefill_step",
+           "finalize_chunked_prefill", "chunked_prefill_supported"]
 
 
 def prefill_cache_to_rr(cfg: ArchConfig, hx: HelixConfig, kc_raw, vc_raw,
@@ -50,3 +53,53 @@ def make_prefill_step(cfg: ArchConfig, hx: HelixConfig,
         return logits[:, -1], state
 
     return prefill_step
+
+
+# ------------------------------------------------------- chunked prefill
+def init_prefill_buffers(cfg: ArchConfig, batch: int, t: int, *,
+                         dtype=torch.float32, device="cuda") -> dict:
+    """Zero K/V carry buffers ``[L, batch, t, Kh, hsz]`` for a chunked
+    prefill of length ``t`` (``forward``'s prefill cache layout; ``t`` must
+    be the one-shot prefill length for the chunked run to be bit-exact).
+    The port's buffers take the model's dtype, where the reference's
+    default is f32."""
+    shape = (cfg.n_layers, batch, t, cfg.n_kv_heads, cfg.hsz)
+    return {"kcache": torch.zeros(shape, dtype=dtype, device=device),
+            "vcache": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def make_chunk_prefill_step(cfg: ArchConfig, hx: HelixConfig):
+    """Build ``chunk_step(model, tokens, buffers, q_offset) -> (next_tokens,
+    buffers)``: ``tokens`` is the ``[B, C]`` chunk at global positions
+    ``[q_offset, q_offset + C)`` (``q_offset`` an int or a [B] tensor:
+    ragged packing, one offset per row), ``buffers`` the carry dict of
+    ``init_prefill_buffers`` with ``[0, q_offset)`` filled; the chunk's K/V
+    land in them in place.  ``next_tokens`` [B, C] is the greedy token
+    after each chunk position: row ``t - 1 - q_offset`` of a request's last
+    chunk is its first generated token."""
+    if not chunked_prefill_supported(cfg):
+        raise ValueError(f"chunked prefill unsupported for {cfg.name}")
+
+    def chunk_step(model, tokens, buffers, q_offset):
+        logits, extras = forward(cfg, model, tokens, return_cache=True,
+                                 prefill_backend=hx.prefill_backend,
+                                 prefix_state=buffers, q_offset=q_offset)
+        next_tokens = torch.argmax(logits[:, :, :cfg.vocab],
+                                   dim=-1).to(torch.int32)
+        return next_tokens, {"kcache": extras["kcache"],
+                             "vcache": extras["vcache"]}
+
+    return chunk_step
+
+
+def finalize_chunked_prefill(cfg: ArchConfig, hx: HelixConfig, buffers,
+                             t: int, s_cap: int | None = None) -> dict:
+    """Filled carry buffers -> round-robin decode state, through the same
+    ``prefill_cache_to_rr`` as ``make_prefill_step``: a chunked prefill's
+    decode state is the one-shot path's, bit for bit."""
+    cap = s_cap or cache_capacity(t, hx.kvp, hx.rr_block)
+    kcache, vcache = prefill_cache_to_rr(cfg, hx, buffers["kcache"],
+                                         buffers["vcache"], t, cap)
+    return {"total_len": torch.tensor(t, dtype=torch.int32,
+                                      device=kcache.device),
+            "kcache": kcache, "vcache": vcache}

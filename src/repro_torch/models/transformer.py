@@ -101,15 +101,30 @@ def vocab_mask(cfg: ArchConfig, dtype, device):
     return torch.where(ids < cfg.vocab, 0.0, -1e30).to(dtype)
 
 
-def _attn_block(cfg: ArchConfig, ap: Attention, h, *, q_offset: int,
-                backend: str):
+def _attn_block(cfg: ArchConfig, ap: Attention, h, *, q_offset,
+                backend: str, kv_buffer=None):
+    """Projections, RoPE, attention and out-projection of one layer.
+    ``q_offset`` is an int or a [B] tensor: the global position of each
+    row's first token.  ``kv_buffer`` (chunked prefill): a pair of carry
+    buffers ``[B, S_buf, Kh, hsz]`` holding the K/V of positions
+    ``[0, q_offset)``; the chunk's rows are written into them **in place**
+    at ``[q_offset, q_offset + T)`` per row and attention runs over the
+    whole buffer (causal masking hides its unfilled tail).  Returns the
+    layer output and the (K, V) the attention read."""
     b, t, _ = h.shape
     q = (h @ ap.wq).reshape(b, t, cfg.n_heads, cfg.hsz)
     k = (h @ ap.wk).reshape(b, t, cfg.n_kv_heads, cfg.hsz)
     v = (h @ ap.wv).reshape(b, t, cfg.n_kv_heads, cfg.hsz)
-    pos = torch.arange(t, device=h.device)[None, :] + q_offset
+    off = torch.as_tensor(q_offset, dtype=torch.int64, device=h.device)
+    pos = torch.arange(t, device=h.device)[None, :] + off.reshape(-1, 1)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
+    if kv_buffer is not None:
+        kbuf, vbuf = kv_buffer
+        rows = torch.arange(b, device=h.device)[:, None]
+        kbuf[rows, pos.expand(b, t)] = k.to(kbuf.dtype)
+        vbuf[rows, pos.expand(b, t)] = v.to(vbuf.dtype)
+        k, v = kbuf, vbuf
     out = prefill_attention(q, k, v, causal=True, q_offset=q_offset,
                             backend=backend)
     return out.reshape(b, t, cfg.q_dim) @ ap.wo, (k, v)
@@ -120,19 +135,41 @@ def ffn_block(cfg: ArchConfig, fp: FFN, h):
     return (activation(cfg.act)(h @ fp.w1) * (h @ fp.w3)) @ fp.w2
 
 
+def chunked_prefill_supported(cfg: ArchConfig) -> bool:
+    """Whether ``cfg`` can prefill in prefix-attending chunks bit-exactly:
+    every cross-position interaction must be causal attention (the
+    reference's rule; every config the port serves is dense, so True)."""
+    return cfg.family == "dense"
+
+
 @torch.no_grad()
 def forward(cfg: ArchConfig, model: Transformer, tokens, *,
             return_cache: bool = False, prefill_backend: str = "cuda",
-            q_offset: int = 0):
+            q_offset=0, prefix_state=None):
     """Full-sequence forward.  tokens [B, T] int -> (logits [B, T, Vp],
     extras); with ``return_cache`` extras holds ``kcache``/``vcache``
-    [L, B, T, Kh, hsz] (post-RoPE K and V of every layer)."""
+    [L, B, T, Kh, hsz] (post-RoPE K and V of every layer).
+
+    Chunked prefill: ``prefix_state`` = {"kcache"/"vcache": [L, B, S_buf,
+    Kh, hsz]} carry buffers whose rows ``[0, q_offset)`` hold the
+    already-prefilled prefix, and ``tokens`` the chunk at global positions
+    ``[q_offset, q_offset + T)`` (``q_offset`` an int or a [B] tensor, one
+    offset per row: ragged packing).  The chunk's K/V rows are written into
+    the buffers in place, attention runs over each whole buffer, and
+    extras' kcache/vcache are the buffers themselves, bit for bit those of
+    the one-shot prefill when ``S_buf`` is its length."""
+    if prefix_state is not None and not (return_cache
+                                         and chunked_prefill_supported(cfg)):
+        raise ValueError("chunked prefill needs return_cache=True and a "
+                         "chunked_prefill_supported arch")
     x = model.embed[tokens]
     kcs, vcs = [], []
-    for lp in model.layers:
+    for i, lp in enumerate(model.layers):
         h = rms_norm(x, lp.ln1)
+        buf = (None if prefix_state is None else
+               (prefix_state["kcache"][i], prefix_state["vcache"][i]))
         a_out, (k, v) = _attn_block(cfg, lp.attn, h, q_offset=q_offset,
-                                    backend=prefill_backend)
+                                    backend=prefill_backend, kv_buffer=buf)
         x = x + a_out
         x = x + ffn_block(cfg, lp.ffn, rms_norm(x, lp.ln2))
         if return_cache:
@@ -141,6 +178,9 @@ def forward(cfg: ArchConfig, model: Transformer, tokens, *,
     x = rms_norm(x, model.ln_f)
     logits = x @ model.embed.T + vocab_mask(cfg, x.dtype, x.device)
     extras = {}
-    if return_cache:
+    if prefix_state is not None:
+        extras.update(kcache=prefix_state["kcache"],
+                      vcache=prefix_state["vcache"])
+    elif return_cache:
         extras.update(kcache=torch.stack(kcs), vcache=torch.stack(vcs))
     return logits, extras

@@ -1,10 +1,10 @@
 """Scheduler-driven continuous-batching engine over the Helix serve step
 (port of the reference's ``serving/engine.py`` ``DecodeEngine``, main path):
 decode state with one request per slot and per-request lengths, FCFS/SJF
-admission, one-shot prefill, greedy decoding, and the int8 KV cache
-(``hx.kv_cache_bits == 8``: each admitted request's fp prefill cache is
-quantized at the handoff) and int8 lm_head (``hx.lm_head_w8``: the head is
-quantized once, here).
+admission, one-shot or chunked prefill, greedy decoding, and the int8 KV
+cache (``hx.kv_cache_bits == 8``: each admitted request's fp prefill cache
+is quantized at the handoff) and int8 lm_head (``hx.lm_head_w8``: the head
+is quantized once, here).
 
 KV layouts: fixed (one ``cap``-slot row per batch slot) or, with
 ``hx.paged_kv``, a shared pool of ``pool_blocks`` pages of ``kvp * rr``
@@ -13,13 +13,28 @@ growth takes a page when the next token needs one, and each slot's page
 list is mirrored into its ``block_tables`` row (idle rows stay on the sink
 page 0).
 
-One engine ``step()``: admit queued requests into free slots (each one-shot
-prefilled, all first tokens fetched in ONE device->host transfer), then one
-decode step for every decoding slot (ONE device->host transfer of the [B]
-next tokens), retiring requests at EOS, ``max_new_tokens`` or capacity.
+Chunked prefill (``chunk_tokens``): prompts prefill ``chunk_tokens`` at a
+time into per-request carry buffers, one packed chunk per engine step
+interleaved with decode; the handoff is the one-shot path's, so the
+decode state is the same bit for bit where the projections are.
 
-Not ported yet: chunked prefill, the host KV tier, prefix sharing,
-tenancy and the TTL governor, sampling and decode windows.
+Prefix sharing (``prefix_share``, paged and chunked only): a
+``PrefixIndex`` matches new prompts against the prefixes of finished
+prefills; matched live pages are mapped refcounted into the new request's
+table (copy-on-write before any write to a shared page), the matched K/V
+is restored into its buffers from a host copy and only the suffix
+prefills.  Grouped decode (``hx.grouped_decode``, paged): requests whose
+tables share leading pages decode them once per group
+(``_set_groups``; the ``prefix_pass`` kernel).
+
+One engine ``step()``: admit queued requests into free slots (one-shot
+prefills' first tokens fetched in ONE device->host transfer), advance one
+packed group of chunked prefills by a chunk, then one decode step for every
+decoding slot (ONE device->host transfer of the [B] next tokens), retiring
+requests at EOS, ``max_new_tokens`` or capacity.
+
+Not ported yet: the host KV tier, tenancy and the TTL governor, sampling
+and decode windows.
 """
 from __future__ import annotations
 
@@ -35,9 +50,12 @@ from repro_torch.core.kvcache import (cache_capacity, cache_to_pages,
 from repro_torch.core.sharding import HelixConfig
 from repro_torch.kernels import registry
 from repro_torch.models.decode_model import prepare_decode_params
+from repro_torch.models.model_zoo import (finalize_chunked_prefill,
+                                          init_prefill_buffers)
 from repro_torch.serving.metrics import EngineMetrics
 from repro_torch.serving.pool import BlockAllocator
-from repro_torch.serving.scheduler import DECODE, DONE, Request, Scheduler
+from repro_torch.serving.scheduler import (DECODE, DONE, PREFILL, PrefixIndex,
+                                           Request, Scheduler)
 
 __all__ = ["DecodeEngine", "Request"]
 
@@ -51,19 +69,27 @@ class DecodeEngine:
     must be available, or the constructor raises.  With ``hx.paged_kv``,
     ``pool_blocks`` sizes the pool (default: the fixed layout's memory plus
     the sink page) and ``max_pages`` caps one request's table (default: the
-    whole pool)."""
+    whole pool).  ``chunk_tokens`` > 0 with ``chunk_prefill_step`` (from
+    ``make_chunk_prefill_step``) turns on chunked prefill; ``prefix_share``
+    the prefix index (needs the paged pool and chunked prefill, as in the
+    reference)."""
 
     def __init__(self, cfg: ArchConfig, model, serve_step: Callable,
                  prefill_step: Callable, *, max_batch: int, max_seq: int,
                  hx: HelixConfig, dtype=torch.bfloat16, device="cuda",
                  sched_policy: str = "fcfs", clock=time.monotonic,
-                 pool_blocks: int = 0, max_pages: int = 0):
+                 pool_blocks: int = 0, max_pages: int = 0,
+                 chunk_tokens: int = 0,
+                 chunk_prefill_step: Callable | None = None,
+                 prefix_share: bool = False):
         device = torch.device(device)
         if device.type == "cuda":
             families = [("attn_backend", "flash_decode"),
                         ("prefill_backend", "flash_prefill")]
             if hx.lm_head_w8:
                 families.append(("matmul_backend", "w8a16_matmul"))
+            if hx.paged_kv and hx.grouped_decode:
+                families.append(("attn_backend", "prefix_pass"))
             for field, family in families:
                 ok, why = registry.available(family, getattr(hx, field))
                 if not ok:
@@ -74,6 +100,7 @@ class DecodeEngine:
         self.model = prepare_decode_params(model, hx)
         self.serve_step = serve_step
         self.prefill_step = prefill_step
+        self.dtype = dtype
         self.max_batch = max_batch
         self.kvp, self.rr = hx.kvp, hx.rr_block
         self.cap = cache_capacity(max_seq, self.kvp, self.rr)
@@ -89,22 +116,44 @@ class DecodeEngine:
             self.max_pages = min(max_pages or self.pool.capacity,
                                  self.pool.capacity)
         self._frag_samples: list[float] = []
+        # grouped decode: _set_groups refreshes group_id/group_np each step
+        self.grouped = self.paged and hx.grouped_decode
         self.state = init_decode_state(cfg, max_batch, self.cap, self.kvp,
                                        self.rr, dtype=dtype, device=device,
                                        kv_bits=hx.kv_cache_bits,
                                        pool_blocks=self.pool_blocks,
-                                       max_pages=self.max_pages)
+                                       max_pages=self.max_pages,
+                                       grouped=self.grouped)
         # per-request lengths: [B]; empty slots keep 0
         self.state["total_len"] = torch.zeros(max_batch, dtype=torch.int32,
                                               device=device)
         self.slots: list[Request | None] = [None] * max_batch
         self.cur_tokens = torch.zeros(max_batch, dtype=torch.int32,
                                       device=device)
+        if chunk_tokens and chunk_prefill_step is None:
+            raise ValueError("chunk_tokens set but no chunk_prefill_step "
+                             "(build one with make_chunk_prefill_step)")
+        self.chunk_tokens = chunk_tokens
+        self.chunk_step = chunk_prefill_step
+        # prefix sharing: suffix-only prefill is a resumed chunked prefill,
+        # and the pages to share live in the pool
+        self.prefix_index = None
+        if prefix_share:
+            if not (self.paged and self.chunk_tokens):
+                raise ValueError("prefix_share needs hx.paged_kv and "
+                                 "chunk_tokens (suffix-only prefill rides "
+                                 "the chunked-prefill q_offset contract)")
+            self.prefix_index = PrefixIndex(self.block_s, self.pool)
+        self._prefix_admits = 0
+        self._prefix_hits = 0
+        self.grouped_steps = 0          # decode steps with a group formed
         self.sched = Scheduler(max_batch=max_batch, cap=self.cap,
                                policy=sched_policy, pool=self.pool,
-                               max_pages=self.max_pages)
+                               max_pages=self.max_pages,
+                               prefix_index=self.prefix_index)
         self.metrics = EngineMetrics(clock=clock)
         self.decode_syncs = 0           # decode steps (one transfer each)
+        self.prefill_calls = 0          # one-shot prefills and chunk calls
 
     # ------------------------------------------------------------- requests
     def submit(self, req: Request) -> None:
@@ -117,8 +166,10 @@ class DecodeEngine:
         return bool(self.sched.queue) or any(self.slots)
 
     def step(self) -> list[Request]:
-        """Admission, then one decode step; returns the requests retired."""
+        """Admission, at most one prefill chunk, then one decode step;
+        returns the requests retired."""
         finished = self._admit()
+        finished += self._prefill_chunk()
         finished += self._decode_step()
         return finished
 
@@ -129,7 +180,19 @@ class DecodeEngine:
         for req, slot in self.sched.admit():
             self.metrics.on_admit(req.rid)
             self.slots[slot] = req
-            deferred.append((req, slot, self._oneshot_prefill(req, slot)))
+            if not self.chunk_tokens:
+                deferred.append((req, slot, self._oneshot_prefill(req, slot)))
+                continue
+            req.prefill_tokens = req.resume_tokens()
+            req.prefill_pos = 0
+            req.buffers = init_prefill_buffers(
+                self.cfg, 1, len(req.prefill_tokens), dtype=self.dtype,
+                device=self.device)
+            if self.prefix_index is not None:
+                self._prefix_admits += 1
+                if req.shared_len and req.shared_kv is not None:
+                    self._prefix_hits += 1
+                    self._restore_prefix(req)
         if deferred:
             # every admission's first token in ONE device->host transfer
             vals = torch.stack([d for _, _, d in deferred]).tolist()
@@ -141,11 +204,99 @@ class DecodeEngine:
             retired.append(req)
         return retired
 
+    def _restore_prefix(self, req: Request) -> None:
+        """Install the prefix index's host fp K/V of the matched prefix into
+        ``req``'s fresh carry buffers and fast-forward its prefill to the
+        suffix: the rows are the registrant's own prefill output for the
+        same tokens, what re-prefilling them would write."""
+        m = req.shared_len
+        for key, host in zip(("kcache", "vcache"), req.shared_kv):
+            buf = req.buffers[key]
+            buf[:, 0, :m] = host[:, :m].to(device=buf.device, dtype=buf.dtype)
+        req.shared_kv = None
+        req.prefill_pos = m
+
+    def _register_prefix(self, req: Request, t: int) -> None:
+        """Publish a finished prefill to the prefix index: its tokens, its
+        page list and a host copy of its carry-buffer K/V, taken before any
+        int8 quantization (so a later hit restores fp rows and stays exact
+        on int8 engines too)."""
+        kv = tuple(req.buffers[key][:, 0, :t].cpu()
+                   for key in ("kcache", "vcache"))
+        self.prefix_index.register(list(req.prefill_tokens),
+                                   list(self.pool.pages(req.rid)), kv)
+
+    def _prefill_chunk(self) -> list[Request]:
+        """Advance ONE packed group of chunked prefills by one chunk.
+
+        Ragged packing: prefills at different offsets pack into one chunk
+        call (per-row ``q_offset``; each writes its chunk at its own buffer
+        offset; buffers zero-padded to the group's longest prompt, whose pad
+        rows every causal query masks).  The shared dimension is the chunk
+        width ``c``, so the group is every prefill whose next chunk is as
+        wide as the oldest prefill's (by ``admit_seq``).  One batched
+        transfer fetches the first tokens of the prefills this chunk
+        finishes."""
+        pre = [(slot, r) for slot, r in enumerate(self.slots)
+               if r is not None and r.state == PREFILL
+               and r.prefill_tokens is not None]
+        if not pre:
+            return []
+
+        def width(r: Request) -> int:
+            return min(self.chunk_tokens, len(r.prefill_tokens) - r.prefill_pos)
+
+        c = width(min(pre, key=lambda sr: sr[1].admit_seq)[1])
+        group = [(s, r) for s, r in pre if width(r) == c]
+        tokens = torch.tensor([r.prefill_tokens[r.prefill_pos:r.prefill_pos + c]
+                               for _, r in group], dtype=torch.int64,
+                              device=self.device)
+        tmax = max(len(r.prefill_tokens) for _, r in group)
+        if len(group) == 1:
+            bufs = group[0][1].buffers
+        else:
+            bufs = {key: torch.cat([torch.nn.functional.pad(
+                r.buffers[key], (0, 0, 0, 0, 0, tmax - r.buffers[key].shape[2]))
+                for _, r in group], dim=1) for key in ("kcache", "vcache")}
+        offs = torch.tensor([r.prefill_pos for _, r in group],
+                            dtype=torch.int32, device=self.device)
+        next_toks, bufs = self.chunk_step(self.model, tokens, bufs, offs)
+        self.prefill_calls += 1
+        done = [i for i, (_, r) in enumerate(group)
+                if r.prefill_pos + c >= len(r.prefill_tokens)]
+        first = {}
+        if done:
+            vals = next_toks[torch.tensor(done, device=self.device), c - 1]
+            first = dict(zip(done, vals.tolist()))
+        finished = []
+        for i, (slot, req) in enumerate(group):
+            t_i = len(req.prefill_tokens)
+            req.buffers = {key: b[:, i:i + 1, :t_i].contiguous()
+                           for key, b in bufs.items()}
+            req.prefill_pos += c
+            if i in first:
+                finished += self._finish_prefill(req, slot, int(first[i]))
+        return finished
+
+    def _finish_prefill(self, req: Request, slot: int,
+                        first_token: int) -> list[Request]:
+        """Chunked prefill complete: the carry buffers go to the decode slot
+        through the one-shot path's handoff, then the first token."""
+        t = len(req.prefill_tokens)
+        pstate = finalize_chunked_prefill(self.cfg, self.hx, req.buffers, t)
+        if self.prefix_index is not None:
+            self._register_prefix(req, t)
+        req.buffers = None
+        req.prefill_tokens = None
+        self._scatter_state(pstate, slot, t, req)
+        return self._commit_first_token(req, slot, first_token)
+
     def _oneshot_prefill(self, req: Request, slot: int):
         """Prefill ``req`` into ``slot``; returns its first token (device)."""
         toks_list = req.resume_tokens()
         toks = torch.tensor([toks_list], dtype=torch.int64, device=self.device)
         last_logits, pstate = self.prefill_step(self.model, {"tokens": toks})
+        self.prefill_calls += 1
         self._scatter_state(pstate, slot, len(toks_list), req)
         return torch.argmax(last_logits[0, :self.cfg.vocab]).to(torch.int32)
 
@@ -181,21 +332,25 @@ class DecodeEngine:
         pages (``cache_to_pages``), written at the physical pages the
         allocator granted; int8 engines quantize those pages with the decode
         append's formula.  Granted pages beyond the prefill extent keep
-        stale rows at positions >= t, which every backend masks."""
+        stale rows at positions >= t, which every backend masks.  Shared
+        leading pages are skipped: they already hold the registrant's rows,
+        the same bytes for the same tokens, and other requests may map
+        them."""
         phys = self.pool.pages(req.rid)
         pages = {key: cache_to_pages(pstate[key][:, 0], self.kvp,
                                      self.block_s)
                  for key in ("kcache", "vcache")}
         n = min(pages["kcache"].shape[1], len(phys))
-        idx = torch.tensor(phys[:n], dtype=torch.int64, device=self.device)
+        s0 = min(req.shared_pages, n)
+        idx = torch.tensor(phys[s0:n], dtype=torch.int64, device=self.device)
         if self.kv8:
-            pages = quantize_decode_state({k: v[:, :n].float()
+            pages = quantize_decode_state({k: v[:, s0:n].float()
                                            for k, v in pages.items()})
             for key in ("kcache", "vcache", "kscale", "vscale"):
                 self.state[key][:, idx] = pages[key]
         else:
             for key in ("kcache", "vcache"):
-                self.state[key][:, idx] = pages[key][:, :n].to(
+                self.state[key][:, idx] = pages[key][:, s0:n].to(
                     self.state[key].dtype)
         self._mirror_table(slot)
 
@@ -228,17 +383,85 @@ class DecodeEngine:
             self._mirror_table(slot)
         return None
 
+    def _cow_guard(self, active: list[int]) -> None:
+        """Make every slot's append-target page exclusive before the decode
+        step writes it (copy-on-write).  Admission already made a shared
+        partial page exclusive, so a shared target here means a request
+        whose committed length ends exactly on the shared-prefix boundary:
+        its next page is copied here, before the kernel's append."""
+        keys = ("kcache", "vcache") + (("kscale", "vscale") if self.kv8
+                                       else ())
+        for i in active:
+            req = self.slots[i]
+            li = self.sched.slot_len[i] // self.block_s
+            phys = self.pool.pages(req.rid)
+            if li >= len(phys) or self.pool.refcount(phys[li]) == 1:
+                continue
+            res = self.pool.cow(req.rid, li)
+            if res is None:
+                raise AssertionError("copy-on-write with an empty free list: "
+                                     "admission must pre-charge the "
+                                     "divergent page")
+            old, new = res
+            for key in keys:
+                self.state[key][:, new] = self.state[key][:, old]
+            self._mirror_table(i)
+
+    def _set_groups(self, active: list[int]) -> None:
+        """Refresh the grouped decode's ``group_id``/``group_np`` leaves.
+
+        Slots whose tables start on the same physical page form a group;
+        ``group_np`` is the longest run of identical leading pages common
+        to every member, capped at each member's full committed pages so
+        the fused append (page ``slot_len // block_s``) always lands above
+        it.  Every member gets the same ``group_np`` and the lowest member
+        row as ``group_id``; singletons and idle rows keep their own row
+        with ``group_np = 0``, which decodes as ungrouped."""
+        gid = list(range(self.max_batch))
+        gnp = [0] * self.max_batch
+        buckets: dict[int, list[int]] = {}
+        for i in active:
+            pages = self.pool.pages(self.slots[i].rid)
+            if pages and pages[0] != 0:
+                buckets.setdefault(pages[0], []).append(i)
+        for members in buckets.values():
+            if len(members) < 2:
+                continue
+            lists = [self.pool.pages(self.slots[i].rid) for i in members]
+            depth = min(min(len(pl) for pl in lists),
+                        min(self.sched.slot_len[i] // self.block_s
+                            for i in members))
+            lcp = 0
+            while lcp < depth and all(pl[lcp] == lists[0][lcp]
+                                      for pl in lists):
+                lcp += 1
+            if lcp == 0:
+                continue
+            for i in members:
+                gid[i] = min(members)
+                gnp[i] = lcp
+        self.grouped_steps += any(gnp)
+        self.state["group_id"] = torch.tensor(gid, dtype=torch.int32,
+                                              device=self.device)
+        self.state["group_np"] = torch.tensor(gnp, dtype=torch.int32,
+                                              device=self.device)
+
     def _decode_step(self) -> list[Request]:
         """One decode step for every DECODE slot; returns retirements."""
         active = [i for i, r in enumerate(self.slots)
                   if r is not None and r.state == DECODE]
         if not active:
             return []
+        if self.prefix_index is not None:
+            self._cow_guard(active)
+        if self.grouped:
+            self._set_groups(active)
         next_tokens, self.state = self.serve_step(
             self.model, self.state, self.cur_tokens)
         self.cur_tokens = next_tokens
-        # serve_step advances total_len for every row; idle slots go back to
-        # 0 so their rows stay O(1) work
+        # serve_step advances total_len for every row; idle and prefilling
+        # slots go back to 0 so their rows stay O(1) work (a prefill's K/V
+        # is still in its carry buffers; its finalize installs the length)
         idle = [i for i in range(self.max_batch) if i not in active]
         if idle:
             self.state["total_len"][idle] = 0
@@ -288,22 +511,31 @@ class DecodeEngine:
     def pool_stats(self) -> dict:
         """Paged-pool health: peak occupancy (peak pages in use /
         allocatable pages), mean internal fragmentation of allocated pages,
-        the retirements with ``finish_reason="capacity"``, and (port only)
-        ``pool_waits``, the requests the pool made wait at least once.
+        the retirements with ``finish_reason="capacity"``, the prefix
+        sharing pair ``prefix_hit_rate`` (share of chunked admissions that
+        restored a matched prefix) and ``pages_shared_peak`` (peak pages
+        mapped by more than one request), and (port only) ``pool_waits``,
+        the requests the pool made wait at least once, and
+        ``grouped_steps``, the decode steps in which a group shared pages.
         Fixed-layout engines report zeros for the pool fields."""
         cap_retired = sum(1 for m in self.metrics.requests.values()
                           if m.finish_reason == "capacity")
         if not self.paged:
             return {"paged_kv": False, "pool_occupancy_peak": 0.0,
                     "pool_frag_mean": 0.0, "capacity_retired": cap_retired,
-                    "pool_waits": 0}
+                    "prefix_hit_rate": 0.0, "pages_shared_peak": 0,
+                    "pool_waits": 0, "grouped_steps": 0}
         frag = (sum(self._frag_samples) / len(self._frag_samples)
                 if self._frag_samples else 0.0)
         return {"paged_kv": True,
                 "pool_occupancy_peak":
                     self.pool.peak_in_use / max(self.pool.capacity, 1),
                 "pool_frag_mean": frag, "capacity_retired": cap_retired,
-                "pool_waits": self.sched.pool_waits}
+                "prefix_hit_rate":
+                    self._prefix_hits / max(self._prefix_admits, 1),
+                "pages_shared_peak": self.pool.pages_shared_peak,
+                "pool_waits": self.sched.pool_waits,
+                "grouped_steps": self.grouped_steps}
 
 
 def _copy_rr(src, dst, kvp: int) -> None:

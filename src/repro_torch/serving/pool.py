@@ -1,5 +1,5 @@
-"""Shared-pool paged KV cache: the page allocator (the port's trimmed copy of
-the reference's ``serving/pool.py`` ``BlockAllocator``).
+"""Shared-pool paged KV cache: the refcounted page allocator (the port's copy
+of the reference's ``serving/pool.py`` ``BlockAllocator``).
 
 A fixed per-slot cache reserves worst-case memory in every slot, so one
 long request's capacity is multiplied by ``max_batch``.  The paged pool
@@ -11,9 +11,16 @@ free-page count instead of the per-slot capacity.
 Page 0 is the reserved *sink*: idle engine rows keep all-zero block tables,
 so the decode step's unconditional per-row append lands there and never in
 a live request's page.  Pages ``1 .. n_blocks-1`` are handed out in FIFO
-free-list order (deterministic, so runs replay exactly).  Each page has at
-most one owner: prefix sharing (refcounts, copy-on-write, generations) is
-not ported.
+free-list order (deterministic, so runs replay exactly).
+
+Prefix sharing: pages are refcounted.  ``share`` maps another request's
+live pages into a new request's table, ``release`` decrefs and a page goes
+back to the free list at refcount zero, and ``cow`` gives a holder a fresh
+exclusive page for one logical index before it writes there (a page with
+refcount > 1 is never written; the caller copies the rows).  Capacity is
+counted in unique pages, so a shared prefix is charged once.  Each page
+carries a generation stamp, bumped when it leaves the free list, by which
+the prefix index tells a live entry from a recycled one.
 """
 from __future__ import annotations
 
@@ -26,11 +33,13 @@ def pages_for(length: int, page: int) -> int:
 
 
 class BlockAllocator:
-    """FIFO free-list allocator for the shared KV page pool.
+    """Refcounted FIFO free-list allocator for the shared KV page pool.
 
     ``n_blocks`` counts every pool page including the sink page 0;
     ``capacity`` (= ``n_blocks - 1``) pages are allocatable.  ``pages(rid)``
-    lists a request's physical pages in logical-page order."""
+    lists a request's physical pages in logical-page order; a page shared
+    by several requests appears in each list and its refcount is its
+    multiplicity."""
 
     SINK = 0                              # reserved idle-row append target
 
@@ -42,7 +51,10 @@ class BlockAllocator:
         self.block_s = block_s
         self._free: deque[int] = deque(range(1, n_blocks))
         self._pages: dict[int, list[int]] = {}
+        self._refs = [0] * n_blocks
+        self._gen = [0] * n_blocks
         self.peak_in_use = 0
+        self.pages_shared_peak = 0
 
     @property
     def capacity(self) -> int:
@@ -55,6 +67,7 @@ class BlockAllocator:
 
     @property
     def used_count(self) -> int:
+        """Unique pages owned by requests (a shared page counts once)."""
         return self.capacity - len(self._free)
 
     def pages(self, rid: int) -> list[int]:
@@ -65,12 +78,33 @@ class BlockAllocator:
         """Pages needed for ``length`` positions at this pool's page size."""
         return pages_for(length, self.block_s)
 
+    def refcount(self, page: int) -> int:
+        """How many request tables map ``page`` (0 = free)."""
+        return self._refs[page]
+
+    def generation(self, page: int) -> int:
+        """Allocation stamp of ``page``, bumped each time it leaves the free
+        list: (page, generation) names one tenancy."""
+        return self._gen[page]
+
+    def shared_count(self) -> int:
+        """Pages mapped by more than one request table now."""
+        return sum(1 for r in self._refs if r > 1)
+
     def _take(self, n: int) -> list[int] | None:
         if n > len(self._free):
             return None
         got = [self._free.popleft() for _ in range(n)]
-        self.peak_in_use = max(self.peak_in_use, self.used_count)
+        for p in got:
+            self._refs[p] = 1
+            self._gen[p] += 1
+        self._note_peaks()
         return got
+
+    def _note_peaks(self) -> None:
+        self.peak_in_use = max(self.peak_in_use, self.used_count)
+        self.pages_shared_peak = max(self.pages_shared_peak,
+                                     self.shared_count())
 
     def alloc(self, rid: int, n: int) -> list[int] | None:
         """Grant ``n`` fresh pages to new request ``rid``; None (nothing
@@ -92,19 +126,69 @@ class BlockAllocator:
             self._pages[rid].extend(got)
         return got
 
+    def share(self, rid: int, phys_pages: list[int]) -> list[int]:
+        """Map live pages into new request ``rid``'s table as its leading
+        logical pages, one more reference each; no free page is taken.
+        Sharing the sink page or a free page raises."""
+        if rid in self._pages:
+            raise ValueError(f"rid {rid} already holds pages")
+        for p in phys_pages:
+            if p == self.SINK or self._refs[p] <= 0:
+                raise ValueError(f"page {p} is the sink or free: not "
+                                 "shareable")
+        for p in phys_pages:
+            self._refs[p] += 1
+        self._pages[rid] = list(phys_pages)
+        self._note_peaks()
+        return list(phys_pages)
+
+    def cow(self, rid: int, logical: int) -> tuple[int, int] | None:
+        """Make ``rid``'s logical page ``logical`` exclusive before a write:
+        ``(old, new)`` with ``old == new`` when it already is; otherwise a
+        fresh page replaces it in ``rid``'s table (the caller copies the
+        rows) and the old page loses one reference.  None (nothing changed)
+        when the page is shared and no page is free."""
+        old = self._pages[rid][logical]
+        if self._refs[old] == 1:
+            return old, old
+        got = self._take(1)
+        if got is None:
+            return None
+        self._pages[rid][logical] = got[0]
+        self._refs[old] -= 1
+        return old, got[0]
+
+    def release(self, rid: int) -> int:
+        """Drop all of ``rid``'s references (retirement); pages reaching
+        refcount zero return to the free list.  Returns how many did."""
+        freed = 0
+        for p in self._pages.pop(rid, []):
+            self._refs[p] -= 1
+            if self._refs[p] == 0:
+                self._free.append(p)
+                freed += 1
+        return freed
+
     def free(self, rid: int) -> int:
-        """Return all of ``rid``'s pages to the free list (retirement);
-        returns how many."""
-        got = self._pages.pop(rid, [])
-        self._free.extend(got)
-        return len(got)
+        """Alias of ``release`` (the name before refcounts)."""
+        return self.release(rid)
 
     def check_invariants(self) -> None:
-        """Raise unless every allocatable page is either free or owned by
-        exactly one request, and the sink page never left the pool."""
-        owned = [p for pages in self._pages.values() for p in pages]
+        """Raise unless every allocatable page is either free or owned,
+        never both, each refcount equals the page's multiplicity across
+        the tables, and the sink page never left the pool."""
+        mult: dict[int, int] = {}
+        for pages in self._pages.values():
+            for p in pages:
+                mult[p] = mult.get(p, 0) + 1
         free = list(self._free)
-        if (len(owned) + len(free) != self.capacity
-                or sorted(owned + free) != list(range(1, self.n_blocks))):
+        ok = (len(free) == len(set(free)) and not set(free) & set(mult)
+              and sorted(set(mult) | set(free)) == list(range(1,
+                                                             self.n_blocks))
+              and all(self._refs[p] == mult.get(p, 0)
+                      for p in range(self.n_blocks))
+              and self.SINK not in mult)
+        if not ok:
             raise AssertionError(f"page conservation violated: owned "
-                                 f"{sorted(owned)} free {sorted(free)}")
+                                 f"{sorted(mult)} free {sorted(free)} refs "
+                                 f"{self._refs}")

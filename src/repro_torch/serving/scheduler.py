@@ -1,15 +1,19 @@
 """Admission scheduling for the continuous-batching engine (the port's copy
 of the reference's ``serving/scheduler.py``, trimmed to the engine's main
 path: FCFS/SJF admission into a fixed slot table, gated by the per-slot
-cache capacity or, with a paged pool, by the pool's free pages).  Tenancy,
-the prefix index and preemption are not ported yet.
+cache capacity or, with a paged pool, by the pool's free pages, and the
+prefix index of prefix sharing).  Tenancy and preemption are not ported
+yet.
 
-Request lifecycle: QUEUED --admit--> PREFILL --first token--> DECODE
+Request lifecycle: QUEUED --admit--> PREFILL --last chunk--> DECODE
 --retire--> DONE.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
+
+import torch
 
 QUEUED = "queued"
 PREFILL = "prefill"
@@ -32,10 +36,162 @@ class Request:
     done: bool = False
     state: str = QUEUED
     finish_reason: str | None = None
+    admit_seq: int = -1                       # admission order stamp
+    # --- chunked-prefill bookkeeping (engine-internal) ---
+    prefill_tokens: list[int] | None = None   # the tokens to prefill
+    prefill_pos: int = 0                      # next chunk offset
+    buffers: Any = None                       # K/V carry buffers (device)
+    # --- prefix-sharing bookkeeping (engine-internal, set at admission) ---
+    shared_len: int = 0                       # matched prefix tokens
+    shared_pages: int = 0                     # leading logical pages shared
+    shared_kv: Any = None                     # host fp K/V of [0, shared_len)
 
     def resume_tokens(self) -> list[int]:
         """Tokens to prefill: the prompt plus anything already generated."""
         return list(self.prompt) + list(self.out_tokens)
+
+
+def _kv_to_pages(arr, block_s: int):
+    """Carry-layout K/V ``[L, t, Kh, hsz]`` -> page stack ``[L, P, block_s,
+    Kh, hsz]`` (zero-padded tail): the page-granular form in which the
+    prefix index keeps its host blobs, as the reference's host store
+    does."""
+    l, t = arr.shape[:2]
+    p = -(-t // block_s)
+    if p * block_s != t:
+        pad = torch.zeros((l, p * block_s - t, *arr.shape[2:]),
+                          dtype=arr.dtype, device=arr.device)
+        arr = torch.cat([arr, pad], dim=1)
+    return arr.reshape(l, p, block_s, *arr.shape[2:])
+
+
+def _pages_to_kv(pages, t: int):
+    """Inverse of ``_kv_to_pages``: drop the padding back to ``t`` rows."""
+    l, p, bs = pages.shape[:3]
+    return pages.reshape(l, p * bs, *pages.shape[3:])[:, :t]
+
+
+class PrefixIndex:
+    """Hash trie over token ids, at page granularity, mapping prompts onto
+    already-committed KV prefixes (the reference's ``PrefixIndex`` without
+    its host store).
+
+    Registration happens when a request finishes its chunked prefill: the
+    engine hands over the token sequence, the request's physical page list
+    (snapshotted with the pool's generation stamps) and a host fp copy of
+    its carry-buffer K/V.  An arriving prompt walks the trie, one node per
+    full page of ``block_s`` token ids, to its longest registered prefix:
+
+      * the matched length ``m`` gates compute: the engine restores the host
+        K/V of ``[0, m)`` into the new request's buffers and chunk-prefills
+        only the suffix;
+      * the entry's still-live leading pages (``valid_leading_pages``:
+        refcount and generation per page) gate memory: the scheduler
+        ``share()``s them instead of charging fresh ones.
+
+    Entries never go wrong, only stale: the host K/V is a function of the
+    token prefix alone.  ``max_entries`` bounds the entries, evicted FIFO.
+    """
+
+    def __init__(self, block_s: int, pool, max_entries: int = 64):
+        if block_s < 1:
+            raise ValueError(f"block_s must be >= 1 (got {block_s})")
+        self.block_s = block_s
+        self.pool = pool
+        self.max_entries = max_entries
+        self._root: dict = {"children": {}, "entries": []}
+        self._order: list[dict] = []          # FIFO eviction order
+        self._seq = 0
+        self.lookups = 0
+        self.hits = 0
+
+    def __len__(self) -> int:
+        return len(self._order)
+
+    def register(self, tokens, pages, kv=None) -> None:
+        """Insert one committed prefix: ``tokens`` (the whole prefilled
+        sequence), its physical ``pages`` and ``kv``, host fp ``(k, v)`` of
+        shape ``[L, len(tokens), Kh, hsz]``, kept as page stacks."""
+        toks = tuple(int(t) for t in tokens)
+        if kv is not None:
+            kv = tuple(_kv_to_pages(x, self.block_s) for x in kv)
+        entry = {"tokens": toks, "pages": list(pages),
+                 "gens": [self.pool.generation(p) for p in pages],
+                 "kv": kv, "seq": self._seq, "nodes": []}
+        self._seq += 1
+        node = self._root
+        node["entries"].append(entry)
+        entry["nodes"].append(node)
+        bs = self.block_s
+        for d in range(len(toks) // bs):
+            key = toks[d * bs:(d + 1) * bs]
+            node = node["children"].setdefault(
+                key, {"children": {}, "entries": []})
+            node["entries"].append(entry)
+            entry["nodes"].append(node)
+        self._order.append(entry)
+        while len(self._order) > self.max_entries:
+            old = self._order.pop(0)
+            for n in old["nodes"]:
+                n["entries"].remove(old)
+
+    def match(self, tokens, limit: int) -> tuple[int, dict | None]:
+        """Longest registered prefix of ``tokens``: ``(m, entry)`` with
+        ``m <= limit`` matched ids ((0, None) on a miss).  Walks the page
+        trie to the deepest node, then extends id by id into the partial
+        page against that node's entries; equal lengths prefer the entry
+        with the most live leading pages, then the earliest registered."""
+        self.lookups += 1
+        toks = tuple(int(t) for t in tokens)
+        bs = self.block_s
+        path = [self._root]
+        node = self._root
+        for d in range(len(toks) // bs):
+            node = node["children"].get(toks[d * bs:(d + 1) * bs])
+            if node is None:
+                break
+            path.append(node)
+        best_m, best, best_key = 0, None, None
+        for depth in range(len(path) - 1, -1, -1):
+            for e in sorted(path[depth]["entries"], key=lambda e: e["seq"]):
+                m = depth * bs
+                et = e["tokens"]
+                hi = min(len(toks), len(et), limit)
+                while m < hi and toks[m] == et[m]:
+                    m += 1
+                m = min(m, limit)
+                key = (m, self.valid_leading_pages(e), -e["seq"])
+                if best_key is None or key > best_key:
+                    best_m, best, best_key = m, e, key
+            if best_m > 0:
+                break       # shallower nodes can only match shorter prefixes
+        if best_m <= 0:
+            return 0, None
+        self.hits += 1
+        return best_m, best
+
+    def resolve_kv(self, entry: dict):
+        """The entry's host fp ``(k, v)`` ``[L, len(tokens), Kh, hsz]``, or
+        None when it was registered without."""
+        if entry["kv"] is None:
+            return None
+        t = len(entry["tokens"])
+        return tuple(_pages_to_kv(x, t) for x in entry["kv"])
+
+    def valid_leading_pages(self, entry: dict) -> int:
+        """How many of ``entry``'s leading pages are still the tenancy they
+        were at registration (refcount > 0, same generation): the span that
+        can be shared."""
+        n = 0
+        for p, g in zip(entry["pages"], entry["gens"]):
+            if self.pool.refcount(p) <= 0 or self.pool.generation(p) != g:
+                break
+            n += 1
+        return n
+
+    def hit_rate(self) -> float:
+        """Fraction of lookups that matched a non-empty prefix."""
+        return self.hits / max(self.lookups, 1)
 
 
 class Scheduler:
@@ -48,10 +204,13 @@ class Scheduler:
     ``max_pages`` and the pool's capacity), ``can_admit_now`` (its pages are
     free now; otherwise it waits in the queue) and ``grow_for_next_token``
     (the next token's page, reserved atomically).  ``pool_waits`` counts
-    the requests the pool made wait at least once."""
+    the requests the pool made wait at least once.  With a
+    ``prefix_index`` the paged gates charge only the pages a request does
+    not share (``_prefix_plan``), and admission maps the shared ones
+    (``_reserve``)."""
 
     def __init__(self, max_batch: int, cap: int, policy: str = "fcfs",
-                 pool=None, max_pages: int = 0):
+                 pool=None, max_pages: int = 0, prefix_index=None):
         if policy not in POLICIES:
             raise ValueError(f"unknown sched policy {policy!r}; "
                              f"choose from {POLICIES}")
@@ -60,6 +219,8 @@ class Scheduler:
         self.max_batch = max_batch
         self.pool = pool
         self.max_pages = max_pages or (pool.capacity if pool else 0)
+        self.prefix_index = prefix_index
+        self._admit_seq = 0
         self.queue: list[Request] = []
         self.slot_rids: list[int | None] = [None] * max_batch
         self.slot_len: list[int] = [0] * max_batch
@@ -87,29 +248,81 @@ class Scheduler:
         except ValueError:
             return None
 
+    def _prefix_plan(self, req: Request) -> tuple[int, dict | None, int, int]:
+        """One prefix-share decision for every gate: ``(m, entry,
+        shared_full, total)``: ``m`` matched tokens, ``shared_full`` the
+        full pages the pool can ``share()`` (live leading pages of the
+        entry), ``total`` the table width the request needs (prompt plus
+        one token).  No pool: ``(0, None, 0, 0)``; no index or no match:
+        ``(0, None, 0, total)``."""
+        need = len(req.resume_tokens())
+        if self.pool is None:
+            return 0, None, 0, 0
+        total = self.pool.pages_for(need + 1)
+        if self.prefix_index is None or need < 2:
+            return 0, None, 0, total
+        m, entry = self.prefix_index.match(req.resume_tokens(),
+                                           limit=need - 1)
+        if entry is None:
+            return 0, None, 0, total
+        valid = self.prefix_index.valid_leading_pages(entry)
+        return m, entry, min(m // self.pool.block_s, valid), total
+
     def fits(self, req: Request) -> bool:
         """Could ``req``'s prefill plus one generated token *ever* fit: the
-        per-slot ``cap`` (fixed), or ``max_pages`` and the pool (paged)?
-        False means reject."""
-        need = len(req.resume_tokens()) + 1
+        per-slot ``cap`` (fixed), or ``max_pages`` and the pool (paged),
+        charging the pool only the pages not shared?  False means
+        reject."""
         if self.pool is None:
-            return need <= self.cap
-        total = self.pool.pages_for(need)
-        return total <= self.max_pages and total <= self.pool.capacity
+            return len(req.resume_tokens()) + 1 <= self.cap
+        _, _, shared_full, total = self._prefix_plan(req)
+        return (total <= self.max_pages
+                and total - shared_full <= self.pool.capacity)
 
     def can_admit_now(self, req: Request) -> bool:
         """Fixed: always (the free slot is the reservation).  Paged: the
-        pages of the prompt plus one token must be free now."""
+        pages the request does not share must be free now."""
         if self.pool is None:
             return True
-        need = len(req.resume_tokens()) + 1
-        return self.pool.pages_for(need) <= self.pool.free_count
+        _, _, shared_full, total = self._prefix_plan(req)
+        return total - shared_full <= self.pool.free_count
+
+    def _reserve(self, req: Request) -> None:
+        """The paged reservation ``can_admit_now`` approved: ``share()`` the
+        matched live leading pages, ``cow()`` a shared partial page (the
+        first appended token diverges right after the prefix), then fresh
+        pages for the rest.  Records the match on ``req`` (``shared_len``,
+        ``shared_pages``, ``shared_kv``)."""
+        req.shared_len, req.shared_pages, req.shared_kv = 0, 0, None
+        m, entry, shared_full, total = self._prefix_plan(req)
+        if entry is None:
+            if self.pool.alloc(req.rid, total) is None:
+                raise AssertionError("can_admit_now granted what the pool "
+                                     "could not give")
+            return
+        bs = self.pool.block_s
+        valid = self.prefix_index.valid_leading_pages(entry)
+        partial = (shared_full == m // bs and m % bs != 0
+                   and valid > shared_full
+                   and len(entry["pages"]) > shared_full)
+        take = shared_full + 1 if partial else shared_full
+        self.pool.share(req.rid, entry["pages"][:take])
+        if ((partial and self.pool.cow(req.rid, shared_full) is None)
+                or (total > take
+                    and self.pool.extend(req.rid, total - take) is None)):
+            raise AssertionError("can_admit_now granted what the pool could "
+                                 "not give")
+        req.shared_len = m
+        req.shared_pages = shared_full
+        req.shared_kv = self.prefix_index.resolve_kv(entry)
 
     def admit(self) -> list[tuple[Request, int]]:
         """Admit queued requests into free slots per policy; requests that
         can never fit go to ``rejected`` (state DONE) unplaced.  Under pool
         pressure the pick stays queued and admission stops (no skip-ahead,
-        so a long request is not starved by short ones)."""
+        so a long request is not starved by short ones).  Paged: the
+        prompt's and the first token's pages are reserved here, shared
+        ones mapped (``_reserve``)."""
         placed: list[tuple[Request, int]] = []
         while self.queue:
             slot = self.free_slot()
@@ -125,15 +338,14 @@ class Scheduler:
                 self._waited.add(req.rid)
                 break
             self.queue.remove(req)
-            need = len(req.resume_tokens())
             if self.pool is not None:
-                got = self.pool.alloc(req.rid, self.pool.pages_for(need + 1))
-                if got is None:
-                    raise AssertionError("can_admit_now granted what the "
-                                         "pool could not give")
+                self._reserve(req)
             req.state = PREFILL
+            if req.admit_seq < 0:
+                req.admit_seq = self._admit_seq
+                self._admit_seq += 1
             self.slot_rids[slot] = req.rid
-            self.slot_len[slot] = need
+            self.slot_len[slot] = len(req.resume_tokens())
             placed.append((req, slot))
         return placed
 
@@ -159,9 +371,10 @@ class Scheduler:
         return self.pool.extend(rid, need - have)
 
     def release(self, slot: int) -> None:
-        """Free ``slot``; paged: its request's pages go back to the pool."""
+        """Free ``slot``; paged: its request's page references are dropped
+        (pages no other request maps go back to the pool)."""
         rid = self.slot_rids[slot]
         if self.pool is not None and rid is not None:
-            self.pool.free(rid)
+            self.pool.release(rid)
         self.slot_rids[slot] = None
         self.slot_len[slot] = 0

@@ -6,8 +6,8 @@ imports no JAX, so it also runs where only PyTorch is installed:
 Elsewhere each test skips from its fixture.  Tolerance 2e-5 at f32: kernel
 and plain version compute the same softmax in f32 and differ only in
 summation order; the w8a16 product 1e-5 of its largest |value| for the same
-reason.  int8 payloads and scales, pruned == dense, fused == unfused and
-paged == fixed are bit for bit.
+reason.  int8 payloads and scales, pruned == dense, fused == unfused,
+paged == fixed and grouped == ungrouped are bit for bit.
 """
 import pytest
 import torch
@@ -17,7 +17,7 @@ from repro_torch.core.kvcache import quantize_decode_state, state_to_paged
 from repro_torch.kernels import registry
 from repro_torch.kernels.flash_decode.ops import (flash_decode_shards,
                                                   flash_decode_shards_plain,
-                                                  kernel_block_s)
+                                                  kernel_block_s, prefix_pass)
 from repro_torch.kernels.flash_prefill import flash_prefill, flash_prefill_ref
 from repro_torch.kernels.w8a16_matmul import (quantize_w8, w8a16_matmul,
                                               w8a16_matmul_ref)
@@ -91,6 +91,7 @@ def test_serve_on_card_matches_cpu_and_counts_launches(h100):
             == {r.rid: r.out_tokens for r in cpu})
     assert counts == {"flash_decode": cfg.n_layers * summ["decode_syncs"],
                       "flash_decode_kv8": 0, "flash_decode_paged": 0,
+                      "flash_decode_grouped": 0, "prefix_pass": 0,
                       "flash_prefill": cfg.n_layers * 5, "w8a16_matmul": 0}
 
 
@@ -187,3 +188,70 @@ def test_paged_decode_kernel_matches_plain_and_fixed_on_card(h100):
         for a, p2, f in zip(c1, c2, (back[k][0] for k in keys)):
             assert torch.equal(bits(a[1:]), bits(p2[1:]))
             assert torch.equal(bits(a[1:]), bits(f[1:]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_grouped_decode_kernels_match_plain_and_ungrouped_on_card(h100, quant):
+    """prefix_pass + the grouped-suffix mode vs the plain grouped decode
+    (2e-5) and vs the ungrouped paged kernel, bit for bit in outputs, LSEs
+    and appended pages: rows 0, 1, 3 share 5 pages (the split falls inside
+    a tile), row 2 decodes alone; kvp 1 and 2, windows 0 and 40."""
+    g = torch.Generator(device=h100).manual_seed(3)
+    for kvp in (1, 2):
+        page, mp = kvp * RR, 12
+        tl = torch.tensor([100, 90, 50, 120], dtype=torch.int32,
+                          device=h100) * kvp
+        tab = torch.zeros(4, mp, dtype=torch.int32)
+        nxt = 6
+        for b in range(4):
+            need = -(-int(tl[b]) // page)
+            row = [1, 2, 3, 4, 5] if b != 2 else []
+            row = (row + list(range(nxt, nxt + mp)))[:need]
+            nxt += need
+            tab[b, :need] = torch.tensor(row, dtype=torch.int32)
+        tab = tab.to(h100)
+        n_pool = nxt
+        gid = torch.tensor([0, 0, 2, 0], dtype=torch.int32, device=h100)
+        gnp = torch.tensor([5, 5, 0, 5], dtype=torch.int32, device=h100)
+        cache = {k: torch.randn(n_pool, 8, page, 64, generator=g,
+                                device=h100) for k in ("kcache", "vcache")}
+        if quant:
+            cache = quantize_decode_state(cache)
+        keys = [k for k in ("kcache", "vcache", "kscale", "vscale")
+                if k in cache]
+        q = torch.randn(4, 32, 64, generator=g, device=h100)
+        kn = torch.randn(4, 8, 64, generator=g, device=h100)
+        for window in (0, 40):
+            kw = dict(kvp=kvp, n_ranks=kvp, rank=0, rr_block=RR,
+                      window=window, block_tables=tab, k_new=kn, v_new=kn)
+
+            def run(fn, groups, **extra):
+                c = [cache[k].clone() for k in keys]
+                sc = dict(kscale=c[2], vscale=c[3]) if quant else {}
+                o, l = fn(q, c[0], c[1], tl, groups=groups, **sc, **kw,
+                          **extra)
+                return o, l, c
+
+            registry.reset_launch_counts()
+            og, lg, cg = run(flash_decode_shards, (gid, gnp))
+            assert registry.launch_counts()["prefix_pass"] == 1
+            of, lf, cf = run(flash_decode_shards, None)
+            op, lp, cp = run(flash_decode_shards_plain, (gid, gnp),
+                             scale=64 ** -0.5, contiguous=False,
+                             slot_offset=0,
+                             block_s=kernel_block_s(512, mp * RR))
+            torch.cuda.synchronize()
+            assert torch.equal(og, of) and torch.equal(lg, lf)
+            assert all(torch.equal(a[1:], b[1:]) for a, b in zip(cg, cf))
+            assert all(torch.equal(a[1:], b[1:]) for a, b in zip(cg, cp))
+            torch.testing.assert_close(og, op, atol=ATOL, rtol=RTOL)
+            torch.testing.assert_close(lg, lp, atol=ATOL, rtol=RTOL)
+            st = prefix_pass(q, *(cache[k] for k in keys[:2]), tl, tab, gid,
+                             gnp, kvp=kvp, n_ranks=kvp, rr_block=RR,
+                             window=window,
+                             **(dict(kscale=cache["kscale"],
+                                     vscale=cache["vscale"]) if quant
+                                else {}))
+            o2, l2, _ = run(flash_decode_shards, (gid, gnp), prefix_state=st)
+            assert torch.equal(o2, og) and torch.equal(l2, lg)
