@@ -6,7 +6,7 @@
 Needs one sm_90 card (H100).  Phases, each fatal on failure:
 
 1. device: CUDA, capability 9.0, card name and power limit, TF32 off;
-2. build: the four CUDA kernels from ``src/repro_torch/csrc`` (ptxas
+2. build: the five CUDA kernels from ``src/repro_torch/csrc`` (ptxas
    lines), one ``nvcc`` per source, all started together;
 3. kernels vs their plain PyTorch versions on the card at granite-3-2b
    widths (Qh 32, Kh 8, hsz 64) in f32 and bf16, plus pruned == dense and
@@ -17,7 +17,11 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    (prefix_pass, then flash_decode's grouped-suffix mode) against the
    ungrouped paged kernel bit for bit and the plain grouped decode within
    the tolerance, f32, bf16 and int8, kvp 1 and 4, windows 0 and 512, a
-   split inside a tile and one group holding the whole batch;
+   split inside a tile and one group holding the whole batch; ssd_prefill
+   (the Mamba2 SSD scan) at mamba2-780m widths (nh 48, hd 64, ds 128) at
+   T = 64, 1024 and a ragged 37, from a nonzero state, two halves chained
+   through h_final == one pass, and two B/C groups read directly == the
+   repeated form, f32 and bf16 inputs;
 4. serve: granite-3-2b at full width (40 layers, bf16, seeded random
    weights) through ``serve_demo`` for the same 8 requests: the fp path and
    the int8 path (``HelixConfig(kv_cache_bits=8, lm_head_w8=True)``) in
@@ -35,7 +39,13 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    calls (flash_prefill; one-shot prefills or chunks) and decode steps
    (w8a16_matmul, int8 runs).  Then 4-layer f32 runs of the same widths
    where the kernel path, the plain path, kvp = 4 and a chunked prefill
-   agree, fp and int8;
+   agree, fp and int8.  Then mamba2-780m at full width (48 layers, bf16,
+   seeded random weights) through ``serve_demo``: 8 requests of 256-1024
+   tokens (multiples of 256, the reference's prompt-length contract), 32
+   new tokens each, ssd_prefill launched 48 x prefills; and 4-layer f32
+   checks: prefill logits and state of the ssd backends ``cuda`` and
+   ``ref``, and prefill + 2 decode steps against ``forward`` over T + 2
+   tokens;
 5. times (CUDA events) of each kernel, its plain version and a one-call
    PyTorch yardstick where there is one, beside the card's bound.
 
@@ -73,6 +83,8 @@ from repro_torch.kernels.flash_decode.ops import (  # noqa: E402
     prefix_pass, prefix_pass_plain)
 from repro_torch.kernels.flash_prefill.ops import flash_prefill  # noqa: E402
 from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref  # noqa: E402
+from repro_torch.kernels.ssd_prefill import (  # noqa: E402
+    ssd_prefill, ssd_prefill_plain, ssd_prefill_ref)
 from repro_torch.kernels.w8a16_matmul import (quantize_w8,  # noqa: E402
                                               w8a16_matmul, w8a16_matmul_ref)
 from repro_torch.launch.serve import (generate_rows,  # noqa: E402
@@ -102,7 +114,13 @@ LOGIT_TOL = 1e-3
 # another kernel for a chunk's M, so cache rows differ in their last bits and
 # reach the logits through 40 layers; one bf16 ulp is 0.03-0.06 at |x| 4-8
 BF16_LOGIT_TOL = 0.25
+# ssd_prefill kernel vs plain (and vs the sequential oracle), relative to
+# max(1, |want|): f32 products summed over chunks and states in another
+# order (observed <= 1.01e-6); bf16 inputs are converted to f32 exactly on
+# both sides, so the same tolerance holds
+SSD_TOL = 4e-6
 QH, KH, HSZ, RR = 32, 8, 64, 16
+SSD_NH, SSD_HD, SSD_DS = 48, 64, 128    # mamba2-780m heads, head dim, state
 D_MODEL, VP = 2048, 49664           # granite-3-2b lm_head [d_model, padded vocab]
 KV8_W8 = HelixConfig(kv_cache_bits=8, lm_head_w8=True)
 
@@ -516,6 +534,76 @@ def check_prefill(dev, errs):
              "prefill: a lens == 0 row is not zero")
 
 
+def ssd_inputs(g, dev, b, t, dtype, groups=1):
+    """SSD scan inputs at mamba2-780m widths: x and B/C in ``dtype``, dt
+    softplus'd, a < 0, d = 1, and a nonzero initial state."""
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev)
+    args = (rnd(b, t, SSD_NH, SSD_HD).to(dtype),
+            F.softplus(rnd(b, t, SSD_NH) - 1.0), -torch.exp(rnd(SSD_NH) * 0.3),
+            (rnd(b, t, groups, SSD_DS) * 0.5).to(dtype),
+            (rnd(b, t, groups, SSD_DS) * 0.5).to(dtype),
+            torch.ones(SSD_NH, device=dev))
+    return args, rnd(b, SSD_NH, SSD_HD, SSD_DS) * 0.2
+
+
+def ssd_err(tag, got, want, errs):
+    """Max abs error of (y, h) against (y, h), held at SSD_TOL x max(1,
+    |want|) each."""
+    msg = []
+    for name, a, b in (("y", got[0], want[0]), ("h", got[1], want[1])):
+        e, top = maxerr(a, b), b.abs().max().item()
+        errs.append(e)
+        need(e <= SSD_TOL * max(1.0, top),
+             f"{tag}: {name} max err {e:.3g} above {SSD_TOL:g} x "
+             f"max(1, {top:.3g})")
+        msg.append(f"{name} {e:.3g} (|{name}| <= {top:.3g})")
+    return ", ".join(msg)
+
+
+def check_ssd(dev, errs):
+    """ssd_prefill vs its plain version (and, for T <= 64, the sequential
+    oracle) at the serve widths; split == full and grouped == repeated."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    for dt in (torch.float32, torch.bfloat16):
+        for b, t in ((1, 64), (1, 1024), (2, 37)):
+            args, h0 = ssd_inputs(g, dev, b, t, dt)
+            got = ssd_prefill(*args, h0=h0)
+            want = ssd_prefill_plain(*args, h0=h0)
+            torch.cuda.synchronize()
+            tag = f"ssd {str(dt)[6:]} B={b} T={t}"
+            msg = ssd_err(tag, got, want, errs)
+            if t <= 64:
+                msg += "; vs the sequential oracle " + ssd_err(
+                    tag, got, ssd_prefill_ref(*args, h0=h0), errs)
+            print(f"  {tag} (nh {SSD_NH}, hd {SSD_HD}, ds {SSD_DS}, from a "
+                  f"nonzero state): max err {msg} (tol {SSD_TOL:g} x "
+                  "max(1, |want|))")
+            if t == 1024:
+                half = lambda v: (v[:, :512], v[:, 512:])
+                parts = [half(a) if a.ndim > 1 else (a, a) for a in args]
+                y1, h1 = ssd_prefill(*(p[0].contiguous() for p in parts),
+                                     h0=h0)
+                y2, h2 = ssd_prefill(*(p[1].contiguous() for p in parts),
+                                     h0=h1)
+                torch.cuda.synchronize()
+                print(f"  {tag}: two halves chained through h_final vs one "
+                      "pass: " + ssd_err(tag + " split", (torch.cat(
+                          [y1, y2], 1), h2), got, errs))
+        args, h0 = ssd_inputs(g, dev, 1, 300, dt, groups=2)
+        x, dtv, a, bm, cm, d = args
+        rep = lambda m: m.repeat_interleave(SSD_NH // 2, dim=2)
+        grouped = ssd_prefill(*args, h0=h0)
+        repeated = ssd_prefill(x, dtv, a, rep(bm), rep(cm), d, h0=h0)
+        torch.cuda.synchronize()
+        tag = f"ssd {str(dt)[6:]} T=300 2 groups"
+        msg = ssd_err(tag, grouped, ssd_prefill_plain(*args, h0=h0), errs)
+        need(torch.equal(bits(grouped[0]), bits(repeated[0]))
+             and torch.equal(bits(grouped[1]), bits(repeated[1])),
+             f"{tag}: groups read directly != the repeated form")
+        print(f"  {tag}: vs plain {msg}; == the repeated B/C form, bit for "
+              "bit")
+
+
 # ------------------------------------------------------------- phase 4
 def serve_full(dev):
     """Every main path at full width, the same 8 requests each: fixed fp and
@@ -563,7 +651,7 @@ def serve_full(dev):
                 "flash_decode_paged": cfg.n_layers * steps if extra else 0,
                 "flash_decode_grouped": 0, "prefix_pass": 0,
                 "flash_prefill": cfg.n_layers * len(fin),
-                "w8a16_matmul": steps if int8 else 0}
+                "w8a16_matmul": steps if int8 else 0, "ssd_prefill": 0}
         ttl = summ["ttl_s"]
         print(f"  {len(fin)} requests finished, prompts "
               f"{sorted(len(r.prompt) for r in fin)}; "
@@ -633,6 +721,136 @@ def serve_full(dev):
     return runs
 
 
+def serve_mamba(dev):
+    """mamba2-780m at full width (48 layers, bf16, seeded random weights)
+    through ``serve_demo``: 8 requests of 256-1024 tokens (multiples of
+    256, which meet the reference's prompt-length contract), 32 new tokens
+    each, max_batch 4, one-shot prefills through ssd_prefill.  The counts
+    are set to 0 just before the run and read just after it; then the
+    decode-step and prefill profiles."""
+    cfg = get_config("mamba2-780m")
+    model = init_params(cfg, 0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    registry.reset_launch_counts()
+    fin, summ = serve_demo("mamba2-780m", n_requests=8, prompt_len=(1, 1024),
+                           prompt_multiple=256, max_new=32, max_batch=4,
+                           dtype=torch.bfloat16, device=dev, model=model,
+                           seed=0)
+    counts = registry.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    need(len(fin) == 8 and all(r.finish_reason == "max_tokens"
+                               and len(r.out_tokens) == 32 for r in fin),
+         f"serve mamba2: {len(fin)} finished, reasons "
+         f"{[r.finish_reason for r in fin]}")
+    need(all(0 <= t < cfg.vocab for r in fin for t in r.out_tokens),
+         "serve mamba2: token outside the vocabulary")
+    prompts = sorted(len(r.prompt) for r in fin)
+    need(set(prompts) <= {256, 512, 768, 1024},
+         f"serve mamba2: prompt lengths {prompts}")
+    want = {name: 0 for name in counts}
+    want["ssd_prefill"] = cfg.n_layers * summ["prefill_calls"]
+    ttl = summ["ttl_s"]
+    print(f"  {len(fin)} requests finished, prompts {prompts}; "
+          f"{summ['n_tokens']} tokens, {summ['tok_s']:.1f} tok/s, TTFT p50 "
+          f"{summ['ttft_s']['p50'] * 1e3:.1f} ms, TTL p50 "
+          f"{ttl['p50'] * 1e3:.2f} ms p95 {ttl['p95'] * 1e3:.2f} ms, "
+          f"{summ['engine_steps']} engine steps, {summ['decode_syncs']} "
+          f"decode steps, {summ['prefill_calls']} prefills, peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    print(f"  launches {counts} (expected {want})")
+    need(summ["prefill_calls"] == 8 and counts == want,
+         f"serve mamba2: launch counts {counts} != expected {want}")
+    distinct = len({t for r in fin for t in r.out_tokens})
+    print(f"  streams: {distinct} distinct tokens over the 8 requests "
+          "(seeded random mamba2 collapses onto few tokens; not a check)")
+    profile_decode(dev, cfg, model, HelixConfig())
+    profile_prefill(dev, cfg, model, HelixConfig())
+    del model
+    torch.cuda.empty_cache()
+    return {"counts": counts, "summ": summ}
+
+
+def compare_mamba(dev):
+    """4-layer f32 mamba2 at full width: the prefill logits and SSM state
+    leaves of the ssd backends ``cuda`` and ``ref``; then the ``cuda``
+    prefill + 2 decode steps against ``forward`` over the T + 2 tokens
+    (T = 62, so both lengths meet the prompt-length contract)."""
+    cfg = dataclasses.replace(get_config("mamba2-780m"), n_layers=4)
+    model = init_params(cfg, 1, dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(12)
+    t = 62
+    toks = torch.randint(0, cfg.vocab, (2, t), generator=g, device=dev)
+    res = {b: make_prefill_step(cfg, HelixConfig(ssd_backend=b))(
+        model, {"tokens": toks}) for b in ("cuda", "ref")}
+    torch.cuda.synchronize()
+    (lk, sk), (lr, sr) = res["cuda"], res["ref"]
+    for name, a, b in (("prefill logits", lk[:, :cfg.vocab],
+                        lr[:, :cfg.vocab]),
+                       ("ssm_conv", sk["ssm_conv"], sr["ssm_conv"]),
+                       ("ssm_state", sk["ssm_state"], sr["ssm_state"])):
+        e, scale = maxerr(a, b), b.abs().max().item()
+        print(f"  4-layer f32 mamba2 {name}, ssd cuda vs ref: max err "
+              f"{e:.3g} (|ref| <= {scale:.3g}, tol {LOGIT_TOL:g} x max(1, "
+              "|ref|))")
+        need(e <= LOGIT_TOL * max(1.0, scale), f"mamba2 {name} disagrees")
+    state = dict(sk, total_len=torch.full((2,), t, dtype=torch.int32,
+                                          device=dev))
+    step = build_serve_step(cfg, HelixConfig(), return_logits=True)
+    cur = torch.argmax(lk[:, :cfg.vocab], -1).to(torch.int32)
+    fed, dec = [], [lk]
+    for _ in range(2):
+        fed.append(cur)
+        (cur, lg), state = step(model, state, cur)
+        dec.append(lg)
+    full = torch.cat([toks, torch.stack(fed, 1).to(toks.dtype)], 1)
+    ref, _ = forward(cfg, model, full, ssd_backend="cuda")
+    torch.cuda.synchronize()
+    want = ref[:, t - 1:, :cfg.vocab]
+    got = torch.stack(dec, 1)[..., :cfg.vocab]
+    e, scale = maxerr(got, want), want.abs().max().item()
+    print(f"  4-layer f32 mamba2 prefill + 2 decode steps vs forward over "
+          f"{t + 2} tokens: max logit err {e:.3g} (|logits| <= {scale:.3g}, "
+          f"tol {LOGIT_TOL:g} x max(1, |logits|))")
+    need(e <= LOGIT_TOL * max(1.0, scale),
+         "mamba2 decode steps disagree with forward")
+    del model
+    torch.cuda.empty_cache()
+
+
+def profile_prefill(dev, cfg, model, hx):
+    """Host wall time vs device time of one-shot prefills of 1024 tokens
+    (torch.profiler), and the ssd_prefill kernel's share."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device=dev).manual_seed(14)
+    toks = torch.randint(0, cfg.vocab, (1, 1024), generator=g, device=dev)
+    step = make_prefill_step(cfg, hx)
+    step(model, {"tokens": toks})
+    torch.cuda.synchronize()
+    n = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(model, {"tokens": toks})
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n * 1e3
+    rows = prof.key_averages()
+    dev_us = lambda e: getattr(e, "self_device_time_total", 0)
+    device = sum(dev_us(e) for e in rows
+                 if not e.key.startswith("aten::")) / n / 1e3
+    ssd = sum(dev_us(e) for e in rows if "ssd_kernel" in e.key) / n / 1e3
+    if device > 0:
+        print(f"  prefill profile (B=1, T=1024): host wall {wall:.2f} ms, "
+              f"device kernels {device:.2f} ms, busy share "
+              f"{device / wall:.3f}, ssd_prefill {ssd:.2f} ms "
+              f"({cfg.n_layers} launches, {ssd / device:.3f} of the device "
+              "time)")
+    else:
+        print(f"  prefill profile: host wall {wall:.2f} ms; device time not "
+              "measured (the profiler saw no device events)")
+
+
 def serve_prefix(dev, cfg, model, fp_streams):
     """Chunked prefill, prefix sharing and grouped decode at full width: 8
     requests of 768-1024 tokens, the first 512 shared, budgets 16-48
@@ -667,7 +885,7 @@ def serve_prefix(dev, cfg, model, fp_streams):
                 else 0,
                 "prefix_pass": cfg.n_layers * steps if grouped else 0,
                 "flash_prefill": cfg.n_layers * summ["prefill_calls"],
-                "w8a16_matmul": 0}
+                "w8a16_matmul": 0, "ssd_prefill": 0}
         live = summ["grouped_steps"] * cfg.n_layers
         print(f"  {len(fin)} requests, prompts "
               f"{sorted(len(r.prompt) for r in fin)}, {summ['n_tokens']} "
@@ -756,7 +974,7 @@ def chunked_vs_oneshot(dev, cfg, model, fp_streams):
     want = {"flash_decode": cfg.n_layers * steps, "flash_decode_kv8": 0,
             "flash_decode_paged": 0, "flash_decode_grouped": 0,
             "prefix_pass": 0, "flash_prefill": cfg.n_layers * calls,
-            "w8a16_matmul": 0}
+            "w8a16_matmul": 0, "ssd_prefill": 0}
     print(f"  {steps} decode steps, {calls} prefill chunks; launches "
           f"{counts} (expected {want})")
     need(counts == want, f"(d) launch counts {counts} != expected {want}")
@@ -819,12 +1037,14 @@ def profile_decode(dev, cfg, model, hx):
     shape (4 rows of 700-1000 tokens, cap 1088), from torch.profiler; with
     ``hx.paged_kv`` the same caches in a pool under a shuffled table; with
     ``hx.grouped_decode`` the 4 rows also map the same first 32 pages (512
-    positions) and form one group."""
+    positions) and form one group; an SSM arch's 4 rows carry random
+    ``ssm_state`` leaves instead of caches."""
     from torch.profiler import ProfilerActivity, profile
     state = init_decode_state(cfg, 4, 1088, 1, RR, dtype=torch.bfloat16,
                               device=dev)
-    state["kcache"].normal_()
-    state["vcache"].normal_()
+    for key in ("kcache", "vcache", "ssm_state"):
+        if key in state:
+            state[key].normal_()
     if hx.kv_cache_bits == 8:
         state = quantize_decode_state(state)
     if hx.paged_kv:
@@ -1161,6 +1381,37 @@ def times_grouped(dev):
             "flash_decode_grouped": res["bf16"][1]}
 
 
+def times_ssd(dev):
+    """ssd_prefill at the serve shape: B = 1, T = 1024, nh 48, hd 64, ds
+    128, lc 64, bf16 x/B/C (a bf16 model's conv output), f32 dt and a fresh
+    prompt's zero state, as ``models/ssm.ssd_chunked`` passes them."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    b, t, lc = 1, 1024, 64
+    args, _ = ssd_inputs(g, dev, b, t, torch.bfloat16)
+    h0 = torch.zeros(b, SSD_NH, SSD_HD, SSD_DS, device=dev)
+    r = {"ms": time_ms(lambda: ssd_prefill(*args, h0=h0)),
+         "plain_ms": time_ms(lambda: ssd_prefill_plain(*args, h0=h0),
+                             iters=10),
+         "library_ms": None,
+         "library": "none: no single PyTorch call computes the SSD scan"}
+    state = SSD_NH * SSD_HD * SSD_DS * 4
+    nbytes = b * (t * SSD_NH * SSD_HD * 2           # x (bf16)
+                  + t * SSD_NH * 4                  # dt
+                  + 2 * t * SSD_DS * 2              # B, C (one group, bf16)
+                  + 2 * SSD_NH * 4                  # a, d
+                  + state                           # h0
+                  + t * SSD_NH * SSD_HD * 4         # y (f32)
+                  + state)                          # h_final
+    # per (head, chunk): C B^T, the intra product, C h_in^T, the state update
+    ops = b * SSD_NH * (t // lc) * 2 * (lc * lc * SSD_DS + lc * lc * SSD_HD
+                                        + 2 * lc * SSD_DS * SSD_HD)
+    r.update(_bound(nbytes, ops, PEAK[torch.bfloat16]))
+    print(f"  ssd_prefill B=1 T=1024 nh 48 hd 64 ds 128 lc 64, bf16 x/B/C: "
+          f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+          f"none, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return r
+
+
 def rotating(fns):
     """One callable that calls ``fns`` in turn."""
     it = itertools.cycle(fns)
@@ -1228,7 +1479,7 @@ def main() -> int:
                                   "flash_decode_paged",
                                   "flash_decode_paged_kv8",
                                   "flash_decode_grouped", "flash_prefill",
-                                  "w8a16_matmul")}
+                                  "w8a16_matmul", "ssd_prefill")}
     check_decode(dev, errs["flash_decode"])
     check_decode_kv8(dev, errs["flash_decode_kv8"])
     check_decode_paged(dev, errs["flash_decode_paged"],
@@ -1236,6 +1487,7 @@ def main() -> int:
     check_grouped(dev, errs["flash_decode_grouped"])
     check_prefill(dev, errs["flash_prefill"])
     check_w8a16(dev, errs["w8a16_matmul"])
+    check_ssd(dev, errs["ssd_prefill"])
 
     print(f"== 4 (t = {time.perf_counter() - T0:.1f} s) serve granite-3-2b "
           "(40 layers, bf16): fixed fp and int8, "
@@ -1243,9 +1495,14 @@ def main() -> int:
           "prefix-shared and grouped runs")
     runs = serve_full(dev)
     compare_paths(dev)
+    print(f"== 4 (t = {time.perf_counter() - T0:.1f} s) serve mamba2-780m "
+          "(48 layers, bf16); 4-layer f32 checks")
+    mamba = serve_mamba(dev)
+    compare_mamba(dev)
 
     print(f"== 5 times (t = {time.perf_counter() - T0:.1f} s)")
     timed = times(dev)
+    timed["ssd_prefill"] = times_ssd(dev)
 
     # launches: each kernel's count in the run of the path it serves
     fp, int8 = runs["fp"][0]["counts"], runs["int8"][0]["counts"]
@@ -1258,7 +1515,8 @@ def main() -> int:
                 "flash_decode_grouped": grp["flash_decode_grouped"],
                 "prefix_pass": grp["prefix_pass"],
                 "flash_prefill": fp["flash_prefill"],
-                "w8a16_matmul": int8["w8a16_matmul"]}
+                "w8a16_matmul": int8["w8a16_matmul"],
+                "ssd_prefill": mamba["counts"]["ssd_prefill"]}
     decode_src = ("src/repro_torch/csrc/flash_decode.cu",
                   "src/repro/kernels/flash_decode/kernel.py:417")
     sources = {"flash_decode": decode_src, "flash_decode_kv8": decode_src,
@@ -1270,7 +1528,9 @@ def main() -> int:
                "flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
                                  "src/repro/kernels/flash_prefill/kernel.py:205"),
                "w8a16_matmul": ("src/repro_torch/csrc/w8a16_matmul.cu",
-                                "src/repro/kernels/w8a16_matmul/kernel.py:63")}
+                                "src/repro/kernels/w8a16_matmul/kernel.py:63"),
+               "ssd_prefill": ("src/repro_torch/csrc/ssd_prefill.cu",
+                               "src/repro/kernels/ssd_prefill/kernel.py:97")}
     records = []
     for name, (src, replaces) in sources.items():
         need(launches[name] > 0, f"{name}: no launch on its main path")

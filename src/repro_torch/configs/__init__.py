@@ -1,5 +1,6 @@
-"""Architecture configs of the port: only the fields the dense GQA serving
-path reads, plus ``get_config``.  Mirrors ``repro/configs/base.py``."""
+"""Architecture configs of the port: only the fields its serving paths read
+(dense GQA and pure SSM), plus ``get_config``.  Mirrors
+``repro/configs/base.py``."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,7 +12,7 @@ from repro_torch.utils import round_up
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                 # dense only in this port
+    family: str                 # dense | ssm in this port
     n_layers: int
     d_model: int
     n_heads: int
@@ -22,6 +23,13 @@ class ArchConfig:
     act: str = "silu"           # gated SiLU FFN
     rope_theta: float = 10_000.0
     tie_embeddings: bool = False
+    use_rope: bool = True       # False -> sinusoidal positions on the input
+    # Mamba2 (SSD) block
+    ssm_state: int = 0          # N (dstate)
+    ssm_conv: int = 4           # depthwise causal conv width
+    ssm_headdim: int = 64       # P
+    ssm_expand: int = 2
+    ssm_ngroups: int = 1
 
     @property
     def hsz(self) -> int:
@@ -41,15 +49,38 @@ class ArchConfig:
         # weights have the same shapes on both sides
         return round_up(self.vocab, 512)
 
+    @property
+    def has_attention(self) -> bool:
+        return self.family != "ssm"
+
+    @property
+    def has_ssm(self) -> bool:
+        return self.ssm_state > 0 and self.family in ("ssm", "hybrid")
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
+    @property
+    def conv_dim(self) -> int:
+        # mamba2: the conv acts on the (x, B, C) channels
+        return self.d_inner + 2 * self.ssm_ngroups * self.ssm_state
+
     def reduced(self) -> "ArchConfig":
-        """Tiny same-family variant for CPU tests (same rule as the
-        reference's ``ArchConfig.reduced`` for dense archs)."""
+        """Tiny same-family variant for CPU tests (the reference's
+        ``ArchConfig.reduced`` rule for the dense and SSM families)."""
         return dataclasses.replace(
             self, name=self.name + "-reduced",
             n_layers=min(self.n_layers, 2), d_model=128,
             n_heads=min(self.n_heads, 4),
             n_kv_heads=min(self.n_kv_heads, 2), head_dim=32,
-            d_ff=256 if self.d_ff else 0, vocab=512)
+            d_ff=256 if self.d_ff else 0, vocab=512,
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_headdim=32 if self.has_ssm else self.ssm_headdim)
 
 
 # granite-3-2b [dense] — GQA, hf:ibm-granite/granite-3.0-2b-base.
@@ -57,7 +88,16 @@ GRANITE_3_2B = ArchConfig(
     name="granite-3-2b", family="dense", n_layers=40, d_model=2048,
     n_heads=32, n_kv_heads=8, d_ff=8192, vocab=49_155, tie_embeddings=True)
 
-_CONFIGS = {c.name: c for c in (GRANITE_3_2B,)}
+# mamba2-780m [ssm] — SSD (state-space duality), arXiv:2405.21060:
+# attention-free, no FFN (the gated MLP lives in the block's expand),
+# sinusoidal input positions, tied embeddings.
+MAMBA2_780M = ArchConfig(
+    name="mamba2-780m", family="ssm", n_layers=48, d_model=1536, n_heads=0,
+    n_kv_heads=0, head_dim=64, d_ff=0, vocab=50_280, use_rope=False,
+    tie_embeddings=True, ssm_state=128, ssm_conv=4, ssm_headdim=64,
+    ssm_expand=2, ssm_ngroups=1)
+
+_CONFIGS = {c.name: c for c in (GRANITE_3_2B, MAMBA2_780M)}
 
 
 def get_config(name: str) -> ArchConfig:

@@ -6,7 +6,10 @@ dicts of numpy arrays (``layers`` leaves stacked ``[L, ...]``) and returns a
 consume and on any port parameter it does not fill.  The reference's
 pre-quantized int8 head (``lm_head_q8`` [d, Vp] int8 and ``lm_head_scale``
 [Vp] f32, from its ``quantize_lm_head``) is taken when both are present and
-copied exactly into the model's buffers of those names.
+copied exactly into the model's buffers of those names.  SSM layers take
+the ``layers/ssm/*`` leaves (``w_in``, ``conv_w``, ``conv_b``, ``A_log``,
+``D``, ``dt_bias``, ``norm_w``, ``w_out``); a ``dtype`` leaves the three the
+reference keeps in f32 (``A_log``, ``D``, ``dt_bias``) in f32.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ArchConfig
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.transformer import Transformer, cast_params
 
 
 def _flatten(tree, prefix=""):
@@ -62,7 +65,7 @@ def params_from_jax(params_np: dict, cfg: ArchConfig, *, dtype=None,
     missing = sorted(set(ours) - filled)
     if missing:
         raise KeyError(f"port parameters not filled: {missing[:8]}")
-    model = model.to(device=device, dtype=dtype)
+    model = cast_params(model, device=device, dtype=dtype)
     if head[0] is not None:
         qw, scale = np.asarray(head[0]), np.asarray(head[1])
         want = ((cfg.d_model, cfg.padded_vocab), (cfg.padded_vocab,))

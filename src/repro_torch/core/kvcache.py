@@ -99,20 +99,30 @@ def decode_state_shapes(cfg: ArchConfig, batch: int, seq_len: int, kvp: int,
                         rr_block: int = 16, kv_bits: int = 16,
                         pool_blocks: int = 0, max_pages: int = 0,
                         grouped: bool = False) -> dict[str, tuple[int, ...]]:
-    """Shape of every decode-state leaf.  ``pool_blocks > 0``: the paged
-    layout, pool planes ``[L, pool_blocks, Kh, page, hsz]`` and
-    ``block_tables [batch, max_pages]`` (``max_pages`` defaults to
-    ``pool_blocks``); with ``grouped`` also the grouped decode's
-    ``group_id``/``group_np`` [batch] int32 leaves."""
+    """Shape of every decode-state leaf.  Attention archs: ``kcache``/
+    ``vcache``; ``pool_blocks > 0`` makes them pool planes ``[L,
+    pool_blocks, Kh, page, hsz]`` beside ``block_tables [batch, max_pages]``
+    (``max_pages`` defaults to ``pool_blocks``), with ``grouped`` also the
+    grouped decode's ``group_id``/``group_np`` [batch] int32 leaves.  SSM
+    archs: ``ssm_conv [L, batch, conv_dim, ssm_conv-1]`` and ``ssm_state
+    [L, batch, nh, hd, ds]`` (both f32), and no KV leaf."""
     if kv_bits not in KV_BITS:
         raise ValueError(f"kv_bits={kv_bits}; choose from {KV_BITS}")
+    shapes = {"total_len": ()}
+    if cfg.has_ssm:
+        shapes["ssm_conv"] = (cfg.n_layers, batch, cfg.conv_dim,
+                              cfg.ssm_conv - 1)
+        shapes["ssm_state"] = (cfg.n_layers, batch, cfg.ssm_heads,
+                               cfg.ssm_headdim, cfg.ssm_state)
+    if not cfg.has_attention:
+        return shapes
     if pool_blocks > 0:
         kv = (cfg.n_layers, pool_blocks, cfg.n_kv_heads,
               page_positions(kvp, rr_block), cfg.hsz)
     else:
         kv = (cfg.n_layers, batch, cfg.n_kv_heads,
               cache_capacity(seq_len, kvp, rr_block), cfg.hsz)
-    shapes = {"total_len": (), "kcache": kv, "vcache": kv}
+    shapes.update(kcache=kv, vcache=kv)
     if pool_blocks > 0:
         shapes["block_tables"] = (batch, max_pages or pool_blocks)
         if grouped:
@@ -135,7 +145,8 @@ def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int, kvp: int,
                                  pool_blocks, max_pages, grouped)
     types = {"kcache": torch.int8 if kv_bits == 8 else dtype,
              "kscale": torch.float32, "block_tables": torch.int32,
-             "group_id": torch.int32, "group_np": torch.int32}
+             "group_id": torch.int32, "group_np": torch.int32,
+             "ssm_conv": torch.float32, "ssm_state": torch.float32}
     types["vcache"], types["vscale"] = types["kcache"], types["kscale"]
     state = {k: torch.zeros(s, dtype=types[k], device=device)
              for k, s in shapes.items() if k != "total_len"}

@@ -24,6 +24,7 @@ class HelixConfig:
     prune_blocks: bool = True    # the decode kernel skips dead S blocks
     kv_cache_bits: int = 16      # 8 => int8 KV cache + per-slot f32 scales
     matmul_backend: str = "cuda"  # w8a16_matmul family (int8 lm_head)
+    ssd_backend: str = "cuda"    # ssd_prefill family (Mamba2 SSD scan core)
     lm_head_w8: bool = False     # int8 lm_head through w8a16_matmul
     paged_kv: bool = False       # KV in a shared pool of pages (block tables)
     grouped_decode: bool = False  # shared-prefix pages once per group (paged)
@@ -32,7 +33,8 @@ class HelixConfig:
         if self.kv_cache_bits not in (16, 8):
             raise ValueError(f"kv_cache_bits={self.kv_cache_bits}; choose "
                              "16 or 8")
-        for field in ("attn_backend", "prefill_backend", "matmul_backend"):
+        for field in ("attn_backend", "prefill_backend", "matmul_backend",
+                      "ssd_backend"):
             if getattr(self, field) not in BACKENDS:
                 raise ValueError(f"{field}={getattr(self, field)!r}; choose "
                                  f"from {BACKENDS}")

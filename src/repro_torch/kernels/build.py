@@ -24,7 +24,8 @@ import torch
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-KERNELS = ("flash_decode", "prefix_pass", "flash_prefill", "w8a16_matmul")
+KERNELS = ("flash_decode", "prefix_pass", "flash_prefill", "w8a16_matmul",
+           "ssd_prefill")
 # No --use_fast_math / -prec-div=false: the int8 quantizers need IEEE
 # division and round-half-to-even to match the plain versions bit for bit.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

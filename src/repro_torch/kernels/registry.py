@@ -1,7 +1,7 @@
 """Kernel-backend registry of the port (counterpart of the reference's
 ``kernels/registry.py``).
 
-Four families are ported, each with backends ``ref`` (plain PyTorch) and
+Five families are ported, each with backends ``ref`` (plain PyTorch) and
 ``cuda`` (hand-written kernel for sm_90a):
 
   ============== =============================== ==========================
@@ -17,10 +17,12 @@ Four families are ported, each with backends ``ref`` (plain PyTorch) and
                  (models/attention.prefill_attention)
   w8a16_matmul   int8 lm_head of the decode step csrc/w8a16_matmul.cu
                  (models/decode_model.head_matmul)
+  ssd_prefill    Mamba2 SSD scan core of the     csrc/ssd_prefill.cu
+                 prefill (models/ssm.ssd_chunked)
   ============== =============================== ==========================
 
-The reference's other kernel families are listed in ``NOT_PORTED``; they
-are not registered as working.
+The reference's kernel modes still without a port are listed in
+``NOT_PORTED``; they are not registered as working.
 """
 from __future__ import annotations
 
@@ -35,11 +37,11 @@ FAMILIES = {
     "prefix_pass": "grouped shared-prefix decode (flash_decode groups=)",
     "flash_prefill": "prefill attention (models/attention.prefill_attention)",
     "w8a16_matmul": "int8 lm_head (models/decode_model.head_matmul)",
+    "ssd_prefill": "Mamba2 SSD scan (models/ssm.ssd_chunked)",
 }
 
 # reference kernels (src/repro/kernels/...) and modes that have no port yet
 NOT_PORTED = {
-    "ssd_prefill": "ssd_prefill/kernel.py ssd_prefill_kernel (Mamba2 SSD scan)",
     "flash_prefill paged": "flash_prefill/kernel.py flash_prefill_kernel "
                            "block_tables mode",
 }
@@ -48,12 +50,13 @@ NOT_PORTED = {
 def _counters():
     from repro_torch.kernels.flash_decode import ops as dec
     from repro_torch.kernels.flash_prefill.ops import counter as pre
+    from repro_torch.kernels.ssd_prefill.ops import counter as ssd
     from repro_torch.kernels.w8a16_matmul.ops import counter as mm
     return {"flash_decode": dec.counter, "flash_decode_kv8": dec.counter_kv8,
             "flash_decode_paged": dec.counter_paged,
             "flash_decode_grouped": dec.counter_grouped,
             "prefix_pass": dec.counter_prefix,
-            "flash_prefill": pre, "w8a16_matmul": mm}
+            "flash_prefill": pre, "w8a16_matmul": mm, "ssd_prefill": ssd}
 
 
 def launch_counts() -> dict[str, int]:

@@ -15,6 +15,11 @@ shared-prefix decode over prompts with a common head (``--prefix-share
 lm_head (``--lm-head-w8 [--matmul-backend]``).  The int8 KV cache is
 reached through ``serve_demo(hx=HelixConfig(kv_cache_bits=8, ...))``, as in
 the reference, which has no flag for it.
+
+``--arch mamba2-780m`` serves the attention-free Mamba2 model: one-shot
+prefill through the SSD scan (``--ssd-backend cuda|ref``) and O(1)-state
+decode steps.  As in the reference its prompts must be at most 64 tokens or
+a multiple of 64, and ``--chunk-tokens`` falls back to one-shot prefill.
 """
 from __future__ import annotations
 
@@ -85,17 +90,22 @@ def serve_demo(arch: str = "granite-3-2b", *, reduced: bool = False,
                attn_backend: str | None = None,
                prefill_backend: str | None = None,
                matmul_backend: str | None = None,
+               ssd_backend: str | None = None,
                lm_head_w8: bool | None = None,
                paged_kv: bool | None = None, pool_blocks: int = 0,
                grouped_decode: bool | None = None,
                chunk_tokens: int = 0, prefix_share: bool = False,
-               shared_prefix_len: int = 0,
+               shared_prefix_len: int = 0, prompt_multiple: int = 1,
                sched_policy: str = "fcfs", dtype=torch.float32,
                device="cuda", model=None, seed: int = 0, log=print):
     """Serve ``n_requests`` synthetic prompts through the engine.  Returns
     ``(finished Requests, metrics summary)``.
 
-    ``prompt_len`` / ``max_new`` are ints or inclusive ``(lo, hi)`` ranges.
+    ``prompt_len`` / ``max_new`` are ints or inclusive ``(lo, hi)`` ranges;
+    each drawn prompt length is rounded up to a multiple of
+    ``prompt_multiple`` (port only: ``prompt_len=(1, 1024),
+    prompt_multiple=256`` draws 256, 512, 768 or 1024 uniformly, lengths
+    the SSM prefill's chunking takes).
     ``model`` (a ``Transformer`` on ``device``) overrides the seeded random
     weights, e.g. weights carried over with ``convert.params_from_jax``.
     ``hx`` defaults to ``HelixConfig()`` (``cuda`` kernels, fused append,
@@ -122,6 +132,7 @@ def serve_demo(arch: str = "granite-3-2b", *, reduced: bool = False,
                                    ("attn_backend", attn_backend),
                                    ("prefill_backend", prefill_backend),
                                    ("matmul_backend", matmul_backend),
+                                   ("ssd_backend", ssd_backend),
                                    ("lm_head_w8", lm_head_w8),
                                    ("paged_kv", paged_kv),
                                    ("grouped_decode", grouped_decode))
@@ -131,9 +142,14 @@ def serve_demo(arch: str = "granite-3-2b", *, reduced: bool = False,
         model = init_params(cfg, seed, dtype=dtype, device=device)
     rows = generate_rows(n_requests, prompt_len=prompt_len,
                          max_tokens=max_new, seed=seed)
+    for r in rows:
+        r.prompt_len = -(-r.prompt_len // prompt_multiple) * prompt_multiple
     max_seq = (max(r.prompt_len for r in rows)
                + max(r.max_tokens for r in rows) + 1)
     chunked = chunk_tokens > 0 and chunked_prefill_supported(cfg)
+    if chunk_tokens > 0 and not chunked:
+        log(f"[serve] {cfg.name}: chunked prefill unsupported for this "
+            "family; falling back to one-shot prefill")
     engine = DecodeEngine(cfg, model, build_serve_step(cfg, hx),
                           make_prefill_step(cfg, hx), max_batch=max_batch,
                           max_seq=max_seq, hx=hx, dtype=dtype, device=device,
@@ -163,7 +179,8 @@ def serve_demo(arch: str = "granite-3-2b", *, reduced: bool = False,
     summary.update(decode_syncs=engine.decode_syncs,
                    prefill_calls=engine.prefill_calls, engine_steps=steps,
                    wall_s=dt, tok_s=toks / max(dt, 1e-9),
-                   kv_cache_dtype=str(engine.state["kcache"].dtype))
+                   kv_cache_dtype=(str(engine.state["kcache"].dtype)
+                                   if "kcache" in engine.state else None))
     log(f"[serve] {len(finished)} requests, {toks} tokens in {dt:.2f}s "
         f"({toks / max(dt, 1e-9):.1f} tok/s, {steps} engine steps)")
     return finished, summary
@@ -186,6 +203,9 @@ def main(argv=None):
     ap.add_argument("--sched-policy", default="fcfs", choices=POLICIES)
     ap.add_argument("--attn-backend", default=None, choices=BACKENDS)
     ap.add_argument("--prefill-backend", default=None, choices=BACKENDS)
+    ap.add_argument("--ssd-backend", default=None, choices=BACKENDS,
+                    help="ssd_prefill backend of the Mamba2 prefill scan "
+                         "(SSM archs)")
     ap.add_argument("--matmul-backend", default=None, choices=BACKENDS,
                     help="w8a16_matmul backend of the int8 lm_head (only "
                          "used with --lm-head-w8)")
@@ -226,7 +246,7 @@ def main(argv=None):
         prompt_len=args.prompt_len, max_new=args.max_new,
         max_batch=args.max_batch, kvp=args.kvp,
         attn_backend=args.attn_backend, prefill_backend=args.prefill_backend,
-        matmul_backend=args.matmul_backend,
+        matmul_backend=args.matmul_backend, ssd_backend=args.ssd_backend,
         lm_head_w8=args.lm_head_w8 or None,
         paged_kv=args.paged_kv or None, pool_blocks=args.pool_blocks,
         grouped_decode=args.grouped_decode or None,

@@ -1,5 +1,5 @@
 """Helix decode step (port of the reference's ``models/decode_model.py``,
-dense attention layers only).
+dense attention layers and pure-SSM layers).
 
 ``build_serve_step(cfg, hx)`` returns
 
@@ -23,6 +23,13 @@ attention and append; the step passes it through unchanged (the engine owns
 page allocation).  ``hx.grouped_decode`` (paged): the state's ``group_id``/
 ``group_np`` [B] leaves, which the engine refreshes every step, reach every
 layer's attention (grouped shared-prefix decode).
+
+Pure-SSM archs (mamba2): each layer runs ``ssm.ssm_decode_step`` (plain
+PyTorch; the reference has no kernel there) on the state's ``ssm_conv``/
+``ssm_state`` leaves, updated in place; archs without RoPE add the
+sinusoidal embedding of position ``total_len`` to the token's.  The SSM
+recurrence has no length mask: idle rows evolve on junk until the engine's
+next scatter overwrites them, as in the reference.
 """
 from __future__ import annotations
 
@@ -35,7 +42,8 @@ from repro_torch.core.helix import (append_kv, append_kv_quant,
 from repro_torch.core.sharding import HelixConfig
 from repro_torch.kernels.w8a16_matmul import (quantize_w8, w8a16_matmul,
                                               w8a16_matmul_ref)
-from repro_torch.models.layers import apply_rope, rms_norm
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.layers import apply_rope, rms_norm, sinusoidal_at
 from repro_torch.models.transformer import ffn_block, vocab_mask
 
 
@@ -107,6 +115,14 @@ def _build_step_logits(cfg: ArchConfig, hx: HelixConfig):
             wo = torch.nn.functional.pad(wo, (0, 0, 0, o_dim - wo.shape[0]))
         return out @ wo
 
+    def ssm_phase(sp, h, state, i):
+        y, new = ssm_lib.ssm_decode_step(
+            sp, cfg, h, ssm_lib.SSMState(state["ssm_conv"][i],
+                                         state["ssm_state"][i]))
+        state["ssm_conv"][i] = new.conv
+        state["ssm_state"][i] = new.ssm
+        return y
+
     @torch.no_grad()
     def step_logits(model, state, tokens):
         tl = state["total_len"]
@@ -116,14 +132,20 @@ def _build_step_logits(cfg: ArchConfig, hx: HelixConfig):
         if hx.grouped_decode and hx.paged_kv and "group_id" in state:
             groups = (state["group_id"], state["group_np"])
         x = model.embed[tokens]
+        if not cfg.use_rope:
+            x = x + sinusoidal_at(tl.reshape(-1), cfg.d_model).to(x.dtype)
         for i, lp in enumerate(model.layers):
             h = rms_norm(x, lp.ln1)
-            ks = state["kscale"][i] if kv8 else None
-            vs = state["vscale"][i] if kv8 else None
-            x = x + attn_phase(lp.attn, h, state["kcache"][i],
-                               state["vcache"][i], ks, vs, tl_attn, tables,
-                               groups)
-            x = x + ffn_block(cfg, lp.ffn, rms_norm(x, lp.ln2))
+            if cfg.has_attention:
+                ks = state["kscale"][i] if kv8 else None
+                vs = state["vscale"][i] if kv8 else None
+                x = x + attn_phase(lp.attn, h, state["kcache"][i],
+                                   state["vcache"][i], ks, vs, tl_attn,
+                                   tables, groups)
+            else:
+                x = x + ssm_phase(lp.ssm, h, state, i)
+            if cfg.d_ff:
+                x = x + ffn_block(cfg, lp.ffn, rms_norm(x, lp.ln2))
         x = rms_norm(x, model.ln_f)
         return (head_matmul(hx, model, x)
                 + vocab_mask(cfg, x.dtype, x.device))

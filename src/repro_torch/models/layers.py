@@ -32,3 +32,13 @@ def apply_rope(x, positions, theta: float = 10_000.0):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_at(pos, dim: int):
+    """Sinusoidal embedding at position(s) ``pos`` [...] -> [..., dim] f32
+    (sin half, then cos half)."""
+    log_timescale = torch.log(torch.tensor(10_000.0)) / (dim // 2 - 1)
+    inv = torch.exp(-log_timescale * torch.arange(dim // 2,
+                                                  dtype=torch.float32))
+    t = pos[..., None].float() * inv.to(pos.device)
+    return torch.cat([torch.sin(t), torch.cos(t)], dim=-1)

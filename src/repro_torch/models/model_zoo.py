@@ -36,20 +36,26 @@ def prefill_cache_to_rr(cfg: ArchConfig, hx: HelixConfig, kc_raw, vc_raw,
 def make_prefill_step(cfg: ArchConfig, hx: HelixConfig,
                       s_cap: int | None = None):
     """Build ``prefill_step(model, batch) -> (last_logits [B, Vp], state)``:
-    the one-shot prefill (``hx.prefill_backend`` routes its attention) and
-    the handoff of its caches into the round-robin layout."""
+    the one-shot prefill (``hx.prefill_backend`` routes its attention,
+    ``hx.ssd_backend`` its SSD scan) and the handoff of its caches into the
+    round-robin layout; SSM archs hand over their ``ssm_conv``/
+    ``ssm_state`` leaves as they are."""
 
     def prefill_step(model, batch):
         tokens = batch["tokens"]
         b, t = tokens.shape
-        cap = s_cap or cache_capacity(t, hx.kvp, hx.rr_block)
         logits, extras = forward(cfg, model, tokens, return_cache=True,
-                                 prefill_backend=hx.prefill_backend)
-        kcache, vcache = prefill_cache_to_rr(cfg, hx, extras["kcache"],
-                                             extras["vcache"], t, cap)
+                                 prefill_backend=hx.prefill_backend,
+                                 ssd_backend=hx.ssd_backend)
         state = {"total_len": torch.tensor(t, dtype=torch.int32,
-                                           device=tokens.device),
-                 "kcache": kcache, "vcache": vcache}
+                                           device=tokens.device)}
+        if cfg.has_attention:
+            cap = s_cap or cache_capacity(t, hx.kvp, hx.rr_block)
+            state["kcache"], state["vcache"] = prefill_cache_to_rr(
+                cfg, hx, extras["kcache"], extras["vcache"], t, cap)
+        if cfg.has_ssm:
+            state["ssm_conv"] = extras["ssm_conv"]
+            state["ssm_state"] = extras["ssm_state"]
         return logits[:, -1], state
 
     return prefill_step

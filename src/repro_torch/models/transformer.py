@@ -1,11 +1,14 @@
-"""Dense GQA decoder: parameters, seeded init and the prefill forward (port
-of the reference's ``models/transformer.py``, dense non-windowed path).
+"""Dense GQA and pure-SSM decoders: parameters, seeded init and the prefill
+forward (port of the reference's ``models/transformer.py``, dense
+non-windowed and pure-SSM paths).
 
 Parameter names and shapes follow the reference's pytree, with the stacked
 ``layers`` leaves split per layer: ``embed [Vp, d]``, ``ln_f [d]``,
 ``layers.{i}.ln1``, ``layers.{i}.attn.{wq [d, Qh*hsz], wk, wv [d, Kh*hsz],
 wo [Qh*hsz, d]}``, ``layers.{i}.ln2``, ``layers.{i}.ffn.{w1, w3 [d, f],
-w2 [f, d]}``.  Projections are ``x @ w``; embeddings are tied.  The int8
+w2 [f, d]}``; an SSM layer holds ``ln1`` and ``layers.{i}.ssm.*``
+(``models/ssm.SSMParams``) and no ``ln2``/``ffn`` (``d_ff = 0``).
+Projections are ``x @ w``; embeddings are tied.  The int8
 lm_head of the decode step (``decode_model.prepare_decode_params``) is held
 in the buffers ``lm_head_q8`` [d, Vp] int8 and ``lm_head_scale`` [Vp] f32,
 ``None`` until prepared.
@@ -18,8 +21,10 @@ import torch
 from torch import nn
 
 from repro_torch.configs import ArchConfig
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import prefill_attention
-from repro_torch.models.layers import activation, apply_rope, rms_norm
+from repro_torch.models.layers import (activation, apply_rope, rms_norm,
+                                       sinusoidal_at)
 
 
 def _param(*shape):
@@ -45,23 +50,32 @@ class FFN(nn.Module):
 
 
 class DecoderLayer(nn.Module):
+    """The reference's ``_init_layer`` structure: ``ln1``, then ``attn``
+    and/or ``ssm``, then ``ln2`` + ``ffn`` when ``d_ff``."""
+
     def __init__(self, cfg: ArchConfig):
         super().__init__()
         self.ln1 = _param(cfg.d_model)
-        self.attn = Attention(cfg)
-        self.ln2 = _param(cfg.d_model)
-        self.ffn = FFN(cfg)
+        if cfg.has_attention:
+            self.attn = Attention(cfg)
+        if cfg.has_ssm:
+            self.ssm = ssm_lib.SSMParams(cfg)
+        if cfg.d_ff:
+            self.ln2 = _param(cfg.d_model)
+            self.ffn = FFN(cfg)
 
 
 class Transformer(nn.Module):
-    """Parameter container of a dense decoder; the forward passes are the
-    functions ``forward`` (prefill) and ``decode_model.build_serve_step``."""
+    """Parameter container of a dense or pure-SSM decoder; the forward
+    passes are the functions ``forward`` (prefill) and
+    ``decode_model.build_serve_step``."""
 
     def __init__(self, cfg: ArchConfig):
         super().__init__()
-        if cfg.family != "dense" or not cfg.tie_embeddings:
-            raise ValueError(f"the port serves dense tied-embedding models "
-                             f"({cfg.name} is {cfg.family})")
+        if cfg.family not in ("dense", "ssm") or not cfg.tie_embeddings:
+            raise ValueError(f"the port serves dense and pure-SSM tied-"
+                             f"embedding models ({cfg.name} is "
+                             f"{cfg.family})")
         self.cfg = cfg
         self.embed = _param(cfg.padded_vocab, cfg.d_model)
         self.ln_f = _param(cfg.d_model)
@@ -71,19 +85,33 @@ class Transformer(nn.Module):
         self.register_buffer("lm_head_scale", None)
 
 
+def cast_params(model: Transformer, *, device, dtype=None) -> Transformer:
+    """``model.to(device, dtype)``, except that the SSM leaves the reference
+    keeps in f32 in any model (``ssm.F32_LEAVES``: A_log, D, dt_bias) stay
+    f32: in bf16 every decay would change."""
+    model = model.to(device=device)
+    if dtype is not None:
+        for name, p in model.named_parameters():
+            keep = name.rsplit(".", 1)[-1] in ssm_lib.F32_LEAVES
+            p.data = p.data.to(torch.float32 if keep else dtype)
+    return model
+
+
 @torch.no_grad()
 def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.float32,
                 device="cuda") -> Transformer:
     """Seeded random weights made on ``device`` with a ``torch.Generator``:
     the reference's distributions (normal, fan-in scaled; out-projections
-    scaled down by sqrt(2L); embeddings 0.02; norm gains 0), not its values
-    (``jax.random`` streams differ; ``convert.params_from_jax`` carries
-    reference weights over exactly)."""
-    model = Transformer(cfg).to(device=device, dtype=dtype)
+    scaled down by sqrt(2L); embeddings 0.02; norm gains 0; SSM leaves by
+    ``ssm.init_ssm``), not its values (``jax.random`` streams differ;
+    ``convert.params_from_jax`` carries reference weights over exactly)."""
+    model = cast_params(Transformer(cfg), device=device, dtype=dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
     depth = 1.0 / math.sqrt(2 * cfg.n_layers)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
+        if ".ssm." in name:
+            continue
         if leaf.startswith("ln"):
             p.zero_()
             continue
@@ -92,6 +120,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.float32,
         else:
             std = p.shape[0] ** -0.5 * (depth if leaf in ("wo", "w2") else 1.0)
         p.copy_(torch.randn(p.shape, generator=gen, device=device) * std)
+    for lp in model.layers:
+        if cfg.has_ssm:
+            ssm_lib.init_ssm(lp.ssm, cfg, gen)
     return model
 
 
@@ -138,17 +169,23 @@ def ffn_block(cfg: ArchConfig, fp: FFN, h):
 def chunked_prefill_supported(cfg: ArchConfig) -> bool:
     """Whether ``cfg`` can prefill in prefix-attending chunks bit-exactly:
     every cross-position interaction must be causal attention (the
-    reference's rule; every config the port serves is dense, so True)."""
+    reference's rule: dense yes, SSM no; the engine falls back to one-shot
+    prefill for SSM)."""
     return cfg.family == "dense"
 
 
 @torch.no_grad()
 def forward(cfg: ArchConfig, model: Transformer, tokens, *,
             return_cache: bool = False, prefill_backend: str = "cuda",
-            q_offset=0, prefix_state=None):
+            ssd_backend: str = "cuda", q_offset=0, prefix_state=None):
     """Full-sequence forward.  tokens [B, T] int -> (logits [B, T, Vp],
     extras); with ``return_cache`` extras holds ``kcache``/``vcache``
-    [L, B, T, Kh, hsz] (post-RoPE K and V of every layer).
+    [L, B, T, Kh, hsz] (post-RoPE K and V of every attention layer) and
+    ``ssm_conv`` [L, B, conv_dim, ssm_conv-1] / ``ssm_state`` [L, B, nh,
+    hd, ds] (f32, the state after the prompt, of every SSM layer).
+    ``prefill_backend`` / ``ssd_backend`` route the attention and the SSD
+    scan core (kernel families flash_prefill and ssd_prefill).  Archs
+    without RoPE add sinusoidal positions to the embeddings.
 
     Chunked prefill: ``prefix_state`` = {"kcache"/"vcache": [L, B, S_buf,
     Kh, hsz]} carry buffers whose rows ``[0, q_offset)`` hold the
@@ -163,24 +200,42 @@ def forward(cfg: ArchConfig, model: Transformer, tokens, *,
         raise ValueError("chunked prefill needs return_cache=True and a "
                          "chunked_prefill_supported arch")
     x = model.embed[tokens]
-    kcs, vcs = [], []
+    if not cfg.use_rope:
+        off = torch.as_tensor(q_offset, dtype=torch.int64, device=x.device)
+        pos = torch.arange(tokens.shape[1], device=x.device)[None, :] \
+            + off.reshape(-1, 1)
+        x = x + sinusoidal_at(pos, cfg.d_model).to(x.dtype)
+    kcs, vcs, convs, ssms = [], [], [], []
     for i, lp in enumerate(model.layers):
         h = rms_norm(x, lp.ln1)
-        buf = (None if prefix_state is None else
-               (prefix_state["kcache"][i], prefix_state["vcache"][i]))
-        a_out, (k, v) = _attn_block(cfg, lp.attn, h, q_offset=q_offset,
-                                    backend=prefill_backend, kv_buffer=buf)
-        x = x + a_out
-        x = x + ffn_block(cfg, lp.ffn, rms_norm(x, lp.ln2))
-        if return_cache:
-            kcs.append(k)
-            vcs.append(v)
+        if cfg.has_attention:
+            buf = (None if prefix_state is None else
+                   (prefix_state["kcache"][i], prefix_state["vcache"][i]))
+            a_out, (k, v) = _attn_block(cfg, lp.attn, h, q_offset=q_offset,
+                                        backend=prefill_backend,
+                                        kv_buffer=buf)
+            x = x + a_out
+            if return_cache:
+                kcs.append(k)
+                vcs.append(v)
+        else:
+            s_out, st = ssm_lib.ssd_chunked(lp.ssm, cfg, h,
+                                            backend=ssd_backend)
+            x = x + s_out
+            if return_cache:
+                convs.append(st.conv)
+                ssms.append(st.ssm)
+        if cfg.d_ff:
+            x = x + ffn_block(cfg, lp.ffn, rms_norm(x, lp.ln2))
     x = rms_norm(x, model.ln_f)
     logits = x @ model.embed.T + vocab_mask(cfg, x.dtype, x.device)
     extras = {}
     if prefix_state is not None:
         extras.update(kcache=prefix_state["kcache"],
                       vcache=prefix_state["vcache"])
-    elif return_cache:
+    elif kcs:
         extras.update(kcache=torch.stack(kcs), vcache=torch.stack(vcs))
+    if convs:
+        extras.update(ssm_conv=torch.stack(convs),
+                      ssm_state=torch.stack(ssms))
     return logits, extras

@@ -33,6 +33,13 @@ packed group of chunked prefills by a chunk, then one decode step for every
 decoding slot (ONE device->host transfer of the [B] next tokens), retiring
 requests at EOS, ``max_new_tokens`` or capacity.
 
+Pure-SSM archs (mamba2): the decode state holds ``ssm_conv``/``ssm_state``
+leaves instead of K/V caches, prefills are one-shot (``chunk_tokens`` is
+ignored, as in the reference) and the int8 KV cache changes nothing.
+The paged pool and prefix sharing are refused: in the reference the
+first needs a ``block_tables`` leaf no SSM state has (it fails at the first
+retirement) and the second needs chunked prefill.
+
 Not ported yet: the host KV tier, tenancy and the TTL governor, sampling
 and decode windows.
 """
@@ -50,7 +57,8 @@ from repro_torch.core.kvcache import (cache_capacity, cache_to_pages,
 from repro_torch.core.sharding import HelixConfig
 from repro_torch.kernels import registry
 from repro_torch.models.decode_model import prepare_decode_params
-from repro_torch.models.model_zoo import (finalize_chunked_prefill,
+from repro_torch.models.model_zoo import (chunked_prefill_supported,
+                                          finalize_chunked_prefill,
                                           init_prefill_buffers)
 from repro_torch.serving.metrics import EngineMetrics
 from repro_torch.serving.pool import BlockAllocator
@@ -83,9 +91,16 @@ class DecodeEngine:
                  chunk_prefill_step: Callable | None = None,
                  prefix_share: bool = False):
         device = torch.device(device)
+        if hx.paged_kv and not cfg.has_attention:
+            raise ValueError(f"hx.paged_kv: {cfg.name} keeps no KV cache to "
+                             "page (its decode state has no block_tables)")
         if device.type == "cuda":
-            families = [("attn_backend", "flash_decode"),
-                        ("prefill_backend", "flash_prefill")]
+            families = []
+            if cfg.has_attention:
+                families += [("attn_backend", "flash_decode"),
+                             ("prefill_backend", "flash_prefill")]
+            if cfg.has_ssm:
+                families.append(("ssd_backend", "ssd_prefill"))
             if hx.lm_head_w8:
                 families.append(("matmul_backend", "w8a16_matmul"))
             if hx.paged_kv and hx.grouped_decode:
@@ -130,6 +145,8 @@ class DecodeEngine:
         self.slots: list[Request | None] = [None] * max_batch
         self.cur_tokens = torch.zeros(max_batch, dtype=torch.int32,
                                       device=device)
+        # archs whose prefill cannot run in chunks take one-shot prefills
+        chunk_tokens = chunk_tokens if chunked_prefill_supported(cfg) else 0
         if chunk_tokens and chunk_prefill_step is None:
             raise ValueError("chunk_tokens set but no chunk_prefill_step "
                              "(build one with make_chunk_prefill_step)")
@@ -308,10 +325,10 @@ class DecodeEngine:
         zero f32 slot row first and quantize that whole row
         (``quantize_decode_state``), as the reference does.  Paged engines
         write the cache's pages into the pages granted at admission
-        (``_scatter_paged``)."""
+        (``_scatter_paged``).  SSM leaves are copied into the slot's row."""
         if self.paged:
             self._scatter_paged(pstate, slot, req)
-        elif self.kv8:
+        elif self.kv8 and "kcache" in pstate:
             row = {}
             for key in ("kcache", "vcache"):
                 dst = self.state[key][:, slot]
@@ -321,10 +338,13 @@ class DecodeEngine:
             q = quantize_decode_state(row)
             for key in ("kcache", "vcache", "kscale", "vscale"):
                 self.state[key][:, slot] = q[key]
-        else:
+        elif "kcache" in pstate:
             for key in ("kcache", "vcache"):
                 _copy_rr(pstate[key][:, 0], self.state[key][:, slot],
                          self.kvp)
+        for key in ("ssm_conv", "ssm_state"):
+            if key in pstate:
+                self.state[key][:, slot] = pstate[key][:, 0]
         self.state["total_len"][slot] = t
 
     def _scatter_paged(self, pstate: dict, slot: int, req: Request) -> None:

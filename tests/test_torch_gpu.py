@@ -7,7 +7,10 @@ Elsewhere each test skips from its fixture.  Tolerance 2e-5 at f32: kernel
 and plain version compute the same softmax in f32 and differ only in
 summation order; the w8a16 product 1e-5 of its largest |value| for the same
 reason.  int8 payloads and scales, pruned == dense, fused == unfused,
-paged == fixed and grouped == ungrouped are bit for bit.
+paged == fixed and grouped == ungrouped are bit for bit.  The SSD scan
+2e-4 of max(1, |y|): kernel and plain version run the same f32 products
+over chunks in another summation order (bf16 inputs are converted exactly,
+so the same tolerance holds).
 """
 import pytest
 import torch
@@ -19,6 +22,7 @@ from repro_torch.kernels.flash_decode.ops import (flash_decode_shards,
                                                   flash_decode_shards_plain,
                                                   kernel_block_s, prefix_pass)
 from repro_torch.kernels.flash_prefill import flash_prefill, flash_prefill_ref
+from repro_torch.kernels.ssd_prefill import ssd_prefill, ssd_prefill_plain
 from repro_torch.kernels.w8a16_matmul import (quantize_w8, w8a16_matmul,
                                               w8a16_matmul_ref)
 from repro_torch.launch.serve import serve_demo
@@ -92,7 +96,8 @@ def test_serve_on_card_matches_cpu_and_counts_launches(h100):
     assert counts == {"flash_decode": cfg.n_layers * summ["decode_syncs"],
                       "flash_decode_kv8": 0, "flash_decode_paged": 0,
                       "flash_decode_grouped": 0, "prefix_pass": 0,
-                      "flash_prefill": cfg.n_layers * 5, "w8a16_matmul": 0}
+                      "flash_prefill": cfg.n_layers * 5, "w8a16_matmul": 0,
+                      "ssd_prefill": 0}
 
 
 @pytest.mark.gpu
@@ -255,3 +260,35 @@ def test_grouped_decode_kernels_match_plain_and_ungrouped_on_card(h100, quant):
                                 else {}))
             o2, l2, _ = run(flash_decode_shards, (gid, gnp), prefix_state=st)
             assert torch.equal(o2, og) and torch.equal(l2, lg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_ssd_prefill_kernel_matches_plain_on_card(h100, dtype):
+    """The SSD scan kernel vs its plain version at the serve widths (hd 64,
+    ds 128), a ragged T with two groups of B/C and an initial state, and
+    two halves chained through h_final == one pass."""
+    g = torch.Generator(device=h100).manual_seed(5)
+    b, t, nh, hd, ds = 2, 200, 8, 64, 128
+    rnd = lambda *s: torch.randn(*s, generator=g, device=h100)
+    x = rnd(b, t, nh, hd).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(b, t, nh) - 1.0)
+    a = -torch.exp(rnd(nh) * 0.3)
+    bm, cm = (rnd(b, t, 2, ds) * 0.5).to(dtype), (rnd(b, t, 2, ds) * 0.5).to(dtype)
+    d, h0 = torch.ones(nh, device=h100), rnd(b, nh, hd, ds) * 0.2
+    before = registry.launch_counts()["ssd_prefill"]
+    y, h = ssd_prefill(x, dt, a, bm, cm, d, h0=h0)
+    yp, hp = ssd_prefill_plain(x, dt, a, bm, cm, d, h0=h0)
+    torch.cuda.synchronize()
+    assert registry.launch_counts()["ssd_prefill"] == before + 1
+    for got, want in ((y, yp), (h, hp)):
+        tol = 2e-4 * max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= tol
+    y1, h1 = ssd_prefill(x[:, :64], dt[:, :64].contiguous(), a, bm[:, :64],
+                         cm[:, :64], d, h0=h0)
+    y2, h2 = ssd_prefill(x[:, 64:], dt[:, 64:].contiguous(), a, bm[:, 64:],
+                         cm[:, 64:], d, h0=h1)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y, atol=2e-4,
+                               rtol=2e-4)
+    torch.testing.assert_close(h2, h, atol=2e-4, rtol=2e-4)
