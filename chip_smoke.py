@@ -21,7 +21,13 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    (the Mamba2 SSD scan) at mamba2-780m widths (nh 48, hd 64, ds 128) at
    T = 64, 1024 and a ragged 37, from a nonzero state, two halves chained
    through h_final == one pass, and two B/C groups read directly == the
-   repeated form, f32 and bf16 inputs;
+   repeated form, f32 and bf16 inputs; flash_prefill (bf16 on wgmma, f32
+   on CUDA cores) fixed and paged (16-position pages, a shuffled table, a
+   sink page of +-1e4) against the plain versions, windows 0 and 256,
+   per-request offsets and lengths; paged == fixed bit for bit at pages
+   16 and 64; rows of 4 chunk calls (T 256 at q_offset 0..768) == the same
+   rows of one T 1024 call bit for bit, fixed and paged; lens == 0 rows
+   zero in both layouts;
 4. serve: granite-3-2b at full width (40 layers, bf16, seeded random
    weights) through ``serve_demo`` for the same 8 requests: the fp path and
    the int8 path (``HelixConfig(kv_cache_bits=8, lm_head_w8=True)``) in
@@ -45,9 +51,15 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    new tokens each, ssd_prefill launched 48 x prefills; and 4-layer f32
    checks: prefill logits and state of the ssd backends ``cuda`` and
    ``ref``, and prefill + 2 decode steps against ``forward`` over T + 2
-   tokens;
+   tokens.  Profiles of one 1024-token one-shot prefill of each model
+   (host wall, device time, the prefill kernel's share).  The paged mode
+   of flash_prefill, which no serving path of the JAX package calls, runs
+   as one ragged chunk step over a 40-layer granite pool (40 launches,
+   counted; every layer == the fixed layout bit for bit);
 5. times (CUDA events) of each kernel, its plain version and a one-call
-   PyTorch yardstick where there is one, beside the card's bound.
+   PyTorch yardstick where there is one, beside the card's bound;
+   flash_prefill at B = 1, T = 1024 causal, fixed and paged (16-position
+   pages), and at the chunk shape B = 4, T = 256 at q_offset 0..768.
 
 The last lines are the card line, one JSON object of kernel records and
 ``{"ok": true, "device": {...}}``.
@@ -82,7 +94,8 @@ from repro_torch.kernels.flash_decode.ops import (  # noqa: E402
     flash_decode_shards, flash_decode_shards_plain, kernel_block_s,
     prefix_pass, prefix_pass_plain)
 from repro_torch.kernels.flash_prefill.ops import flash_prefill  # noqa: E402
-from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref  # noqa: E402
+from repro_torch.kernels.flash_prefill.ref import (  # noqa: E402
+    flash_prefill_paged_ref, flash_prefill_ref)
 from repro_torch.kernels.ssd_prefill import (  # noqa: E402
     ssd_prefill, ssd_prefill_plain, ssd_prefill_ref)
 from repro_torch.kernels.w8a16_matmul import (quantize_w8,  # noqa: E402
@@ -507,31 +520,103 @@ def check_w8a16(dev, errs):
                  and e <= MM_TOL[dt] * top, f"{tag}: kernel disagrees")
 
 
-def check_prefill(dev, errs):
+def prefill_pool(x, tab, n_pool, page, garbage):
+    """Fixed-layout K or V [B, S, Kh, hsz] -> one layer's pool planes
+    [n_pool, Kh, page, hsz] under ``tab``; the sink page 0 and every page
+    no row maps hold ``garbage``."""
+    b, s, kh, hsz = x.shape
+    pages = x.reshape(b, s // page, page, kh, hsz).transpose(2, 3)
+    pool = garbage.to(x.dtype).expand(n_pool, kh, page, hsz).clone()
+    live = tab > 0
+    pool[tab[live].long()] = pages[live]
+    return pool
+
+
+def sink_garbage(gen, dev, page):
+    """Finite garbage of magnitude 1e4 for the sink page, [page, hsz]."""
+    return 1e4 * torch.sign(torch.randn(page, HSZ, generator=gen,
+                                        device=dev) + 0.1)
+
+
+def check_prefill(dev, errs, errs_paged):
+    """B2 at granite widths: fixed and paged (16-position pages, a shuffled
+    table, a sink page of +-1e4) against the plain versions, f32 and bf16,
+    windows 0 and 256, per-request offsets and lengths; paged == fixed bit
+    for bit at pages 16 and 64; rows of 4 chunk calls == the same rows of
+    one call, bit for bit, fixed and paged; lens == 0 rows are zero."""
     g = torch.Generator(device=dev).manual_seed(2)
     b, t = 2, 1024
     lens = torch.tensor([1024, 700], dtype=torch.int32, device=dev)
     offs = torch.tensor([0, 37], dtype=torch.int32, device=dev)
+    tabs = {page: shuffled_tables(torch.Generator().manual_seed(page), lens,
+                                  page, t // page) for page in (16, 64)}
     for dt in (torch.float32, torch.bfloat16):
         rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(dt)
         q, k, v = rnd(b, t, QH, HSZ), rnd(b, t, KH, HSZ), rnd(b, t, KH, HSZ)
+        pools = {}
+        for page, (tab, n_pool) in tabs.items():
+            junk = sink_garbage(g, dev, page)
+            tab = tab.to(dev)
+            pools[page] = (tab, prefill_pool(k, tab, n_pool, page, junk),
+                           prefill_pool(v, tab, n_pool, page, -junk))
         for window in (0, 256):
-            o1 = flash_prefill(q, k, v, causal=True, window=window,
-                               q_offset=offs, seq_lens=lens)
-            o2 = flash_prefill_ref(q, k, v, causal=True, window=window,
-                                   q_offset=offs, seq_lens=lens)
+            kw = dict(causal=True, window=window, q_offset=offs,
+                      seq_lens=lens)
+            o1 = flash_prefill(q, k, v, **kw)
+            o2 = flash_prefill_ref(q, k, v, **kw)
+            tab, pk, pv = pools[16]
+            o3 = flash_prefill(q, pk, pv, block_tables=tab, **kw)
+            o4 = flash_prefill_paged_ref(q, pk, pv, tab, lens, causal=True,
+                                         window=window, q_offset=offs)
+            o5 = flash_prefill(q, *pools[64][1:], block_tables=pools[64][0],
+                               **kw)
             torch.cuda.synchronize()
-            e = maxerr(o1, o2)
-            errs.append(e)
-            tag = f"prefill {str(dt)[6:]} window={window}"
-            print(f"  {tag}: max err {e:.3g} (tol {TOL[dt]['out']:g})")
-            need(e <= TOL[dt]["out"], f"{tag}: kernel disagrees with plain")
-        z = flash_prefill(q, k, v, causal=True,
-                          seq_lens=torch.tensor([0, 5], dtype=torch.int32,
-                                                device=dev))
+            for tag, e, lst in (("", maxerr(o1, o2), errs),
+                                (" paged", maxerr(o3, o4), errs_paged)):
+                lst.append(e)
+                tag = f"prefill{tag} {str(dt)[6:]} window={window}"
+                print(f"  {tag}: max err {e:.3g} (tol {TOL[dt]['out']:g})")
+                need(e <= TOL[dt]["out"],
+                     f"{tag}: kernel disagrees with plain")
+            same = (torch.equal(bits(o1), bits(o3))
+                    and torch.equal(bits(o1), bits(o5)))
+            print(f"  prefill {str(dt)[6:]} window={window}: paged (pages 16"
+                  f" and 64, garbage sink page) == fixed bit for bit: {same}")
+            need(same, "prefill: paged != fixed")
+        z = torch.tensor([0, 5], dtype=torch.int32, device=dev)
+        zf = flash_prefill(q, k, v, causal=True, seq_lens=z)
+        zp = flash_prefill(q, *pools[16][1:], block_tables=pools[16][0],
+                           causal=True, seq_lens=z)
         torch.cuda.synchronize()
-        need(torch.isfinite(z).all().item() and z[0].abs().max().item() == 0,
+        need(all(torch.isfinite(x).all().item() and x[0].abs().max().item()
+                 == 0 for x in (zf, zp)),
              "prefill: a lens == 0 row is not zero")
+    # chunks == one-shot: bf16, one request of 1024 tokens
+    rnd = lambda *s: torch.randn(*s, generator=g,
+                                 device=dev).to(torch.bfloat16)
+    q, k, v = rnd(1, t, QH, HSZ), rnd(1, t, KH, HSZ), rnd(1, t, KH, HSZ)
+    full = torch.tensor([t], dtype=torch.int32, device=dev)
+    tab, n_pool = shuffled_tables(torch.Generator().manual_seed(3), full, 16,
+                                  t // 16)
+    tab = tab.to(dev)
+    junk = sink_garbage(g, dev, 16)
+    paged = dict(block_tables=tab)
+    for mode, kv, extra in (("fixed", (k, v), {}),
+                            ("paged", (prefill_pool(k, tab, n_pool, 16, junk),
+                                       prefill_pool(v, tab, n_pool, 16, junk)),
+                             paged)):
+        one = flash_prefill(q, *kv, seq_lens=full, **extra)
+        parts = [flash_prefill(q[:, o:o + 256].contiguous(), *kv, q_offset=o,
+                               seq_lens=torch.tensor([o + 256],
+                                                     dtype=torch.int32,
+                                                     device=dev), **extra)
+                 for o in range(0, t, 256)]
+        torch.cuda.synchronize()
+        same = torch.equal(bits(torch.cat(parts, 1)), bits(one))
+        print(f"  prefill bf16 {mode}: rows of 4 chunk calls (T 256 at "
+              f"q_offset 0/256/512/768) == one T 1024 call bit for bit: "
+              f"{same}")
+        need(same, f"prefill {mode}: chunk rows != one-shot rows")
 
 
 def ssd_inputs(g, dev, b, t, dtype, groups=1):
@@ -651,6 +736,7 @@ def serve_full(dev):
                 "flash_decode_paged": cfg.n_layers * steps if extra else 0,
                 "flash_decode_grouped": 0, "prefix_pass": 0,
                 "flash_prefill": cfg.n_layers * len(fin),
+                "flash_prefill_paged": 0,
                 "w8a16_matmul": steps if int8 else 0, "ssd_prefill": 0}
         ttl = summ["ttl_s"]
         print(f"  {len(fin)} requests finished, prompts "
@@ -699,6 +785,9 @@ def serve_full(dev):
         if first and name in ("fp", "int8", "paged fp"):
             profile_decode(dev, cfg, model, dataclasses.replace(
                 hx or HelixConfig(), paged_kv="paged_kv" in extra))
+        if first and name == "fp":
+            profile_prefill(dev, cfg, model, HelixConfig(), "prefill_wgmma",
+                            "flash_prefill")
         runs[name].append({"counts": counts, "summ": summ, "peak": peak,
                            "streams": streams})
     for name, rs in runs.items():
@@ -765,7 +854,8 @@ def serve_mamba(dev):
     print(f"  streams: {distinct} distinct tokens over the 8 requests "
           "(seeded random mamba2 collapses onto few tokens; not a check)")
     profile_decode(dev, cfg, model, HelixConfig())
-    profile_prefill(dev, cfg, model, HelixConfig())
+    profile_prefill(dev, cfg, model, HelixConfig(), "ssd_kernel",
+                    "ssd_prefill")
     del model
     torch.cuda.empty_cache()
     return {"counts": counts, "summ": summ}
@@ -818,9 +908,10 @@ def compare_mamba(dev):
     torch.cuda.empty_cache()
 
 
-def profile_prefill(dev, cfg, model, hx):
+def profile_prefill(dev, cfg, model, hx, kernel, label):
     """Host wall time vs device time of one-shot prefills of 1024 tokens
-    (torch.profiler), and the ssd_prefill kernel's share."""
+    (torch.profiler), and the share of the prefill kernel whose profiler
+    name contains ``kernel`` (``label`` in the output)."""
     from torch.profiler import ProfilerActivity, profile
     g = torch.Generator(device=dev).manual_seed(14)
     toks = torch.randint(0, cfg.vocab, (1, 1024), generator=g, device=dev)
@@ -839,16 +930,71 @@ def profile_prefill(dev, cfg, model, hx):
     dev_us = lambda e: getattr(e, "self_device_time_total", 0)
     device = sum(dev_us(e) for e in rows
                  if not e.key.startswith("aten::")) / n / 1e3
-    ssd = sum(dev_us(e) for e in rows if "ssd_kernel" in e.key) / n / 1e3
+    mine = sum(dev_us(e) for e in rows if kernel in e.key) / n / 1e3
     if device > 0:
-        print(f"  prefill profile (B=1, T=1024): host wall {wall:.2f} ms, "
-              f"device kernels {device:.2f} ms, busy share "
-              f"{device / wall:.3f}, ssd_prefill {ssd:.2f} ms "
-              f"({cfg.n_layers} launches, {ssd / device:.3f} of the device "
+        print(f"  {cfg.name} prefill profile (B=1, T=1024): host wall "
+              f"{wall:.2f} ms, device kernels {device:.2f} ms, busy share "
+              f"{device / wall:.3f}, {label} {mine:.2f} ms "
+              f"({cfg.n_layers} launches, {mine / device:.3f} of the device "
               "time)")
     else:
-        print(f"  prefill profile: host wall {wall:.2f} ms; device time not "
-              "measured (the profiler saw no device events)")
+        print(f"  {cfg.name} prefill profile: host wall {wall:.2f} ms; "
+              "device time not measured (the profiler saw no device events)")
+
+
+def paged_prefill_path(dev):
+    """B2's paged mode at granite widths over a 40-layer pool: one ragged
+    chunk step of 4 requests (totals 1024, 900, 512 and 300 tokens, the
+    last 256 of each in the chunk, so q_offset is per request) whose
+    earlier positions sit in 16-position pages under a shuffled table,
+    one paged flash_prefill per layer on that layer's pool planes.  No
+    serving path of the JAX package calls this mode, so the run drives the
+    kernel's public function as a chunked prefill over a pool would.  The
+    counts are set to 0 just before the 40 calls and read just after;
+    then every layer's output must equal the fixed layout's bit for bit."""
+    cfg = get_config("granite-3-2b")
+    g = torch.Generator(device=dev).manual_seed(16)
+    nl, page, t, s = cfg.n_layers, 16, 256, 1024
+    lens = torch.tensor([1024, 900, 512, 300], dtype=torch.int32, device=dev)
+    offs = lens - t
+    tab, n_pool = shuffled_tables(torch.Generator().manual_seed(17), lens,
+                                  page, s // page)
+    tab = tab.to(dev)
+    rnd = lambda *sh: torch.randn(*sh, generator=g,
+                                  device=dev).to(torch.bfloat16)
+    q, k, v = rnd(nl, 4, t, QH, HSZ), rnd(nl, 4, s, KH, HSZ), \
+        rnd(nl, 4, s, KH, HSZ)
+    junk = sink_garbage(g, dev, page)
+    kpool = torch.stack([prefill_pool(k[i], tab, n_pool, page, junk)
+                         for i in range(nl)])
+    vpool = torch.stack([prefill_pool(v[i], tab, n_pool, page, junk)
+                         for i in range(nl)])
+    kw = dict(causal=True, q_offset=offs, seq_lens=lens)
+    torch.cuda.synchronize()
+    registry.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = [flash_prefill(q[i], kpool[i], vpool[i], block_tables=tab, **kw)
+            for i in range(nl)]
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = registry.launch_counts()
+    want = {name: 0 for name in counts}
+    want.update(flash_prefill=nl, flash_prefill_paged=nl)
+    print(f"  paged prefill path: {nl} layers x 1 chunk of 4 x {t} tokens "
+          f"(totals {lens.tolist()}), pool of {n_pool} pages of {page}, "
+          f"host wall {wall:.2f} ms; launches {counts} (expected {want})")
+    need(counts == want, f"paged prefill path: launch counts {counts} != "
+                         f"expected {want}")
+    same = all(torch.equal(bits(o), bits(flash_prefill(q[i], k[i], v[i],
+                                                       **kw)))
+               for i, o in enumerate(outs))
+    fin = all(torch.isfinite(o).all().item() and o.shape == (4, t, QH, HSZ)
+              for o in outs)
+    print(f"  paged prefill path: every layer == the fixed layout bit for "
+          f"bit: {same}; outputs finite, shape [4, {t}, {QH}, {HSZ}]: {fin}")
+    need(same and fin, "paged prefill path: outputs differ from the fixed "
+                       "layout's or are not finite")
+    return counts
 
 
 def serve_prefix(dev, cfg, model, fp_streams):
@@ -885,7 +1031,8 @@ def serve_prefix(dev, cfg, model, fp_streams):
                 else 0,
                 "prefix_pass": cfg.n_layers * steps if grouped else 0,
                 "flash_prefill": cfg.n_layers * summ["prefill_calls"],
-                "w8a16_matmul": 0, "ssd_prefill": 0}
+                "flash_prefill_paged": 0, "w8a16_matmul": 0,
+                "ssd_prefill": 0}
         live = summ["grouped_steps"] * cfg.n_layers
         print(f"  {len(fin)} requests, prompts "
               f"{sorted(len(r.prompt) for r in fin)}, {summ['n_tokens']} "
@@ -974,7 +1121,7 @@ def chunked_vs_oneshot(dev, cfg, model, fp_streams):
     want = {"flash_decode": cfg.n_layers * steps, "flash_decode_kv8": 0,
             "flash_decode_paged": 0, "flash_decode_grouped": 0,
             "prefix_pass": 0, "flash_prefill": cfg.n_layers * calls,
-            "w8a16_matmul": 0, "ssd_prefill": 0}
+            "flash_prefill_paged": 0, "w8a16_matmul": 0, "ssd_prefill": 0}
     print(f"  {steps} decode steps, {calls} prefill chunks; launches "
           f"{counts} (expected {want})")
     need(counts == want, f"(d) launch counts {counts} != expected {want}")
@@ -1268,9 +1415,47 @@ def times(dev):
     pbytes = (2 * t * QH * HSZ + 2 * t * KH * HSZ) * es
     pops = 4 * QH * HSZ * (t * (t + 1) // 2)
     pre.update(_bound(pbytes, pops, PEAK[dt]), library="sdpa")
+    # the paged mode at the same shape: 16-position pages, shuffled table
+    full = torch.tensor([t], dtype=torch.int32)
+    ptab, pn = shuffled_tables(torch.Generator().manual_seed(18), full, 16,
+                               t // 16)
+    ptab = ptab.to(dev)
+    junk = torch.zeros(16, HSZ, device=dev)
+    pkp, pvp = (prefill_pool(x, ptab, pn, 16, junk) for x in (kp, vp))
+    prep = {
+        "ms": time_ms(lambda: flash_prefill(qp, pkp, pvp, causal=True,
+                                            seq_lens=t, block_tables=ptab)),
+        "plain_ms": time_ms(lambda: flash_prefill_paged_ref(
+            qp, pkp, pvp, ptab, t, causal=True), iters=10),
+        "library_ms": None,
+        "library": "no single PyTorch call attends through a block table"}
+    prep.update(_bound(pbytes + ptab.numel() * 4, pops, PEAK[dt]))
+    # the chunk shape: 4 requests of 1024, chunk 256 at offsets 0..768
+    cb, ct = 4, 256
+    qc, kc, vc = rnd(cb, ct, QH, HSZ), rnd(cb, t, KH, HSZ), rnd(cb, t, KH, HSZ)
+    coffs = torch.arange(0, t, ct, dtype=torch.int32, device=dev)
+    clens = coffs + ct
+    qpos = coffs[:, None, None] + torch.arange(ct, device=dev)[None, :, None]
+    kpos = torch.arange(t, device=dev)[None, None, :]
+    cmask = ((kpos <= qpos) & (kpos < clens[:, None, None]))[:, None]
+    ckw = dict(causal=True, q_offset=coffs, seq_lens=clens)
+    chunk = {
+        "ms": time_ms(lambda: flash_prefill(qc, kc, vc, **ckw)),
+        "plain_ms": time_ms(lambda: flash_prefill_ref(qc, kc, vc, **ckw),
+                            iters=10),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qc.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+            attn_mask=cmask, enable_gqa=True)),
+        "library": "sdpa with a boolean mask"}
+    # rows attend to positions 0..p; K/V rows read: the first o + 256
+    pairs = sum(sum(range(o + 1, o + ct + 1)) for o in range(0, t, ct))
+    kv_rows = sum(o + ct for o in range(0, t, ct))
+    cbytes = (2 * cb * ct * QH * HSZ + 2 * kv_rows * KH * HSZ) * es + 8 * cb
+    chunk.update(_bound(cbytes, 4 * QH * HSZ * pairs, PEAK[dt]))
     out = {"flash_decode": dec, "flash_decode_kv8": dec8,
            "flash_decode_paged": decp, "flash_decode_paged_kv8": decp8,
-           "flash_prefill": pre, "w8a16_matmul": mm}
+           "flash_prefill": pre, "flash_prefill_paged": prep,
+           "flash_prefill_chunks": chunk, "w8a16_matmul": mm}
     out.update(times_grouped(dev))
     for name, shape in (("flash_decode", "B=8 S=4096 bf16, fused append"),
                         ("flash_decode_kv8", "B=8 S=4096 int8 K/V, bf16 q, "
@@ -1280,6 +1465,12 @@ def times(dev):
                                                "shuffled table"),
                         ("flash_decode_paged_kv8", "the same, int8 K/V"),
                         ("flash_prefill", "B=1 T=1024 causal bf16"),
+                        ("flash_prefill_paged", f"B=1 T=1024 causal bf16, "
+                                                f"{pn}-page pool of 16, "
+                                                "shuffled table"),
+                        ("flash_prefill_chunks", "B=4 T=256 at q_offset "
+                                                 "0/256/512/768, S=1024, "
+                                                 "causal bf16"),
                         ("w8a16_matmul", f"M={m} K={kd} N={n} bf16 x")):
         r = out[name]
         lib_ms = "none" if r["library_ms"] is None else \
@@ -1479,13 +1670,14 @@ def main() -> int:
                                   "flash_decode_paged",
                                   "flash_decode_paged_kv8",
                                   "flash_decode_grouped", "flash_prefill",
-                                  "w8a16_matmul", "ssd_prefill")}
+                                  "flash_prefill_paged", "w8a16_matmul",
+                                  "ssd_prefill")}
     check_decode(dev, errs["flash_decode"])
     check_decode_kv8(dev, errs["flash_decode_kv8"])
     check_decode_paged(dev, errs["flash_decode_paged"],
                        errs["flash_decode_paged_kv8"])
     check_grouped(dev, errs["flash_decode_grouped"])
-    check_prefill(dev, errs["flash_prefill"])
+    check_prefill(dev, errs["flash_prefill"], errs["flash_prefill_paged"])
     check_w8a16(dev, errs["w8a16_matmul"])
     check_ssd(dev, errs["ssd_prefill"])
 
@@ -1495,6 +1687,7 @@ def main() -> int:
           "prefix-shared and grouped runs")
     runs = serve_full(dev)
     compare_paths(dev)
+    paged_pre = paged_prefill_path(dev)
     print(f"== 4 (t = {time.perf_counter() - T0:.1f} s) serve mamba2-780m "
           "(48 layers, bf16); 4-layer f32 checks")
     mamba = serve_mamba(dev)
@@ -1515,18 +1708,23 @@ def main() -> int:
                 "flash_decode_grouped": grp["flash_decode_grouped"],
                 "prefix_pass": grp["prefix_pass"],
                 "flash_prefill": fp["flash_prefill"],
+                "flash_prefill_paged": paged_pre["flash_prefill_paged"],
+                "flash_prefill_chunks":
+                    runs["a paged chunked"]["counts"]["flash_prefill"],
                 "w8a16_matmul": int8["w8a16_matmul"],
                 "ssd_prefill": mamba["counts"]["ssd_prefill"]}
     decode_src = ("src/repro_torch/csrc/flash_decode.cu",
                   "src/repro/kernels/flash_decode/kernel.py:417")
+    prefill_src = ("src/repro_torch/csrc/flash_prefill.cu",
+                   "src/repro/kernels/flash_prefill/kernel.py:205")
     sources = {"flash_decode": decode_src, "flash_decode_kv8": decode_src,
                "flash_decode_paged": decode_src,
                "flash_decode_paged_kv8": decode_src,
                "flash_decode_grouped": decode_src,
                "prefix_pass": ("src/repro_torch/csrc/prefix_pass.cu",
                                "src/repro/kernels/flash_decode/kernel.py:702"),
-               "flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
-                                 "src/repro/kernels/flash_prefill/kernel.py:205"),
+               "flash_prefill": prefill_src, "flash_prefill_paged": prefill_src,
+               "flash_prefill_chunks": prefill_src,
                "w8a16_matmul": ("src/repro_torch/csrc/w8a16_matmul.cu",
                                 "src/repro/kernels/w8a16_matmul/kernel.py:63"),
                "ssd_prefill": ("src/repro_torch/csrc/ssd_prefill.cu",
@@ -1534,8 +1732,9 @@ def main() -> int:
     records = []
     for name, (src, replaces) in sources.items():
         need(launches[name] > 0, f"{name}: no launch on its main path")
-        err = max(errs["flash_decode_grouped" if name == "prefix_pass"
-                       else name])
+        err = max(errs[{"prefix_pass": "flash_decode_grouped",
+                        "flash_prefill_chunks": "flash_prefill"}.get(name,
+                                                                     name)])
         records.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": err, **timed[name]})

@@ -1,22 +1,27 @@
 """Wrapper of the flash_prefill CUDA kernel (``csrc/flash_prefill.cu``), the
-port of the reference's ``kernels/flash_prefill/ops.py`` for the fixed
-layout: causal or cross attention, window, per-request ``q_offset`` and kv
-lengths.
+port of the reference's ``kernels/flash_prefill/ops.py``: causal or cross
+attention, window, per-request ``q_offset`` and kv lengths, in the fixed
+layout or through a block table (paged mode).
 
 The public layout is the reference's: q [B, T, Qh, hsz], k/v [B, S, Kh,
-hsz].  Tensors on the CPU take the plain version (``ref.flash_prefill_ref``);
-CUDA tensors launch the kernel or raise.
+hsz]; in paged mode k/v are one layer's pool planes [n_pool, Kh, page,
+hsz] and S = max_pages * page.  Tensors on the CPU take the plain version
+(``ref.flash_prefill_ref``, after ``ref.gather_pages`` in paged mode); CUDA
+tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+from repro_torch.kernels.flash_prefill.ref import (flash_prefill_paged_ref,
+                                                   flash_prefill_ref)
 
-counter = build.Launches()
+counter = build.Launches()          # every launch
+counter_paged = build.Launches()    # paged-mode launches among them
 ROWS = 64                   # query rows (positions x heads) per kernel block
 BK = 64                     # keys per kernel kv tile
 HSZ = (32, 64, 128)
@@ -24,27 +29,55 @@ HSZ = (32, 64, 128)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
+@functools.lru_cache(maxsize=None)
 def _bind(lib):
     fn = lib.flash_prefill_launch
-    fn.argtypes = [_P] * 6 + [_I] * 9 + [ctypes.c_float, _P]
+    fn.argtypes = [_P] * 7 + [_I] * 13 + [ctypes.c_float, _P]
     fn.restype = _I
     lib.kernel_error_string.argtypes = [_I]
     lib.kernel_error_string.restype = ctypes.c_char_p
     return fn
 
 
+def _per_row(x, b, dev):
+    """(None, x) for an int, which the kernel takes as a scalar (no device
+    tensor, no host-to-device copy); else ([B] int32 on ``dev``, 0)."""
+    if isinstance(x, int):
+        return None, x
+    return torch.as_tensor(x, dtype=torch.int32, device=dev).reshape(
+        -1).expand(b).contiguous(), 0
+
+
 def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0,
-                  q_offset=0, seq_lens=None, scale: float | None = None):
+                  q_offset=0, seq_lens=None, scale: float | None = None,
+                  block_tables=None):
     """Full-sequence attention.  ``q_offset`` is an int or a [B] tensor,
     ``seq_lens`` an optional [B] tensor of valid kv lengths (None = all S).
+    ``block_tables`` [B, max_pages] int32 selects the paged mode: k/v are
+    pool planes [n_pool, Kh, page, hsz], kv slot s of row b lies at page
+    ``block_tables[b, s // page]``, and ``seq_lens`` is required (entries
+    past a request's pages point at a sink page of arbitrary data).
     Returns [B, T, Qh, hsz] in q.dtype."""
     b, t, qh, hsz = q.shape
-    s, kh = k.shape[1], k.shape[2]
+    paged = block_tables is not None
+    if paged:
+        if seq_lens is None:
+            raise ValueError("paged flash_prefill requires seq_lens")
+        kh, page = k.shape[1], k.shape[2]
+        max_pages = block_tables.shape[1]
+        s = max_pages * page
+    else:
+        s, kh = k.shape[1], k.shape[2]
+        max_pages = page = 0
     if qh % kh:
         raise ValueError(f"Qh {qh} is not a multiple of Kh {kh}")
     if scale is None:
         scale = float(hsz) ** -0.5
-    if build.route(q, k, v) == "plain":
+    if build.route(q, k, v, block_tables) == "plain":
+        if paged:
+            return flash_prefill_paged_ref(q, k, v, block_tables, seq_lens,
+                                           causal=causal, window=window,
+                                           q_offset=q_offset, scale=scale)
         return flash_prefill_ref(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset, seq_lens=seq_lens,
                                  scale=scale)
@@ -55,21 +88,31 @@ def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0,
     if hsz not in HSZ or ROWS % g:
         raise ValueError(f"flash_prefill kernel takes hsz in {HSZ} and "
                          f"{ROWS} % (Qh/Kh) == 0 (got hsz {hsz}, G {g})")
+    if k.shape[-1] != hsz or v.shape != k.shape or (not paged
+                                                    and k.shape[0] != b):
+        raise ValueError(f"k/v shapes {tuple(k.shape)} {tuple(v.shape)} do "
+                         f"not fit q {tuple(q.shape)}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_prefill kernel needs contiguous q/k/v")
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("flash_prefill kernel needs 16-byte aligned q/k/v")
+    if paged and (block_tables.dtype != torch.int32
+                  or block_tables.dim() != 2 or block_tables.shape[0] != b
+                  or not block_tables.is_contiguous()):
+        raise ValueError("block_tables must be a contiguous [B, max_pages] "
+                         "int32 tensor")
     dev = q.device
-    offs = torch.as_tensor(q_offset, dtype=torch.int32, device=dev)
-    offs = offs.reshape(-1).expand(b).contiguous()
-    lens = (torch.full((b,), s, dtype=torch.int32, device=dev)
-            if seq_lens is None else
-            torch.as_tensor(seq_lens, dtype=torch.int32,
-                            device=dev).reshape(-1).expand(b).contiguous())
+    offs, off0 = _per_row(q_offset, b, dev)
+    lens, len0 = _per_row(s if seq_lens is None else seq_lens, b, dev)
     out = torch.empty_like(q)
     lib = build.load("flash_prefill")
     rc = _bind(lib)(
         build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(lens),
-        build.ptr(offs), build.ptr(out), code, b, t, s, kh, g, hsz,
-        int(causal), int(window), float(scale), build.stream())
+        build.ptr(offs), build.ptr(block_tables), build.ptr(out), off0, len0,
+        code, b, t, s, kh, g, hsz, int(causal), int(window), max_pages, page,
+        float(scale), build.stream())
     build.check(rc, lib, "flash_prefill")
     counter.n += 1
+    if paged:
+        counter_paged.n += 1
     return out

@@ -14,15 +14,17 @@ Five families are ported, each with backends ``ref`` (plain PyTorch) and
   prefix_pass    shared-prefix pass of grouped   csrc/prefix_pass.cu
                  decode (flash_decode groups=)
   flash_prefill  prefill attention               csrc/flash_prefill.cu
-                 (models/attention.prefill_attention)
+                 (models/attention.              (fixed and paged layouts;
+                 prefill_attention)              bf16 on wgmma, f32 on
+                                                 CUDA cores)
   w8a16_matmul   int8 lm_head of the decode step csrc/w8a16_matmul.cu
                  (models/decode_model.head_matmul)
   ssd_prefill    Mamba2 SSD scan core of the     csrc/ssd_prefill.cu
                  prefill (models/ssm.ssd_chunked)
   ============== =============================== ==========================
 
-The reference's kernel modes still without a port are listed in
-``NOT_PORTED``; they are not registered as working.
+The reference's kernel modes still without a port would be listed in
+``NOT_PORTED`` (none is left); they are not registered as working.
 """
 from __future__ import annotations
 
@@ -41,29 +43,29 @@ FAMILIES = {
 }
 
 # reference kernels (src/repro/kernels/...) and modes that have no port yet
-NOT_PORTED = {
-    "flash_prefill paged": "flash_prefill/kernel.py flash_prefill_kernel "
-                           "block_tables mode",
-}
+NOT_PORTED: dict[str, str] = {}
 
 
 def _counters():
     from repro_torch.kernels.flash_decode import ops as dec
-    from repro_torch.kernels.flash_prefill.ops import counter as pre
+    from repro_torch.kernels.flash_prefill import ops as pre
     from repro_torch.kernels.ssd_prefill.ops import counter as ssd
     from repro_torch.kernels.w8a16_matmul.ops import counter as mm
     return {"flash_decode": dec.counter, "flash_decode_kv8": dec.counter_kv8,
             "flash_decode_paged": dec.counter_paged,
             "flash_decode_grouped": dec.counter_grouped,
             "prefix_pass": dec.counter_prefix,
-            "flash_prefill": pre, "w8a16_matmul": mm, "ssd_prefill": ssd}
+            "flash_prefill": pre.counter,
+            "flash_prefill_paged": pre.counter_paged,
+            "w8a16_matmul": mm, "ssd_prefill": ssd}
 
 
 def launch_counts() -> dict[str, int]:
     """Launches of each ported kernel so far in this process
     (``flash_decode_kv8`` / ``flash_decode_paged`` /
     ``flash_decode_grouped``: the int8-mode / paged / grouped-suffix
-    launches among ``flash_decode``'s)."""
+    launches among ``flash_decode``'s; ``flash_prefill_paged``: the paged
+    launches among ``flash_prefill``'s)."""
     return {name: c.n for name, c in _counters().items()}
 
 

@@ -10,7 +10,10 @@ reason.  int8 payloads and scales, pruned == dense, fused == unfused,
 paged == fixed and grouped == ungrouped are bit for bit.  The SSD scan
 2e-4 of max(1, |y|): kernel and plain version run the same f32 products
 over chunks in another summation order (bf16 inputs are converted exactly,
-so the same tolerance holds).
+so the same tolerance holds).  bf16 flash_prefill 1.6e-2: the kernel rounds
+P to bf16 for the tensor cores and its output to bf16, one bf16 ulp at
+|x| <= 2 being 2^-6; paged == fixed and chunk rows == one-shot rows are bit
+for bit.
 """
 import pytest
 import torch
@@ -21,7 +24,9 @@ from repro_torch.kernels import registry
 from repro_torch.kernels.flash_decode.ops import (flash_decode_shards,
                                                   flash_decode_shards_plain,
                                                   kernel_block_s, prefix_pass)
-from repro_torch.kernels.flash_prefill import flash_prefill, flash_prefill_ref
+from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                               flash_prefill_paged_ref,
+                                               flash_prefill_ref)
 from repro_torch.kernels.ssd_prefill import ssd_prefill, ssd_prefill_plain
 from repro_torch.kernels.w8a16_matmul import (quantize_w8, w8a16_matmul,
                                               w8a16_matmul_ref)
@@ -96,7 +101,8 @@ def test_serve_on_card_matches_cpu_and_counts_launches(h100):
     assert counts == {"flash_decode": cfg.n_layers * summ["decode_syncs"],
                       "flash_decode_kv8": 0, "flash_decode_paged": 0,
                       "flash_decode_grouped": 0, "prefix_pass": 0,
-                      "flash_prefill": cfg.n_layers * 5, "w8a16_matmul": 0,
+                      "flash_prefill": cfg.n_layers * 5,
+                      "flash_prefill_paged": 0, "w8a16_matmul": 0,
                       "ssd_prefill": 0}
 
 
@@ -292,3 +298,93 @@ def test_ssd_prefill_kernel_matches_plain_on_card(h100, dtype):
     torch.testing.assert_close(torch.cat([y1, y2], 1), y, atol=2e-4,
                                rtol=2e-4)
     torch.testing.assert_close(h2, h, atol=2e-4, rtol=2e-4)
+
+
+def _pool(x, tab, n_pool, page, garbage):
+    """Fixed-layout K or V [B, S, Kh, hsz] -> pool planes [n_pool, Kh, page,
+    hsz] under ``tab`` (entry 0: the sink page, filled with ``garbage``)."""
+    b, s, kh, hsz = x.shape
+    pages = x.reshape(b, s // page, page, kh, hsz).transpose(2, 3)
+    pool = torch.full((n_pool, kh, page, hsz), garbage, dtype=x.dtype,
+                      device=x.device)
+    live = tab > 0
+    pool[tab[live].long()] = pages[live]
+    return pool
+
+
+def _table(lens, max_pages, page, seed):
+    need = [-(-int(n) // page) for n in lens.tolist()]
+    perm = torch.randperm(sum(need), generator=torch.Generator().manual_seed(
+        seed)).to(torch.int32) + 1
+    tab = torch.zeros(len(need), max_pages, dtype=torch.int32)
+    for r, n in enumerate(need):
+        tab[r, :n] = perm[sum(need[:r]):sum(need[:r + 1])]
+    return tab.to(lens.device), 1 + sum(need)
+
+
+PREFILL_TOL = {torch.float32: 2e-5, torch.bfloat16: 1.6e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hsz", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_prefill_kernel_fixed_and_paged_on_card(h100, dtype, hsz):
+    """flash_prefill fixed and paged (page 16, shuffled table, a sink page
+    of +-1e4) vs the plain version, windows 0 and 64, per-request offsets
+    and lengths; paged == fixed bit for bit; lens == 0 rows are zero."""
+    g = torch.Generator(device=h100).manual_seed(7)
+    b, t, qh, kh, page = 2, 200, 16, 4, 16
+    rnd = lambda *sh: torch.randn(*sh, generator=g, device=h100).to(dtype)
+    q, k, v = rnd(b, t, qh, hsz), rnd(b, 208, kh, hsz), rnd(b, 208, kh, hsz)
+    offs = torch.tensor([0, 9], dtype=torch.int32, device=h100)
+    for lens in ([200, 120], [0, 77]):
+        lens = torch.tensor(lens, dtype=torch.int32, device=h100)
+        tab, n_pool = _table(lens, 208 // page, page, hsz)
+        pk, pv = (_pool(x, tab, n_pool, page, 1e4) for x in (k, v))
+        for window in (0, 64):
+            kw = dict(causal=True, window=window, q_offset=offs,
+                      seq_lens=lens)
+            before = registry.launch_counts()
+            fixed = flash_prefill(q, k, v, **kw)
+            paged = flash_prefill(q, pk, pv, block_tables=tab, **kw)
+            want = flash_prefill_ref(q, k, v, **kw)
+            want_p = flash_prefill_paged_ref(q, pk, pv, tab, lens,
+                                             causal=True, window=window,
+                                             q_offset=offs)
+            torch.cuda.synchronize()
+            after = registry.launch_counts()
+            assert after["flash_prefill"] == before["flash_prefill"] + 2
+            assert (after["flash_prefill_paged"]
+                    == before["flash_prefill_paged"] + 1)
+            tol = PREFILL_TOL[dtype]
+            torch.testing.assert_close(fixed, want, atol=tol, rtol=0)
+            torch.testing.assert_close(paged, want_p, atol=tol, rtol=0)
+            ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+            assert torch.equal(fixed.view(ints), paged.view(ints))
+            if lens[0] == 0:
+                assert torch.all(fixed[0] == 0) and torch.all(paged[0] == 0)
+
+
+@pytest.mark.gpu
+def test_prefill_chunk_rows_equal_one_shot_rows_on_card(h100):
+    """bf16: rows of 4 chunk calls (T = 256 at q_offset 0/256/512/768,
+    seq_lens = offset + 256) == the same rows of one T = 1024 call, bit for
+    bit, fixed and paged (page 64)."""
+    g = torch.Generator(device=h100).manual_seed(8)
+    rnd = lambda *sh: torch.randn(*sh, generator=g,
+                                  device=h100).to(torch.bfloat16)
+    t, page = 1024, 64
+    q, k, v = rnd(1, t, 32, 64), rnd(1, t, 8, 64), rnd(1, t, 8, 64)
+    full_lens = torch.tensor([t], dtype=torch.int32, device=h100)
+    tab, n_pool = _table(full_lens, t // page, page, 3)
+    pk, pv = (_pool(x, tab, n_pool, page, 1e4) for x in (k, v))
+    for kv, extra in (((k, v), {}), ((pk, pv), dict(block_tables=tab))):
+        one = flash_prefill(q, *kv, seq_lens=full_lens, **extra)
+        for off in range(0, t, 256):
+            lens = torch.tensor([off + 256], dtype=torch.int32, device=h100)
+            part = flash_prefill(q[:, off:off + 256].contiguous(), *kv,
+                                 q_offset=off, seq_lens=lens, **extra)
+            torch.cuda.synchronize()
+            assert torch.equal(part.view(torch.int16),
+                               one[:, off:off + 256].view(torch.int16))

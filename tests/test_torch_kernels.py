@@ -19,11 +19,12 @@ from repro.kernels.flash_decode.kernel import (_append_slot as jax_append_slot,
                                                prune_block_range as jax_prune,
                                                valid_slot_span as jax_span)
 from repro.kernels.flash_prefill import flash_prefill_ref as jax_prefill_ref
+from repro.kernels.flash_prefill.ops import flash_prefill as jax_flash_prefill
 from repro.kernels.flash_prefill.kernel import \
     prefill_block_range as jax_prefill_range
 from repro.kernels.pruning import phys_block as jax_phys_block
 
-from repro_torch.kernels import build, pruning
+from repro_torch.kernels import build, pruning, registry
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_shards
 from repro_torch.kernels.flash_prefill import flash_prefill
 
@@ -235,6 +236,86 @@ def test_flash_prefill_plain_matches_reference_ref(causal):
                 assert np.all(out.numpy()[0] == 0)      # lens == 0 -> zeros
 
 
+def _paged_prefill_case(seed, page):
+    """q [2, 16, QH, HSZ] at per-request offsets and lengths, and one K/V
+    of S = 32 slots both in the fixed layout and as pool pages under a
+    shuffled table whose unused entries point at the sink page 0, filled
+    with finite garbage (the reference masks it, the port zero-loads it)."""
+    rng = np.random.default_rng(seed)
+    b, t, s = 2, 16, 32
+    mp = s // page
+    f = lambda *sh: rng.standard_normal(sh).astype(np.float32)
+    q, k, v = f(b, t, QH, HSZ), f(b, s, KH, HSZ), f(b, s, KH, HSZ)
+    lens = np.array([s - 7, 20], np.int32)
+    offs = np.array([s - 7 - t, 3], np.int32)
+    need = -(-lens // page)
+    n_pool = 1 + int(need.sum())
+    perm = 1 + rng.permutation(n_pool - 1)
+    tables = np.zeros((b, mp), np.int32)
+    pool_k = 1e4 * np.sign(f(n_pool, KH, page, HSZ))
+    pool_v = 1e4 * np.sign(f(n_pool, KH, page, HSZ))
+    i = 0
+    for r in range(b):
+        for p in range(need[r]):
+            tables[r, p] = perm[i]
+            pool_k[perm[i]] = k[r, p * page:(p + 1) * page].transpose(1, 0, 2)
+            pool_v[perm[i]] = v[r, p * page:(p + 1) * page].transpose(1, 0, 2)
+            i += 1
+    return q, k, v, pool_k, pool_v, tables, lens, offs
+
+
+@pytest.mark.parametrize("window", [0, 6], ids=["causal", "window"])
+@pytest.mark.parametrize("page", [8, 16])
+def test_flash_prefill_paged_plain_matches_reference_kernel(page, window):
+    """Paged mode vs the reference's paged Pallas kernel (interpreted), with
+    per-request offsets and lengths and a garbage sink page."""
+    q, _, _, pk, pv, tab, lens, offs = _paged_prefill_case(20 + page, page)
+    ref = jax_flash_prefill(q, pk, pv, causal=True, window=window,
+                            q_offset=jnp.asarray(offs),
+                            seq_lens=jnp.asarray(lens), blk_q=8,
+                            block_tables=jnp.asarray(tab), interpret=True)
+    out = flash_prefill(torch.from_numpy(q), torch.from_numpy(pk),
+                        torch.from_numpy(pv), causal=True, window=window,
+                        q_offset=torch.from_numpy(offs),
+                        seq_lens=torch.from_numpy(lens),
+                        block_tables=torch.from_numpy(tab))
+    np.testing.assert_allclose(out.numpy(), _np(ref), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("page", [8, 16])
+def test_flash_prefill_paged_equals_fixed(page):
+    """The port's paged mode == its fixed layout, bit for bit, causal and
+    windowed, and a lens == 0 row is zero in both."""
+    q, k, v, pk, pv, tab, lens, offs = _paged_prefill_case(30 + page, page)
+    t = lambda x: torch.from_numpy(x)
+    for window in (0, 6):
+        for ln in (lens, np.array([0, lens[1]], np.int32)):
+            kw = dict(causal=True, window=window, q_offset=t(offs),
+                      seq_lens=t(ln))
+            fixed = flash_prefill(t(q), t(k), t(v), **kw)
+            paged = flash_prefill(t(q), t(pk), t(pv), block_tables=t(tab),
+                                  **kw)
+            assert torch.equal(fixed, paged)
+            assert torch.isfinite(paged).all()
+        assert torch.all(paged[0] == 0)
+
+
+def test_flash_prefill_paged_needs_seq_lens():
+    q, _, _, pk, pv, tab, _, _ = _paged_prefill_case(40, 8)
+    with pytest.raises(ValueError, match="seq_lens"):
+        flash_prefill(torch.from_numpy(q), torch.from_numpy(pk),
+                      torch.from_numpy(pv), block_tables=torch.from_numpy(tab))
+
+
+def test_every_reference_kernel_mode_is_ported():
+    """No reference kernel mode is left without a port, and the paged
+    prefill mode has its own launch counter."""
+    assert registry.NOT_PORTED == {}
+    counts = registry.launch_counts()
+    assert {"flash_prefill", "flash_prefill_paged"} <= set(counts)
+    assert "not ported" not in registry.backend_table()
+
+
 # ------------------------------------------------- dispatch, no fallback
 def test_wrappers_never_take_plain_path_off_cpu():
     """Only CPU tensors take the plain version: any other device goes to
@@ -250,6 +331,15 @@ def test_wrappers_never_take_plain_path_off_cpu():
     kp = torch.zeros(1, 8, KH, HSZ, device="meta")
     with pytest.raises(ValueError):
         flash_prefill(qp, kp, kp)
+    pool = torch.zeros(5, KH, 8, HSZ, device="meta")
+    tab = torch.zeros(1, 2, dtype=torch.int32, device="meta")
+    lens = torch.full((1,), 16, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        flash_prefill(qp, pool, pool, block_tables=tab, seq_lens=lens)
+    with pytest.raises(ValueError):                   # a CPU table
+        flash_prefill(qp, pool, pool,
+                      block_tables=torch.zeros(1, 2, dtype=torch.int32),
+                      seq_lens=lens)
     assert build.route(torch.zeros(1)) == "plain"
 
 
