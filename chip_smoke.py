@@ -17,7 +17,13 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    (prefix_pass, then flash_decode's grouped-suffix mode) against the
    ungrouped paged kernel bit for bit and the plain grouped decode within
    the tolerance, f32, bf16 and int8, kvp 1 and 4, windows 0 and 512, a
-   split inside a tile and one group holding the whole batch; ssd_prefill
+   split inside a tile and one group holding the whole batch; the chunk
+   edges of flash_decode's split sweep (chunks of 256 local slots):
+   lengths ending on a chunk boundary and one slot past it (the appended row
+   in a chunk's first slot), a window starting mid-chunk, f32, bf16 and
+   int8, kvp 1 and 4, with pruned == dense, fused == unfused, paged ==
+   fixed and grouped (split inside a chunk and a tile) == ungrouped bit for
+   bit; ssd_prefill
    (the Mamba2 SSD scan) at mamba2-780m widths (nh 48, hd 64, ds 128) at
    T = 64, 1024 and a ragged 37, from a nonzero state, two halves chained
    through h_final == one pass, and two B/C groups read directly == the
@@ -56,10 +62,16 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    of flash_prefill, which no serving path of the JAX package calls, runs
    as one ragged chunk step over a 40-layer granite pool (40 launches,
    counted; every layer == the fixed layout bit for bit);
-5. times (CUDA events) of each kernel, its plain version and a one-call
-   PyTorch yardstick where there is one, beside the card's bound;
-   flash_prefill at B = 1, T = 1024 causal, fixed and paged (16-position
-   pages), and at the chunk shape B = 4, T = 256 at q_offset 0..768.
+5. times of each kernel, its plain version and a one-call PyTorch
+   yardstick where there is one, beside the card's bound: ``ms`` and
+   ``library_ms`` are device time per call with every launch queued behind
+   a spin kernel (``queued_ms``), ``host_ms`` back-to-back calls between
+   two events (the wrapper's host time shows there), ``device_ms`` the
+   profiler's kernel records; flash_decode's working CTAs at B = 8, S =
+   4096 and at the serve shape (B = 4, lengths 700-1000), prefix_pass's at
+   2 groups x 4 members; flash_prefill at B = 1, T = 1024 causal, fixed and
+   paged (16-position pages), and at the chunk shape B = 4, T = 256 at
+   q_offset 0..768.
 
 The last lines are the card line, one JSON object of kernel records and
 ``{"ok": true, "device": {...}}``.
@@ -91,8 +103,11 @@ from repro_torch.core.kvcache import (cache_capacity,  # noqa: E402
 from repro_torch.core.sharding import HelixConfig  # noqa: E402
 from repro_torch.kernels import build, registry  # noqa: E402
 from repro_torch.kernels.flash_decode.ops import (  # noqa: E402
-    flash_decode_shards, flash_decode_shards_plain, kernel_block_s,
-    prefix_pass, prefix_pass_plain)
+    decode_chunks, flash_decode_shards, flash_decode_shards_plain,
+    kernel_block_s, last_launch, prefix_pass, prefix_pass_plain)
+from repro_torch.kernels.pruning import (CHUNK_S,  # noqa: E402
+                                         decode_work_items,
+                                         prefix_work_items)
 from repro_torch.kernels.flash_prefill.ops import flash_prefill  # noqa: E402
 from repro_torch.kernels.flash_prefill.ref import (  # noqa: E402
     flash_prefill_paged_ref, flash_prefill_ref)
@@ -166,6 +181,78 @@ def time_ms(fn, iters=50, warmup=5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn, iters=20) -> float:
+    """Device time (ms) per call of ``fn``: a spin kernel
+    (``torch.cuda._sleep``) holds the stream while the host enqueues
+    ``iters`` calls between two events, so the calls run back to back with
+    no host time between launches (unlike ``time_ms``, which measures the
+    wrapper when it is slower than the kernels).  The spin lasts three
+    times the measured enqueue time; a window whose enqueue outlasted its
+    spin is measured again with a spin twice as long."""
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fn()
+    spin_ms = max(2.0, (time.perf_counter() - t0) / 3 * iters * 3e3)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(4):
+        torch.cuda._sleep(int(spin_ms * 2e6))       # ~2e6 cycles per ms
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        end.record()
+        host = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if host < spin_ms:
+            return start.elapsed_time(end) / iters
+        spin_ms *= 2
+    raise SmokeFailure(f"queued_ms: enqueueing {iters} calls took {host:.2f}"
+                       f" ms, longer than every spin (last {spin_ms / 2} ms)")
+
+
+def timed(fn) -> dict:
+    """A kernel's times: ``ms`` its device time per call (``queued_ms``),
+    ``host_ms`` back-to-back calls between two events (``time_ms``), which
+    the wrapper's host time bounds from below."""
+    return {"ms": queued_ms(fn), "host_ms": time_ms(fn)}
+
+
+DECODE_KERNELS = ("decode_kernel", "merge_kernel")   # one flash_decode call
+
+
+def device_ms(fn, keys, iters=50, warmup=5):
+    """Mean device time (ms) of one call of ``fn``: the kernels whose names
+    hold one of ``keys`` (a string or a tuple), from torch.profiler's
+    kernel records over ``iters`` calls, each key's total divided by its
+    own count of records.  The kernels alone, without the host time between
+    launches that CUDA events around back-to-back calls also see.  None
+    when the profiler recorded no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    keys = (keys,) if isinstance(keys, str) else keys
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    total = 0.0
+    for key in keys:
+        ev = [e for e in rows if key in e.key]
+        n = sum(e.count for e in ev)
+        if n == 0:
+            return None
+        total += sum(getattr(e, "self_device_time_total", 0) for e in ev) / n
+    return total / 1e3
+
+
+def fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
 
 
 def maxerr(a, b) -> float:
@@ -499,6 +586,139 @@ def check_grouped(dev, errs):
                          f"{tag}: appended pages differ")
         print(f"  grouped decode {mode}: grouped == ungrouped (outputs, LSEs,"
               " appended pages) bit for bit in every case")
+
+
+def check_decode_chunks(dev, errs, errs_kv8):
+    """Chunk boundaries of the split sweep (chunks of CHUNK_S = 256 local
+    slots): per rank, lengths ending on a chunk boundary (256, 512), one
+    slot past it (the appended row lands in the next chunk's first slot),
+    mid-chunk, with windows 0 and 300 (starting mid-chunk); f32, bf16 and
+    int8, kvp 1 and 4: kernel vs plain within TOL, and pruned == dense,
+    fused == unfused and paged == fixed bit for bit (outputs, LSEs, caches);
+    then a grouped decode of 8 rows sharing 21 pages (split tile 10: inside
+    a chunk and a tile) beside rows ending on and one past a chunk
+    boundary, == ungrouped bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    gt = torch.Generator().manual_seed(17)
+    b, s_loc = 6, 1024
+    for mode in ("f32", "bf16", "int8"):
+        dt = torch.float32 if mode == "f32" else torch.bfloat16
+        rnd = lambda *sh: torch.randn(*sh, generator=g, device=dev).to(dt)
+        for kvp in (1, 4):
+            tl = torch.tensor([256, 257, 512, 513, 700, 1000], dtype=torch.int32,
+                              device=dev) * kvp
+            tl[1] = 256 * kvp + 1
+            tl[3] = 512 * kvp + 1
+            q, kn, vn = rnd(b, QH, HSZ), rnd(b, KH, HSZ), rnd(b, KH, HSZ)
+            fixed = {"kcache": rnd(1, b, KH, kvp * s_loc, HSZ),
+                     "vcache": rnd(1, b, KH, kvp * s_loc, HSZ)}
+            if mode == "int8":
+                fixed = quantize_decode_state(fixed)
+            keys = [k for k in ("kcache", "vcache", "kscale", "vscale")
+                    if k in fixed]
+            page = page_positions(kvp, RR)
+            tab, n_pool = shuffled_tables(gt, tl, page, s_loc // RR)
+            paged = state_to_paged(fixed, tab, n_pool, kvp, page)
+            tables = paged["block_tables"]
+
+            def planes(st):
+                c = [st[k][0].clone() for k in keys]
+                return c, (dict(kscale=c[2], vscale=c[3]) if len(c) == 4
+                           else {})
+
+            for window in (0, 300):
+                kw = dict(kvp=kvp, n_ranks=kvp, rank=0, rr_block=RR,
+                          window=window, contiguous=False, slot_offset=0,
+                          k_new=kn, v_new=vn)
+                (c1, s1), (c2, s2), (c3, s3), (cp, sp) = (
+                    planes(fixed), planes(fixed), planes(fixed), planes(paged))
+                o1, l1 = flash_decode_shards(q, c1[0], c1[1], tl, **s1, **kw)
+                o3, l3 = flash_decode_shards(q, c3[0], c3[1], tl, prune=False,
+                                             **s3, **kw)
+                op, lp = flash_decode_shards(q, cp[0], cp[1], tl,
+                                             block_tables=tables, **sp, **kw)
+                o2, l2 = flash_decode_shards_plain(
+                    q, c2[0], c2[1], tl, scale=HSZ ** -0.5,
+                    block_s=kernel_block_s(512, s_loc), **s2, **kw)
+                torch.cuda.synchronize()
+                eo, el = maxerr(o1, o2), maxerr(l1, l2)
+                (errs_kv8 if mode == "int8" else errs).append(eo)
+                tag = f"chunk edges {mode} kvp={kvp} window={window}"
+                print(f"  {tag}: max err out {eo:.3g} lse {el:.3g} "
+                      f"(tol {TOL[dt]['out']:g}/{TOL[dt]['lse']:g})")
+                need(eo <= TOL[dt]["out"] and el <= TOL[dt]["lse"],
+                     f"{tag}: kernel disagrees with plain")
+                need(torch.equal(bits(o1), bits(o3))
+                     and torch.equal(bits(l1), bits(l3)), f"{tag}: pruned != dense")
+                need(all(torch.equal(bits(x), bits(y)) and
+                         torch.equal(bits(x), bits(z))
+                         for x, y, z in zip(c1, c2, c3)),
+                     f"{tag}: appended caches differ from plain / dense")
+                back = state_to_paged({k: c[None] for k, c in zip(keys, c1)},
+                                      tab, n_pool, kvp, page)
+                need(torch.equal(bits(o1), bits(op))
+                     and torch.equal(bits(l1), bits(lp))
+                     and all(torch.equal(bits(x[1:]), bits(back[k][0][1:]))
+                             for x, k in zip(cp, keys)),
+                     f"{tag}: paged != fixed")
+                cu, su = planes(fixed)
+                if mode == "int8":
+                    append_kv_quant(*cu, kn, vn, tl, kvp=kvp, rr_block=RR)
+                else:
+                    append_kv(cu[0], cu[1], kn, vn, tl, kvp=kvp, rr_block=RR)
+                ou, lu = flash_decode_shards(
+                    q, cu[0], cu[1], tl, **su,
+                    **dict(kw, k_new=None, v_new=None))
+                torch.cuda.synchronize()
+                need(torch.equal(bits(o1), bits(ou))
+                     and torch.equal(bits(l1), bits(lu))
+                     and all(torch.equal(bits(x), bits(y))
+                             for x, y in zip(c1, cu)),
+                     f"{tag}: fused != unfused append")
+            # grouped: all 8 rows share 21 pages; split tile 10 of chunk 1
+            page_n, shared = s_loc // RR, 21
+            gtl = torch.tensor([512, 513, 337, 768, 1000, 600, 700, 900],
+                               dtype=torch.int32) * kvp
+            gtl[1] = 512 * kvp + 1
+            gtl[2] = 336 * kvp + 1
+            gtab = torch.zeros(8, page_n, dtype=torch.int32)
+            perm = (torch.randperm(8 * page_n, generator=gt) + 1).tolist()
+            common = [perm.pop() for _ in range(shared)]
+            for i in range(8):
+                gtab[i] = torch.tensor(common + [perm.pop() for _ in
+                                                 range(page_n - shared)])
+            gpool = {"kcache": rnd(1 + 8 * page_n, KH, page, HSZ),
+                     "vcache": rnd(1 + 8 * page_n, KH, page, HSZ)}
+            if mode == "int8":
+                gpool = quantize_decode_state(gpool)
+            groups = (torch.zeros(8, dtype=torch.int32, device=dev),
+                      torch.full((8,), shared, dtype=torch.int32, device=dev))
+            gq, gkn = rnd(8, QH, HSZ), rnd(8, KH, HSZ)
+            gtl, gtab = gtl.to(dev), gtab.to(dev)
+            for window in (0, 300):
+                kw = dict(kvp=kvp, n_ranks=kvp, rank=0, rr_block=RR,
+                          window=window, block_tables=gtab, k_new=gkn,
+                          v_new=gkn)
+                res = []
+                for grp in (groups, None):
+                    pl = [gpool[k].clone() for k in keys]
+                    sc = (dict(kscale=pl[2], vscale=pl[3]) if len(pl) == 4
+                          else {})
+                    res.append((flash_decode_shards(gq, pl[0], pl[1], gtl,
+                                                    groups=grp, **sc, **kw),
+                                pl))
+                torch.cuda.synchronize()
+                (og, lg), pg = res[0]
+                (of, lf), pf = res[1]
+                need(torch.equal(bits(og), bits(of))
+                     and torch.equal(bits(lg), bits(lf))
+                     and all(torch.equal(bits(x[1:]), bits(y[1:]))
+                             for x, y in zip(pg, pf)),
+                     f"chunk edges grouped {mode} kvp={kvp} window={window}: "
+                     "grouped != ungrouped")
+        print(f"  chunk edges {mode}: pruned == dense, fused == unfused, "
+              "paged == fixed and grouped (split inside a chunk) == "
+              "ungrouped, bit for bit")
 
 
 def check_w8a16(dev, errs):
@@ -1227,13 +1447,13 @@ def profile_decode(dev, cfg, model, hx):
                  if not e.key.startswith("aten::")) / n / 1e3
     ops = sum(e.count for e in rows if e.key.startswith("aten::")) / n
     per_call = {}
-    for tag, key in (("flash_decode", "decode_kernel"),
-                     ("prefix_pass", "prefix_kernel"),
-                     ("w8a16_matmul", "w8a16_kernel")):
-        ev = [e for e in rows if key in e.key]
-        n_ev = sum(e.count for e in ev)
-        if n_ev:
-            per_call[tag] = sum(dev_us(e) for e in ev) / n_ev / 1e3
+    for tag, keys in (("flash_decode", DECODE_KERNELS),
+                      ("prefix_pass", ("prefix_kernel",)),
+                      ("w8a16_matmul", ("w8a16_kernel",))):
+        calls = sum(e.count for e in rows if keys[0] in e.key)
+        if calls:
+            per_call[tag] = sum(dev_us(e) for e in rows
+                                if any(k in e.key for k in keys)) / calls / 1e3
     if device > 0:
         calls = ", ".join(f"{k} {v:.4f} ms/call" for k, v in per_call.items())
         mode = ("grouped, " if hx.grouped_decode else "") + \
@@ -1329,24 +1549,37 @@ def times(dev):
     kw = dict(kvp=1, n_ranks=1, rank=0, rr_block=RR, window=0,
               contiguous=False, slot_offset=0, k_new=kn, v_new=kn)
     dec = {
-        "ms": time_ms(lambda: flash_decode_shards(q, k, v, tl, **kw)),
+        **timed(lambda: flash_decode_shards(q, k, v, tl, **kw)),
         "plain_ms": time_ms(lambda: flash_decode_shards_plain(
             q, k, v, tl, scale=HSZ ** -0.5, block_s=512, **kw), iters=3,
             warmup=1),
     }
     mask = torch.ones(b, 1, 1, s, dtype=torch.bool, device=dev)
-    dec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+    dec["library_ms"] = queued_ms(lambda: F.scaled_dot_product_attention(
         q[:, :, None], k, v, attn_mask=mask, enable_gqa=True))
+    # every slot is valid here, so SDPA without a mask computes the same
+    dec["library_unmasked_ms"] = queued_ms(
+        lambda: F.scaled_dot_product_attention(q[:, :, None], k, v,
+                                               enable_gqa=True))
     dbytes = (2 * b * KH * s * HSZ + 2 * b * QH * HSZ) * es + b * QH * 4
     dops = 4 * b * QH * HSZ * s
     dec.update(_bound(dbytes, dops, PEAK[dt]), library="sdpa")
+    dec["device_ms"] = device_ms(lambda: flash_decode_shards(q, k, v, tl,
+                                                             **kw),
+                                 DECODE_KERNELS)
+    cpc = last_launch["chunks_per_cta"]
+    work = decode_work_items(tl.cpu(), kvp=1, n_ranks=1, rank=0, kv_heads=KH,
+                             rr_block=RR, s_true=s, chunks_per_cta=cpc)
+    grid = -(-decode_chunks(s, 512) // cpc) * b * KH
+    print(f"  flash_decode B=8 S=4096: {work} of {grid} CTAs sweep, "
+          f"{cpc} chunk(s) of {CHUNK_S} slots each (132 SMs)")
     # the same decode in int8 mode; the int8 K/V (34 MB) fits in the 50 MB
     # L2, so three copies rotate to keep every launch's reads cold, as the
     # 40 layers of a decode step find them
     copies = [quantize_kv_token(k) + quantize_kv_token(v) for _ in range(3)]
     kw8 = [dict(kscale=c[1], vscale=c[3], **kw) for c in copies]
     dec8 = {
-        "ms": time_ms(rotating([
+        **timed(rotating([
             lambda c=c, w=w: flash_decode_shards(q, c[0], c[2], tl, **w)
             for c, w in zip(copies, kw8)])),
         "plain_ms": time_ms(lambda: flash_decode_shards_plain(
@@ -1357,6 +1590,9 @@ def times(dev):
     d8bytes = (2 * b * KH * s * HSZ + 2 * b * KH * s * 4
                + 2 * b * QH * HSZ * es + b * QH * 4 + 2 * b * KH * HSZ * es)
     dec8.update(_bound(d8bytes, dops, PEAK[dt]))
+    dec8["device_ms"] = device_ms(rotating([
+        lambda c=c, w=w: flash_decode_shards(q, c[0], c[2], tl, **w)
+        for c, w in zip(copies, kw8)]), DECODE_KERNELS)
     # the paged mode at the same shape, in the same call: the same caches in
     # a pool of 1 + B*S/16 pages under a shuffled table; the int8 pools
     # rotate as the int8 caches do
@@ -1370,7 +1606,7 @@ def times(dev):
 
     pk, pv = pool_of(k), pool_of(v)
     decp = {
-        "ms": time_ms(lambda: flash_decode_shards(q, pk, pv, tl,
+        **timed(lambda: flash_decode_shards(q, pk, pv, tl,
                                                   block_tables=tab, **kw)),
         "plain_ms": time_ms(lambda: flash_decode_shards_plain(
             q, pk, pv, tl, scale=HSZ ** -0.5, block_s=512, block_tables=tab,
@@ -1379,9 +1615,12 @@ def times(dev):
         "library": "no single PyTorch call attends through a block table"}
     tbytes = tab.numel() * 4
     decp.update(_bound(dbytes + tbytes, dops, PEAK[dt]))
+    decp["device_ms"] = device_ms(
+        lambda: flash_decode_shards(q, pk, pv, tl, block_tables=tab, **kw),
+        DECODE_KERNELS)
     pcopies = [tuple(pool_of(x) for x in c) for c in copies]
     decp8 = {
-        "ms": time_ms(rotating([
+        **timed(rotating([
             lambda c=c: flash_decode_shards(q, c[0], c[2], tl, kscale=c[1],
                                             vscale=c[3], block_tables=tab,
                                             **kw) for c in pcopies])),
@@ -1391,24 +1630,29 @@ def times(dev):
             block_tables=tab, **kw), iters=3, warmup=1),
         "library_ms": None, "library": decp["library"]}
     decp8.update(_bound(d8bytes + tbytes, dops, PEAK[dt]))
+    decp8["device_ms"] = device_ms(rotating([
+        lambda c=c: flash_decode_shards(q, c[0], c[2], tl, kscale=c[1],
+                                        vscale=c[3], block_tables=tab, **kw)
+        for c in pcopies]), DECODE_KERNELS)
+    serve = times_serve_decode(dev)
     # the int8 lm_head of one decode step: M = 4 rows (max_batch), bf16
     m, kd, n = 4, D_MODEL, VP
     x = rnd(m, kd)
     qw, sc = quantize_w8(torch.randn(kd, n, generator=g, device=dev))
     lib, lib_fn = w8a16_library(x, qw, sc)
-    mm = {"ms": time_ms(lambda: w8a16_matmul(x, qw, sc)),
+    mm = {**timed(lambda: w8a16_matmul(x, qw, sc)),
           "plain_ms": time_ms(lambda: w8a16_matmul_ref(x, qw, sc), iters=10),
-          "library_ms": time_ms(lib_fn), "library": lib}
+          "library_ms": queued_ms(lib_fn), "library": lib}
     mbytes = kd * n + n * 4 + m * kd * es + m * n * es
     mm.update(_bound(mbytes, 2 * m * kd * n, PEAK[dt]))
     # prefill at B=1, T=1024 causal (the longest serve prompt)
     t = 1024
     qp, kp, vp = rnd(1, t, QH, HSZ), rnd(1, t, KH, HSZ), rnd(1, t, KH, HSZ)
     pre = {
-        "ms": time_ms(lambda: flash_prefill(qp, kp, vp, causal=True)),
+        **timed(lambda: flash_prefill(qp, kp, vp, causal=True)),
         "plain_ms": time_ms(lambda: flash_prefill_ref(qp, kp, vp, causal=True),
                             iters=10),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+        "library_ms": queued_ms(lambda: F.scaled_dot_product_attention(
             qp.transpose(1, 2), kp.transpose(1, 2), vp.transpose(1, 2),
             is_causal=True, enable_gqa=True)),
     }
@@ -1423,7 +1667,7 @@ def times(dev):
     junk = torch.zeros(16, HSZ, device=dev)
     pkp, pvp = (prefill_pool(x, ptab, pn, 16, junk) for x in (kp, vp))
     prep = {
-        "ms": time_ms(lambda: flash_prefill(qp, pkp, pvp, causal=True,
+        **timed(lambda: flash_prefill(qp, pkp, pvp, causal=True,
                                             seq_lens=t, block_tables=ptab)),
         "plain_ms": time_ms(lambda: flash_prefill_paged_ref(
             qp, pkp, pvp, ptab, t, causal=True), iters=10),
@@ -1440,10 +1684,10 @@ def times(dev):
     cmask = ((kpos <= qpos) & (kpos < clens[:, None, None]))[:, None]
     ckw = dict(causal=True, q_offset=coffs, seq_lens=clens)
     chunk = {
-        "ms": time_ms(lambda: flash_prefill(qc, kc, vc, **ckw)),
+        **timed(lambda: flash_prefill(qc, kc, vc, **ckw)),
         "plain_ms": time_ms(lambda: flash_prefill_ref(qc, kc, vc, **ckw),
                             iters=10),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+        "library_ms": queued_ms(lambda: F.scaled_dot_product_attention(
             qc.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
             attn_mask=cmask, enable_gqa=True)),
         "library": "sdpa with a boolean mask"}
@@ -1475,10 +1719,52 @@ def times(dev):
         r = out[name]
         lib_ms = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
-        print(f"  {name} {shape}: kernel {r['ms']:.4f} ms, plain "
+        dev_ms = ("" if "device_ms" not in r else
+                  f", kernel records {fmt_ms(r['device_ms'])}")
+        print(f"  {name} {shape}: kernel {r['ms']:.4f} ms (host-bound "
+              f"{r['host_ms']:.4f} ms{dev_ms}), plain "
               f"{r['plain_ms']:.4f} ms, library {lib_ms} ({r['library']}), "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    out["flash_decode_serve"] = serve
     return out
+
+
+def times_serve_decode(dev):
+    """flash_decode at the serve shape: B = 4 rows of 1000, 900, 800 and
+    700 tokens in a 1088-slot cache, bf16, fused append, kvp 1 (one layer of
+    a decode step of phase 4's profile), beside SDPA over the same rows
+    with a mask of their lengths."""
+    g = torch.Generator(device=dev).manual_seed(19)
+    rnd = lambda *sh: torch.randn(*sh, generator=g,
+                                  device=dev).to(torch.bfloat16)
+    b, s = 4, 1088
+    q, k, v, kn = rnd(b, QH, HSZ), rnd(b, KH, s, HSZ), rnd(b, KH, s, HSZ), \
+        rnd(b, KH, HSZ)
+    tl = torch.tensor([1000, 900, 800, 700], dtype=torch.int32, device=dev)
+    kw = dict(kvp=1, n_ranks=1, rank=0, rr_block=RR, window=0,
+              contiguous=False, slot_offset=0, k_new=kn, v_new=kn)
+    fn = lambda: flash_decode_shards(q, k, v, tl, **kw)
+    mask = (torch.arange(s, device=dev)[None] < tl[:, None])[:, None, None]
+    r = {**timed(fn), "device_ms": device_ms(fn, DECODE_KERNELS),
+         "plain_ms": time_ms(lambda: flash_decode_shards_plain(
+             q, k, v, tl, scale=HSZ ** -0.5, block_s=512, **kw), iters=3,
+             warmup=1),
+         "library_ms": queued_ms(lambda: F.scaled_dot_product_attention(
+             q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)),
+         "library": "sdpa with a mask of the lengths"}
+    slots = int(tl.sum())
+    r.update(_bound(2 * KH * slots * HSZ * 2 + 2 * b * QH * HSZ * 2
+                    + b * QH * 4, 4 * QH * HSZ * slots, PEAK[torch.bfloat16]))
+    cpc = last_launch["chunks_per_cta"]
+    work = decode_work_items(tl.cpu(), kvp=1, n_ranks=1, rank=0, kv_heads=KH,
+                             rr_block=RR, s_true=s, chunks_per_cta=cpc)
+    print(f"  flash_decode serve shape (B=4, lengths 700-1000, cap 1088): "
+          f"kernel {r['ms']:.4f} ms (device {fmt_ms(r['device_ms'])}), "
+          f"plain {r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
+          f"bound {r['bound_ms']:.4f} ms; {work} of "
+          f"{-(-decode_chunks(s, 512) // cpc) * b * KH} CTAs sweep, {cpc} "
+          "chunk(s) each")
+    return r
 
 
 def times_grouped(dev):
@@ -1526,7 +1812,7 @@ def times_grouped(dev):
             return fn(q, c["kcache"], c["vcache"], tl, tab, *groups, kvp=1,
                       n_ranks=1, rank=0, rr_block=RR, window=0, **sc(c), **kw)
 
-        st = pre(pools[0])
+        st = pre(pools[0], chunks=True)
         kw = dict(kvp=1, n_ranks=1, rank=0, rr_block=RR, window=0,
                   contiguous=False, slot_offset=0, k_new=kn, v_new=kn,
                   block_tables=tab)
@@ -1537,7 +1823,8 @@ def times_grouped(dev):
                       **extra)
 
         plain = dict(scale=HSZ ** -0.5, block_s=512)
-        pr = {"ms": time_ms(rotating([lambda c=c: pre(c) for c in pools])),
+        pr = {**timed(rotating([lambda c=c: pre(c, chunks=True)
+                                      for c in pools])),
               "plain_ms": time_ms(lambda: pre(pools[0], fn=prefix_pass_plain,
                                               scale=HSZ ** -0.5),
                                   iters=3, warmup=1),
@@ -1546,7 +1833,7 @@ def times_grouped(dev):
                          "table"}
         pr.update(_bound(2 * shared * slot_bytes + qbytes + state_bytes,
                          4 * HSZ * QH * shared * b, PEAK[torch.bfloat16]))
-        sx = {"ms": time_ms(rotating([lambda c=c: dec(c) for c in pools])),
+        sx = {**timed(rotating([lambda c=c: dec(c) for c in pools])),
               "plain_ms": time_ms(lambda: dec(
                   pools[0], fn=flash_decode_shards_plain, **plain),
                   iters=3, warmup=1),
@@ -1554,18 +1841,38 @@ def times_grouped(dev):
         sx.update(_bound(b * own * slot_bytes + state_bytes + 2 * qbytes
                          + b * QH * 4 + b * KH * HSZ * 2 * kv_es,
                          4 * HSZ * QH * own * b, PEAK[torch.bfloat16]))
-        flat = time_ms(rotating([lambda c=c: dec(c, grouped=False)
+        pr["device_ms"] = device_ms(rotating([lambda c=c: pre(c, chunks=True)
+                                              for c in pools]),
+                                    "prefix_kernel")
+
+        sx["device_ms"] = device_ms(rotating([lambda c=c: dec(c)
+                                              for c in pools]),
+                                    DECODE_KERNELS)
+        if mode == "bf16":
+            gw = prefix_work_items(*groups, n_ranks=1, kv_heads=KH,
+                                   page_rows=RR)
+            sw = decode_work_items(
+                tl.cpu(), kvp=1, n_ranks=1, rank=0, kv_heads=KH,
+                rr_block=RR, s_true=(sp + op) * RR, group_np=groups[1].cpu(),
+                page_rows=RR, chunks_per_cta=last_launch["chunks_per_cta"])
+            print(f"  grouped decode: prefix_pass {gw} CTAs sweep a chunk, "
+                  f"the grouped suffix {sw}")
+        flat = queued_ms(rotating([lambda c=c: dec(c, grouped=False)
                                  for c in pools]))
+        flat_dev = device_ms(rotating([lambda c=c: dec(c, grouped=False)
+                                       for c in pools]), DECODE_KERNELS)
         flat_bound = _bound(b * (shared + own) * slot_bytes + 2 * qbytes
                             + b * QH * 4 + b * KH * HSZ * 2 * kv_es,
                             4 * HSZ * QH * (shared + own) * b,
                             PEAK[torch.bfloat16])["bound_ms"]
         print(f"  grouped decode {mode} (2 groups x 4 members share 4096 "
               f"positions, 256 own each): prefix_pass {pr['ms']:.4f} ms "
-              f"(bound {pr['bound_ms']:.4f}), grouped suffix "
-              f"{sx['ms']:.4f} ms (bound {sx['bound_ms']:.4f}), together "
-              f"{pr['ms'] + sx['ms']:.4f} ms; ungrouped paged launch "
-              f"{flat:.4f} ms (bound {flat_bound:.4f}); plain prefix "
+              f"(device {fmt_ms(pr['device_ms'])}, bound "
+              f"{pr['bound_ms']:.4f}), grouped suffix {sx['ms']:.4f} ms "
+              f"(device {fmt_ms(sx['device_ms'])}, bound "
+              f"{sx['bound_ms']:.4f}), together {pr['ms'] + sx['ms']:.4f} "
+              f"ms; ungrouped paged launch {flat:.4f} ms (device "
+              f"{fmt_ms(flat_dev)}, bound {flat_bound:.4f}); plain prefix "
               f"{pr['plain_ms']:.1f} ms, plain suffix {sx['plain_ms']:.1f} ms")
         res[mode] = (pr, sx)
     return {"prefix_pass": res["bf16"][0],
@@ -1580,7 +1887,7 @@ def times_ssd(dev):
     b, t, lc = 1, 1024, 64
     args, _ = ssd_inputs(g, dev, b, t, torch.bfloat16)
     h0 = torch.zeros(b, SSD_NH, SSD_HD, SSD_DS, device=dev)
-    r = {"ms": time_ms(lambda: ssd_prefill(*args, h0=h0)),
+    r = {**timed(lambda: ssd_prefill(*args, h0=h0)),
          "plain_ms": time_ms(lambda: ssd_prefill_plain(*args, h0=h0),
                              iters=10),
          "library_ms": None,
@@ -1677,6 +1984,7 @@ def main() -> int:
     check_decode_paged(dev, errs["flash_decode_paged"],
                        errs["flash_decode_paged_kv8"])
     check_grouped(dev, errs["flash_decode_grouped"])
+    check_decode_chunks(dev, errs["flash_decode"], errs["flash_decode_kv8"])
     check_prefill(dev, errs["flash_prefill"], errs["flash_prefill_paged"])
     check_w8a16(dev, errs["w8a16_matmul"])
     check_ssd(dev, errs["ssd_prefill"])

@@ -40,12 +40,16 @@ __device__ __forceinline__ void unpack(const uint4& u, float* f, bf16) {
   }
 }
 
-// 16 int8 values (as floats; the caller applies the scale).
+// 16 int8 values (as floats; the caller applies the scale), exactly: the
+// byte b + 128 goes into the mantissa of 2^23, then 2^23 + 128 is
+// subtracted (a byte permute and an add per value, no int-to-float unit).
 __device__ __forceinline__ void unpack(const uint4& u, float* f, int8_t) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  const uint32_t w[4] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u, u.z ^ 0x80808080u,
+                         u.w ^ 0x80808080u};
 #pragma unroll
   for (int i = 0; i < 16; ++i)
-    f[i] = (float)(int8_t)((w[i / 4] >> (8 * (i % 4))) & 0xffu);
+    f[i] = __uint_as_float(__byte_perm(w[i / 4], 0x4B000000u, 0x7540u + i % 4))
+           - 8388736.0f;
 }
 
 __device__ __forceinline__ int floordiv(int a, int b) {

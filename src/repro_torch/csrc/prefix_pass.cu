@@ -5,42 +5,53 @@
 // requests whose block tables share their leading pages form a group, and
 // each shared page is read ONCE per group for the stacked query rows of
 // all its members, with each member's own length and window masks.  It
-// emits the raw online-softmax state (acc, m, l) that flash_decode.cu's
-// grouped-suffix mode resumes.
+// emits the raw online-softmax partials (acc, m, l) of each chunk below
+// each member's split, which flash_decode.cu's grouped-suffix mode resumes
+// and merges.
 //
-// One thread block per (group row, kv head, rank).  The groups come as the
-// decode state's [B] leaves: group_id (any member's batch row, the same for
-// every member) and group_np (shared leading pages; 0 = no group).  The
-// block of group row g takes every row b with group_id[b] == g and
-// group_np[b] > 0 as a member, reads the members' query rows straight from
-// q [B, Kh, G, hsz] (the reference stacks them into [G, Kh, Gm*Qp, hsz]
-// first) and writes each member's raw state straight to its own rows of
-// st_acc [n_ranks, B, Kh, G, hsz] / st_m, st_l [n_ranks, B, Kh, G], where
-// the suffix pass reads it: the reference's gather and scatter around the
-// kernel become addressing.  Blocks of rows that lead no group exit at once.
-// The row count, members x G, is a launch parameter: shared memory is sized
-// for B x G rows.
+// One CTA of 8 warps per (chunk, group row x kv head, rank x row block).  The groups
+// come as the decode state's [B] leaves: group_id (any member's batch row,
+// the same for every member) and group_np (shared leading pages; 0 = no
+// group).  The CTA of group row g takes every row b with group_id[b] == g
+// and group_np[b] > 0 as a member, in ascending b, reads the members' query
+// rows straight from q [B, Kh, G, hsz] (the reference stacks them into
+// [G, Kh, Gm*Qp, hsz] first) and holds NW * RW of the members x G stacked
+// rows (row block rb holds rows [rb*NW*RW, ...)); CTAs of rows that lead no
+// group, of chunks at or above the group's largest split and of empty row
+// blocks exit at once.  Each member row's partial of chunk c goes straight
+// to st_* [n_ranks, B, Kh, st_nc, G(, hsz)] at that member's batch row,
+// where the suffix pass reads it: the reference's gather and scatter around
+// the kernel become addressing.
 //
-// Bit-exactness with ungrouped decode (decode_tile.cuh): the block sweeps
-// the whole tiles of TS slots below split = group_np * ps / TS in the decode
-// kernel's order through the same tile_update, and the suffix pass starts
-// at that tile.  A tile that straddles the end of the shared pages is left
-// to the suffix and read once per member.  Member m's rows see only tiles
-// below its own split (a tile above it is an identity update), so members
-// with different group_np stay exact too.  Tiles below a member's window
-// are fully masked for its rows: identity updates again, from the cold
-// state as from any other.
+// Bit-exactness with ungrouped decode (decode_tile.cuh): chunks sit at the
+// same absolute boundaries and every row goes through the same tile_update,
+// whose per-row arithmetic does not depend on the row count.  The CTA of
+// chunk c sweeps the chunk's whole tiles below the group's largest split S =
+// max(group_np) * ps / TS in order; member m's rows are masked to their own
+// valid slots below their split (msplit * TS), so tiles outside are
+// identity updates.  A member's partial of chunk c is written only when
+// chunk c starts below its split: for chunks wholly below, it is the
+// ungrouped decode's partial of that chunk; for the chunk holding the
+// split, the state swept up to the split tile, which the suffix resumes.
+// A tile that straddles the end of the shared pages is left to the suffix
+// and read once per member.
 //
-// Bound: bytes.  Each shared K/V tile is read once per group instead of once
-// per member, so the prefix reads drop by the group size; the ~4*R*hsz
-// flops per slot stay far below the ~295 flop/byte ridge at R <= 64 rows.
+// Bound: bytes.  Each shared K/V tile is read once per group (per row block)
+// instead of once per member, so the prefix reads drop by the group size;
+// the ~4*R*hsz flops per slot stay far below the ~295 flop/byte ridge.  The
+// tiles come through decode_tile.cuh's cp.async ring, 256 slots per CTA.
+//
+// prefix_pass_launch with fold_* pointers also folds each row's partials in
+// chunk order into its raw state (the reference pass's output), a second
+// small kernel on the same stream: rows that lead or join no group get the
+// cold state.
 #include "decode_tile.cuh"
 
 namespace {
 
-using decode_tile::NT;
-using decode_tile::TS;
-using decode_tile::TilePipe;
+using namespace decode_tile;
+constexpr int NT = 256;     // threads per CTA (8 warps: several rows each)
+constexpr int NW = NT / 32;
 
 struct PrefixArgs {
   const void* q;        // [B, Kh, G, hsz]
@@ -48,43 +59,53 @@ struct PrefixArgs {
   const void* v;
   const float* kscale;  // [n_pool, Kh, n_ranks * ps] (int8 mode only)
   const float* vscale;
-  const int* tl;        // [B] global lengths incl. the new token
+  const int* tl;        // [B] global lengths incl. the new token, or null: tl0
   const int* tables;    // [B, max_pages]
   const int* gid;       // [B] group row of each request
   const int* gnp;       // [B] shared leading pages (0: no group)
-  float* st_acc;        // [n_ranks, B, Kh, G, hsz]
-  float* st_m;          // [n_ranks, B, Kh, G]
+  float* st_acc;        // [n_ranks, B, Kh, st_nc, G, hsz] chunk partials
+  float* st_m;          // [n_ranks, B, Kh, st_nc, G]
   float* st_l;
-  int B, Kh, G, n_ranks, rank0, kvp, rr, window, max_pages, ps;
+  float* f_acc;         // [n_ranks, B, Kh, G, hsz] folded state (or null)
+  float* f_m;           // [n_ranks, B, Kh, G]
+  float* f_l;
+  int tl0, B, Kh, G, n_ranks, rank0, kvp, rr, window, max_pages, ps, st_nc, nrb;
   float scale;
 };
 
-template <typename T, typename KT, int HSZ>
-__global__ void __launch_bounds__(NT) prefix_kernel(PrefixArgs a) {
-  using Pipe = TilePipe<KT, HSZ>;
-  constexpr int SP = Pipe::SP;
-  const int RMAX = a.B * a.G;
+template <typename KT, int HSZ, int RW>
+struct Smem {
+  using L = Layout<KT, HSZ>;
+  static constexpr int Q = L::RING_BYTES;
+  static constexpr int PW = Q + NW * RW * HSZ * 4;
+  static constexpr int ROFF = PW + NW * RW * TS * 4;
+  static constexpr int MEM = ROFF + CH * 8;   // int [B] members, [B] splits
+  static size_t bytes(int B) { return MEM + 2 * sizeof(int) * (size_t)B; }
+};
 
-  extern __shared__ float smem[];
-  float* qs = smem;                   // [RMAX][HSZ] scaled queries
-  float* acc = qs + RMAX * HSZ;       // [RMAX][HSZ]
-  float* ks = acc + RMAX * HSZ;       // [TS][SP]
-  float* vs = ks + TS * SP;           // [TS][SP]
-  float* ps = vs + TS * SP;           // [RMAX][TS]
-  float* row_m = ps + RMAX * TS;      // [RMAX]
-  float* row_l = row_m + RMAX;
-  float* row_a = row_l + RMAX;
-  int* mem = reinterpret_cast<int*>(row_a + RMAX);  // [B] member rows
-  int* msplit = mem + a.B;            // [B] each member's split tile
-  int* valid = msplit + a.B;          // [B][TS] per-member slot masks
+template <typename T, typename KT, int HSZ, int RW>
+__global__ void __launch_bounds__(NT) prefix_kernel(PrefixArgs a) {
+  using L = Layout<KT, HSZ>;
+  using S = Smem<KT, HSZ, RW>;
+  constexpr int DPL = L::DPL;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem + S::Q);
+  float* pws = reinterpret_cast<float*>(smem + S::PW);
+  long* roff = reinterpret_cast<long*>(smem + S::ROFF);
+  int* mem = reinterpret_cast<int*>(smem + S::MEM);   // [B] member rows
+  int* msplit = mem + a.B;                            // [B] their split tiles
   __shared__ int n_mem, split;
 
-  const int tid = threadIdx.x;
-  const int g0 = blockIdx.x / a.Kh;
-  const int h = blockIdx.x % a.Kh;
-  const int z = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int c = blockIdx.x;
+  const int g0 = blockIdx.y / a.Kh, h = blockIdx.y % a.Kh;
+  const int z = blockIdx.z / a.nrb, rb = blockIdx.z % a.nrb;
   const int rank = a.rank0 + z;
   const int G = a.G;
+  const int s_loc = a.max_pages * a.ps;
+  bool lead = false;   // does group row g0 have a member? (all threads look)
+  for (int b = tid; b < a.B; b += NT) lead |= a.gid[b] == g0 && a.gnp[b] > 0;
+  if (!__syncthreads_or(lead)) return;
   if (tid == 0) {
     int n = 0, hi = 0;
     for (int b = 0; b < a.B; ++b) {
@@ -99,126 +120,179 @@ __global__ void __launch_bounds__(NT) prefix_kernel(PrefixArgs a) {
     split = hi;
   }
   __syncthreads();
-  if (n_mem == 0 || split == 0) return;     // the same for the whole block
   const int R = n_mem * G;
+  const int r0 = rb * NW * RW;
+  if (c * CPT >= split || r0 >= R) return;   // the same for the whole CTA
 
-  for (int i = tid; i < R * HSZ; i += NT) {
-    const int r = i / HSZ, d = i % HSZ;
-    const long qrow = ((long)mem[r / G] * a.Kh + h) * G + r % G;
-    qs[i] = to_f(reinterpret_cast<const T*>(a.q)[qrow * HSZ + d]) * a.scale;
-    acc[i] = 0.f;
+  Rows<HSZ, RW> st;
+  st.n = 0;
+#pragma unroll
+  for (int k = 0; k < RW; ++k) {
+    const int r = r0 + warp + NW * k;
+    if (r < R) st.n = k + 1;
+    const int mi = min(r, R - 1) / G;
+    const int tl = a.tl != nullptr ? a.tl[mem[mi]] : a.tl0;
+    const Span sp = valid_span(tl, rank, a.kvp, a.rr, s_loc, a.window, 0, false);
+    st.lo[k] = sp.lo;
+    st.hi[k] = min(sp.hi, msplit[mi] * TS);
   }
-  for (int r = tid; r < R; r += NT) { row_m[r] = REPRO_NEG_INF; row_l[r] = 0.f; }
-
-  Pipe pipe;
-  pipe.kp = reinterpret_cast<const KT*>(a.k);
-  pipe.vp = reinterpret_cast<const KT*>(a.v);
-  pipe.ksc = Pipe::Q8 ? a.kscale : nullptr;
-  pipe.vsc = Pipe::Q8 ? a.vscale : nullptr;
-  // members share the pages below their split: any member's table serves
-  pipe.tab = a.tables + (long)mem[0] * a.max_pages;
-  pipe.row0 = 0;
-  pipe.Kh = a.Kh;
-  pipe.h = h;
-  pipe.n_ranks = a.n_ranks;
-  pipe.z = z;
-  pipe.ps = a.ps;
-  pipe.s_loc = a.max_pages * a.ps;
-
-  auto stage = [&](int tile) {
-    pipe.sstore(tile, tid, ks, vs, -1, nullptr, nullptr, nullptr);
-    for (int i = tid; i < n_mem * TS; i += NT) {
-      const int m = i / TS;
-      const int jj = tile * TS + i % TS;
-      const int tl = a.tl[mem[m]];
-      const int pos = decode_tile::rr_position(jj, rank, a.kvp, a.rr);
-      valid[i] = tile < msplit[m] && jj < pipe.s_loc && pos < tl
-                 && (a.window <= 0 || pos >= tl - a.window);
+  st.cold();
+  // members share the pages below their split: the first member's table
+  const int* tab = a.tables + (long)mem[0] * a.max_pages;
+  for (int jl = tid; jl < CH; jl += NT) {
+    const int jj = c * CH + jl;
+    roff[jl] = jj >= s_loc ? ROW_NONE
+                           : (((long)tab[jj / a.ps] * a.Kh + h) * a.n_ranks + z) * a.ps
+                                 + jj % a.ps;
+  }
+  Ring<KT, HSZ, NT> ring;
+  ring.ks = reinterpret_cast<KT*>(smem);
+  ring.vs = ring.ks + L::NS * L::ELEMS;
+  ring.kss = reinterpret_cast<float*>(ring.vs + L::NS * L::ELEMS);
+  ring.vss = ring.kss + L::NS * TS;
+  ring.kg = reinterpret_cast<const KT*>(a.k);
+  ring.vg = reinterpret_cast<const KT*>(a.v);
+  ring.ksg = a.kscale;
+  ring.vsg = a.vscale;
+  ring.roff = roff;
+  ring.sub_k = ring.sub_v = nullptr;
+  ring.sub_sc = nullptr;
+  for (int i = tid; i < NW * RW * HSZ; i += NT) {
+    const int r = r0 + i / HSZ;
+    if (r < R) {
+      const long qrow = ((long)mem[r / G] * a.Kh + h) * G + r % G;
+      qs[i] = to_f(reinterpret_cast<const T*>(a.q)[qrow * HSZ + i % HSZ]) * a.scale;
     }
-  };
-
-  pipe.gload(0, tid);
-  stage(0);
+  }
   __syncthreads();
-  for (int t = 0; t < split; ++t) {
-    const bool more = t + 1 < split;
-    if (more) pipe.gload(t + 1, tid);
-    decode_tile::tile_update<HSZ>(qs, ks, vs, ps, row_m, row_l, row_a, acc,
-                                  valid, R, G, tid);
-    if (more) { stage(t + 1); __syncthreads(); }
-  }
+  const int ct0 = c * CPT;
+  sweep<KT, HSZ, RW, NT>(ring, ct0, min(ct0 + CPT, split), ct0, qs, st, pws + warp * RW * TS,
+                     tid);
 
-  // raw state, no normalisation: each member's rows at [z, b, h]
-  for (int i = tid; i < R * HSZ; i += NT) {
-    const int r = i / HSZ;
-    const long o = (((long)z * a.B + mem[r / G]) * a.Kh + h) * G + r % G;
-    a.st_acc[o * HSZ + i % HSZ] = acc[i];
-  }
-  for (int r = tid; r < R; r += NT) {
-    const long o = (((long)z * a.B + mem[r / G]) * a.Kh + h) * G + r % G;
-    a.st_m[o] = row_m[r];
-    a.st_l[o] = row_l[r];
+  // each member row's partial of chunk c, where its chunk starts below its split
+#pragma unroll
+  for (int k = 0; k < RW; ++k) {
+    const int r = r0 + warp + NW * k;
+    if (k < st.n && msplit[r / G] > ct0) {
+      const long o = ((((long)z * a.B + mem[r / G]) * a.Kh + h) * a.st_nc + c) * G + r % G;
+#pragma unroll
+      for (int d = 0; d < DPL; ++d) a.st_acc[o * HSZ + lane * DPL + d] = st.acc[k][d];
+      if (lane == 0) {
+        a.st_m[o] = st.m[k];
+        a.st_l[o] = st.l[k];
+      }
+    }
   }
 }
 
-size_t smem_bytes(int B, int G, int hsz) {
-  const size_t rows = (size_t)B * G;
-  return sizeof(float) * (2 * rows * hsz + 2 * TS * (hsz + 1) + rows * TS + 3 * rows)
-         + sizeof(int) * (2 * B + B * TS);
+// Fold row b's partials of chunks [0, ceil(split_b / CPT)) in order into
+// its raw state; rows of no group (split 0) get the cold state.
+template <int HSZ>
+__global__ void __launch_bounds__(NT) fold_kernel(PrefixArgs a) {
+  const int bh = blockIdx.x, z = blockIdx.y;
+  const int b = bh / a.Kh;
+  const int G = a.G;
+  const int split = a.gnp[b] > 0 ? a.gnp[b] * a.ps / TS : 0;
+  const int nck = (split + CPT - 1) / CPT;
+  const long ob = (long)z * a.B * a.Kh + bh;
+  for (int e = threadIdx.x; e < G * HSZ; e += NT) {
+    const int g = e / HSZ, d = e % HSZ;
+    float m = REPRO_NEG_INF, l = 0.f, acc = 0.f;
+    for (int c = 0; c < nck; ++c) {
+      const long r = (ob * a.st_nc + c) * G + g;
+      merge_step(m, l, acc, a.st_m[r], a.st_l[r], a.st_acc[r * HSZ + d]);
+    }
+    a.f_acc[(ob * G + g) * HSZ + d] = acc;
+    if (d == 0) {
+      a.f_m[ob * G + g] = m;
+      a.f_l[ob * G + g] = l;
+    }
+  }
 }
 
-template <typename T, typename KT, int HSZ>
+template <typename T, typename KT, int HSZ, int RW>
 cudaError_t launch(const PrefixArgs& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.B, a.G, HSZ);
-  cudaError_t err = allow_smem(prefix_kernel<T, KT, HSZ>, smem);
+  const size_t smem = Smem<KT, HSZ, RW>::bytes(a.B);
+  cudaError_t err = allow_smem(prefix_kernel<T, KT, HSZ, RW>, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(a.B * a.Kh, a.n_ranks);
-  prefix_kernel<T, KT, HSZ><<<grid, NT, smem, stream>>>(a);
+  dim3 grid(a.st_nc, a.B * a.Kh, a.n_ranks * a.nrb);
+  prefix_kernel<T, KT, HSZ, RW><<<grid, NT, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.f_acc == nullptr) return err;
+  fold_kernel<HSZ><<<dim3(a.B * a.Kh, a.n_ranks), NT, 0, stream>>>(a);
   return cudaGetLastError();
+}
+
+// Rows per warp.  A small launch (fewer chunk x group row x kv head items
+// than 4 per SM) takes 1, so that a group's rows spread over more CTAs
+// (each reading the shared tiles, mostly from L2); otherwise 4, or 8 above
+// 4 x NW rows, so that one row block holds all B x G rows up to 8 x NW and
+// each shared tile is read once per group.  The rows' arithmetic is the
+// same either way (decode_tile.cuh).
+template <typename T, typename KT, int HSZ>
+cudaError_t launch_rw(PrefixArgs a, cudaStream_t stream) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  const int rows = a.B * a.G;
+  const long items = (long)a.st_nc * a.B * a.Kh * a.n_ranks;
+  const int rw = items < 4L * sms ? 1 : rows <= 4 * NW ? 4 : 8;
+  a.nrb = (rows + NW * rw - 1) / (NW * rw);
+  if (rw == 1) return launch<T, KT, HSZ, 1>(a, stream);
+  return rw == 4 ? launch<T, KT, HSZ, 4>(a, stream) : launch<T, KT, HSZ, 8>(a, stream);
 }
 
 template <typename T, typename KT>
 cudaError_t launch_hsz(const PrefixArgs& a, int hsz, cudaStream_t stream) {
   switch (hsz) {
-    case 32: return launch<T, KT, 32>(a, stream);
-    case 64: return launch<T, KT, 64>(a, stream);
-    case 128: return launch<T, KT, 128>(a, stream);
+    case 32: return launch_rw<T, KT, 32>(a, stream);
+    case 64: return launch_rw<T, KT, 64>(a, stream);
+    case 128: return launch_rw<T, KT, 128>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// The most shared memory a block may take (H100: 227 KB): B x G rows must
-// fit (prefix_pass_smem_bytes tells the wrapper what a launch needs).
-extern "C" long prefix_pass_smem_bytes(int B, int G, int hsz) {
-  return (long)smem_bytes(B, G, hsz);
-}
+// One launch's operands (ctypes mirror: ops._PrefixParams, same order).
+// st_*: chunk partials [n_ranks, B, Kh, st_nc, G(, hsz)], st_nc =
+// ceil(max_pages * ps / CH); f_*: the folded raw state, or null.
+struct PrefixParams {
+  const void *q, *k, *v, *kscale, *vscale, *tl, *tables, *gid, *gnp;
+  void *st_acc, *st_m, *st_l, *f_acc, *f_m, *f_l;
+  int tl0, dtype, quant, B, Kh, G, hsz, n_ranks, rank0, kvp, rr, window, max_pages, ps;
+  int st_nc;
+  float scale;
+};
 
-extern "C" int prefix_pass_launch(
-    const void* q, const void* k, const void* v, const void* kscale,
-    const void* vscale, const void* tl, const void* tables, const void* gid,
-    const void* gnp, void* st_acc, void* st_m, void* st_l, int dtype,
-    int quant, int B, int Kh, int G, int hsz, int n_ranks, int rank0, int kvp,
-    int rr, int window, int max_pages, int ps, float scale, void* stream) {
-  if (G < 1 || B * Kh == 0 || n_ranks < 1 || max_pages < 1 || ps < 1
-      || (quant && (kscale == nullptr || vscale == nullptr))
-      || smem_bytes(B, G, hsz) > 232448)
+extern "C" int prefix_pass_launch(const PrefixParams* p, void* stream) {
+  if (p->G < 1 || p->B * p->Kh == 0 || p->n_ranks < 1 || p->max_pages < 1 || p->ps < 1
+      || p->st_nc * CH < p->max_pages * p->ps
+      || (p->quant && (p->kscale == nullptr || p->vscale == nullptr))
+      || (p->f_acc != nullptr && (p->f_m == nullptr || p->f_l == nullptr)))
     return (int)cudaErrorInvalidValue;
-  PrefixArgs a{q, k, v, static_cast<const float*>(kscale),
-               static_cast<const float*>(vscale), static_cast<const int*>(tl),
-               static_cast<const int*>(tables), static_cast<const int*>(gid),
-               static_cast<const int*>(gnp), static_cast<float*>(st_acc),
-               static_cast<float*>(st_m), static_cast<float*>(st_l),
-               B, Kh, G, n_ranks, rank0, kvp, rr, window, max_pages, ps, scale};
+  PrefixArgs a{p->q, p->k, p->v, static_cast<const float*>(p->kscale),
+               static_cast<const float*>(p->vscale), static_cast<const int*>(p->tl),
+               static_cast<const int*>(p->tables), static_cast<const int*>(p->gid),
+               static_cast<const int*>(p->gnp), static_cast<float*>(p->st_acc),
+               static_cast<float*>(p->st_m), static_cast<float*>(p->st_l),
+               static_cast<float*>(p->f_acc), static_cast<float*>(p->f_m),
+               static_cast<float*>(p->f_l), p->tl0, p->B, p->Kh, p->G, p->n_ranks,
+               p->rank0, p->kvp, p->rr, p->window, p->max_pages, p->ps, p->st_nc, 1,
+               p->scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (quant)
-    err = dtype == 1 ? launch_hsz<bf16, int8_t>(a, hsz, s)
-                     : launch_hsz<float, int8_t>(a, hsz, s);
+  if (p->quant)
+    err = p->dtype == 1 ? launch_hsz<bf16, int8_t>(a, p->hsz, s)
+                        : launch_hsz<float, int8_t>(a, p->hsz, s);
   else
-    err = dtype == 1 ? launch_hsz<bf16, bf16>(a, hsz, s)
-                     : launch_hsz<float, float>(a, hsz, s);
+    err = p->dtype == 1 ? launch_hsz<bf16, bf16>(a, p->hsz, s)
+                        : launch_hsz<float, float>(a, p->hsz, s);
   return (int)err;
 }
 

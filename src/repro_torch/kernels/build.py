@@ -138,8 +138,26 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 
 
-def stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def stream(device: torch.device | None = None) -> int:
+    """The current CUDA stream of ``device`` (default: the current device)
+    as an int for a ``c_void_p`` argument, read without building a
+    ``torch.cuda.Stream`` where this build of torch allows it."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(device).cuda_stream
+    return raw(torch.cuda.current_device() if device is None else device.index)
+
+
+def per_row(x, b: int, dev):
+    """(None, x) for an int, which a kernel takes as a scalar (no device
+    tensor, no host-to-device copy); else ([B] int32 on ``dev``, 0)."""
+    if isinstance(x, int):
+        return None, x
+    if not (isinstance(x, torch.Tensor) and x.dtype == torch.int32
+            and x.device == dev and x.shape == (b,) and x.is_contiguous()):
+        x = torch.as_tensor(x, dtype=torch.int32, device=dev).reshape(
+            -1).expand(b).contiguous()
+    return x, 0
 
 
 def dtype_code(dt: torch.dtype) -> int:

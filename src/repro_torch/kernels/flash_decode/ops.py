@@ -13,10 +13,16 @@ grid dimension), which is how ``core/helix.py`` emulates KVP on one card.
 ``flash_decode`` is the single-shard public API with the reference's
 signature.
 
+Both kernels split each shard into chunks of ``CHUNK_S`` slots swept by
+separate CTAs and fold the chunk partials in order (``csrc/decode_tile.cuh``);
+the partials live in a float32 workspace cached here per device and grown
+on demand, so a launch allocates nothing but its outputs.  The workspaces
+serve one stream at a time.
+
 Tensors on the CPU take the plain version (``flash_decode_shards_plain``:
-the same append rule, then the kernels' online softmax over 32-slot tiles,
-``ref.sweep_tiles``; paged: the append through the table, then
-``gather_pages``); CUDA tensors launch the kernels or raise.
+the same append rule, then the kernels' chunks and tiles, ``ref.
+sweep_chunks`` and ``ref.merge_chunks``; paged: the append through the
+table, then ``gather_pages``); CUDA tensors launch the kernels or raise.
 Unlike the reference (immutable arrays, aliased outputs), the fused append
 writes the new K/V row (and, int8, its scales) into the cache tensors **in
 place**.
@@ -24,16 +30,19 @@ place**.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_decode.ref import (TILE_S, cold_state,
-                                                  finish_rows, gather_pages,
+from repro_torch.kernels.flash_decode.ref import (TILE_S, chunk_count,
+                                                  cold_state, finish_rows,
+                                                  gather_pages, merge_chunks,
                                                   quantize_kv_token,
                                                   shard_positions,
-                                                  sweep_tiles)
-from repro_torch.kernels.pruning import append_owner, append_slot
+                                                  sweep_chunks)
+from repro_torch.kernels.pruning import (CHUNK_S, CHUNK_TILES, append_owner,
+                                         append_slot)
 from repro_torch.utils import round_up
 
 counter = build.Launches()         # every launch of the kernel
@@ -41,20 +50,77 @@ counter_kv8 = build.Launches()     # the launches in int8 mode among them
 counter_paged = build.Launches()   # the launches in paged mode among them
 counter_grouped = build.Launches()  # ... in the grouped-suffix mode among them
 counter_prefix = build.Launches()   # launches of the prefix_pass kernel
+last_launch = {"chunks_per_cta": 1}  # the decode kernel's last grid choice
 MAX_G = 8                   # query heads per KV head the kernel holds
 HSZ = (32, 64, 128)         # head sizes the kernel is compiled for
-SMEM_MAX = 232448           # shared memory one block may take (H100)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_WS: dict = {}              # (name, device) -> cached workspace tensor
+_PLANS: dict = {}           # launch configuration -> _Plan
 
 
-def _bind(lib, name: str, n_ptr: int, n_int: int):
-    fn = getattr(lib, name)
-    fn.argtypes = [_P] * n_ptr + [_I] * n_int + [ctypes.c_float, _P]
+class _DecodeParams(ctypes.Structure):
+    """ctypes mirror of ``DecodeParams`` in ``csrc/flash_decode.cu``."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "q", "k", "v", "k_new", "v_new", "tl", "out", "lse", "kscale",
+        "vscale", "tables", "gnp", "st_acc", "st_m", "st_l", "ws")]
+        + [(n, ctypes.c_int) for n in (
+            "tl0", "dtype", "quant", "B", "Kh", "G", "hsz", "s_loc",
+            "n_ranks", "rank0", "kvp", "rr", "block_s", "slot_offset",
+            "window", "contiguous", "prune", "append", "max_pages", "ps",
+            "st_nc")]
+        + [("scale", ctypes.c_float), ("cpc", ctypes.c_int)])
+
+
+class _PrefixParams(ctypes.Structure):
+    """ctypes mirror of ``PrefixParams`` in ``csrc/prefix_pass.cu``."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "q", "k", "v", "kscale", "vscale", "tl", "tables", "gid", "gnp",
+        "st_acc", "st_m", "st_l", "f_acc", "f_m", "f_l")]
+        + [(n, ctypes.c_int) for n in (
+            "tl0", "dtype", "quant", "B", "Kh", "G", "hsz", "n_ranks",
+            "rank0", "kvp", "rr", "window", "max_pages", "ps", "st_nc")]
+        + [("scale", ctypes.c_float)])
+
+
+@functools.lru_cache(maxsize=None)
+def _bind(name: str):
+    """The launcher of kernel ``name``, bound once: it takes a pointer to
+    its params struct and the stream."""
+    lib = build.load(name)
+    fn = getattr(lib, name + "_launch")
+    params = _DecodeParams if name == "flash_decode" else _PrefixParams
+    fn.argtypes = [ctypes.POINTER(params), _P]
     fn.restype = _I
     lib.kernel_error_string.argtypes = [_I]
     lib.kernel_error_string.restype = ctypes.c_char_p
-    return fn
+    if name == "flash_decode":
+        lib.flash_decode_chunk_slots.restype = _I
+        if lib.flash_decode_chunk_slots() != CHUNK_S:
+            raise build.KernelUnavailable(
+                f"flash_decode.cu chunks {lib.flash_decode_chunk_slots()} "
+                f"slots, the wrapper {CHUNK_S}")
+    return lib, fn
+
+
+def _workspace(name: str, numel: int, dev):
+    """A cached flat float32 tensor of at least ``numel`` elements on
+    ``dev``, grown on demand."""
+    t = _WS.get((name, dev))
+    if t is None or t.numel() < numel:
+        t = torch.empty(max(numel, 1), dtype=torch.float32, device=dev)
+        _WS[(name, dev)] = t
+    return t
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def decode_chunks(s_loc: int, block_s: int) -> int:
+    """Chunks per (rank, row, kv head) of a decode launch: those of the
+    padded capacity ``round_up(s_loc, block_s)``."""
+    return -(-(round_up(s_loc, block_s) // TILE_S) // CHUNK_TILES)
 
 
 def kernel_block_s(block_s: int, s_loc: int) -> int:
@@ -94,12 +160,14 @@ def flash_decode_shards(q, k, v, total_len, *, kvp: int, n_ranks: int = 1,
     int32, paged only; the reference's ``flash_decode(groups=)``): rows
     with the same ``group_id`` and ``group_np > 0`` share their leading
     ``group_np`` pages.  The prefix pass sweeps the whole 32-slot tiles
-    below ``group_np * ps`` once per group for all its members' query rows;
-    each row's decode resumes that raw state and sweeps only the tiles at
-    or above it.  Bit for bit the result of ``groups=None``.  The shared
-    pages must hold no slot the fused append writes (the engine caps
-    ``group_np`` at each member's committed pages).  ``prefix_state``: the
-    ``prefix_pass`` result to resume, when the caller ran it already.
+    below ``group_np * ps`` once per group for all its members' query rows,
+    chunk by chunk; each row's decode takes those partials, resumes the one
+    of the chunk holding its split and sweeps only the tiles at or above
+    it.  Bit for bit the result of ``groups=None``.  The shared pages must
+    hold no slot the fused append writes (the engine caps ``group_np`` at
+    each member's committed pages).  ``prefix_state``: the chunk partials of
+    ``prefix_pass(..., chunks=True)`` to resume, when the caller ran it
+    already.
 
     Returns ``out [R, B, Qh, hsz]`` (q.dtype) and ``lse [R, B, Qh]`` (f32).
     """
@@ -137,7 +205,7 @@ def flash_decode_shards(q, k, v, total_len, *, kvp: int, n_ranks: int = 1,
             contiguous=contiguous, slot_offset=slot_offset, kscale=kscale,
             vscale=vscale, k_new=k_new, v_new=v_new,
             block_tables=block_tables, groups=groups,
-            prefix_state=prefix_state)
+            prefix_state=prefix_state, prune=prune)
     return _launch(q, k, v, total_len, kvp=kvp, n_ranks=n_ranks, rank=rank,
                    rr_block=rr_block, window=window, scale=scale,
                    block_s=block_s, contiguous=contiguous,
@@ -150,15 +218,18 @@ def flash_decode_shards(q, k, v, total_len, *, kvp: int, n_ranks: int = 1,
 def prefix_pass(q, k, v, total_len, block_tables, group_id, group_np, *,
                 kvp: int, n_ranks: int = 1, rank: int = 0,
                 rr_block: int = 16, window: int = 0,
-                scale: float | None = None, kscale=None, vscale=None):
+                scale: float | None = None, kscale=None, vscale=None,
+                chunks: bool = False):
     """The shared-prefix pass of grouped decode on its own (the reference's
     ``prefix_pass_kernel`` with its wrapper's gather and scatter): operands
     as in ``flash_decode_shards``' paged mode, ``group_id``/``group_np``
     [B] int32.  Returns each row's raw state ``(acc [R, B, Kh, G, hsz], m,
-    l [R, B, Kh, G])`` f32 over the ``R = n_ranks`` shards; it is defined
-    for the rows of groups whose split ``group_np * ps // 32`` is > 0,
-    the only rows the grouped decode resumes (the plain version gives the
-    cold state elsewhere)."""
+    l [R, B, Kh, G])`` f32 over the ``R = n_ranks`` shards, its chunk
+    partials folded in order; rows of no group (split ``group_np * ps //
+    32`` of 0) get the cold state.  ``chunks``: the chunk partials ``(acc
+    [R, B, Kh, C, G, hsz], m, l [R, B, Kh, C, G])``, ``C = ceil(max_pages
+    * ps / CHUNK_S)``, which ``flash_decode_shards(prefix_state=)``
+    resumes; defined for the chunks below each row's split."""
     if scale is None:
         scale = float(q.shape[-1]) ** -0.5
     if build.route(q, k, v, kscale, vscale, block_tables, group_id,
@@ -166,13 +237,13 @@ def prefix_pass(q, k, v, total_len, block_tables, group_id, group_np, *,
         return prefix_pass_plain(q, k, v, total_len, block_tables, group_id,
                                  group_np, kvp=kvp, n_ranks=n_ranks,
                                  rank=rank, rr_block=rr_block, window=window,
-                                 scale=scale, kscale=kscale, vscale=vscale)
-    tl = torch.as_tensor(total_len, dtype=torch.int32, device=q.device)
-    tl = tl.reshape(-1).expand(q.shape[0]).contiguous()
-    return _launch_prefix(q, k, v, kscale, vscale, tl, block_tables,
+                                 scale=scale, kscale=kscale, vscale=vscale,
+                                 chunks=chunks)
+    tl, tl0 = build.per_row(total_len, q.shape[0], q.device)
+    return _launch_prefix(q, k, v, kscale, vscale, tl, tl0, block_tables,
                           group_id, group_np, kvp=kvp, n_ranks=n_ranks,
                           rank=rank, rr_block=rr_block, window=window,
-                          scale=scale)
+                          scale=scale, fold=not chunks, cached=False)
 
 
 def flash_decode(q, k, v, total_len, rank, *, kvp: int = 1,
@@ -203,17 +274,19 @@ def flash_decode_shards_plain(q, k, v, total_len, *, kvp, n_ranks, rank,
                               rr_block, window, scale, block_s, contiguous,
                               slot_offset, k_new, v_new, kscale=None,
                               vscale=None, block_tables=None, groups=None,
-                              prefix_state=None):
+                              prefix_state=None, prune=True):
     """Plain PyTorch version of the kernels behind ``flash_decode_shards``
-    (any device), in their arithmetic order: the append rule of the kernel
-    (int8: ``quantize_kv_token`` payload and scale), then per shard the
-    online softmax over tiles of ``TILE_S`` slots (``ref.sweep_tiles``).
-    ``block_s`` is the kernel's S-block (it bounds the slot the append may
-    clamp to).  Paged: the append through the table, then ``gather_pages``
-    into the dense per-request shards the fixed layout would hold.
-    Grouped (``groups``): ``prefix_pass_plain`` over the shared tiles
-    (unless ``prefix_state`` holds its result), then each row resumes its
-    state above its split tile."""
+    (any device), in their structure and arithmetic order: the append rule
+    of the kernel (int8: ``quantize_kv_token`` payload and scale), then per
+    shard every chunk of ``CHUNK_S`` slots swept from the cold state over
+    tiles of ``TILE_S`` slots (``ref.sweep_chunks``) and the partials folded
+    in chunk order (``ref.merge_chunks``; ``prune``: only the chunks holding
+    valid slots).  ``block_s`` is the kernel's S-block (it bounds the slot
+    the append may clamp to).  Paged: the append through the table, then
+    ``gather_pages`` into the dense per-request shards the fixed layout
+    would hold.  Grouped (``groups``): ``prefix_pass``'s chunk partials
+    (``prefix_state``, or the plain pass), then each row takes those below
+    its split tile, resumes the one holding it and sweeps the rest."""
     quant = kscale is not None
     b = q.shape[0]
     tl = torch.as_tensor(total_len, dtype=torch.int32,
@@ -225,7 +298,7 @@ def flash_decode_shards_plain(q, k, v, total_len, *, kvp, n_ranks, rank,
                           block_tables, kvp=kvp, n_ranks=n_ranks, rank=rank,
                           rr_block=rr_block, block_s=block_s)
         if groups is not None and state is None:
-            state = prefix_pass_plain(
+            state = _prefix_chunks_plain(
                 q, k, v, tl, block_tables, *groups, kvp=kvp, n_ranks=n_ranks,
                 rank=rank, rr_block=rr_block, window=window, scale=scale,
                 kscale=kscale, vscale=vscale)
@@ -267,7 +340,7 @@ def flash_decode_shards_plain(q, k, v, total_len, *, kvp, n_ranks, rank,
             vs = vs.float() * vscale[:, :, sl, None]
         o, l = _sweep_shard(q, ks, vs, tl, r, kvp=kvp, rr_block=rr_block,
                             window=window, scale=scale, contiguous=contiguous,
-                            slot_offset=slot_offset, split=split,
+                            slot_offset=slot_offset, prune=prune, split=split,
                             state=None if state is None
                             else [x[z] for x in state])
         outs.append(o)
@@ -293,56 +366,101 @@ def _shard_valid(tl, s_loc: int, rank: int, *, kvp, rr_block, window,
 
 
 def _sweep_shard(q, k, v, tl, rank, *, kvp, rr_block, window, scale,
-                 contiguous, slot_offset, split=None, state=None):
+                 contiguous, slot_offset, prune=True, split=None, state=None):
     """One shard [B, Kh, s_loc, hsz] (float) of the plain decode: returns
-    ``(out [B, Qh, hsz], lse [B, Qh])``.  ``split`` [B] (grouped suffix):
-    row b sweeps only slots >= split[b] and starts from ``state`` (acc [B,
-    Kh, G, hsz], m, l [B, Kh, G])."""
+    ``(out [B, Qh, hsz], lse [B, Qh])``.  Grouped suffix: ``split`` [B]
+    (slots, a multiple of ``TILE_S``) and ``state``, the prefix pass's chunk
+    partials (acc [B, Kh, C, G, hsz], m, l [B, Kh, C, G]): row b takes the
+    chunks wholly below split[b] from ``state``, resumes the chunk holding
+    it from ``state`` at split[b] and sweeps the chunks above from cold."""
     b, qh, hsz = q.shape
     kh, s_loc = k.shape[1], k.shape[2]
     g = qh // kh
+    n = b * kh
+    nc = chunk_count(s_loc)
     valid = _shard_valid(tl, s_loc, rank, kvp=kvp, rr_block=rr_block,
                          window=window, contiguous=contiguous,
                          slot_offset=slot_offset)
+    pad = nc * CHUNK_S - s_loc
+    # the chunks merged: those holding a valid slot (pruned), or all
+    take = (torch.nn.functional.pad(valid, (0, pad)).reshape(b, nc, CHUNK_S)
+            .any(-1) if prune else torch.ones(b, nc, dtype=torch.bool,
+                                              device=q.device))
+    init = below = None
     if split is not None:
         valid = valid & (torch.arange(s_loc, device=q.device)[None]
                          >= split[:, None])
-    n = b * kh
+        start = torch.arange(nc, device=q.device)[None] * CHUNK_S
+        below = start + CHUNK_S <= split[:, None]               # [B, C]
+        resume = (start < split[:, None]) & ~below
+        cold = cold_state(n * nc, g, hsz, q.device)
+        sel = resume[:, None].expand(b, kh, nc).reshape(n, nc)
+        init = tuple(torch.where(sel.reshape(sel.shape + (1,) * (x.dim() - 3)),
+                                 x.reshape(n, nc, *x.shape[3:]),
+                                 c.reshape(n, nc, *x.shape[3:]))
+                     for x, c in zip(state, cold))
     qf = q.float().reshape(n, g, hsz) * scale
-    st = (cold_state(n, g, hsz, q.device) if state is None
-          else (state[0].reshape(n, g, hsz), state[1].reshape(n, g),
-                state[2].reshape(n, g)))
-    st = sweep_tiles(qf, k.float().reshape(n, s_loc, hsz),
-                     v.float().reshape(n, s_loc, hsz),
-                     valid[:, None].expand(b, kh, -1).reshape(n, 1, -1), st)
+    parts = sweep_chunks(qf, k.float().reshape(n, s_loc, hsz),
+                         v.float().reshape(n, s_loc, hsz),
+                         valid[:, None].expand(b, kh, -1).reshape(n, 1, -1),
+                         init)
+    if below is not None:
+        sel = below[:, None].expand(b, kh, nc).reshape(n, nc)
+        parts = tuple(torch.where(sel.reshape(sel.shape + (1,) * (x.dim() - 2)),
+                                  y.reshape(n, nc, *y.shape[3:]), x)
+                      for x, y in zip(parts, state))
+    st = merge_chunks(parts, take[:, None].expand(b, kh, nc).reshape(n, nc))
     out, lse = finish_rows(st, q.dtype)
     return out.reshape(b, qh, hsz), lse.reshape(b, qh)
 
 
 def prefix_pass_plain(q, k, v, total_len, block_tables, group_id, group_np,
                       *, kvp, n_ranks, rank, rr_block, window, scale,
-                      kscale=None, vscale=None):
+                      kscale=None, vscale=None, chunks: bool = False):
     """Plain version of the prefix_pass kernel (the reference's
     ``prefix_pass_kernel`` plus the gather and scatter of its wrapper).
 
     q [B, Qh, hsz]; k, v (and int8 scales) paged pool planes as in
     ``flash_decode_shards``; ``group_id``/``group_np`` [B] int.  For each
     group row g, the members (rows with ``group_id == g`` and ``group_np >
-    0``) stack their query rows and sweep the whole tiles below their split
-    ``group_np * ps // TILE_S`` through the first member's table, each
-    member masked by its own length, window and split.  Returns the raw
-    state per row, ``(acc [R, B, Kh, G, hsz], m [R, B, Kh, G], l)`` over
-    ``R = n_ranks`` shards; rows of no group keep the cold state."""
+    0``) stack their query rows and sweep, chunk by chunk, the whole tiles
+    below their split ``group_np * ps // TILE_S`` through the first
+    member's table, each member masked by its own length, window and split.
+    Returns the raw state per row, ``(acc [R, B, Kh, G, hsz], m [R, B, Kh,
+    G], l)`` over ``R = n_ranks`` shards, each row's chunk partials folded
+    in order (rows of no group keep the cold state); ``chunks``: the
+    partials themselves, ``(acc [R, B, Kh, C, G, hsz], m [R, B, Kh, C, G],
+    l)`` with ``C = chunk_count(max_pages * ps)`` (cold above each row's
+    split), as the grouped decode resumes them."""
+    parts = _prefix_chunks_plain(q, k, v, total_len, block_tables, group_id,
+                                 group_np, kvp=kvp, n_ranks=n_ranks,
+                                 rank=rank, rr_block=rr_block, window=window,
+                                 scale=scale, kscale=kscale, vscale=vscale)
+    if chunks:
+        return parts
+    r, b, kh, c, g, hsz = parts[0].shape
+    acc, m, l = merge_chunks(
+        (parts[0].reshape(r * b * kh, c, g, hsz),
+         *(x.reshape(r * b * kh, c, g) for x in parts[1:])))
+    return (acc.reshape(r, b, kh, g, hsz), m.reshape(r, b, kh, g),
+            l.reshape(r, b, kh, g))
+
+
+def _prefix_chunks_plain(q, k, v, total_len, block_tables, group_id,
+                         group_np, *, kvp, n_ranks, rank, rr_block, window,
+                         scale, kscale=None, vscale=None):
+    """The chunk partials of ``prefix_pass_plain(chunks=True)``."""
     b, qh, hsz = q.shape
     kh = k.shape[1]
     g = qh // kh
     ps = k.shape[2] // n_ranks
     s_loc = block_tables.shape[1] * ps
+    nc = chunk_count(s_loc)
     tl = torch.as_tensor(total_len, dtype=torch.int32,
                          device=q.device).reshape(-1).expand(b)
-    acc, m, l = cold_state(n_ranks * b * kh, g, hsz, q.device)
-    acc = acc.reshape(n_ranks, b, kh, g, hsz)
-    m, l = m.reshape(n_ranks, b, kh, g), l.reshape(n_ranks, b, kh, g)
+    acc, m, l = cold_state(n_ranks * b * kh * nc, g, hsz, q.device)
+    acc = acc.reshape(n_ranks, b, kh, nc, g, hsz)
+    m, l = (x.reshape(n_ranks, b, kh, nc, g) for x in (m, l))
     gid, gnp = group_id.tolist(), group_np.tolist()
     qf = q.float().reshape(b, kh, g, hsz) * scale
     for g0 in sorted(set(gid)):
@@ -350,6 +468,7 @@ def prefix_pass_plain(q, k, v, total_len, block_tables, group_id, group_np,
         msplit = [gnp[i] * ps // TILE_S * TILE_S for i in mem]
         if not mem or max(msplit) == 0:
             continue
+        lim = min(chunk_count(max(msplit)) * CHUNK_S, s_loc)
         tab = block_tables[mem[0]:mem[0] + 1]
         kd, vd = (_dense_shards(x, tab, n_ranks)[0].float() for x in (k, v))
         if kscale is not None:
@@ -362,13 +481,15 @@ def prefix_pass_plain(q, k, v, total_len, block_tables, group_id, group_np,
                                  contiguous=False, slot_offset=0)
             valid = valid & (torch.arange(s_loc, device=q.device)[None]
                              < torch.tensor(msplit, device=q.device)[:, None])
-            valid = valid.repeat_interleave(g, 0)[None]      # [1, n*G, S]
-            sl = slice(z * s_loc, (z + 1) * s_loc)
-            st = sweep_tiles(qs, kd[:, sl], vd[:, sl], valid,
-                             cold_state(kh, len(mem) * g, hsz, q.device))
-            acc[z, mem] = st[0].reshape(kh, len(mem), g, hsz).transpose(0, 1)
-            m[z, mem] = st[1].reshape(kh, len(mem), g).transpose(0, 1)
-            l[z, mem] = st[2].reshape(kh, len(mem), g).transpose(0, 1)
+            valid = valid.repeat_interleave(g, 0)[None, :, :lim]  # [1, nG, S]
+            sl = slice(z * s_loc, z * s_loc + lim)
+            pa, pm, pl = sweep_chunks(qs, kd[:, sl], vd[:, sl], valid)
+            for i, row in enumerate(mem):
+                c = chunk_count(msplit[i])
+                rows = slice(i * g, (i + 1) * g)
+                acc[z, row, :, :c] = pa[:, :c, rows]
+                m[z, row, :, :c] = pm[:, :c, rows]
+                l[z, row, :, :c] = pl[:, :c, rows]
     return acc, m, l
 
 
@@ -413,13 +534,21 @@ def _append_paged(k, v, kscale, vscale, k_new, v_new, tl, block_tables, *,
         v[page, :, row] = v_new[rows].to(v.dtype)
 
 
-def _launch(q, k, v, total_len, *, kvp, n_ranks, rank, rr_block, window, scale,
-            block_s, contiguous, slot_offset, kscale, vscale, k_new, v_new,
-            prune, block_tables, groups, prefix_state):
+class _Plan:
+    """A validated launch configuration: its params struct (the ints set
+    once, the pointers per call), output shapes and workspace sizes."""
+
+    def __init__(self, params, **kw):
+        self.params = params
+        self.__dict__.update(kw)
+
+
+def _decode_plan(q, k, v, kscale, vscale, k_new, block_tables, groups,
+                 prefix_state, *, kvp, n_ranks, rank, rr_block, window, scale,
+                 block_s, contiguous, slot_offset, prune):
     b, qh, hsz = q.shape
     kh = k.shape[1]
     g = qh // kh
-    code = build.dtype_code(q.dtype)
     quant = kscale is not None
     paged = block_tables is not None
     _check_int32(block_tables=block_tables)
@@ -428,56 +557,104 @@ def _launch(q, k, v, total_len, *, kvp, n_ranks, rank, rr_block, window, scale,
             raise ValueError(f"the int8 mode takes int8 k/v (got {k.dtype} "
                              f"{v.dtype})")
         if not (kscale.dtype == vscale.dtype == torch.float32
-                and kscale.shape == vscale.shape == k.shape[:3]
-                and kscale.is_contiguous() and vscale.is_contiguous()):
+                and kscale.shape == vscale.shape == k.shape[:3]):
             raise ValueError("kscale/vscale must be contiguous float32 "
                              f"{tuple(k.shape[:3])}")
-        if k_new is not None and not (k_new.dtype == v_new.dtype == q.dtype):
-            raise ValueError(f"k_new/v_new must have q's dtype {q.dtype}")
     elif not (k.dtype == v.dtype == q.dtype):
         raise ValueError(f"q/k/v dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
     if hsz not in HSZ or g > MAX_G or block_s % TILE_S:
         raise ValueError(f"flash_decode kernel takes hsz in {HSZ}, "
                          f"Qh/Kh <= {MAX_G} and block_s % {TILE_S} == 0 "
                          f"(got hsz {hsz}, G {g}, block_s {block_s})")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_decode kernel needs contiguous q/k/v")
-    if k_new is not None:
-        k_new = k_new.to(q.dtype).contiguous()
-        v_new = v_new.to(q.dtype).contiguous()
-    tl = torch.as_tensor(total_len, dtype=torch.int32, device=q.device)
-    tl = tl.reshape(-1).expand(b).contiguous()
-    out = torch.empty((n_ranks, b, qh, hsz), dtype=q.dtype, device=q.device)
-    lse = torch.empty((n_ranks, b, qh), dtype=torch.float32, device=q.device)
     ps = k.shape[2] // n_ranks
     max_pages = block_tables.shape[1] if paged else 0
     s_loc = max_pages * ps if paged else ps
-    gnp, st = None, (None, None, None)
+    st_nc = 0
     if groups is not None:
         _check_int32(group_id=groups[0], group_np=groups[1])
-        gnp = groups[1]
+        st_nc = chunk_count(s_loc)
+        want = (n_ranks, b, kh, st_nc, g)
+        if prefix_state is not None and not all(
+                x.dtype == torch.float32 and x.device == q.device
+                and tuple(x.shape[:5]) == want for x in prefix_state):
+            raise ValueError("prefix_state must be prefix_pass(..., chunks="
+                             f"True)'s contiguous float32 {want} partials")
+    nc = decode_chunks(s_loc, block_s)
+    p = _DecodeParams(
+        dtype=build.dtype_code(q.dtype), quant=int(quant), B=b, Kh=kh, G=g,
+        hsz=hsz, s_loc=s_loc, n_ranks=n_ranks, rank0=rank, kvp=kvp,
+        rr=rr_block, block_s=block_s, slot_offset=slot_offset, window=window,
+        contiguous=int(contiguous), prune=int(prune),
+        append=int(k_new is not None), max_pages=max_pages, ps=ps,
+        st_nc=st_nc, scale=scale)
+    return _Plan(p, out=(n_ranks, b, qh, hsz), lse=(n_ranks, b, qh),
+                 ws=n_ranks * b * kh * nc * g * (hsz + 2))
+
+
+def _launch(q, k, v, total_len, *, kvp, n_ranks, rank, rr_block, window, scale,
+            block_s, contiguous, slot_offset, kscale, vscale, k_new, v_new,
+            prune, block_tables, groups, prefix_state):
+    dev = q.device
+    if k_new is not None and k_new.dtype != q.dtype:
+        if kscale is not None:
+            raise ValueError(f"k_new/v_new must have q's dtype {q.dtype}")
+        k_new, v_new = k_new.to(q.dtype), v_new.to(q.dtype)
+    if k_new is not None and v_new.dtype != k_new.dtype:
+        raise ValueError(f"k_new/v_new must have q's dtype {q.dtype}")
+    key = (q.shape, q.dtype, k.shape, k.dtype, v.shape, v.dtype, dev,
+           None if kscale is None else (kscale.shape, kscale.dtype,
+                                        vscale.shape, vscale.dtype),
+           k_new is None,
+           None if block_tables is None else (block_tables.shape,
+                                              block_tables.dtype),
+           None if groups is None else (groups[0].dtype, groups[1].dtype),
+           None if prefix_state is None else tuple(
+               (x.shape, x.dtype, x.device) for x in prefix_state),
+           kvp, n_ranks, rank, rr_block, window, scale, block_s, contiguous,
+           slot_offset, prune)
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _PLANS[key] = _decode_plan(
+            q, k, v, kscale, vscale, k_new, block_tables, groups, prefix_state,
+            kvp=kvp, n_ranks=n_ranks, rank=rank, rr_block=rr_block,
+            window=window, scale=scale, block_s=block_s,
+            contiguous=contiguous, slot_offset=slot_offset, prune=prune)
+    _check_kv(q, k, v, k_new, v_new)
+    if not all(t is None or t.is_contiguous()
+               for t in (kscale, vscale, block_tables, *(groups or ()))):
+        raise ValueError("kscale/vscale, block_tables and groups must be "
+                         "contiguous")
+    b = q.shape[0]
+    tl, tl0 = build.per_row(total_len, b, dev)
+    st = (None, None, None)
+    if groups is not None:
         st = prefix_state or _launch_prefix(
-            q, k, v, kscale, vscale, tl, block_tables, *groups, kvp=kvp,
+            q, k, v, kscale, vscale, tl, tl0, block_tables, *groups, kvp=kvp,
             n_ranks=n_ranks, rank=rank, rr_block=rr_block, window=window,
-            scale=scale)
-        if not all(x.dtype == torch.float32 and x.is_contiguous()
-                   and x.shape[:4] == (n_ranks, b, kh, g) for x in st):
-            raise ValueError("prefix_state must be contiguous float32 "
-                             f"({n_ranks}, {b}, {kh}, {g}, ...) tensors")
-    lib = build.load("flash_decode")
-    rc = _bind(lib, "flash_decode_launch", 15, 19)(
-        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(k_new),
-        build.ptr(v_new), build.ptr(tl), build.ptr(out), build.ptr(lse),
-        build.ptr(kscale), build.ptr(vscale), build.ptr(block_tables),
-        build.ptr(gnp), *(build.ptr(x) for x in st), code,
-        int(quant), b, kh, g, hsz, s_loc, n_ranks, rank, kvp, rr_block,
-        block_s, slot_offset, window, int(contiguous), int(prune),
-        int(k_new is not None), max_pages, ps, float(scale), build.stream())
-    build.check(rc, lib, "flash_decode")
+            scale=scale, fold=False, cached=True)
+        if not all(x.is_contiguous() and x.data_ptr() % 16 == 0
+                   for x in st):
+            raise ValueError("prefix_state must be contiguous and 16-byte "
+                             "aligned")
+    out = torch.empty(plan.out, dtype=q.dtype, device=dev)
+    lse = torch.empty(plan.lse, dtype=torch.float32, device=dev)
+    p = plan.params
+    p.q, p.k, p.v = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    p.k_new, p.v_new, p.tl = _ptr(k_new), _ptr(v_new), _ptr(tl)
+    p.out, p.lse = out.data_ptr(), lse.data_ptr()
+    p.kscale, p.vscale, p.tables = _ptr(kscale), _ptr(vscale), _ptr(
+        block_tables)
+    p.gnp = None if groups is None else groups[1].data_ptr()
+    p.st_acc, p.st_m, p.st_l = (_ptr(x) for x in st)
+    p.ws = _workspace("decode_partials", plan.ws, dev).data_ptr()
+    p.tl0 = tl0
+    lib, fn = _bind("flash_decode")
+    build.check(fn(p, build.stream(dev)), lib, "flash_decode")
+    last_launch["chunks_per_cta"] = p.cpc
     counter.n += 1
-    counter_kv8.n += int(quant)
-    counter_paged.n += int(paged)
-    counter_grouped.n += int(groups is not None)
+    counter_kv8.n += kscale is not None
+    counter_paged.n += block_tables is not None
+    counter_grouped.n += groups is not None
     return out, lse
 
 
@@ -489,40 +666,70 @@ def _check_int32(**tensors) -> None:
                              f"(got {t.dtype})")
 
 
-def _launch_prefix(q, k, v, kscale, vscale, tl, tables, gid, gnp, *, kvp,
-                   n_ranks, rank, rr_block, window, scale):
-    """Launch ``prefix_pass`` (one block per group row, kv head and rank;
-    rows leading no group exit at once); returns the members' raw state
-    (acc, m, l)."""
+def _check_kv(q, k, v, *rows) -> None:
+    """Contiguity, and 16-byte alignment of what the kernels copy with
+    16-byte ``cp.async`` (the K/V planes, the appended rows)."""
+    if not all(t is None or t.is_contiguous() for t in (q, k, v, *rows)):
+        raise ValueError("the decode kernels need contiguous q/k/v (and "
+                         "k_new/v_new)")
+    if any(x is not None and x.data_ptr() % 16 for x in (k, v, *rows)):
+        raise ValueError("the decode kernels need 16-byte aligned k/v "
+                         "(and k_new/v_new)")
+
+
+def _launch_prefix(q, k, v, kscale, vscale, tl, tl0, tables, gid, gnp, *,
+                   kvp, n_ranks, rank, rr_block, window, scale, fold,
+                   cached):
+    """Launch ``prefix_pass`` (one CTA per chunk, group row and kv head,
+    rank and row block; CTAs of rows leading no group exit at once).
+    Returns the chunk partials (in a cached workspace when ``cached``, else
+    new tensors), or with ``fold`` each row's folded raw state."""
     b, qh, hsz = q.shape
     kh = k.shape[1]
     g = qh // kh
+    dev = q.device
+    key = ("prefix", q.shape, q.dtype, k.shape, k.dtype, dev,
+           kscale is None, tables.shape, kvp, n_ranks, rank, rr_block, window,
+           scale)
+    plan = _PLANS.get(key)
+    if plan is None:
+        if hsz not in HSZ:
+            raise ValueError(f"prefix_pass kernel takes hsz in {HSZ} (got "
+                             f"{hsz})")
+        ps = k.shape[2] // n_ranks
+        st_nc = chunk_count(tables.shape[1] * ps)
+        plan = _PLANS[key] = _Plan(
+            _PrefixParams(
+                dtype=build.dtype_code(q.dtype), quant=int(kscale is not None),
+                B=b, Kh=kh, G=g, hsz=hsz, n_ranks=n_ranks, rank0=rank,
+                kvp=kvp, rr=rr_block, window=window, max_pages=tables.shape[1],
+                ps=ps, st_nc=st_nc, scale=scale),
+            n=n_ranks * b * kh * st_nc * g, shape=(n_ranks, b, kh, st_nc, g))
     _check_int32(block_tables=tables, group_id=gid, group_np=gnp)
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("prefix_pass kernel needs contiguous q/k/v")
-    if hsz not in HSZ:
-        raise ValueError(f"prefix_pass kernel takes hsz in {HSZ} (got {hsz})")
-    lib = build.load("prefix_pass")
-    lib.prefix_pass_smem_bytes.argtypes = [_I, _I, _I]
-    lib.prefix_pass_smem_bytes.restype = ctypes.c_long
-    need = lib.prefix_pass_smem_bytes(b, g, hsz)
-    if need > SMEM_MAX:
-        raise ValueError(f"prefix_pass holds B x G = {b * g} query rows in "
-                         f"{need} bytes of shared memory; the card has "
-                         f"{SMEM_MAX}")
-    st = (torch.empty((n_ranks, b, kh, g, hsz), dtype=torch.float32,
-                      device=q.device),
-          torch.empty((n_ranks, b, kh, g), dtype=torch.float32,
-                      device=q.device),
-          torch.empty((n_ranks, b, kh, g), dtype=torch.float32,
-                      device=q.device))
-    ps = k.shape[2] // n_ranks
-    rc = _bind(lib, "prefix_pass_launch", 12, 13)(
-        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(kscale),
-        build.ptr(vscale), build.ptr(tl), build.ptr(tables), build.ptr(gid),
-        build.ptr(gnp), *(build.ptr(x) for x in st), build.dtype_code(q.dtype),
-        int(kscale is not None), b, kh, g, hsz, n_ranks, rank, kvp, rr_block,
-        window, tables.shape[1], ps, float(scale), build.stream())
-    build.check(rc, lib, "prefix_pass")
+    _check_kv(q, k, v)
+    n = plan.n
+    flat = (_workspace("prefix_partials", n * (hsz + 2), dev)
+            if cached or fold else
+            torch.empty(n * (hsz + 2), dtype=torch.float32, device=dev))
+    st = (flat[:n * hsz].view(*plan.shape, hsz),
+          flat[n * hsz:n * (hsz + 1)].view(plan.shape),
+          flat[n * (hsz + 1):n * (hsz + 2)].view(plan.shape))
+    folded = (None, None, None)
+    if fold:
+        folded = (torch.empty((n_ranks, b, kh, g, hsz), dtype=torch.float32,
+                              device=dev),
+                  torch.empty((n_ranks, b, kh, g), dtype=torch.float32,
+                              device=dev),
+                  torch.empty((n_ranks, b, kh, g), dtype=torch.float32,
+                              device=dev))
+    p = plan.params
+    p.q, p.k, p.v = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    p.kscale, p.vscale, p.tl = _ptr(kscale), _ptr(vscale), _ptr(tl)
+    p.tables, p.gid, p.gnp = tables.data_ptr(), gid.data_ptr(), gnp.data_ptr()
+    p.st_acc, p.st_m, p.st_l = (x.data_ptr() for x in st)
+    p.f_acc, p.f_m, p.f_l = (_ptr(x) for x in folded)
+    p.tl0 = tl0
+    lib, fn = _bind("prefix_pass")
+    build.check(fn(p, build.stream(dev)), lib, "prefix_pass")
     counter_prefix.n += 1
-    return st
+    return folded if fold else st

@@ -12,20 +12,26 @@ log-sum-exp (f32) that the Helix combine needs.  An int8 shard comes with
 per-slot f32 scales and is dequantized as ``float(q) * scale`` first.
 
 ``flash_decode_ref`` is the oracle: one softmax over the whole shard.
-``sweep_tiles`` and ``finish_rows`` are the plain version of the kernels'
-own arithmetic order (``csrc/decode_tile.cuh``): an online softmax over
-tiles of ``TILE_S`` slots with a raw ``(acc, m, l)`` state, so a sweep may
-be split at a tile boundary and resumed (the grouped decode) without
-changing a bit.
+``sweep_chunks``, ``merge_chunks`` and ``finish_rows`` are the plain
+version of the kernels' own structure (``csrc/decode_tile.cuh``): the shard
+cut at absolute boundaries into chunks of ``CHUNK_S`` slots, each chunk
+swept from the cold state by an online softmax over tiles of ``TILE_S``
+slots (``sweep_tiles``) into a raw ``(acc, m, l)`` partial, and the
+partials folded in chunk order.  A chunk's sweep may be split at a tile
+boundary and resumed (the grouped decode), and empty partials are skipped
+by the fold, so grouping and pruning change no bit.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.pruning import CHUNK_S, TILE_S
 from repro_torch.utils import NEG_INF, int8_scale
 
 
-TILE_S = 32                 # slots per tile, as in the CUDA kernels
+def chunk_count(n_slots: int) -> int:
+    """Chunks of ``CHUNK_S`` slots covering ``n_slots`` slots."""
+    return -(-n_slots // CHUNK_S)
 
 
 def cold_state(n: int, rows: int, hsz: int, device=None):
@@ -79,6 +85,61 @@ def sweep_tiles(q, k, v, valid, state):
         acc = alpha[..., None] * acc + pv
         m = m_new
     return acc, m, l
+
+
+def sweep_chunks(q, k, v, valid, state=None):
+    """Every chunk of ``CHUNK_S`` slots swept on its own, as the kernels'
+    CTAs do.
+
+    q [N, R, hsz] f32 scaled queries; k, v [N, S, hsz] f32; valid [N | 1,
+    R | 1, S] bool; ``state`` (acc [N, C, R, hsz], m, l [N, C, R]) the state each
+    chunk starts from (None: cold), C = ``chunk_count(S)``.  Returns the
+    chunks' raw partials in the same shapes (slots past S are masked)."""
+    n, r, hsz = q.shape
+    c = chunk_count(k.shape[1])
+    pad = c * CHUNK_S - k.shape[1]
+    k = torch.nn.functional.pad(k, (0, 0, 0, pad)).reshape(n * c, CHUNK_S, hsz)
+    v = torch.nn.functional.pad(v, (0, 0, 0, pad)).reshape(n * c, CHUNK_S, hsz)
+    rv = valid.shape[1]
+    valid = torch.nn.functional.pad(valid, (0, pad)).expand(n, rv, c * CHUNK_S)
+    valid = valid.reshape(n, rv, c, CHUNK_S).transpose(1, 2).reshape(
+        n * c, rv, CHUNK_S)
+    qc = q[:, None].expand(n, c, r, hsz).reshape(n * c, r, hsz)
+    st = (cold_state(n * c, r, hsz, q.device) if state is None else
+          (state[0].reshape(n * c, r, hsz), state[1].reshape(n * c, r),
+           state[2].reshape(n * c, r)))
+    acc, m, l = sweep_tiles(qc, k, v, valid, st)
+    return (acc.reshape(n, c, r, hsz), m.reshape(n, c, r),
+            l.reshape(n, c, r))
+
+
+def merge_chunks(parts, take=None):
+    """Fold chunk partials ``(acc [N, C, R, hsz], m, l [N, C, R])`` in chunk
+    order into one raw state ``(acc [N, R, hsz], m, l [N, R])``, as the
+    kernels' merge does: chunks not in ``take`` [N, C] (None: all) and
+    empty partials (l == 0) are skipped, the first partial is taken as it
+    is, later ones combine as ``m = max(m, m_c)``, ``l = e^(m - m') l +
+    e^(m_c - m') l_c`` and ``acc`` likewise, each product and sum rounded
+    on its own."""
+    acc, m, l = parts
+    n, c, r, hsz = acc.shape
+    sa, sm, sl = cold_state(n, r, hsz, acc.device)
+    for i in range(c):
+        ac, mc, lc = acc[:, i], m[:, i], l[:, i]
+        use = lc > 0
+        if take is not None:
+            use = use & take[:, i, None]
+        mn = torch.maximum(sm, mc)
+        e0, e1 = torch.exp(sm - mn), torch.exp(mc - mn)
+        first = sl == 0
+        nm = torch.where(first, mc, mn)
+        nl = torch.where(first, lc, e0 * sl + e1 * lc)
+        na = torch.where(first[..., None], ac,
+                         e0[..., None] * sa + e1[..., None] * ac)
+        sm = torch.where(use, nm, sm)
+        sl = torch.where(use, nl, sl)
+        sa = torch.where(use[..., None], na, sa)
+    return sa, sm, sl
 
 
 def finish_rows(state, dtype):

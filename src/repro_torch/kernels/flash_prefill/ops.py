@@ -39,15 +39,6 @@ def _bind(lib):
     return fn
 
 
-def _per_row(x, b, dev):
-    """(None, x) for an int, which the kernel takes as a scalar (no device
-    tensor, no host-to-device copy); else ([B] int32 on ``dev``, 0)."""
-    if isinstance(x, int):
-        return None, x
-    return torch.as_tensor(x, dtype=torch.int32, device=dev).reshape(
-        -1).expand(b).contiguous(), 0
-
-
 def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0,
                   q_offset=0, seq_lens=None, scale: float | None = None,
                   block_tables=None):
@@ -102,15 +93,15 @@ def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError("block_tables must be a contiguous [B, max_pages] "
                          "int32 tensor")
     dev = q.device
-    offs, off0 = _per_row(q_offset, b, dev)
-    lens, len0 = _per_row(s if seq_lens is None else seq_lens, b, dev)
+    offs, off0 = build.per_row(q_offset, b, dev)
+    lens, len0 = build.per_row(s if seq_lens is None else seq_lens, b, dev)
     out = torch.empty_like(q)
     lib = build.load("flash_prefill")
     rc = _bind(lib)(
         build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(lens),
         build.ptr(offs), build.ptr(block_tables), build.ptr(out), off0, len0,
         code, b, t, s, kh, g, hsz, int(causal), int(window), max_pages, page,
-        float(scale), build.stream())
+        float(scale), build.stream(dev))
     build.check(rc, lib, "flash_prefill")
     counter.n += 1
     if paged:

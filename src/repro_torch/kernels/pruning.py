@@ -14,6 +14,11 @@ from __future__ import annotations
 import torch
 
 
+TILE_S = 32          # slots per tile of the decode kernels
+CHUNK_TILES = 8      # tiles per chunk: one CTA of the decode kernels each
+CHUNK_S = TILE_S * CHUNK_TILES
+
+
 def _t(x):
     return torch.as_tensor(x, dtype=torch.int32)
 
@@ -81,6 +86,70 @@ def prune_block_range(total_len, rank, slot_offset, window, *, kvp: int,
     lo = jj_lo // block_s
     hi = (jj_hi + block_s - 1) // block_s
     return lo, torch.clamp(hi - lo, min=0)
+
+
+def decode_chunk_range(total_len, rank, slot_offset, window, *, kvp: int,
+                       rr_block: int, s_true: int, contiguous: bool = False,
+                       prune: bool = True, n_tiles: int = 0):
+    """``(c0, c1)``: the chunks of ``CHUNK_S`` slots the decode kernels
+    sweep and merge for one request on one rank.  Pruning on: the chunks
+    holding the tiles of ``TILE_S`` slots that hold its valid slots
+    (``valid_slot_span``); off: every chunk of ``n_tiles`` tiles (the
+    padded capacity).  Empty (``c0 == c1 == 0``) when nothing is valid."""
+    if not prune:
+        n = torch.full_like(_t(total_len), -(-n_tiles // CHUNK_TILES))
+        return torch.zeros_like(n), n
+    jj_lo, jj_hi = valid_slot_span(total_len, rank, slot_offset, window,
+                                   kvp=kvp, rr_block=rr_block, s_true=s_true,
+                                   contiguous=contiguous)
+    t0 = jj_lo // TILE_S
+    t1 = (jj_hi + TILE_S - 1) // TILE_S
+    some = jj_hi > jj_lo
+    zero = torch.zeros_like(t0)
+    return (torch.where(some, t0 // CHUNK_TILES, zero),
+            torch.where(some, (t1 + CHUNK_TILES - 1) // CHUNK_TILES, zero))
+
+
+def decode_work_items(total_len, *, kvp: int, n_ranks: int, rank: int,
+                      kv_heads: int, rr_block: int, s_true: int, window=0,
+                      slot_offset=0, contiguous: bool = False,
+                      prune: bool = True, n_tiles: int = 0,
+                      group_np=None, page_rows: int = 0,
+                      chunks_per_cta: int = 1) -> int:
+    """CTAs of one flash_decode launch that sweep: per rank, batch row and
+    kv head, the chunks it merges, less (grouped suffix, ``group_np`` [B]
+    with ``page_rows`` rows per rank and page) those wholly below the split
+    tile ``group_np * page_rows // TILE_S``, taken ``chunks_per_cta`` at a
+    time (CTA i holds chunks ``[i * chunks_per_cta, (i + 1) *
+    chunks_per_cta)``)."""
+    tl = _t(total_len).reshape(-1)
+    split = (torch.zeros_like(tl) if group_np is None
+             else _t(group_np).reshape(-1) * page_rows // TILE_S)
+    n = 0
+    for z in range(n_ranks):
+        c0, c1 = decode_chunk_range(tl, rank + z, slot_offset, window, kvp=kvp,
+                                    rr_block=rr_block, s_true=s_true,
+                                    contiguous=contiguous, prune=prune,
+                                    n_tiles=n_tiles)
+        lo = torch.clamp(split // CHUNK_TILES, min=c0, max=c1)
+        first = lo // chunks_per_cta
+        last = (c1 + chunks_per_cta - 1) // chunks_per_cta
+        n += int(torch.where(c1 > lo, last - first, 0).sum())
+    return n * kv_heads
+
+
+def prefix_work_items(group_id, group_np, *, n_ranks: int, kv_heads: int,
+                      page_rows: int) -> int:
+    """CTAs of one prefix_pass launch that sweep a chunk: per group, kv head
+    and rank, the chunks below the group's largest split tile (one row
+    block each while members x G <= 32 rows)."""
+    gid, gnp = _t(group_id).tolist(), _t(group_np).tolist()
+    split = {}
+    for g, p in zip(gid, gnp):
+        if p > 0:
+            split[g] = max(split.get(g, 0), p * page_rows // TILE_S)
+    n = sum(-(-s // CHUNK_TILES) for s in split.values())
+    return n * kv_heads * n_ranks
 
 
 def prefill_block_range(qi, kv_len, q_offset, window, *, causal: bool,

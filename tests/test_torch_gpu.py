@@ -260,7 +260,7 @@ def test_grouped_decode_kernels_match_plain_and_ungrouped_on_card(h100, quant):
             torch.testing.assert_close(lg, lp, atol=ATOL, rtol=RTOL)
             st = prefix_pass(q, *(cache[k] for k in keys[:2]), tl, tab, gid,
                              gnp, kvp=kvp, n_ranks=kvp, rr_block=RR,
-                             window=window,
+                             window=window, chunks=True,
                              **(dict(kscale=cache["kscale"],
                                      vscale=cache["vscale"]) if quant
                                 else {}))

@@ -24,8 +24,13 @@ from repro.kernels.flash_prefill.kernel import \
     prefill_block_range as jax_prefill_range
 from repro.kernels.pruning import phys_block as jax_phys_block
 
+from repro_torch.core.helix import append_kv
+from repro_torch.core.kvcache import quantize_decode_state, state_to_paged
 from repro_torch.kernels import build, pruning, registry
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_shards
+from repro_torch.kernels.flash_decode.ops import decode_chunks
+from repro_torch.kernels.flash_decode.ref import (CHUNK_S, TILE_S,
+                                                  cold_state, merge_chunks)
 from repro_torch.kernels.flash_prefill import flash_prefill
 
 ATOL = RTOL = 2e-5      # f32, different summation order (see module doc)
@@ -202,6 +207,187 @@ def test_flash_decode_shards_is_per_rank_flash_decode():
                                     window=24, k_new=kn, v_new=vn)
         assert torch.equal(outs[r], o) and torch.equal(lses[r], l)
         assert torch.equal(k1[:, :, sl], k2) and torch.equal(v1[:, :, sl], v2)
+
+
+# ------------------------------------------- chunks of the decode sweep
+def test_decode_chunk_partition_matches_reference_spans():
+    """The chunks the decode kernels sweep and merge, exactly: with pruning,
+    those holding the tiles of the reference's valid span; without, every
+    chunk of the padded capacity; and the counts of CTAs that sweep."""
+    tls = np.concatenate([np.arange(-1, 1400, 29), [256, 257, 512, 513,
+                                                     1024, 1025]])
+    tls = tls.astype(np.int32)
+    for kvp, rr, s_true in ((1, 16, 600), (2, 16, 600), (4, 8, 1100)):
+        for rank in range(kvp):
+            for window in (0, 5, 300):
+                for off in (0, 3):
+                    for contiguous in (False, True):
+                        kw = dict(kvp=kvp, rr_block=rr, s_true=s_true,
+                                  contiguous=contiguous)
+                        lo, hi = (_np(x) for x in jax_span(
+                            jnp.asarray(tls), rank, off, window, **kw))
+                        t0, t1 = lo // TILE_S, -(-hi // TILE_S)
+                        live = hi > lo
+                        want0 = np.where(live, t0 * TILE_S // CHUNK_S, 0)
+                        want1 = np.where(live, -(-t1 * TILE_S // CHUNK_S), 0)
+                        c0, c1 = pruning.decode_chunk_range(
+                            torch.from_numpy(tls), rank, off, window, **kw)
+                        np.testing.assert_array_equal(c0.numpy(), want0)
+                        np.testing.assert_array_equal(c1.numpy(), want1)
+                        d0, d1 = pruning.decode_chunk_range(
+                            torch.from_numpy(tls), rank, off, window,
+                            prune=False, n_tiles=40, **kw)
+                        assert (d0 == 0).all() and (d1 == 5).all()
+    # every chunk at or past 256 * c, and the padded capacity's chunks
+    assert decode_chunks(600, 512) == 4 and decode_chunks(4096, 512) == 16
+    assert decode_chunks(1088, 512) == 6 and decode_chunks(100, 128) == 1
+    tl = torch.tensor([4096] * 8, dtype=torch.int32)
+    assert pruning.decode_work_items(tl, kvp=1, n_ranks=1, rank=0,
+                                     kv_heads=8, rr_block=16,
+                                     s_true=4096) == 1024
+    assert pruning.decode_work_items(tl, kvp=1, n_ranks=1, rank=0,
+                                     kv_heads=8, rr_block=16, s_true=4096,
+                                     chunks_per_cta=2) == 512
+    tl = torch.tensor([700, 1000, 1], dtype=torch.int32)
+    assert pruning.decode_work_items(tl, kvp=1, n_ranks=1, rank=0,
+                                     kv_heads=1, rr_block=16, s_true=1088,
+                                     chunks_per_cta=2) == 2 + 2 + 1
+    tl = torch.tensor([4352] * 8, dtype=torch.int32)
+    assert pruning.decode_work_items(
+        tl, kvp=1, n_ranks=1, rank=0, kv_heads=8, rr_block=16, s_true=4352,
+        group_np=torch.full((8,), 256, dtype=torch.int32),
+        page_rows=16) == 64
+    gid = torch.tensor([0, 0, 0, 0, 4, 4, 4, 4], dtype=torch.int32)
+    assert pruning.prefix_work_items(gid, torch.full((8,), 256), n_ranks=1,
+                                     kv_heads=8, page_rows=16) == 256
+
+
+def _partials(rng, n, c, r, hsz):
+    m = rng.standard_normal((n, c, r)).astype(np.float32) * 3
+    l = rng.uniform(1, 5, (n, c, r)).astype(np.float32)
+    acc = rng.standard_normal((n, c, r, hsz)).astype(np.float32)
+    return [torch.from_numpy(x) for x in (acc, m, l)]
+
+
+def test_merge_chunks_empty_partials_are_identities_bit_for_bit():
+    """The fold of chunk partials skips empty ones (m = NEG_INF, l = 0,
+    acc = 0) exactly, wherever they sit, and takes a lone partial as it
+    is; a fold of empties is the cold state."""
+    rng = np.random.default_rng(21)
+    acc, m, l = _partials(rng, 3, 4, 2, 32)
+    base = merge_chunks((acc, m, l))
+    ca, cm, cl = cold_state(3, 2, 32)
+    for at in (0, 2, 4):            # before, inside, after the real ones
+        ins = (torch.cat([acc[:, :at], ca[:, None], acc[:, at:]], 1),
+               torch.cat([m[:, :at], cm[:, None], m[:, at:]], 1),
+               torch.cat([l[:, :at], cl[:, None], l[:, at:]], 1))
+        got = merge_chunks(ins)
+        assert all(torch.equal(x, y) for x, y in zip(got, base))
+    take = torch.tensor([[True, False, True, True]] * 3)
+    skipped = merge_chunks((acc, m, l), take)
+    dropped = merge_chunks((acc[:, [0, 2, 3]], m[:, [0, 2, 3]],
+                            l[:, [0, 2, 3]]))
+    assert all(torch.equal(x, y) for x, y in zip(skipped, dropped))
+    one = merge_chunks((acc[:, :1], m[:, :1], l[:, :1]))
+    assert all(torch.equal(x, y[:, 0]) for x, y in zip(one, (acc, m, l)))
+    empty = merge_chunks((ca[:, None].repeat(1, 3, 1, 1),
+                          cm[:, None].repeat(1, 3, 1),
+                          cl[:, None].repeat(1, 3, 1)))
+    assert all(torch.equal(x, y) for x, y in zip(empty, (ca, cm, cl)))
+
+
+S_CH = 608       # slots per shard in the chunk tests: chunks of 256, 256, 96
+
+
+def _chunk_case(mode, kvp):
+    """Operands over shards of S_CH slots (three chunks, the last partial):
+    rows of length 0, a chunk boundary (256 local slots), one slot past it
+    (the appended row lands in the next chunk's first slot), mid-chunk and
+    full; ``paged``: the same cache in 2-row pages under a shuffled table,
+    ``int8``: quantized with per-slot scales."""
+    rng = np.random.default_rng(30 + kvp)
+    f = lambda *sh: rng.standard_normal(sh).astype(np.float32)
+    b, s_cap = 5, kvp * S_CH
+    q, kn, vn = f(b, QH, HSZ), f(b, KH, HSZ), f(b, KH, HSZ)
+    tl = np.array([0, 256 * kvp, 256 * kvp + 1, 777 * kvp // 2,
+                   s_cap], np.int32)
+    fixed = {"kcache": torch.from_numpy(f(1, b, KH, s_cap, HSZ)),
+             "vcache": torch.from_numpy(f(1, b, KH, s_cap, HSZ))}
+    if mode == "int8":
+        fixed = quantize_decode_state(fixed)
+    case = dict(q=q, kn=kn, vn=vn, tl=tl, fixed=fixed, tables=None)
+    if mode == "paged":
+        page = kvp * 8                      # 8 rows per rank and page
+        mp = S_CH // 8
+        tab = (1 + rng.permutation(b * mp)).reshape(b, mp).astype(np.int32)
+        case["paged"] = state_to_paged(fixed, tab, 1 + b * mp, kvp, page)
+        case["tables"] = tab
+    return case
+
+
+def _shard(x, r, kvp, tables):
+    """Rank r's slots (fixed) or rows of every page (paged) of a plane."""
+    if tables is None:
+        return x[:, :, r * S_CH:(r + 1) * S_CH]
+    ps = x.shape[2] // kvp
+    return x[:, :, r * ps:(r + 1) * ps]
+
+
+@pytest.mark.parametrize("mode", ["rr", "contig", "paged", "int8"])
+def test_chunked_plain_decode_matches_reference(mode):
+    """The plain decode, chunk partials folded in order, over shards of
+    three chunks against the reference's oracle (fixed fp) and interpreted
+    kernel (2e-5), kvp 2: rank 0 with no window, rank 1 with a window of
+    300 (starting mid-chunk); pruned == dense bit for bit; with the fused
+    append, which lands in a chunk's first slot for the row one past the
+    boundary, == append then attend."""
+    kvp = 2
+    c = _chunk_case(mode, kvp)
+    st = c.get("paged", c["fixed"])
+    keys = [k for k in ("kcache", "vcache", "kscale", "vscale") if k in st]
+    planes = [st[k][0] for k in keys]
+    tab = None if c["tables"] is None else torch.from_numpy(c["tables"])
+    contiguous = mode == "contig"
+    q, tl = torch.from_numpy(c["q"]), torch.from_numpy(c["tl"])
+    for rank, window in ((0, 0), (1, 300)):
+        sh = [_shard(x, rank, kvp, c["tables"]) for x in planes]
+        sc = dict(zip(("kscale", "vscale"), sh[2:]))
+        kw = dict(kvp=kvp, rr_block=RR, window=window,
+                  contiguous=contiguous, block_tables=tab, **sc)
+        got = flash_decode(q, sh[0], sh[1], tl, rank, **kw)
+        dense = flash_decode(q, sh[0], sh[1], tl, rank, prune=False,
+                             **kw)
+        assert all(torch.equal(x, y) for x, y in zip(got, dense))
+        jsc = {k: v.numpy() for k, v in sc.items()}
+        ref = jax_flash_decode(
+            c["q"], sh[0].numpy(), sh[1].numpy(), jnp.asarray(c["tl"]),
+            rank, kvp=kvp, rr_block=RR, window=window,
+            contiguous=contiguous, interpret=True,
+            block_tables=c["tables"], **jsc)
+        for x, y in zip(got, ref):
+            np.testing.assert_allclose(x.numpy(), _np(y), atol=ATOL,
+                                       rtol=RTOL)
+        if mode == "rr":
+            oracle = jax_decode_ref(c["q"], sh[0].numpy(), sh[1].numpy(),
+                                    c["tl"], rank, kvp=kvp, rr_block=RR,
+                                    window=window)
+            for x, y in zip(got, oracle):
+                np.testing.assert_allclose(x.numpy(), _np(y), atol=ATOL,
+                                           rtol=RTOL)
+    if mode == "rr":                # fused append == append then attend
+        tl1 = torch.clamp(tl, min=1)
+        kn, vn = torch.from_numpy(c["kn"]), torch.from_numpy(c["vn"])
+        ka, va = planes[0].clone(), planes[1].clone()
+        fused = flash_decode_shards(q, ka, va, tl1, kvp=kvp, n_ranks=kvp,
+                                    rr_block=RR, k_new=kn, v_new=vn)
+        kb, vb = planes[0].clone(), planes[1].clone()
+        append_kv(kb, vb, kn, vn, tl1, kvp=kvp, rr_block=RR)
+        unfused = flash_decode_shards(q, kb, vb, tl1, kvp=kvp, n_ranks=kvp,
+                                      rr_block=RR)
+        assert torch.equal(ka, kb) and torch.equal(va, vb)
+        assert all(torch.equal(x, y) for x, y in zip(fused, unfused))
+        # the row one past the boundary appended into rank 0's slot 256
+        assert not torch.equal(ka[2, :, 256], planes[0][2, :, 256])
 
 
 # --------------------------------------------------------- flash_prefill

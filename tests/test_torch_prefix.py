@@ -36,6 +36,7 @@ from repro_torch.core.sharding import HelixConfig
 from repro_torch.kernels.flash_decode.ops import (_dense_shards,
                                                   flash_decode_shards,
                                                   prefix_pass)
+from repro_torch.kernels.flash_decode.ref import merge_chunks
 from repro_torch.launch.serve import generate_rows, prompt_tokens, serve_demo
 from repro_torch.models.model_zoo import (build_serve_step,
                                           make_chunk_prefill_step,
@@ -326,6 +327,80 @@ def test_grouped_decode_matches_reference_and_equals_ungrouped(case, quant):
                                            atol=ATOL, rtol=RTOL)
                 np.testing.assert_allclose(grp[1][r].numpy(), np.asarray(jl),
                                            atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("shared", [17, 20], ids=["split-on-chunk",
+                                                  "split-in-chunk"])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_grouped_equals_ungrouped_across_chunks(shared, quant):
+    """Shards of three chunks (704 slots per rank): three requests share 17
+    pages (split tile 8, a chunk boundary) or 20 (split tile 10, inside the
+    second chunk), with local lengths ending on a chunk boundary (512), one
+    slot past it (the appended row lands in a chunk's first slot) and
+    mid-chunk.  Grouped == ungrouped and pruned == dense bit for bit, in
+    outputs, LSEs and appended pages, kvp 1 (no window) and 2 (a window of
+    300); the
+    public prefix pass is its chunk partials folded; kvp 1, window 0
+    against the reference's interpreted grouped decode (2e-5)."""
+    for kvp in (1, 2):
+        tl = [512 * kvp, 512 * kvp + 1, 300 * kvp, 700 * kvp]
+        t = _groups_case(np.random.default_rng(40 + kvp), b=4, qh=4, kh=2,
+                         hsz=32, ps=RR, kvp=kvp, tl=tl, gid=(0, 0, 2, 0),
+                         shared={0: shared}, mp=44, quant=quant)
+        rng = np.random.default_rng(50 + kvp)
+        kn = torch.from_numpy(rng.standard_normal((4, 2, 32)).astype(
+            np.float32))
+        for window in ((0,) if kvp == 1 else (300,)):
+            kw = dict(kvp=kvp, n_ranks=kvp, rank=0, rr_block=RR,
+                      window=window, block_tables=t["tab"])
+
+            def run(**extra):
+                kv = [x.clone() for x in t["kv"]]
+                sc = {k: v.clone() for k, v in t["scales"].items()}
+                o = flash_decode_shards(t["q"], *kv, t["tl"], k_new=kn,
+                                        v_new=kn, **sc, **kw, **extra)
+                return o, kv + list(sc.values())
+
+            (og, lg), pg = run(groups=t["groups"])
+            (of, lf), pf = run()
+            (od, ld), pd = run(groups=t["groups"], prune=False)
+            assert torch.equal(og, of) and torch.equal(lg, lf)
+            assert torch.equal(og, od) and torch.equal(lg, ld)
+            assert all(torch.equal(a, b) and torch.equal(a, d)
+                       for a, b, d in zip(pg, pf, pd))
+        sc = t["scales"]
+        kw = dict(kvp=kvp, n_ranks=kvp, rank=0, rr_block=RR, **sc)
+        chunks = prefix_pass(t["q"], *t["kv"], t["tl"], t["tab"],
+                             *t["groups"], chunks=True, **kw)
+        folded = prefix_pass(t["q"], *t["kv"], t["tl"], t["tab"],
+                             *t["groups"], **kw)
+        r, b, kh, c, g, hsz = chunks[0].shape
+        assert c == 3
+        want = merge_chunks((chunks[0].reshape(r * b * kh, c, g, hsz),
+                             *(x.reshape(r * b * kh, c, g)
+                               for x in chunks[1:])))
+        assert all(torch.equal(x.reshape(y.shape), y)
+                   for x, y in zip(folded, want))
+        resumed = flash_decode_shards(t["q"], *t["kv"], t["tl"],
+                                      block_tables=t["tab"],
+                                      groups=t["groups"],
+                                      prefix_state=chunks, **kw)
+        grouped = flash_decode_shards(t["q"], *t["kv"], t["tl"],
+                                      block_tables=t["tab"],
+                                      groups=t["groups"], **kw)
+        assert all(torch.equal(x, y) for x, y in zip(resumed, grouped))
+        if kvp == 1:
+            jsc = {k: v.numpy() for k, v in sc.items()}
+            jo, jl = jax_flash_decode(
+                t["q"].numpy(), *(x.numpy() for x in t["kv"]),
+                t["tl"].numpy(), 0, kvp=1, rr_block=RR,
+                block_tables=t["tab"].numpy(),
+                groups=tuple(x.numpy() for x in t["groups"]),
+                interpret=True, **jsc)
+            np.testing.assert_allclose(grouped[0][0].numpy(), np.asarray(jo),
+                                       atol=ATOL, rtol=RTOL)
+            np.testing.assert_allclose(grouped[1][0].numpy(), np.asarray(jl),
+                                       atol=ATOL, rtol=RTOL)
 
 
 def _fixed_of(t, kvp):
