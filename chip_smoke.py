@@ -13,7 +13,8 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    fused == unfused append, bit for bit, in the fp and the int8 mode of
    flash_decode, and the same lattice in its paged mode (a shuffled block
    table with 0 tails), where paged == fixed bit for bit as well;
-   w8a16_matmul at the lm_head shape and a ragged one; grouped decode
+   w8a16_matmul at the lm_head shape for M = 1, 2, 4 and 8, a K of 2053
+   (a ragged last step), a ragged N and M = 9 (two M tiles); grouped decode
    (prefix_pass, then flash_decode's grouped-suffix mode) against the
    ungrouped paged kernel bit for bit and the plain grouped decode within
    the tolerance, f32, bf16 and int8, kvp 1 and 4, windows 0 and 512, a
@@ -25,9 +26,12 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    fixed and grouped (split inside a chunk and a tile) == ungrouped bit for
    bit; ssd_prefill
    (the Mamba2 SSD scan) at mamba2-780m widths (nh 48, hd 64, ds 128) at
-   T = 64, 1024 and a ragged 37, from a nonzero state, two halves chained
-   through h_final == one pass, and two B/C groups read directly == the
-   repeated form, f32 and bf16 inputs; flash_prefill (bf16 on wgmma, f32
+   T = 1, 64, 65 (one token past a chunk), a ragged 37, 1024, B = 4 at T =
+   1024 and T = 4096 (a fold across 64 chunks), from a nonzero state; two
+   halves chained through h_final == one pass, bit for bit at a split on
+   the chunk grid (512) and within the tolerance off it (500); two B/C
+   groups read directly == the repeated form; f32 and bf16 inputs;
+   flash_prefill (bf16 on wgmma, f32
    on CUDA cores) fixed and paged (16-position pages, a shuffled table, a
    sink page of +-1e4) against the plain versions, windows 0 and 256,
    per-request offsets and lengths; paged == fixed bit for bit at pages
@@ -58,7 +62,8 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    checks: prefill logits and state of the ssd backends ``cuda`` and
    ``ref``, and prefill + 2 decode steps against ``forward`` over T + 2
    tokens.  Profiles of one 1024-token one-shot prefill of each model
-   (host wall, device time, the prefill kernel's share).  The paged mode
+   (host wall, device time, the prefill kernel's share; mamba2's go into
+   ssd_prefill's record as ``mamba2_prefill``).  The paged mode
    of flash_prefill, which no serving path of the JAX package calls, runs
    as one ragged chunk step over a 40-layer granite pool (40 launches,
    counted; every layer == the fixed layout bit for bit);
@@ -71,7 +76,8 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    4096 and at the serve shape (B = 4, lengths 700-1000), prefix_pass's at
    2 groups x 4 members; flash_prefill at B = 1, T = 1024 causal, fixed and
    paged (16-position pages), and at the chunk shape B = 4, T = 256 at
-   q_offset 0..768.
+   q_offset 0..768; w8a16_matmul at M = 4 with its CTAs;
+   ssd_prefill at B = 1, T = 1024 with its CTAs (one per chunk and head).
 
 The last lines are the card line, one JSON object of kernel records and
 ``{"ok": true, "device": {...}}``.
@@ -113,8 +119,11 @@ from repro_torch.kernels.flash_prefill.ref import (  # noqa: E402
     flash_prefill_paged_ref, flash_prefill_ref)
 from repro_torch.kernels.ssd_prefill import (  # noqa: E402
     ssd_prefill, ssd_prefill_plain, ssd_prefill_ref)
+from repro_torch.kernels.ssd_prefill.ops import chunk_spans  # noqa: E402
 from repro_torch.kernels.w8a16_matmul import (quantize_w8,  # noqa: E402
                                               w8a16_matmul, w8a16_matmul_ref)
+from repro_torch.kernels.w8a16_matmul.ops import (  # noqa: E402
+    blocks as w8a16_blocks)
 from repro_torch.launch.serve import (generate_rows,  # noqa: E402
                                      prompt_tokens, serve_demo)
 from repro_torch.models.decode_model import prepare_decode_params  # noqa: E402
@@ -722,8 +731,13 @@ def check_decode_chunks(dev, errs, errs_kv8):
 
 
 def check_w8a16(dev, errs):
+    """B3 vs plain at the lm_head shape for M = 1, 2, 4 and 8 (one pass over
+    the weights), a K of 2053 (a ragged last step, warps of unequal step
+    counts), a ragged N (byte loads) and M = 9 (two M tiles)."""
     g = torch.Generator(device=dev).manual_seed(6)
-    for m, k, n in ((4, D_MODEL, VP), (3, 200, 700)):
+    for m, k, n in ((1, D_MODEL, VP), (2, D_MODEL, VP), (4, D_MODEL, VP),
+                    (8, D_MODEL, VP), (4, 2053, VP), (3, 200, 700),
+                    (9, 130, 257)):
         qw, scale = quantize_w8(torch.randn(k, n, generator=g, device=dev))
         for dt in (torch.float32, torch.bfloat16):
             x = torch.randn(m, k, generator=g, device=dev).to(dt)
@@ -734,8 +748,8 @@ def check_w8a16(dev, errs):
             top = want.float().abs().max().item()
             errs.append(e)
             tag = f"w8a16 {str(dt)[6:]} M={m} K={k} N={n}"
-            print(f"  {tag}: max err {e:.3g} (|out| <= {top:.3g}, tol "
-                  f"{MM_TOL[dt]:g} x |out|)")
+            print(f"  {tag} ({w8a16_blocks(m, n)} CTAs): max err {e:.3g} (|out| <= "
+                  f"{top:.3g}, tol {MM_TOL[dt]:g} x |out|)")
             need(got.dtype == dt and got.shape == (m, n)
                  and e <= MM_TOL[dt] * top, f"{tag}: kernel disagrees")
 
@@ -839,16 +853,17 @@ def check_prefill(dev, errs, errs_paged):
         need(same, f"prefill {mode}: chunk rows != one-shot rows")
 
 
-def ssd_inputs(g, dev, b, t, dtype, groups=1):
-    """SSD scan inputs at mamba2-780m widths: x and B/C in ``dtype``, dt
-    softplus'd, a < 0, d = 1, and a nonzero initial state."""
+def ssd_inputs(g, dev, b, t, dtype, groups=1, nh=SSD_NH, hd=SSD_HD,
+               ds=SSD_DS):
+    """SSD scan inputs, at mamba2-780m widths unless given: x and B/C in
+    ``dtype``, dt softplus'd, a < 0, d = 1, and a nonzero initial state."""
     rnd = lambda *s: torch.randn(*s, generator=g, device=dev)
-    args = (rnd(b, t, SSD_NH, SSD_HD).to(dtype),
-            F.softplus(rnd(b, t, SSD_NH) - 1.0), -torch.exp(rnd(SSD_NH) * 0.3),
-            (rnd(b, t, groups, SSD_DS) * 0.5).to(dtype),
-            (rnd(b, t, groups, SSD_DS) * 0.5).to(dtype),
-            torch.ones(SSD_NH, device=dev))
-    return args, rnd(b, SSD_NH, SSD_HD, SSD_DS) * 0.2
+    args = (rnd(b, t, nh, hd).to(dtype),
+            F.softplus(rnd(b, t, nh) - 1.0), -torch.exp(rnd(nh) * 0.3),
+            (rnd(b, t, groups, ds) * 0.5).to(dtype),
+            (rnd(b, t, groups, ds) * 0.5).to(dtype),
+            torch.ones(nh, device=dev))
+    return args, rnd(b, nh, hd, ds) * 0.2
 
 
 def ssd_err(tag, got, want, errs):
@@ -866,34 +881,51 @@ def ssd_err(tag, got, want, errs):
 
 
 def check_ssd(dev, errs):
-    """ssd_prefill vs its plain version (and, for T <= 64, the sequential
-    oracle) at the serve widths; split == full and grouped == repeated."""
+    """ssd_prefill vs its plain version (and, for T <= 65, the sequential
+    oracle) at the serve widths: T = 1 and 65 (one token past a chunk), a
+    ragged 37, B = 4 at T = 1024 and a fold across 64 chunks (T = 4096);
+    two halves chained through h_final == one pass, bit for bit at a split
+    on the chunk grid (512) and within the tolerance off it (500); grouped
+    == repeated; states wider than the 8 warps' first round of 16 x 64
+    tiles (hd 128 ds 128, hd 64 ds 256: 16 tiles each)."""
     g = torch.Generator(device=dev).manual_seed(11)
     for dt in (torch.float32, torch.bfloat16):
-        for b, t in ((1, 64), (1, 1024), (2, 37)):
+        for b, t in ((1, 1), (1, 64), (1, 65), (2, 37), (1, 1024), (4, 1024),
+                     (1, 4096)):
             args, h0 = ssd_inputs(g, dev, b, t, dt)
             got = ssd_prefill(*args, h0=h0)
             want = ssd_prefill_plain(*args, h0=h0)
             torch.cuda.synchronize()
             tag = f"ssd {str(dt)[6:]} B={b} T={t}"
             msg = ssd_err(tag, got, want, errs)
-            if t <= 64:
+            if t <= 65:
                 msg += "; vs the sequential oracle " + ssd_err(
                     tag, got, ssd_prefill_ref(*args, h0=h0), errs)
-            print(f"  {tag} (nh {SSD_NH}, hd {SSD_HD}, ds {SSD_DS}, from a "
-                  f"nonzero state): max err {msg} (tol {SSD_TOL:g} x "
-                  "max(1, |want|))")
-            if t == 1024:
-                half = lambda v: (v[:, :512], v[:, 512:])
-                parts = [half(a) if a.ndim > 1 else (a, a) for a in args]
+            print(f"  {tag} (nh {SSD_NH}, hd {SSD_HD}, ds {SSD_DS}, "
+                  f"{len(chunk_spans(t, 64))} chunks, from a nonzero state): "
+                  f"max err {msg} (tol {SSD_TOL:g} x max(1, |want|))")
+            if (b, t) != (1, 1024):
+                continue
+            for cut in (512, 500):
+                parts = [(a[:, :cut], a[:, cut:]) if a.ndim > 1 else (a, a)
+                         for a in args]
                 y1, h1 = ssd_prefill(*(p[0].contiguous() for p in parts),
                                      h0=h0)
                 y2, h2 = ssd_prefill(*(p[1].contiguous() for p in parts),
                                      h0=h1)
                 torch.cuda.synchronize()
-                print(f"  {tag}: two halves chained through h_final vs one "
-                      "pass: " + ssd_err(tag + " split", (torch.cat(
-                          [y1, y2], 1), h2), got, errs))
+                two = (torch.cat([y1, y2], 1), h2)
+                if cut % 64 == 0:
+                    same = all(torch.equal(bits(u), bits(v))
+                               for u, v in zip(two, got))
+                    print(f"  {tag}: two halves split at {cut} (on the chunk"
+                          f" grid) chained through h_final == one pass bit "
+                          f"for bit: {same}")
+                    need(same, f"{tag}: split at {cut} != one pass")
+                else:
+                    print(f"  {tag}: two halves split at {cut} (off the "
+                          "chunk grid) chained through h_final vs one pass: "
+                          + ssd_err(f"{tag} split {cut}", two, got, errs))
         args, h0 = ssd_inputs(g, dev, 1, 300, dt, groups=2)
         x, dtv, a, bm, cm, d = args
         rep = lambda m: m.repeat_interleave(SSD_NH // 2, dim=2)
@@ -907,6 +939,14 @@ def check_ssd(dev, errs):
              f"{tag}: groups read directly != the repeated form")
         print(f"  {tag}: vs plain {msg}; == the repeated B/C form, bit for "
               "bit")
+        for hd, ds in ((128, 128), (64, 256)):
+            args, h0 = ssd_inputs(g, dev, 2, 200, dt, groups=2, nh=8, hd=hd,
+                                  ds=ds)
+            got = ssd_prefill(*args, h0=h0)
+            torch.cuda.synchronize()
+            tag = f"ssd {str(dt)[6:]} B=2 T=200 nh 8 hd {hd} ds {ds}"
+            print(f"  {tag}: vs plain " + ssd_err(
+                tag, got, ssd_prefill_plain(*args, h0=h0), errs))
 
 
 # ------------------------------------------------------------- phase 4
@@ -1074,11 +1114,11 @@ def serve_mamba(dev):
     print(f"  streams: {distinct} distinct tokens over the 8 requests "
           "(seeded random mamba2 collapses onto few tokens; not a check)")
     profile_decode(dev, cfg, model, HelixConfig())
-    profile_prefill(dev, cfg, model, HelixConfig(), "ssd_kernel",
-                    "ssd_prefill")
+    prof = profile_prefill(dev, cfg, model, HelixConfig(), "ssd_",
+                           "ssd_prefill")
     del model
     torch.cuda.empty_cache()
-    return {"counts": counts, "summ": summ}
+    return {"counts": counts, "summ": summ, "prefill": prof}
 
 
 def compare_mamba(dev):
@@ -1130,8 +1170,10 @@ def compare_mamba(dev):
 
 def profile_prefill(dev, cfg, model, hx, kernel, label):
     """Host wall time vs device time of one-shot prefills of 1024 tokens
-    (torch.profiler), and the share of the prefill kernel whose profiler
-    name contains ``kernel`` (``label`` in the output)."""
+    (torch.profiler), and the share of the prefill kernel's launches whose
+    profiler names contain ``kernel`` (``label`` in the output).  Returns
+    ``{"wall_ms", "device_ms", "kernel_ms", "share"}`` (device numbers None
+    when the profiler saw no device events)."""
     from torch.profiler import ProfilerActivity, profile
     g = torch.Generator(device=dev).manual_seed(14)
     toks = torch.randint(0, cfg.vocab, (1, 1024), generator=g, device=dev)
@@ -1157,9 +1199,12 @@ def profile_prefill(dev, cfg, model, hx, kernel, label):
               f"{device / wall:.3f}, {label} {mine:.2f} ms "
               f"({cfg.n_layers} launches, {mine / device:.3f} of the device "
               "time)")
-    else:
-        print(f"  {cfg.name} prefill profile: host wall {wall:.2f} ms; "
-              "device time not measured (the profiler saw no device events)")
+        return {"wall_ms": wall, "device_ms": device, "kernel_ms": mine,
+                "share": mine / device}
+    print(f"  {cfg.name} prefill profile: host wall {wall:.2f} ms; "
+          "device time not measured (the profiler saw no device events)")
+    return {"wall_ms": wall, "device_ms": None, "kernel_ms": None,
+            "share": None}
 
 
 def paged_prefill_path(dev):
@@ -1642,7 +1687,10 @@ def times(dev):
     lib, lib_fn = w8a16_library(x, qw, sc)
     mm = {**timed(lambda: w8a16_matmul(x, qw, sc)),
           "plain_ms": time_ms(lambda: w8a16_matmul_ref(x, qw, sc), iters=10),
-          "library_ms": queued_ms(lib_fn), "library": lib}
+          "library_ms": queued_ms(lib_fn), "library": lib,
+          "ctas": w8a16_blocks(m, n),
+          "device_ms": device_ms(lambda: w8a16_matmul(x, qw, sc),
+                                 "w8a16_kernel")}
     mbytes = kd * n + n * 4 + m * kd * es + m * n * es
     mm.update(_bound(mbytes, 2 * m * kd * n, PEAK[dt]))
     # prefill at B=1, T=1024 causal (the longest serve prompt)
@@ -1715,7 +1763,8 @@ def times(dev):
                         ("flash_prefill_chunks", "B=4 T=256 at q_offset "
                                                  "0/256/512/768, S=1024, "
                                                  "causal bf16"),
-                        ("w8a16_matmul", f"M={m} K={kd} N={n} bf16 x")):
+                        ("w8a16_matmul", f"M={m} K={kd} N={n} bf16 x, "
+                                         f"{mm['ctas']} CTAs")):
         r = out[name]
         lib_ms = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
@@ -1882,16 +1931,20 @@ def times_grouped(dev):
 def times_ssd(dev):
     """ssd_prefill at the serve shape: B = 1, T = 1024, nh 48, hd 64, ds
     128, lc 64, bf16 x/B/C (a bf16 model's conv output), f32 dt and a fresh
-    prompt's zero state, as ``models/ssm.ssd_chunked`` passes them."""
+    prompt's zero state, as ``models/ssm.ssd_chunked`` passes them; with
+    its working CTAs."""
     g = torch.Generator(device=dev).manual_seed(15)
     b, t, lc = 1, 1024, 64
     args, _ = ssd_inputs(g, dev, b, t, torch.bfloat16)
     h0 = torch.zeros(b, SSD_NH, SSD_HD, SSD_DS, device=dev)
-    r = {**timed(lambda: ssd_prefill(*args, h0=h0)),
+    call = lambda: ssd_prefill(*args, h0=h0)
+    r = {**timed(call),
          "plain_ms": time_ms(lambda: ssd_prefill_plain(*args, h0=h0),
                              iters=10),
          "library_ms": None,
-         "library": "none: no single PyTorch call computes the SSD scan"}
+         "library": "none: no single PyTorch call computes the SSD scan",
+         "device_ms": device_ms(call, "ssd_chunk_kernel"),
+         "ctas": b * SSD_NH * len(chunk_spans(t, lc))}
     state = SSD_NH * SSD_HD * SSD_DS * 4
     nbytes = b * (t * SSD_NH * SSD_HD * 2           # x (bf16)
                   + t * SSD_NH * 4                  # dt
@@ -1904,8 +1957,10 @@ def times_ssd(dev):
     ops = b * SSD_NH * (t // lc) * 2 * (lc * lc * SSD_DS + lc * lc * SSD_HD
                                         + 2 * lc * SSD_DS * SSD_HD)
     r.update(_bound(nbytes, ops, PEAK[torch.bfloat16]))
-    print(f"  ssd_prefill B=1 T=1024 nh 48 hd 64 ds 128 lc 64, bf16 x/B/C: "
-          f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+    print(f"  ssd_prefill B=1 T=1024 nh 48 hd 64 ds 128 lc 64, bf16 x/B/C, "
+          f"{r['ctas']} CTAs (one per chunk and head): kernel {r['ms']:.4f} "
+          f"ms (host-bound {r['host_ms']:.4f} ms, kernel records "
+          f"{fmt_ms(r['device_ms'])}), plain {r['plain_ms']:.4f} ms, library "
           f"none, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return r
 
@@ -2004,6 +2059,7 @@ def main() -> int:
     print(f"== 5 times (t = {time.perf_counter() - T0:.1f} s)")
     timed = times(dev)
     timed["ssd_prefill"] = times_ssd(dev)
+    timed["ssd_prefill"]["mamba2_prefill"] = mamba["prefill"]
 
     # launches: each kernel's count in the run of the path it serves
     fp, int8 = runs["fp"][0]["counts"], runs["int8"][0]["counts"]

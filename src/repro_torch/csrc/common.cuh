@@ -1,6 +1,7 @@
-// Shared helpers of the port's attention kernels: 16-byte vector loads
-// converted to float, float <-> storage-type conversion, floor division and
-// the finite -inf the reference uses (repro_torch/utils.py NEG_INF).
+// Shared helpers of the port's kernels: 16-byte vector loads converted to
+// float, float <-> storage-type conversion, the bf16 tensor-core product,
+// floor division and the finite -inf the reference uses
+// (repro_torch/utils.py NEG_INF).
 #pragma once
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -50,6 +51,17 @@ __device__ __forceinline__ void unpack(const uint4& u, float* f, int8_t) {
   for (int i = 0; i < 16; ++i)
     f[i] = __uint_as_float(__byte_perm(w[i / 4], 0x4B000000u, 0x7540u + i % 4))
            - 8388736.0f;
+}
+
+// d += a b on the tensor cores: mma.sync m16n8k16, A row-major 16x16 bf16
+// (a0..a3), B column-major 16x8 bf16 (b0, b1), f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 __device__ __forceinline__ int floordiv(int a, int b) {

@@ -4,6 +4,8 @@ PyTorch version.
 
 Tensors on the CPU take the plain version (``ssd_prefill_plain``, the SSD
 block-matrix form in f32); CUDA tensors launch the kernel or raise.  Both
+cut the tokens into the same chunks (``chunk_spans``), each of which gets
+its own state and decay before the states are folded in chunk order.  Both
 take B/C either group-expanded (``[B, T, nh, ds]``, the reference's form)
 or per group (``[B, T, G, ds]``, head h reading group ``h // (nh / G)``):
 the products are the same, the kernel just reads the group's row.  A
@@ -13,6 +15,7 @@ in the plain version, which leaves the state untouched on padded steps.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -21,13 +24,16 @@ from repro_torch.kernels import build
 from repro_torch.utils import round_up
 
 counter = build.Launches()
+MAX_CHUNK = 64          # tokens per chunk the kernel's blocks hold (csrc LC)
+_ctrl: dict[tuple[int, int], torch.Tensor] = {}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
+@functools.lru_cache(maxsize=None)
 def _bind(lib):
     fn = lib.ssd_prefill_launch
-    fn.argtypes = ([_P, _L, _L] * 3 + [_P] * 6 + [_I] * 8 + [_P])
+    fn.argtypes = ([_P, _L, _L] * 3 + [_P] * 8 + [_I] * 9 + [_P])
     fn.restype = _I
     lib.kernel_error_string.argtypes = [_I]
     lib.kernel_error_string.restype = ctypes.c_char_p
@@ -38,6 +44,27 @@ def chunk_len(lc: int, t: int) -> int:
     """The chunk the scan runs at: ``lc``, cut to ``t`` rounded up to 8
     (the reference wrapper's rule)."""
     return min(lc, round_up(t, 8))
+
+
+def chunk_spans(t: int, lc: int) -> list[tuple[int, int]]:
+    """``(start, length)`` of each chunk of a ``t``-token call: chunks of
+    ``chunk_len(lc, t)`` tokens at absolute multiples of it from the call's
+    first token, the last one ragged.  The kernel's blocks take chunk c at
+    ``c * lc`` for ``min(lc, t - c * lc)`` tokens, the same partition."""
+    c = chunk_len(lc, t)
+    return [(s, min(c, t - s)) for s in range(0, t, c)]
+
+
+def _control(dev, stream: int, heads: int):
+    """The kernel's control buffer on ``dev`` for launches on ``stream``:
+    [0] the blocks' ticket, [1 + b * nh + h] the chunks of (b, h) handed
+    on.  Zeroed when made; every launch leaves it zeroed."""
+    key = (dev.index, stream)
+    buf = _ctrl.get(key)
+    if buf is None or buf.numel() < 1 + heads:
+        buf = torch.zeros(1 + max(heads, 256), dtype=torch.int32, device=dev)
+        _ctrl[key] = buf
+    return buf
 
 
 def _check(x, dt, a, bmat, cmat, d, h0):
@@ -58,11 +85,35 @@ def _check(x, dt, a, bmat, cmat, d, h0):
             f"{None if h0 is None else tuple(h0.shape)}")
 
 
+def chunk_cumsum(v):
+    """Inclusive cumsum over the last axis in the kernel's order: the
+    values zero-padded to ``MAX_CHUNK`` (or the next power of two above
+    it, which only the plain version takes), pairs ``v[2l] + v[2l+1]``, a
+    Hillis-Steele scan of the pair sums (``s[l] += s[l - o]`` for o = 1, 2,
+    4, ...), then ``e[l] + v[2l]`` and ``+ v[2l+1]`` with ``e`` the scan
+    shifted by one.  Returns the padded sums; the last is the chunk's
+    total.  The order matters beyond the last bits: ``exp(cum_i - cum_j)``
+    takes differences of sums of up to ~50 in magnitude, whose rounding is
+    ~4e-6 of a decay factor."""
+    n = max(MAX_CHUNK, 1 << (v.shape[-1] - 1).bit_length())
+    v = F.pad(v, (0, n - v.shape[-1]))
+    v0, v1 = v[..., 0::2], v[..., 1::2]
+    s = v0 + v1
+    o = 1
+    while o < n // 2:
+        s = torch.cat([s[..., :o], s[..., o:] + s[..., :-o]], dim=-1)
+        o *= 2
+    e = torch.cat([torch.zeros_like(s[..., :1]), s[..., :-1]], dim=-1)
+    c0 = e + v0
+    return torch.stack([c0, c0 + v1], dim=-1).flatten(-2)
+
+
 def ssd_prefill_plain(x, dt, a, bmat, cmat, d, *, h0=None, lc: int = 64):
     """The SSD block-matrix form in f32 (the reference's ``ssd_chunked``
     ``ref`` core): per chunk of ``lc`` tokens the intra-chunk product
     ``tril(C Bᵀ ∘ exp(cum_i - cum_j)) · diag(dt) · X``, the inter-chunk
-    term ``exp(cum) ∘ (C · h_in)`` and the carried state.  Shapes as
+    term ``exp(cum) ∘ (C · h_in)`` and the carried state, folded in chunk
+    order; ``cum`` in the kernel's order (``chunk_cumsum``).  Shapes as
     ``ssd_prefill``."""
     _check(x, dt, a, bmat, cmat, d, h0)
     b, t, nh, hd = x.shape
@@ -76,7 +127,9 @@ def ssd_prefill_plain(x, dt, a, bmat, cmat, d, *, h0=None, lc: int = 64):
     bf = F.pad(bmat.float(), (0, 0, 0, 0, 0, pad)).reshape(b, nc, lc, g, ds)
     cf = F.pad(cmat.float(), (0, 0, 0, 0, 0, pad)).reshape(b, nc, lc, g, ds)
     dtf = F.pad(dt.float(), (0, 0, 0, pad)).reshape(b, nc, lc, nh)
-    cum = torch.cumsum(dtf * a.float(), dim=2)              # [B,nc,lc,nh]
+    cum64 = chunk_cumsum((dtf * a.float()).transpose(2, 3))  # [B,nc,nh,>=64]
+    cum = cum64[..., :lc].transpose(2, 3)                   # [B,nc,lc,nh]
+    cum_last = cum64[..., -1]                               # [B,nc,nh]
 
     # intra-chunk: w[i,j] = C_i·B_j exp(cum_i - cum_j) dt_j  (i >= j); the
     # masked exponents are zeroed before exp (they are positive there)
@@ -90,10 +143,10 @@ def ssd_prefill_plain(x, dt, a, bmat, cmat, d, *, h0=None, lc: int = 64):
     y_intra = torch.einsum("bchij,bcjhp->bcihp", w, xf)
 
     # chunk states: S_c = sum_j exp(cum_last - cum_j) dt_j B_j ⊗ x_j
-    seg = torch.exp(cum[:, :, -1:, :] - cum) * dtf          # [B,nc,lc,nh]
+    seg = torch.exp(cum_last[:, :, None, :] - cum) * dtf    # [B,nc,lc,nh]
     bh = bf.repeat_interleave(hpg, dim=3)                   # [B,nc,lc,nh,ds]
     dbx = torch.einsum("bcjhn,bcjhp->bchpn", bh * seg[..., None], xf)
-    chunk_decay = torch.exp(cum[:, :, -1, :])               # [B,nc,nh]
+    chunk_decay = torch.exp(cum_last)                       # [B,nc,nh]
     h = (torch.zeros(b, nh, hd, ds, device=x.device) if h0 is None
          else h0.float())
     h_in = []
@@ -127,7 +180,11 @@ def ssd_prefill(x, dt, a, bmat, cmat, d, *, h0=None, lc: int = 64):
     The kernel takes x/B/C in f32 or bf16 (one type for the three), with
     any batch and token strides as long as each token's heads and channels
     are contiguous (slices of the projection, as ``models/ssm`` passes
-    them); dt, a, d and h0 are f32 and contiguous."""
+    them), hd and ds multiples of 16 and a chunk of at most 64 tokens;
+    dt, a, d and h0 are f32 and contiguous.  The wrapper allocates the
+    kernel's workspace, the states its blocks hand on ([B, nh, 2, hd, ds]
+    f32), and keeps one zeroed control buffer per device and stream (the
+    blocks' ticket and hand-on flags, which every launch leaves zeroed)."""
     _check(x, dt, a, bmat, cmat, d, h0)
     if build.route(x, dt, a, bmat, cmat, d, h0) == "plain":
         return ssd_prefill_plain(x, dt, a, bmat, cmat, d, h0=h0, lc=lc)
@@ -144,20 +201,30 @@ def ssd_prefill(x, dt, a, bmat, cmat, d, *, h0=None, lc: int = 64):
     if not all(_inner_contiguous(s) for s in (x, bmat, cmat)):
         raise ValueError("ssd_prefill kernel needs each token's heads and "
                          "channels of x/B/C contiguous")
+    lc = chunk_len(lc, t)
+    if hd % 16 or ds % 16 or lc > MAX_CHUNK:
+        raise ValueError(f"ssd_prefill kernel needs hd and ds multiples of 16 "
+                         f"and a chunk of at most {MAX_CHUNK} tokens (got hd "
+                         f"{hd}, ds {ds}, chunk {lc})")
     y = torch.empty((b, t, nh, hd), dtype=torch.float32, device=x.device)
     h = torch.empty((b, nh, hd, ds), dtype=torch.float32, device=x.device)
     if t == 0 or b == 0:
         if h0 is None:
             return y, h.zero_()
         return y, h.copy_(h0)
+    nc = len(chunk_spans(t, lc))
+    ring = torch.empty(b * nh * 2 * hd * ds, dtype=torch.float32,
+                       device=x.device)
+    stream = build.stream(x.device)
+    ctrl = _control(x.device, stream, b * nh)
     lib = build.load("ssd_prefill")
     rc = _bind(lib)(
         build.ptr(x), x.stride(0), x.stride(1),
         build.ptr(bmat), bmat.stride(0), bmat.stride(1),
         build.ptr(cmat), cmat.stride(0), cmat.stride(1),
         build.ptr(dt), build.ptr(a), build.ptr(d), build.ptr(h0),
-        build.ptr(y), build.ptr(h), b, t, nh, hd, g, ds, chunk_len(lc, t),
-        code, build.stream())
+        build.ptr(y), build.ptr(h), build.ptr(ring), build.ptr(ctrl), b, t,
+        nh, hd, g, ds, lc, nc, code, stream)
     build.check(rc, lib, "ssd_prefill")
     counter.n += 1
     return y, h

@@ -8,6 +8,7 @@ edges itself, so nothing is padded here.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -17,8 +18,10 @@ from repro_torch.kernels.w8a16_matmul.ref import w8a16_matmul_ref
 counter = build.Launches()
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+TILE_N, TILE_M = 128, 8   # a block's columns and x rows (csrc TN, TM)
 
 
+@functools.lru_cache(maxsize=None)
 def _bind(lib):
     fn = lib.w8a16_matmul_launch
     fn.argtypes = [_P] * 4 + [_I] * 4 + [_P]
@@ -26,6 +29,12 @@ def _bind(lib):
     lib.kernel_error_string.argtypes = [_I]
     lib.kernel_error_string.restype = ctypes.c_char_p
     return fn
+
+
+def blocks(m: int, n: int) -> int:
+    """Blocks of one launch: 128-column tiles x M tiles of 8 rows (the
+    kernel's grid; each block takes all of K)."""
+    return -(-n // TILE_N) * -(-m // TILE_M)
 
 
 def w8a16_matmul(x, qw, scale):

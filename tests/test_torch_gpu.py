@@ -109,7 +109,8 @@ def test_serve_on_card_matches_cpu_and_counts_launches(h100):
 @pytest.mark.gpu
 def test_w8a16_kernel_matches_plain_on_card(h100):
     g = torch.Generator(device=h100).manual_seed(1)
-    for m, k, n in ((4, 2048, 49664), (3, 200, 700), (9, 130, 257)):
+    for m, k, n in ((4, 2048, 49664), (8, 2048, 49664), (4, 2053, 49664),
+                    (3, 200, 700), (9, 130, 257)):
         x = torch.randn(m, k, generator=g, device=h100)
         qw, scale = quantize_w8(torch.randn(k, n, generator=g, device=h100))
         got = w8a16_matmul(x, qw, scale)
@@ -269,14 +270,18 @@ def test_grouped_decode_kernels_match_plain_and_ungrouped_on_card(h100, quant):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("hd,ds", [(64, 128), (128, 128), (64, 256)],
+                         ids=["serve", "hd128", "ds256"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-def test_ssd_prefill_kernel_matches_plain_on_card(h100, dtype):
+def test_ssd_prefill_kernel_matches_plain_on_card(h100, dtype, hd, ds):
     """The SSD scan kernel vs its plain version at the serve widths (hd 64,
-    ds 128), a ragged T with two groups of B/C and an initial state, and
-    two halves chained through h_final == one pass."""
+    ds 128) and at states of 16 tiles of 16 x 64 (twice the 8 warps), a
+    ragged T with two groups of B/C and an initial state; two halves
+    chained through h_final == one pass, bit for bit at a split on the
+    chunk grid (64) and within the tolerance off it (100)."""
     g = torch.Generator(device=h100).manual_seed(5)
-    b, t, nh, hd, ds = 2, 200, 8, 64, 128
+    b, t, nh = 2, 200, 8
     rnd = lambda *s: torch.randn(*s, generator=g, device=h100)
     x = rnd(b, t, nh, hd).to(dtype)
     dt = torch.nn.functional.softplus(rnd(b, t, nh) - 1.0)
@@ -291,13 +296,18 @@ def test_ssd_prefill_kernel_matches_plain_on_card(h100, dtype):
     for got, want in ((y, yp), (h, hp)):
         tol = 2e-4 * max(1.0, want.abs().max().item())
         assert (got - want).abs().max().item() <= tol
-    y1, h1 = ssd_prefill(x[:, :64], dt[:, :64].contiguous(), a, bm[:, :64],
-                         cm[:, :64], d, h0=h0)
-    y2, h2 = ssd_prefill(x[:, 64:], dt[:, 64:].contiguous(), a, bm[:, 64:],
-                         cm[:, 64:], d, h0=h1)
-    torch.testing.assert_close(torch.cat([y1, y2], 1), y, atol=2e-4,
-                               rtol=2e-4)
-    torch.testing.assert_close(h2, h, atol=2e-4, rtol=2e-4)
+    for cut in (64, 100):
+        y1, h1 = ssd_prefill(x[:, :cut], dt[:, :cut].contiguous(), a,
+                             bm[:, :cut], cm[:, :cut], d, h0=h0)
+        y2, h2 = ssd_prefill(x[:, cut:], dt[:, cut:].contiguous(), a,
+                             bm[:, cut:], cm[:, cut:], d, h0=h1)
+        if cut % 64 == 0:
+            assert torch.equal(torch.cat([y1, y2], 1), y)
+            assert torch.equal(h2, h)
+        else:
+            torch.testing.assert_close(torch.cat([y1, y2], 1), y, atol=2e-4,
+                                       rtol=2e-4)
+            torch.testing.assert_close(h2, h, atol=2e-4, rtol=2e-4)
 
 
 def _pool(x, tab, n_pool, page, garbage):

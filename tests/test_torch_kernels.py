@@ -23,6 +23,7 @@ from repro.kernels.flash_prefill.ops import flash_prefill as jax_flash_prefill
 from repro.kernels.flash_prefill.kernel import \
     prefill_block_range as jax_prefill_range
 from repro.kernels.pruning import phys_block as jax_phys_block
+from repro.utils import round_up as jax_round_up
 
 from repro_torch.core.helix import append_kv
 from repro_torch.core.kvcache import quantize_decode_state, state_to_paged
@@ -32,6 +33,8 @@ from repro_torch.kernels.flash_decode.ops import decode_chunks
 from repro_torch.kernels.flash_decode.ref import (CHUNK_S, TILE_S,
                                                   cold_state, merge_chunks)
 from repro_torch.kernels.flash_prefill import flash_prefill
+from repro_torch.kernels.ssd_prefill import ssd_prefill
+from repro_torch.kernels.ssd_prefill.ops import chunk_len, chunk_spans
 
 ATOL = RTOL = 2e-5      # f32, different summation order (see module doc)
 B, QH, KH, HSZ, S_LOC, RR = 4, 4, 2, 32, 64, 16
@@ -260,6 +263,24 @@ def test_decode_chunk_partition_matches_reference_spans():
     gid = torch.tensor([0, 0, 0, 0, 4, 4, 4, 4], dtype=torch.int32)
     assert pruning.prefix_work_items(gid, torch.full((8,), 256), n_ranks=1,
                                      kv_heads=8, page_rows=16) == 256
+
+
+# -------------------------------- host partitions of B3 and B5's launches
+@pytest.mark.parametrize("lc", [32, 64])
+@pytest.mark.parametrize("t", [1, 7, 8, 37, 64, 65, 96, 1024, 4097])
+def test_ssd_chunk_spans_cover_t_in_order(t, lc):
+    """The chunks of ssd_prefill, as the kernel's blocks take them: the
+    reference wrapper's chunk (``min(lc, round_up(t, 8))``) and count
+    (``round_up(t, chunk) / chunk``), back to back from token 0 to t, every
+    chunk full but a ragged last one."""
+    spans = chunk_spans(t, lc)
+    c = min(lc, jax_round_up(t, 8))
+    assert chunk_len(lc, t) == c
+    assert len(spans) == jax_round_up(t, c) // c
+    assert spans[0][0] == 0 and spans[-1][0] + spans[-1][1] == t
+    for (s0, n0), (s1, _) in zip(spans, spans[1:]):
+        assert s0 + n0 == s1 and n0 == c
+    assert 1 <= spans[-1][1] <= c
 
 
 def _partials(rng, n, c, r, hsz):
@@ -526,6 +547,11 @@ def test_wrappers_never_take_plain_path_off_cpu():
         flash_prefill(qp, pool, pool,
                       block_tables=torch.zeros(1, 2, dtype=torch.int32),
                       seq_lens=lens)
+    meta = lambda *s, dt=torch.float32: torch.zeros(*s, dtype=dt,
+                                                     device="meta")
+    with pytest.raises(ValueError):
+        ssd_prefill(meta(1, 8, 2, 16), meta(1, 8, 2), meta(2),
+                    meta(1, 8, 1, 16), meta(1, 8, 1, 16), meta(2))
     assert build.route(torch.zeros(1)) == "plain"
 
 

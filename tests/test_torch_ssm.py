@@ -34,6 +34,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core.sharding import HelixConfig
 from repro_torch.kernels.ssd_prefill import (ssd_prefill, ssd_prefill_plain,
                                              ssd_prefill_ref)
+from repro_torch.kernels.ssd_prefill.ops import chunk_cumsum
 from repro_torch.launch.serve import serve_demo
 from repro_torch.models import ssm
 from repro_torch.models.model_zoo import build_serve_step, make_prefill_step
@@ -132,21 +133,24 @@ def _expand(v, nh):
     return np.repeat(v, nh // v.shape[2], axis=2)
 
 
-SCAN_CASES = ["multiple", "ragged", "h0", "split", "groups2"]
+SCAN_CASES = ["multiple", "ragged", "h0", "split", "groups2", "one-token",
+              "past-chunk"]
 
 
 @pytest.mark.parametrize("case", SCAN_CASES)
 def test_ssd_prefill_plain_matches_reference(case):
-    """The port's plain scan vs the reference's sequential oracle and its
-    interpreted Pallas kernel: T a multiple of lc, a ragged T <= 64 (padded
-    with dt = 0), an initial state, two halves chained through h_final ==
-    one pass, and two groups of B/C read directly vs the repeated form."""
-    t = 37 if case == "ragged" else 96
+    """The port's plain scan (its cumsum in the kernel's order) vs the
+    reference's sequential oracle and its interpreted Pallas kernel: T a
+    multiple of lc, a ragged T <= 64 (padded with dt = 0), an initial
+    state, two halves chained through h_final == one pass, two groups of
+    B/C read directly vs the repeated form, T = 1, and T = 65 (one token
+    past a chunk of 64, from a state)."""
+    t = {"ragged": 37, "one-token": 1, "past-chunk": 65}.get(case, 96)
     inp = _scan_inputs(SCAN_CASES.index(case), t=t,
                        groups=2 if case == "groups2" else None)
     h0 = inp.pop("h0")
-    h0 = h0 if case in ("h0", "split") else None
-    lc = 64 if case == "ragged" else 32
+    h0 = h0 if case in ("h0", "split", "past-chunk") else None
+    lc = 64 if case in ("ragged", "one-token", "past-chunk") else 32
     nh = inp["x"].shape[2]
     jin = dict(inp, bmat=_expand(inp["bmat"], nh), cmat=_expand(inp["cmat"],
                                                                nh))
@@ -180,6 +184,26 @@ def test_ssd_prefill_plain_matches_reference(case):
     yo, ho = ssd_prefill_ref(*tfull.values(), h0=th0)
     _close(yo, want[0], SCAN_TOL)
     _close(ho, want[1], SCAN_TOL)
+
+
+@pytest.mark.parametrize("n", [1, 2, 37, 64, 100])
+def test_chunk_cumsum_is_the_inclusive_sum(n):
+    """The plain version's cumsum in the kernel's order (pairs, a scan of
+    the pair sums, then each pair's two prefixes): in f64 equal to the
+    sequential cumsum up to rounding, zero-padded to 64 (or the next power
+    of two past it) with the padded tail at the total; in f32 within a few
+    ulps of the sequential f32 sum."""
+    rng = np.random.default_rng(n)
+    v = torch.from_numpy(rng.standard_normal((3, n)) - 1.0)
+    got = chunk_cumsum(v)
+    assert got.shape[-1] == max(64, 1 << (n - 1).bit_length())
+    torch.testing.assert_close(got[..., :n], v.cumsum(-1), rtol=0,
+                               atol=1e-12)
+    torch.testing.assert_close(got[..., n:], v.sum(-1, keepdim=True).expand(
+        -1, got.shape[-1] - n), rtol=0, atol=1e-12)
+    v32 = v.float()
+    torch.testing.assert_close(chunk_cumsum(v32)[..., :n], v32.cumsum(-1),
+                               rtol=0, atol=8 * 2.0 ** -23 * n)
 
 
 # ------------------------------------------------------------ SSM block
