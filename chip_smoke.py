@@ -37,7 +37,9 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    per-request offsets and lengths; paged == fixed bit for bit at pages
    16 and 64; rows of 4 chunk calls (T 256 at q_offset 0..768) == the same
    rows of one T 1024 call bit for bit, fixed and paged; lens == 0 rows
-   zero in both layouts;
+   zero in both layouts; the on-device sampler (plain PyTorch) at B = 4,
+   V = 49155: threefry words, uniforms, Gumbel noise and tokens on the card
+   equal to its plain CPU run bit for bit;
 4. serve: granite-3-2b at full width (40 layers, bf16, seeded random
    weights) through ``serve_demo`` for the same 8 requests: the fp path and
    the int8 path (``HelixConfig(kv_cache_bits=8, lm_head_w8=True)``) in
@@ -48,7 +50,16 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    budgets 16-48, chunks of 256 from the paged pool: (a) unshared, (b)
    with prefix sharing, (c) with grouped decode as well, whose streams must
    be equal; and (d) the fp run's requests chunked on the fixed layout,
-   whose streams must equal the one-shot fp run's.  The launch counts of
+   whose streams must equal the one-shot fp run's.  Decode windows: the fp
+   run's requests with top-p sampling (T 0.9, p 0.85, seed 7) at window 1
+   and window 4 (one CUDA graph replay per window after one warm-up window
+   and the capture), window 4 from the paged pool, all three with equal
+   streams; greedy window 4 on the fp and on the int8 path, whose streams
+   must equal the one-step fp and int8 runs'; launch counts layers x 4 x
+   (windows + the warm-up); TTL, TTFT, tok/s, host ms per decoded token
+   and device ms per window (CUDA events) of each; one window replayed
+   from its graph == the eager window bit for bit over a full-width
+   state.  The launch counts of
    each run, set to 0 just before it, must equal layers x decode steps
    (flash_decode; int8 mode in the int8 runs, paged mode in the paged
    runs, grouped-suffix mode and prefix_pass in run c), layers x prefill
@@ -58,7 +69,9 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    agree, fp and int8.  Then mamba2-780m at full width (48 layers, bf16,
    seeded random weights) through ``serve_demo``: 8 requests of 256-1024
    tokens (multiples of 256, the reference's prompt-length contract), 32
-   new tokens each, ssd_prefill launched 48 x prefills; and 4-layer f32
+   new tokens each, ssd_prefill launched 48 x prefills, then the same
+   requests with top-p sampling at window 1 and 4 (equal streams) and one
+   graph window == eager over a full-width state; and 4-layer f32
    checks: prefill logits and state of the ssd backends ``cuda`` and
    ``ref``, and prefill + 2 decode steps against ``forward`` over T + 2
    tokens.  Profiles of one 1024-token one-shot prefill of each model
@@ -128,10 +141,12 @@ from repro_torch.launch.serve import (generate_rows,  # noqa: E402
                                      prompt_tokens, serve_demo)
 from repro_torch.models.decode_model import prepare_decode_params  # noqa: E402
 from repro_torch.models.model_zoo import (  # noqa: E402
-    build_serve_step, finalize_chunked_prefill, init_prefill_buffers,
-    make_chunk_prefill_step, make_prefill_step)
+    build_serve_multistep, build_serve_step, finalize_chunked_prefill,
+    init_prefill_buffers, make_chunk_prefill_step, make_prefill_step)
 from repro_torch.models.transformer import forward, init_params  # noqa: E402
+from repro_torch.serving import sampling  # noqa: E402
 from repro_torch.serving.engine import DecodeEngine  # noqa: E402
+from repro_torch.serving.graph import WindowRunner  # noqa: E402
 from repro_torch.serving.scheduler import DECODE, Request  # noqa: E402
 
 HBM_BPS = 3.35e12          # H100 SXM HBM3 bytes/s (data sheet)
@@ -160,6 +175,8 @@ QH, KH, HSZ, RR = 32, 8, 64, 16
 SSD_NH, SSD_HD, SSD_DS = 48, 64, 128    # mamba2-780m heads, head dim, state
 D_MODEL, VP = 2048, 49664           # granite-3-2b lm_head [d_model, padded vocab]
 KV8_W8 = HelixConfig(kv_cache_bits=8, lm_head_w8=True)
+WINDOW = 4                          # decode window of phase 4's window runs
+TOP_P = sampling.SamplingParams("top_p", temperature=0.9, top_p=0.85, seed=7)
 
 
 class SmokeFailure(RuntimeError):
@@ -949,6 +966,41 @@ def check_ssd(dev, errs):
                 tag, got, ssd_prefill_plain(*args, h0=h0), errs))
 
 
+def check_sampler(dev):
+    """The on-device sampler (plain PyTorch on the card: the JAX package
+    computes it outside any Pallas kernel) at the lm_head shape, B = 4,
+    V = 49155: its threefry words, uniforms and Gumbel noise on the card
+    equal its plain run on the CPU bit for bit, and so do its tokens over
+    greedy, top-k, top-p and top-k + top-p rows."""
+    gen = torch.Generator().manual_seed(21)
+    b, v = 4, 49155
+    seeds = torch.randint(0, 2**31 - 1, (b,), generator=gen)
+    idx = torch.randint(0, 5000, (b,), generator=gen).to(torch.int32)
+    key = sampling.fold_in(sampling.prng_key(seeds), idx)
+    bits = sampling.random_bits(key, v)
+    dbits = sampling.random_bits(sampling.fold_in(
+        sampling.prng_key(seeds.to(dev)), idx.to(dev)), v)
+    need(torch.equal(dbits.cpu(), bits), "sampler: threefry words differ")
+    need(torch.equal(sampling.uniform(dbits).cpu(), sampling.uniform(bits)),
+         "sampler: uniforms differ")
+    g_cpu = sampling.gumbel_noise(seeds, idx, v)
+    need(torch.equal(sampling.gumbel_noise(seeds.to(dev), idx.to(dev),
+                                           v).cpu(), g_cpu),
+         "sampler: Gumbel noise differs")
+    logits = torch.randn(b, v, generator=gen) * 3
+    args = (logits, torch.tensor([0.0, 0.9, 0.9, 1.1]),
+            torch.tensor([0, 20, 0, 50], dtype=torch.int32),
+            torch.tensor([1.0, 1.0, 0.85, 0.9]), seeds, idx)
+    want = sampling.sample_tokens(*args)
+    got = sampling.sample_tokens(*(a.to(dev) for a in args))
+    torch.cuda.synchronize()
+    need(torch.equal(got.cpu(), want),
+         f"sampler: tokens {got.tolist()} on the card, {want.tolist()} plain")
+    print(f"  sampler B {b} V {v}: threefry words, uniforms, Gumbel noise "
+          f"and tokens {got.tolist()} (greedy, top-k, top-p, both) equal to "
+          "the plain CPU run, bit for bit")
+
+
 # ------------------------------------------------------------- phase 4
 def serve_full(dev):
     """Every main path at full width, the same 8 requests each: fixed fp and
@@ -1064,10 +1116,146 @@ def serve_full(dev):
     print(f"  head quantization (quantize_w8 of [{D_MODEL}, {VP}]) alone: "
           f"peak {(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB"
           " above what was allocated before it")
+    runs.update(serve_windows(dev, cfg, model, runs))
     runs.update(serve_prefix(dev, cfg, model, runs["fp"][0]["streams"]))
     del model
     torch.cuda.empty_cache()
     return runs
+
+
+def window_figures(name, summ) -> str:
+    """One line of a serve run's figures: TTL, TTFT, tok/s, host ms per
+    decoded token, stream ms per step or window (CUDA events), syncs."""
+    ttl = summ["ttl_s"]
+    return (f"  {name}: TTL p50 {ttl['p50'] * 1e3:.2f} ms p95 "
+            f"{ttl['p95'] * 1e3:.2f} ms, TTFT p50 "
+            f"{summ['ttft_s']['p50'] * 1e3:.1f} ms, {summ['tok_s']:.1f} "
+            f"tok/s, host {summ['decode_host_ms_per_token']:.3f} ms per "
+            f"decoded token, device {summ['decode_device_ms']:.3f} ms per "
+            f"{'window' if summ['decode_window'] > 1 else 'step'} (events), "
+            f"{summ['decode_syncs']} syncs / {summ['decoded_tokens']} tokens "
+            f"= {summ['syncs_per_token']:.4f}, graphs "
+            f"{summ['graph_captures']} captured ({summ['graph_setup_s']:.2f} s "
+            f"with the warm-up window) {summ['graph_replays']} replayed")
+
+
+def window_run(dev, arch, model, name, reqs, want_counts, **kw):
+    """One ``serve_demo`` run for the window checks, counts set to 0 just
+    before it; every request must finish its budget, and with a window the
+    graph must carry every window after the first warm-up.  Returns
+    ``(streams, summary, counts)``."""
+    registry.reset_launch_counts()
+    fin, summ = serve_demo(arch, **reqs, max_batch=4, dtype=torch.bfloat16,
+                           device=dev, model=model, **kw)
+    counts = registry.launch_counts()
+    need(len(fin) == reqs["n_requests"]
+         and all(r.finish_reason == "max_tokens" for r in fin),
+         f"{name}: reasons {[r.finish_reason for r in fin]}")
+    n = summ["decode_window"]
+    calls = summ["decode_syncs"] + summ["graph_captures"]
+    if n > 1:
+        need(summ["graph_captures"] == 1
+             and summ["graph_replays"] == summ["decode_syncs"],
+             f"{name}: {summ['graph_captures']} captures, "
+             f"{summ['graph_replays']} replays, {summ['decode_syncs']} "
+             "windows")
+    want = want_counts(n * calls)
+    print(window_figures(name, summ))
+    print(f"    launches {counts} (expected {want}: decode steps = "
+          f"{n} x ({summ['decode_syncs']} windows + "
+          f"{summ['graph_captures']} warm-up))")
+    need(counts == want, f"{name}: launch counts {counts} != {want}")
+    need(summ["syncs_per_token"]
+         == summ["decode_syncs"] / summ["decoded_tokens"],
+         f"{name}: syncs_per_token {summ['syncs_per_token']}")
+    return {r.rid: r.out_tokens for r in fin}, summ, counts
+
+
+def graph_vs_eager(dev, cfg, model, hx, prompts):
+    """One window replayed from a captured graph against the eager window
+    over a full-width decode state (4 requests decoding, top-p rows, one
+    row frozen after 2 steps by its budget): outputs and every state leaf
+    equal bit for bit."""
+    eng = DecodeEngine(cfg, model, build_serve_step(cfg, hx),
+                       make_prefill_step(cfg, hx), max_batch=4,
+                       max_seq=max(len(p) for p in prompts) + 64, hx=hx,
+                       device=dev, sampling=TOP_P)
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=p, max_new_tokens=64))
+    eng.step()                  # admission, prefills and one decode step
+    need(all(r is not None and r.state == DECODE for r in eng.slots),
+         "graph vs eager: not every slot decoding")
+    n = WINDOW
+    ctl = (eng.cur_tokens.clone(),
+           torch.tensor([n, 2, n, n], dtype=torch.int32, device=dev),
+           torch.full((4,), -1, dtype=torch.int32, device=dev),
+           torch.zeros(4, n, dtype=torch.int32, device=dev),
+           torch.zeros(4, dtype=torch.int32, device=dev))
+    multistep = build_serve_multistep(cfg, hx, window=n)
+    eager = {k: v.clone() for k, v in eng.state.items()}
+    graph = {k: v.clone() for k, v in eng.state.items()}
+    del eng
+    runner = WindowRunner(multistep)
+    runner.prepare(model, graph, *ctl)
+    e_out, e_cur, e_new = multistep(model, eager, *ctl)
+    g_out, g_cur, g_new = runner(model, graph, *ctl)
+    torch.cuda.synchronize()
+    need(torch.equal(g_out, e_out) and torch.equal(g_cur, e_cur),
+         f"{cfg.name} graph vs eager: token blocks differ")
+    differ = [k for k in e_new if not torch.equal(g_new[k], e_new[k])]
+    need(not differ, f"{cfg.name} graph vs eager: leaves {differ} differ")
+    size = sum(v.numel() * v.element_size() for v in e_new.values())
+    print(f"  {cfg.name} window of {n} replayed from its CUDA graph == eager "
+          f"window bit for bit: tokens {g_out.tolist()}, all "
+          f"{len(e_new)} state leaves ({size / 2**20:.1f} MiB)")
+
+
+def serve_windows(dev, cfg, model, runs):
+    """Decode windows of 4 at full width, the fp run's 8 requests: top-p
+    (T 0.9, p 0.85, seed 7) at window 1 and 4 on the fixed layout, window 4
+    on the paged pool (streams equal to window 1's); greedy window 4 on the
+    fixed layout and on the int8 path, whose streams must equal the one-step
+    fp and int8 runs'.  Then one window from a graph vs eager."""
+    reqs = dict(n_requests=8, prompt_len=(128, 1024), max_new=32)
+    layers = cfg.n_layers
+
+    def counts(int8=False, paged=False):
+        return lambda steps: {
+            "flash_decode": layers * steps,
+            "flash_decode_kv8": layers * steps if int8 else 0,
+            "flash_decode_paged": layers * steps if paged else 0,
+            "flash_decode_grouped": 0, "prefix_pass": 0,
+            "flash_prefill": layers * reqs["n_requests"],
+            "flash_prefill_paged": 0, "w8a16_matmul": steps if int8 else 0,
+            "ssd_prefill": 0}
+
+    out = {}
+    plan = (("top-p w1", {}, 1, counts()), ("top-p w4", {}, WINDOW, counts()),
+            ("paged top-p w4", dict(paged_kv=True), WINDOW,
+             counts(paged=True)))
+    for name, extra, n, want in plan:
+        streams, summ, c = window_run(
+            dev, "granite-3-2b", model, name, reqs, want, sampling=TOP_P,
+            decode_window=n, seed=0, **extra)
+        out[name] = {"streams": streams, "summ": summ, "counts": c}
+        if n > 1:
+            need(streams == out["top-p w1"]["streams"],
+                 f"{name}: streams differ from window 1's")
+            print(f"    {name} streams equal to top-p w1's (8 of 8)")
+    for name, hx, ref in (("greedy w4", None, "fp"),
+                          ("int8 greedy w4", KV8_W8, "int8")):
+        streams, summ, c = window_run(
+            dev, "granite-3-2b", model, name, reqs,
+            counts(int8=hx is not None), hx=hx, decode_window=WINDOW, seed=0)
+        need(streams == runs[ref][0]["streams"],
+             f"{name}: streams differ from the one-step {ref} run's")
+        print(f"    {name} streams equal to the one-step {ref} run's "
+              "(8 of 8)")
+        out[name] = {"streams": streams, "summ": summ, "counts": c}
+    prompts = [prompt_tokens(r, cfg.vocab) for r in generate_rows(
+        4, prompt_len=(700, 1000), max_tokens=1, seed=3)]
+    graph_vs_eager(dev, cfg, model, HelixConfig(), prompts)
+    return {"windows": out}
 
 
 def serve_mamba(dev):
@@ -1116,9 +1304,24 @@ def serve_mamba(dev):
     profile_decode(dev, cfg, model, HelixConfig())
     prof = profile_prefill(dev, cfg, model, HelixConfig(), "ssd_",
                            "ssd_prefill")
+    # the same requests with top-p sampling at window 1 and 4
+    reqs = dict(n_requests=8, prompt_len=(1, 1024), prompt_multiple=256,
+                max_new=32)
+    zero = {name: 0 for name in counts}
+    want = lambda steps: dict(zero, ssd_prefill=cfg.n_layers * 8)  # noqa: E731
+    windows = {n: window_run(dev, "mamba2-780m", model, f"mamba2 top-p w{n}",
+                             reqs, want, sampling=TOP_P, decode_window=n,
+                             seed=0) for n in (1, WINDOW)}
+    need(windows[1][0] == windows[WINDOW][0],
+         "mamba2 top-p: window 4 streams differ from window 1's")
+    print(f"    mamba2 top-p w{WINDOW} streams equal to w1's (8 of 8)")
+    graph_vs_eager(dev, cfg, model, HelixConfig(),
+                   [prompt_tokens(r, cfg.vocab) for r in generate_rows(
+                       4, prompt_len=256, max_tokens=1, seed=3)])
     del model
     torch.cuda.empty_cache()
-    return {"counts": counts, "summ": summ, "prefill": prof}
+    return {"counts": counts, "summ": summ, "prefill": prof,
+            "windows": {n: w[1] for n, w in windows.items()}}
 
 
 def compare_mamba(dev):
@@ -2043,11 +2246,12 @@ def main() -> int:
     check_prefill(dev, errs["flash_prefill"], errs["flash_prefill_paged"])
     check_w8a16(dev, errs["w8a16_matmul"])
     check_ssd(dev, errs["ssd_prefill"])
+    check_sampler(dev)
 
     print(f"== 4 (t = {time.perf_counter() - T0:.1f} s) serve granite-3-2b "
           "(40 layers, bf16): fixed fp and int8, "
-          "paged fp and int8, paged fp under pool pressure; chunked, "
-          "prefix-shared and grouped runs")
+          "paged fp and int8, paged fp under pool pressure; decode "
+          "windows; chunked, prefix-shared and grouped runs")
     runs = serve_full(dev)
     compare_paths(dev)
     paged_pre = paged_prefill_path(dev)

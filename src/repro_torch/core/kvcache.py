@@ -24,6 +24,11 @@ from repro_torch.utils import round_up
 
 KV_BITS = (16, 8)
 CACHE_KEYS = ("kcache", "vcache", "kscale", "vscale")
+# the on-device sampler's per-row leaves and their types; the reference's
+# ``sample_seed`` is uint32, held here as int64 with the same values
+SAMPLING_TYPES = {"sample_temp": torch.float32, "sample_topk": torch.int32,
+                  "sample_topp": torch.float32, "sample_seed": torch.int64,
+                  "sample_idx": torch.int32}
 
 
 def cache_capacity(cfg_seq_len: int, kvp: int, rr_block: int) -> int:
@@ -95,20 +100,34 @@ def state_to_paged(state: dict, tables, n_pool: int, kvp: int,
     return out
 
 
+def sampling_leaf_shapes(batch: int) -> dict[str, tuple[int, ...]]:
+    """Shapes of the on-device sampler's leaves, one value per batch row
+    (types in ``SAMPLING_TYPES``): ``sample_temp``/``sample_topp`` f32,
+    ``sample_topk`` int32, ``sample_seed`` (the request's 32-bit seed, in
+    int64) and ``sample_idx`` int32 (tokens sampled so far, the ``fold_in``
+    counter; ``serving/sampling.py``).  A state holding ``sample_seed``
+    decodes through the sampler instead of the argmax."""
+    return {key: (batch,) for key in SAMPLING_TYPES}
+
+
 def decode_state_shapes(cfg: ArchConfig, batch: int, seq_len: int, kvp: int,
                         rr_block: int = 16, kv_bits: int = 16,
                         pool_blocks: int = 0, max_pages: int = 0,
-                        grouped: bool = False) -> dict[str, tuple[int, ...]]:
+                        grouped: bool = False,
+                        sampling: bool = False) -> dict[str, tuple[int, ...]]:
     """Shape of every decode-state leaf.  Attention archs: ``kcache``/
     ``vcache``; ``pool_blocks > 0`` makes them pool planes ``[L,
     pool_blocks, Kh, page, hsz]`` beside ``block_tables [batch, max_pages]``
     (``max_pages`` defaults to ``pool_blocks``), with ``grouped`` also the
     grouped decode's ``group_id``/``group_np`` [batch] int32 leaves.  SSM
     archs: ``ssm_conv [L, batch, conv_dim, ssm_conv-1]`` and ``ssm_state
-    [L, batch, nh, hd, ds]`` (both f32), and no KV leaf."""
+    [L, batch, nh, hd, ds]`` (both f32), and no KV leaf.  ``sampling`` adds
+    the sampler's [batch] leaves (``sampling_leaf_shapes``)."""
     if kv_bits not in KV_BITS:
         raise ValueError(f"kv_bits={kv_bits}; choose from {KV_BITS}")
     shapes = {"total_len": ()}
+    if sampling:
+        shapes.update(sampling_leaf_shapes(batch))
     if cfg.has_ssm:
         shapes["ssm_conv"] = (cfg.n_layers, batch, cfg.conv_dim,
                               cfg.ssm_conv - 1)
@@ -136,14 +155,16 @@ def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int, kvp: int,
                       rr_block: int = 16, *, dtype=torch.bfloat16,
                       device="cuda", total_len: int = 0,
                       kv_bits: int = 16, pool_blocks: int = 0,
-                      max_pages: int = 0, grouped: bool = False) -> dict:
+                      max_pages: int = 0, grouped: bool = False,
+                      sampling: bool = False) -> dict:
     """Zero-initialised decode state on ``device`` (``kv_bits=8``: int8
     caches and f32 scale planes; ``pool_blocks > 0``: the paged layout, with
     every table row parked on the sink page 0; ``grouped``: every row its
-    own group of no shared page, which decodes as ungrouped)."""
+    own group of no shared page, which decodes as ungrouped; ``sampling``:
+    the sampler's leaves, zeros, which decode greedily)."""
     shapes = decode_state_shapes(cfg, batch, seq_len, kvp, rr_block, kv_bits,
-                                 pool_blocks, max_pages, grouped)
-    types = {"kcache": torch.int8 if kv_bits == 8 else dtype,
+                                 pool_blocks, max_pages, grouped, sampling)
+    types = {**SAMPLING_TYPES, "kcache": torch.int8 if kv_bits == 8 else dtype,
              "kscale": torch.float32, "block_tables": torch.int32,
              "group_id": torch.int32, "group_np": torch.int32,
              "ssm_conv": torch.float32, "ssm_state": torch.float32}

@@ -74,6 +74,14 @@ def reset_launch_counts() -> None:
         c.n = 0
 
 
+def add_launch_counts(delta: dict[str, int]) -> None:
+    """Add ``delta`` (a difference of two ``launch_counts()``) to the
+    counters: a CUDA graph's replay launches what its capture counted."""
+    counters = _counters()
+    for name, n in delta.items():
+        counters[name].n += n
+
+
 def available(family: str, backend: str) -> tuple[bool, str]:
     """(usable on this host, reason).  ``cuda`` needs a CUDA device of
     compute capability 9.0 and a successful build of the family's kernel."""

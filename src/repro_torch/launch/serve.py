@@ -7,12 +7,18 @@ engine on one card (counterpart of the reference's ``launch/serve.py``).
 
 Runs on ``cuda`` unless ``--device cpu`` is given (the kernels' plain
 PyTorch versions then run).  Only the flags of the ported main path exist:
-one-shot or chunked prefill (``--chunk-tokens N``), greedy decoding,
-FCFS/SJF admission, batch arrivals, the fixed or the paged KV layout
-(``--paged-kv [--pool-blocks N]``), prefix sharing and grouped
-shared-prefix decode over prompts with a common head (``--prefix-share
---grouped-decode --shared-prefix-len N``, paged and chunked), and the int8
-lm_head (``--lm-head-w8 [--matmul-backend]``).  The int8 KV cache is
+one-shot or chunked prefill (``--chunk-tokens N``), FCFS/SJF admission,
+batch arrivals, the fixed or the paged KV layout (``--paged-kv
+[--pool-blocks N]``), prefix sharing and grouped shared-prefix decode over
+prompts with a common head (``--prefix-share --grouped-decode
+--shared-prefix-len N``, paged and chunked), the int8 lm_head
+(``--lm-head-w8 [--matmul-backend]``), on-device sampling (``--sampling
+greedy|temperature|top_k|top_p`` with ``--temperature``, ``--top-k``,
+``--top-p``; ``--seed`` keys the per-request streams) and decode windows
+(``--decode-window N``: N decode steps per engine step, one CUDA graph
+replay and one host sync per window on the card, streams equal to N = 1
+bit for bit; the summary carries ``syncs_per_token``).  Without
+``--sampling`` tokens are greedy.  The int8 KV cache is
 reached through ``serve_demo(hx=HelixConfig(kv_cache_bits=8, ...))``, as in
 the reference, which has no flag for it.
 
@@ -34,12 +40,14 @@ import torch
 from repro_torch.configs import get_config, list_archs
 from repro_torch.core.sharding import HelixConfig
 from repro_torch.kernels.registry import BACKENDS, backend_table
-from repro_torch.models.model_zoo import (build_serve_step,
+from repro_torch.models.model_zoo import (build_serve_multistep,
+                                          build_serve_step,
                                           chunked_prefill_supported,
                                           make_chunk_prefill_step,
                                           make_prefill_step)
 from repro_torch.models.transformer import init_params
 from repro_torch.serving import DecodeEngine, Request
+from repro_torch.serving.sampling import SAMPLING_KINDS, SamplingParams
 from repro_torch.serving.scheduler import POLICIES
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -96,7 +104,9 @@ def serve_demo(arch: str = "granite-3-2b", *, reduced: bool = False,
                grouped_decode: bool | None = None,
                chunk_tokens: int = 0, prefix_share: bool = False,
                shared_prefix_len: int = 0, prompt_multiple: int = 1,
-               sched_policy: str = "fcfs", dtype=torch.float32,
+               sched_policy: str = "fcfs", sampling=None,
+               temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0,
+               decode_window: int = 1, dtype=torch.float32,
                device="cuda", model=None, seed: int = 0, log=print):
     """Serve ``n_requests`` synthetic prompts through the engine.  Returns
     ``(finished Requests, metrics summary)``.
@@ -118,8 +128,15 @@ def serve_demo(arch: str = "granite-3-2b", *, reduced: bool = False,
     ``shared_prefix_len`` starts every prompt with the same that-many
     tokens (drawn from ``seed``); ``prefix_share`` turns on the prefix
     index over them (needs ``paged_kv`` and chunked prefill) and
-    ``grouped_decode`` decodes the shared pages once per group.  Raises
-    on a host without CUDA unless ``device="cpu"``.
+    ``grouped_decode`` decodes the shared pages once per group.
+    ``sampling`` (a ``SAMPLING_KINDS`` name) arms the on-device sampler
+    with ``temperature``/``top_k``/``top_p``, its streams keyed by ``seed``
+    (``SamplingParams(seed=seed)``, as in the reference); port only: a
+    ``SamplingParams`` is taken as it is, its own seed keying the streams
+    while ``seed`` draws the requests.  ``decode_window``
+    > 1 decodes that many steps per engine step (``build_serve_multistep``),
+    and the summary carries ``sync_stats()``.  Raises on a host without
+    CUDA unless ``device="cpu"``.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -150,14 +167,20 @@ def serve_demo(arch: str = "granite-3-2b", *, reduced: bool = False,
     if chunk_tokens > 0 and not chunked:
         log(f"[serve] {cfg.name}: chunked prefill unsupported for this "
             "family; falling back to one-shot prefill")
-    engine = DecodeEngine(cfg, model, build_serve_step(cfg, hx),
-                          make_prefill_step(cfg, hx), max_batch=max_batch,
-                          max_seq=max_seq, hx=hx, dtype=dtype, device=device,
-                          sched_policy=sched_policy, pool_blocks=pool_blocks,
-                          chunk_tokens=chunk_tokens if chunked else 0,
-                          chunk_prefill_step=(make_chunk_prefill_step(cfg, hx)
-                                              if chunked else None),
-                          prefix_share=prefix_share)
+    sp = sampling
+    if isinstance(sampling, str):
+        sp = SamplingParams(kind=sampling, temperature=temperature,
+                            top_k=top_k, top_p=top_p, seed=seed)
+    engine = DecodeEngine(
+        cfg, model, build_serve_step(cfg, hx), make_prefill_step(cfg, hx),
+        max_batch=max_batch, max_seq=max_seq, hx=hx, dtype=dtype,
+        device=device, sched_policy=sched_policy, pool_blocks=pool_blocks,
+        chunk_tokens=chunk_tokens if chunked else 0,
+        chunk_prefill_step=(make_chunk_prefill_step(
+            cfg, hx, return_last_logits=sp is not None) if chunked else None),
+        prefix_share=prefix_share, sampling=sp, decode_window=decode_window,
+        serve_multistep=(build_serve_multistep(cfg, hx, window=decode_window)
+                         if decode_window > 1 else None))
     shared = np.random.default_rng(seed).integers(
         0, cfg.vocab, shared_prefix_len).tolist()
     for r in rows:
@@ -176,6 +199,7 @@ def serve_demo(arch: str = "granite-3-2b", *, reduced: bool = False,
     toks = sum(len(r.out_tokens) for r in finished)
     summary = engine.metrics.summary()
     summary.update(engine.pool_stats())
+    summary.update(engine.sync_stats())
     summary.update(decode_syncs=engine.decode_syncs,
                    prefill_calls=engine.prefill_calls, engine_steps=steps,
                    wall_s=dt, tok_s=toks / max(dt, 1e-9),
@@ -230,9 +254,26 @@ def main(argv=None):
     ap.add_argument("--shared-prefix-len", type=int, default=0,
                     help="every synthetic prompt starts with the same "
                          "this-many tokens")
+    ap.add_argument("--sampling", default=None, choices=SAMPLING_KINDS,
+                    help="on-device token sampling kind (default: greedy "
+                         "argmax); per-request streams keyed by --seed and "
+                         "the request id")
+    ap.add_argument("--temperature", type=float, default=1.0,
+                    help="softmax temperature of --sampling temperature/"
+                         "top_k/top_p (> 0)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="keep the k highest logits (--sampling top_k)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus mass of --sampling top_p, in (0, 1]")
+    ap.add_argument("--decode-window", type=int, default=1,
+                    help="decode steps per engine step: one CUDA graph "
+                         "replay and ONE [batch, N] token transfer per "
+                         "window (streams equal to N = 1)")
     ap.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES))
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="the model weights, the requests and the "
+                         "sampling streams")
     ap.add_argument("--metrics", action="store_true",
                     help="print the TTFT/TTL/queue-wait summary JSON")
     ap.add_argument("--list-backends", action="store_true",
@@ -252,7 +293,9 @@ def main(argv=None):
         grouped_decode=args.grouped_decode or None,
         chunk_tokens=args.chunk_tokens, prefix_share=args.prefix_share,
         shared_prefix_len=args.shared_prefix_len,
-        sched_policy=args.sched_policy, dtype=DTYPES[args.dtype],
+        sched_policy=args.sched_policy, sampling=args.sampling,
+        temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+        decode_window=args.decode_window, dtype=DTYPES[args.dtype],
         device=args.device, seed=args.seed)
     if args.metrics:
         print(json.dumps(summary, indent=2))

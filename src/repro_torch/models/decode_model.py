@@ -30,6 +30,16 @@ PyTorch; the reference has no kernel there) on the state's ``ssm_conv``/
 sinusoidal embedding of position ``total_len`` to the token's.  The SSM
 recurrence has no length mask: idle rows evolve on junk until the engine's
 next scatter overwrites them, as in the reference.
+
+Token decision: the argmax, or, when the state holds the sampler's leaves
+(``core/kvcache.sampling_leaf_shapes``), ``serving/sampling.sample_tokens``
+with each row's policy; ``serve_step`` then advances ``sample_idx`` by one.
+
+``build_serve_multistep(cfg, hx, window=N)`` runs N steps of the same core
+in one call with per-row budgets, EOS and forced tokens carried as masks
+(the reference's ``lax.scan`` window, a Python loop here): on the card the
+engine replays it as one CUDA graph (``serving/graph.py``), so the host
+syncs once per window.
 """
 from __future__ import annotations
 
@@ -76,14 +86,24 @@ def head_matmul(hx: HelixConfig, model, x):
     return fn(x, qw, scale)
 
 
-def _next_token(logits):
-    """Greedy token decision of the decode epilogue."""
+def _next_token(logits, state):
+    """The decode epilogue's token decision: the sampler over the state's
+    per-row ``sample_*`` leaves when the state carries them (greedy rows
+    give the argmax there too), else the plain argmax."""
+    if "sample_seed" in state:
+        # imported here: the serving package imports this module
+        from repro_torch.serving.sampling import sample_tokens
+        return sample_tokens(logits, state["sample_temp"],
+                             state["sample_topk"], state["sample_topp"],
+                             state["sample_seed"], state["sample_idx"])
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
 def _build_step_logits(cfg: ArchConfig, hx: HelixConfig):
-    """``step_logits(model, state, tokens) -> logits [B, Vp]`` (caches in
-    ``state`` appended in place)."""
+    """``step_logits(model, state, tokens, advance=None) -> logits [B, Vp]``
+    (caches in ``state`` appended in place; SSM leaves updated in place, and
+    with ``advance`` [B] bool only on its rows: the others keep theirs, as
+    the reference's window holds a frozen row)."""
     kv8 = hx.kv_cache_bits == 8
     fused = fuse_append_applicable(hx, quant=kv8, paged=hx.paged_kv)
     o_dim = helix_out_dim(cfg.q_dim, hx.kvp)
@@ -115,16 +135,21 @@ def _build_step_logits(cfg: ArchConfig, hx: HelixConfig):
             wo = torch.nn.functional.pad(wo, (0, 0, 0, o_dim - wo.shape[0]))
         return out @ wo
 
-    def ssm_phase(sp, h, state, i):
-        y, new = ssm_lib.ssm_decode_step(
-            sp, cfg, h, ssm_lib.SSMState(state["ssm_conv"][i],
-                                         state["ssm_state"][i]))
-        state["ssm_conv"][i] = new.conv
-        state["ssm_state"][i] = new.ssm
+    def ssm_phase(sp, h, state, i, advance):
+        conv, ssm = state["ssm_conv"][i], state["ssm_state"][i]
+        y, new = ssm_lib.ssm_decode_step(sp, cfg, h,
+                                         ssm_lib.SSMState(conv, ssm))
+        if advance is None:
+            new_conv, new_ssm = new.conv, new.ssm
+        else:
+            new_conv = torch.where(advance[:, None, None], new.conv, conv)
+            new_ssm = torch.where(advance[:, None, None, None], new.ssm, ssm)
+        state["ssm_conv"][i] = new_conv
+        state["ssm_state"][i] = new_ssm
         return y
 
     @torch.no_grad()
-    def step_logits(model, state, tokens):
+    def step_logits(model, state, tokens, advance=None):
         tl = state["total_len"]
         tl_attn = (tl + 1).reshape(-1).expand(tokens.shape[0])  # incl. new token
         tables = state["block_tables"] if hx.paged_kv else None
@@ -143,7 +168,7 @@ def _build_step_logits(cfg: ArchConfig, hx: HelixConfig):
                                    state["vcache"][i], ks, vs, tl_attn,
                                    tables, groups)
             else:
-                x = x + ssm_phase(lp.ssm, h, state, i)
+                x = x + ssm_phase(lp.ssm, h, state, i, advance)
             if cfg.d_ff:
                 x = x + ffn_block(cfg, lp.ffn, rms_norm(x, lp.ln2))
         x = rms_norm(x, model.ln_f)
@@ -162,11 +187,81 @@ def build_serve_step(cfg: ArchConfig, hx: HelixConfig, *,
     def serve_step(model, state, tokens):
         """tokens [B] int32 -> (next_tokens [B] int32, new state)."""
         logits = step_logits(model, state, tokens)
-        next_tokens = _next_token(logits)
+        next_tokens = _next_token(logits, state)
         new_state = dict(state)
         new_state["total_len"] = state["total_len"] + 1
+        if "sample_idx" in state:
+            new_state["sample_idx"] = state["sample_idx"] + 1
         if return_logits:
             return (next_tokens, logits), new_state
         return next_tokens, new_state
 
     return serve_step
+
+
+def build_serve_multistep(cfg: ArchConfig, hx: HelixConfig, *, window: int):
+    """Build the windowed decode loop: ``window`` steps (sample, append,
+    next step) in one call, the host intervening once per window.
+
+    Returns ``serve_multistep(model, state, tokens, budgets, eos_ids,
+    forced, n_forced) -> (out_block [B, window], cur [B], new_state)``, all
+    per-row control carried as tensors (the reference's contract):
+
+      * ``budgets`` [B] int32: steps the row may take (its grant from
+        ``Scheduler.grow_for_window``; 0 freezes it for the whole window);
+      * ``eos_ids`` [B] int32 (< 0: none): a row that emits its EOS freezes
+        for the rest of the window;
+      * ``forced`` [B, window] and ``n_forced`` [B] int32: tokens fed instead
+        of the sampled one for the first ``n_forced`` active steps; they use
+        budget, emit the pad and do not advance ``sample_idx``.
+
+    A frozen row stops advancing: ``total_len`` and its SSM leaves hold (its
+    K/V append rewrites the same slot), and its ``out_block`` entries are
+    the pad ``-1``.  ``out_block[b, j]`` is the token row b emitted at step
+    j (EOS included); ``total_len`` advances by the active mask and
+    ``sample_idx`` by the emitting one.  ``total_len`` must be [B].  Rows
+    that froze mid-window are retired by the caller at the boundary, which
+    keeps the streams equal to ``window`` single steps.  Caches and SSM
+    leaves are updated in place, so the returned state shares them; the
+    other leaves of the result are new tensors."""
+    if window < 1:
+        raise ValueError(f"window must be >= 1 (got {window})")
+    if hx.grouped_decode:
+        raise ValueError("serve_multistep is incompatible with "
+                         "grouped_decode: group_id/group_np are recomputed "
+                         "by the host every token and would go stale inside "
+                         "a multi-token window")
+    step_logits = _build_step_logits(cfg, hx)
+
+    @torch.no_grad()
+    def serve_multistep(model, state, tokens, budgets, eos_ids, forced,
+                        n_forced):
+        b = tokens.shape[0]
+        sampling = "sample_seed" in state
+        st = dict(state)
+        cur = tokens
+        fpos = torch.zeros_like(n_forced)
+        eos_seen = torch.zeros(b, dtype=torch.bool, device=tokens.device)
+        outs = []
+        for j in range(window):
+            active = (budgets > j) & ~eos_seen
+            logits = step_logits(model, st, cur,
+                                 advance=active if cfg.has_ssm else None)
+            sampled = _next_token(logits, st)
+            is_forced = fpos < n_forced
+            fvals = torch.gather(
+                forced, 1,
+                torch.clamp(fpos, max=forced.shape[1] - 1).long()[:, None])[:, 0]
+            emit = active & ~is_forced
+            outs.append(torch.where(emit, sampled, -1))
+            st["total_len"] = st["total_len"] + active.to(torch.int32)
+            if sampling:
+                st["sample_idx"] = st["sample_idx"] + emit.to(torch.int32)
+            eos_hit = emit & (eos_ids >= 0) & (sampled == eos_ids)
+            nxt = torch.where(is_forced, fvals, sampled)
+            cur = torch.where(active, nxt, cur)
+            fpos = fpos + (active & is_forced).to(torch.int32)
+            eos_seen = eos_seen | eos_hit
+        return torch.stack(outs, dim=1), cur, st
+
+    return serve_multistep

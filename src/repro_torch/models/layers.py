@@ -1,6 +1,8 @@
 """Layer primitives (port of the reference's ``models/layers.py``)."""
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -34,11 +36,19 @@ def apply_rope(x, positions, theta: float = 10_000.0):
     return out.to(x.dtype)
 
 
-def sinusoidal_at(pos, dim: int):
-    """Sinusoidal embedding at position(s) ``pos`` [...] -> [..., dim] f32
-    (sin half, then cos half)."""
+@functools.lru_cache(maxsize=None)
+def _inv_timescales(dim: int, device: torch.device):
+    """[dim/2] inverse timescales, computed on the CPU once and kept on
+    ``device`` (no host-to-device copy per step, which a CUDA graph could
+    not capture)."""
     log_timescale = torch.log(torch.tensor(10_000.0)) / (dim // 2 - 1)
     inv = torch.exp(-log_timescale * torch.arange(dim // 2,
                                                   dtype=torch.float32))
-    t = pos[..., None].float() * inv.to(pos.device)
+    return inv.to(device)
+
+
+def sinusoidal_at(pos, dim: int):
+    """Sinusoidal embedding at position(s) ``pos`` [...] -> [..., dim] f32
+    (sin half, then cos half)."""
+    t = pos[..., None].float() * _inv_timescales(dim, pos.device)
     return torch.cat([torch.sin(t), torch.cos(t)], dim=-1)

@@ -1,7 +1,7 @@
 """Prefill steps and their handoff into the round-robin decode layout (port
 of the reference's ``models/model_zoo.py``: ``prefill_cache_to_rr``,
 ``make_prefill_step`` and the chunked prefill, ``init_prefill_buffers``,
-``make_chunk_prefill_step`` (greedy) and ``finalize_chunked_prefill``)."""
+``make_chunk_prefill_step`` and ``finalize_chunked_prefill``)."""
 from __future__ import annotations
 
 import torch
@@ -10,10 +10,12 @@ from repro_torch.configs import ArchConfig
 from repro_torch.core.helix import prefill_to_rr_layout
 from repro_torch.core.kvcache import cache_capacity
 from repro_torch.core.sharding import HelixConfig
-from repro_torch.models.decode_model import build_serve_step  # noqa: F401
+from repro_torch.models.decode_model import (  # noqa: F401
+    build_serve_multistep, build_serve_step)
 from repro_torch.models.transformer import chunked_prefill_supported, forward
 
 __all__ = ["prefill_cache_to_rr", "make_prefill_step", "build_serve_step",
+           "build_serve_multistep",
            "init_prefill_buffers", "make_chunk_prefill_step",
            "finalize_chunked_prefill", "chunked_prefill_supported"]
 
@@ -74,7 +76,8 @@ def init_prefill_buffers(cfg: ArchConfig, batch: int, t: int, *,
             "vcache": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def make_chunk_prefill_step(cfg: ArchConfig, hx: HelixConfig):
+def make_chunk_prefill_step(cfg: ArchConfig, hx: HelixConfig, *,
+                            return_last_logits: bool = False):
     """Build ``chunk_step(model, tokens, buffers, q_offset) -> (next_tokens,
     buffers)``: ``tokens`` is the ``[B, C]`` chunk at global positions
     ``[q_offset, q_offset + C)`` (``q_offset`` an int or a [B] tensor:
@@ -82,7 +85,10 @@ def make_chunk_prefill_step(cfg: ArchConfig, hx: HelixConfig):
     ``init_prefill_buffers`` with ``[0, q_offset)`` filled; the chunk's K/V
     land in them in place.  ``next_tokens`` [B, C] is the greedy token
     after each chunk position: row ``t - 1 - q_offset`` of a request's last
-    chunk is its first generated token."""
+    chunk is its first generated token.  ``return_last_logits``: the step
+    returns ``(next_tokens, last_logits, buffers)``, ``last_logits`` [B,
+    Vp] the vocab-masked logits at the chunk's last position, which a
+    sampling engine's first-token sampler takes."""
     if not chunked_prefill_supported(cfg):
         raise ValueError(f"chunked prefill unsupported for {cfg.name}")
 
@@ -92,8 +98,10 @@ def make_chunk_prefill_step(cfg: ArchConfig, hx: HelixConfig):
                                  prefix_state=buffers, q_offset=q_offset)
         next_tokens = torch.argmax(logits[:, :, :cfg.vocab],
                                    dim=-1).to(torch.int32)
-        return next_tokens, {"kcache": extras["kcache"],
-                             "vcache": extras["vcache"]}
+        buffers = {"kcache": extras["kcache"], "vcache": extras["vcache"]}
+        if return_last_logits:
+            return next_tokens, logits[:, -1], buffers
+        return next_tokens, buffers
 
     return chunk_step
 

@@ -40,14 +40,27 @@ The paged pool and prefix sharing are refused: in the reference the
 first needs a ``block_tables`` leaf no SSM state has (it fails at the first
 retirement) and the second needs chunked prefill.
 
-Not ported yet: the host KV tier, tenancy and the TTL governor, sampling
-and decode windows.
+On-device sampling (``sampling``, a ``SamplingParams``; per request
+``Request.sampling``): the decode state carries the sampler's per-row
+leaves, installed at each request's first token with ``sample_idx`` at
+``len(out_tokens)``; first tokens of prefills are sampled on the device
+too (``_first_token_dev``).  Decode windows (``decode_window`` N > 1 with
+``serve_multistep`` from ``build_serve_multistep``): each engine step
+decodes up to N tokens for every decoding slot in one call, replayed as
+one CUDA graph on the card (``serving/graph.py``), with ONE device->host
+transfer of the [B, N] token block; the host replays the window token by
+token (j-major), so retirements and metrics follow the single-step
+engine's order and the streams are equal to N = 1 bit for bit.
+``sync_stats()`` reports the transfers per decoded token.
+
+Not ported yet: the host KV tier, tenancy and the TTL governor.
 """
 from __future__ import annotations
 
 import time
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from repro_torch.configs import ArchConfig
@@ -60,8 +73,10 @@ from repro_torch.models.decode_model import prepare_decode_params
 from repro_torch.models.model_zoo import (chunked_prefill_supported,
                                           finalize_chunked_prefill,
                                           init_prefill_buffers)
+from repro_torch.serving.graph import WindowRunner
 from repro_torch.serving.metrics import EngineMetrics
 from repro_torch.serving.pool import BlockAllocator
+from repro_torch.serving.sampling import request_seed, sample_tokens
 from repro_torch.serving.scheduler import (DECODE, DONE, PREFILL, PrefixIndex,
                                            Request, Scheduler)
 
@@ -80,7 +95,10 @@ class DecodeEngine:
     whole pool).  ``chunk_tokens`` > 0 with ``chunk_prefill_step`` (from
     ``make_chunk_prefill_step``) turns on chunked prefill; ``prefix_share``
     the prefix index (needs the paged pool and chunked prefill, as in the
-    reference)."""
+    reference).  ``sampling`` (a ``SamplingParams``) arms the on-device
+    sampler; a sampling engine's chunk step must be built with
+    ``return_last_logits=True``.  ``decode_window`` > 1 decodes that many
+    tokens per engine step through ``serve_multistep``."""
 
     def __init__(self, cfg: ArchConfig, model, serve_step: Callable,
                  prefill_step: Callable, *, max_batch: int, max_seq: int,
@@ -89,8 +107,22 @@ class DecodeEngine:
                  pool_blocks: int = 0, max_pages: int = 0,
                  chunk_tokens: int = 0,
                  chunk_prefill_step: Callable | None = None,
-                 prefix_share: bool = False):
+                 prefix_share: bool = False, sampling=None,
+                 decode_window: int = 1,
+                 serve_multistep: Callable | None = None):
         device = torch.device(device)
+        if sampling is not None:
+            sampling.validate()
+        if decode_window < 1:
+            raise ValueError(f"decode_window must be >= 1 ({decode_window})")
+        if decode_window > 1 and serve_multistep is None:
+            raise ValueError("decode_window > 1 needs serve_multistep "
+                             "(build one with build_serve_multistep)")
+        if decode_window > 1 and hx.paged_kv and hx.grouped_decode:
+            raise ValueError("decode_window > 1 is incompatible with "
+                             "hx.grouped_decode: group_id/group_np are "
+                             "host-recomputed every token and would go "
+                             "stale mid-window")
         if hx.paged_kv and not cfg.has_attention:
             raise ValueError(f"hx.paged_kv: {cfg.name} keeps no KV cache to "
                              "page (its decode state has no block_tables)")
@@ -115,6 +147,10 @@ class DecodeEngine:
         self.model = prepare_decode_params(model, hx)
         self.serve_step = serve_step
         self.prefill_step = prefill_step
+        self.sampling = sampling
+        self.decode_window = decode_window
+        self.window_runner = (WindowRunner(serve_multistep)
+                              if serve_multistep is not None else None)
         self.dtype = dtype
         self.max_batch = max_batch
         self.kvp, self.rr = hx.kvp, hx.rr_block
@@ -138,7 +174,8 @@ class DecodeEngine:
                                        kv_bits=hx.kv_cache_bits,
                                        pool_blocks=self.pool_blocks,
                                        max_pages=self.max_pages,
-                                       grouped=self.grouped)
+                                       grouped=self.grouped,
+                                       sampling=sampling is not None)
         # per-request lengths: [B]; empty slots keep 0
         self.state["total_len"] = torch.zeros(max_batch, dtype=torch.int32,
                                               device=device)
@@ -169,12 +206,22 @@ class DecodeEngine:
                                max_pages=self.max_pages,
                                prefix_index=self.prefix_index)
         self.metrics = EngineMetrics(clock=clock)
-        self.decode_syncs = 0           # decode steps (one transfer each)
+        self.decode_syncs = 0           # decode steps or windows (one
+        #                                 transfer each)
+        self.decoded_tokens = 0         # tokens the decode loop emitted
         self.prefill_calls = 0          # one-shot prefills and chunk calls
+        self.decode_wall_s = 0.0        # host wall of the decode phases
+        self.graph_setup_s = 0.0        # warm-up windows and captures
+        self._device_ms = [0.0, 0]      # summed stream ms of the steps or
+        #                                 windows (CUDA events), and count
 
     # ------------------------------------------------------------- requests
     def submit(self, req: Request) -> None:
         """Queue ``req``; ``step()`` admits it when a slot frees up."""
+        if req.sampling is not None and self.sampling is None:
+            raise ValueError("request carries SamplingParams but the "
+                             "engine was built without sampling= (the "
+                             "decode state has no sampling leaves)")
         self.metrics.on_submit(req.rid)
         self.sched.submit(req)
 
@@ -183,11 +230,15 @@ class DecodeEngine:
         return bool(self.sched.queue) or any(self.slots)
 
     def step(self) -> list[Request]:
-        """Admission, at most one prefill chunk, then one decode step;
-        returns the requests retired."""
+        """Admission, at most one prefill chunk, then one decode step (or
+        one window of ``decode_window`` steps); returns the requests
+        retired."""
         finished = self._admit()
         finished += self._prefill_chunk()
-        finished += self._decode_step()
+        if self.decode_window > 1:
+            finished += self._decode_window()
+        else:
+            finished += self._decode_step()
         return finished
 
     # -------------------------------------------------------------- phases
@@ -277,13 +328,23 @@ class DecodeEngine:
                 for _, r in group], dim=1) for key in ("kcache", "vcache")}
         offs = torch.tensor([r.prefill_pos for _, r in group],
                             dtype=torch.int32, device=self.device)
-        next_toks, bufs = self.chunk_step(self.model, tokens, bufs, offs)
+        if self.sampling is not None:
+            next_toks, last_logits, bufs = self.chunk_step(self.model, tokens,
+                                                           bufs, offs)
+        else:
+            next_toks, bufs = self.chunk_step(self.model, tokens, bufs, offs)
         self.prefill_calls += 1
         done = [i for i, (_, r) in enumerate(group)
                 if r.prefill_pos + c >= len(r.prefill_tokens)]
         first = {}
         if done:
-            vals = next_toks[torch.tensor(done, device=self.device), c - 1]
+            di = torch.tensor(done, device=self.device)
+            if self.sampling is not None:
+                vals = self._first_token_dev(last_logits[di],
+                                             [group[i][1] for i in done])
+            else:
+                vals = next_toks[di, c - 1]
+            # one transfer for every prefill this chunk finishes
             first = dict(zip(done, vals.tolist()))
         finished = []
         for i, (slot, req) in enumerate(group):
@@ -315,7 +376,47 @@ class DecodeEngine:
         last_logits, pstate = self.prefill_step(self.model, {"tokens": toks})
         self.prefill_calls += 1
         self._scatter_state(pstate, slot, len(toks_list), req)
-        return torch.argmax(last_logits[0, :self.cfg.vocab]).to(torch.int32)
+        return self._first_token_dev(last_logits, [req])[0]
+
+    def _first_token_dev(self, last_logits, reqs: list[Request]):
+        """First tokens of freshly prefilled rows, on the device:
+        ``last_logits`` [G, Vp] (vocab-masked), one row per request.
+        Greedy engines take the argmax; sampling engines the sampler at
+        ``sample_idx = 0``, the first point of each request's stream, so a
+        token sampled here equals a decode step's sample of the same
+        position."""
+        if self.sampling is None:
+            return torch.argmax(last_logits[:, :self.cfg.vocab],
+                                dim=-1).to(torch.int32)
+        pols = [r.sampling or self.sampling for r in reqs]
+        rows = [p.row() for p in pols]
+        dev = self.device
+        return sample_tokens(
+            last_logits,
+            torch.tensor([v[0] for v in rows], dtype=torch.float32,
+                         device=dev),
+            torch.tensor([v[1] for v in rows], dtype=torch.int32, device=dev),
+            torch.tensor([v[2] for v in rows], dtype=torch.float32,
+                         device=dev),
+            torch.tensor([request_seed(p.seed, r.rid)
+                          for p, r in zip(pols, reqs)], dtype=torch.int64,
+                         device=dev),
+            torch.zeros(len(reqs), dtype=torch.int32, device=dev))
+
+    def _install_sampling(self, req: Request, slot: int) -> None:
+        """Install ``req``'s policy into ``slot``'s sampler leaves.
+        ``sample_idx`` resumes at ``len(out_tokens)``, the tokens already
+        sampled, so the request continues its stream where it left it."""
+        if self.sampling is None:
+            return
+        sp = req.sampling or self.sampling
+        t, k, p = sp.row()
+        st = self.state
+        st["sample_temp"][slot] = t
+        st["sample_topk"][slot] = k
+        st["sample_topp"][slot] = p
+        st["sample_seed"][slot] = request_seed(sp.seed, req.rid)
+        st["sample_idx"][slot] = len(req.out_tokens)
 
     def _scatter_state(self, pstate: dict, slot: int, t: int,
                        req: Request) -> None:
@@ -387,6 +488,7 @@ class DecodeEngine:
         req.out_tokens.append(token)
         self.cur_tokens[slot] = token
         req.state = DECODE
+        self._install_sampling(req, slot)
         self.metrics.on_token(req.rid)
         if req.eos_id is not None and token == req.eos_id:
             return [self._retire(req, slot, "eos")]
@@ -472,12 +574,15 @@ class DecodeEngine:
                   if r is not None and r.state == DECODE]
         if not active:
             return []
+        t0 = time.perf_counter()
         if self.prefix_index is not None:
             self._cow_guard(active)
         if self.grouped:
             self._set_groups(active)
+        ev = self._event()
         next_tokens, self.state = self.serve_step(
             self.model, self.state, self.cur_tokens)
+        ev = self._close_event(ev)
         self.cur_tokens = next_tokens
         # serve_step advances total_len for every row; idle and prefilling
         # slots go back to 0 so their rows stay O(1) work (a prefill's K/V
@@ -487,6 +592,7 @@ class DecodeEngine:
             self.state["total_len"][idle] = 0
         toks = next_tokens.tolist()          # one device->host transfer
         self.decode_syncs += 1
+        self._add_device_time(ev)
         finished = []
         for i in active:
             req = self.slots[i]
@@ -494,6 +600,7 @@ class DecodeEngine:
             req.out_tokens.append(tok)
             self.sched.on_token(i)
             self.metrics.on_token(req.rid)
+            self.decoded_tokens += 1
             if req.eos_id is not None and tok == req.eos_id:
                 finished.append(self._retire(req, i, "eos"))
             elif len(req.out_tokens) >= req.max_new_tokens:
@@ -504,7 +611,148 @@ class DecodeEngine:
                     finished.append(r)
         if self.paged:
             self._sample_pool()
+        self.decode_wall_s += time.perf_counter() - t0
         return finished
+
+    def _decode_window(self) -> list[Request]:
+        """Up to ``decode_window`` decode steps for every DECODE slot in
+        one call (the reference's ``_decode_window``).
+
+        Each slot's budget for the window is reserved first
+        (``Scheduler.grow_for_window``: one extend, nothing allocates
+        mid-window); the window runs with per-row budget and EOS masks (one
+        CUDA graph replay on the card), and the host reads the [B, N] token
+        block in ONE transfer.  It then replays the block j-major, in the
+        single-step engine's order of scheduler, metrics and retirement
+        events, each token stamped with a time interpolated over the
+        measured window; rows that froze mid-window retire at the boundary,
+        and a grant below what the row wanted that EOS / max-tokens did not
+        use up retires it with "capacity", where the single-step engine
+        would."""
+        n = self.decode_window
+        active = [i for i, r in enumerate(self.slots)
+                  if r is not None and r.state == DECODE]
+        if not active:
+            return []
+        t_host = time.perf_counter()
+        finished = []
+        b = self.max_batch
+        # one host array, one host->device copy: budgets, EOS ids, forced
+        # counts, then the [B, N] forced tokens (the port has no host tier,
+        # so nothing is forced from the engine)
+        ctl = np.zeros((b, 3 + n), np.int32)
+        ctl[:, 1] = -1
+        wants = [0] * b
+        stepping = []
+        for i in active:
+            req = self.slots[i]
+            want = min(n, max(req.max_new_tokens - len(req.out_tokens), 0))
+            grant = self.sched.grow_for_window(i, want)
+            if self.paged and grant:
+                self._mirror_table(i)
+            if grant == 0:
+                # not one step: where grow_for_next_token would retire it
+                finished.append(self._retire(req, i, "capacity"))
+                continue
+            ctl[i, 0], wants[i] = grant, want
+            if req.eos_id is not None:
+                ctl[i, 1] = req.eos_id
+            stepping.append(i)
+        if not stepping:
+            self.decode_wall_s += time.perf_counter() - t_host
+            return finished
+        if self.prefix_index is not None:
+            self._cow_guard(stepping)
+        ctl_dev = torch.from_numpy(ctl).to(self.device)
+        args = (self.cur_tokens, ctl_dev[:, 0], ctl_dev[:, 1],
+                ctl_dev[:, 3:], ctl_dev[:, 2])
+        t_prep = time.perf_counter()
+        self.window_runner.prepare(self.model, self.state, *args)
+        self.graph_setup_s += time.perf_counter() - t_prep
+        t_host += time.perf_counter() - t_prep
+        t0 = self.metrics.clock()
+        ev = self._event()
+        out_block, cur, self.state = self.window_runner(self.model,
+                                                        self.state, *args)
+        ev = self._close_event(ev)
+        self.cur_tokens = cur
+        if self.paged:
+            self._sample_pool()
+        toks = out_block.tolist()            # one device->host transfer
+        self.decode_syncs += 1
+        self._add_device_time(ev)
+        t1 = self.metrics.clock()
+        budgets = ctl[:, 0]
+        nsteps = int(max(budgets[i] for i in stepping))
+        retired: set[int] = set()
+        for j in range(nsteps):
+            rows = [i for i in stepping if i not in retired and budgets[i] > j]
+            if not rows:
+                break
+            at = t0 + (t1 - t0) * (j + 1) / nsteps
+            for i in rows:
+                req = self.slots[i]
+                tok = toks[i][j]
+                req.out_tokens.append(tok)
+                self.sched.on_token(i)
+                self.metrics.on_token(req.rid, at=at)
+                self.decoded_tokens += 1
+                if req.eos_id is not None and tok == req.eos_id:
+                    finished.append(self._retire(req, i, "eos"))
+                    retired.add(i)
+                elif len(req.out_tokens) >= req.max_new_tokens:
+                    finished.append(self._retire(req, i, "max_tokens"))
+                    retired.add(i)
+        for i in stepping:
+            if i not in retired and budgets[i] < wants[i]:
+                finished.append(self._retire(self.slots[i], i, "capacity"))
+        self.decode_wall_s += time.perf_counter() - t_host
+        return finished
+
+    def _event(self):
+        """A CUDA event recorded before a step's or window's device work
+        (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _close_event(self, ev):
+        """The pair of ``ev`` and an event recorded after the work."""
+        if ev is None:
+            return None
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        return ev, end
+
+    def _add_device_time(self, pair) -> None:
+        """Add a closed pair's time, once the host has synced past it."""
+        if pair is not None:
+            self._device_ms[0] += pair[0].elapsed_time(pair[1])
+            self._device_ms[1] += 1
+
+    def sync_stats(self) -> dict[str, Any]:
+        """Host syncs of the decode loop: blocking device->host transfers
+        per decoded token (one per step or window, over the tokens of all
+        its rows); the host wall of the decode phases per decoded token;
+        on the card the mean stream time of a step or window between CUDA
+        events (``decode_device_ms``); the windows captured as CUDA graphs,
+        each after one warm-up window (``graph_setup_s``, not in the decode
+        wall)."""
+        total, n = self._device_ms
+        runner = self.window_runner
+        return {"decode_window": self.decode_window,
+                "decode_syncs": self.decode_syncs,
+                "decoded_tokens": self.decoded_tokens,
+                "syncs_per_token":
+                    self.decode_syncs / max(self.decoded_tokens, 1),
+                "decode_host_ms_per_token":
+                    self.decode_wall_s * 1e3 / max(self.decoded_tokens, 1),
+                "decode_device_ms": total / n if n else None,
+                "graph_captures": runner.captures if runner else 0,
+                "graph_setup_s": self.graph_setup_s,
+                "graph_replays": runner.replays if runner else 0}
 
     def _retire(self, req: Request, slot: int, reason: str) -> Request:
         req.done = True

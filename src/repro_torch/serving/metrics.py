@@ -58,10 +58,13 @@ class EngineMetrics:
         if m.admit_t is None:
             m.admit_t = self.clock()
 
-    def on_token(self, rid: int) -> None:
-        """TTFT on the first token, a TTL sample on each later one."""
+    def on_token(self, rid: int, at: float | None = None) -> None:
+        """TTFT on the first token, a TTL sample on each later one.  ``at``
+        replaces the clock read: the windowed decode replays a window's
+        tokens after one device call and gives each a time interpolated
+        over the measured window, so TTL samples stay per token."""
         m = self.requests[rid]
-        now = self.clock()
+        now = self.clock() if at is None else at
         if m.first_token_t is None:
             m.first_token_t = now
         else:

@@ -32,6 +32,7 @@ class Request:
     prompt: list[int]
     max_new_tokens: int = 32
     eos_id: int | None = None
+    sampling: Any = None      # SamplingParams; None: the engine's default
     out_tokens: list[int] = dataclasses.field(default_factory=list)
     done: bool = False
     state: str = QUEUED
@@ -369,6 +370,33 @@ class Scheduler:
         if need > self.max_pages:
             return None
         return self.pool.extend(rid, need - have)
+
+    def grow_for_window(self, slot: int, want: int) -> int:
+        """Reserve up to ``want`` more decode tokens of ``slot`` at once, the
+        windowed twin of ``grow_for_next_token``: returns the granted step
+        budget ``g <= want`` (0: the slot cannot take one step, and the
+        engine retires it with "capacity").  Fixed layout: bounded by
+        ``cap`` as ``grow_for_next_token`` is.  Paged: bounded by
+        ``max_pages`` and the free list, every needed page taken in ONE
+        extend before the window launches, so nothing allocates mid-window.
+        A grant below ``want`` that the window's EOS / max-tokens replay
+        does not use up is where the single-step engine retires with
+        "capacity"."""
+        if want <= 0:
+            return 0
+        if self.pool is None:
+            return max(0, min(want, self.cap - 1 - self.slot_len[slot]))
+        rid = self.slot_rids[slot]
+        have = len(self.pool.pages(rid))
+        grantable = min(self.max_pages, have + self.pool.free_count)
+        g = min(want, grantable * self.pool.block_s - self.slot_len[slot])
+        if g <= 0:
+            return 0
+        need = self.pool.pages_for(self.slot_len[slot] + g)
+        if need > have and self.pool.extend(rid, need - have) is None:
+            raise AssertionError("the free list held fewer pages than "
+                                 "free_count")
+        return g
 
     def release(self, slot: int) -> None:
         """Free ``slot``; paged: its request's page references are dropped

@@ -13,13 +13,16 @@ over chunks in another summation order (bf16 inputs are converted exactly,
 so the same tolerance holds).  bf16 flash_prefill 1.6e-2: the kernel rounds
 P to bf16 for the tensor cores and its output to bf16, one bf16 ulp at
 |x| <= 2 being 2^-6; paged == fixed and chunk rows == one-shot rows are bit
-for bit.
+for bit.  The sampler on the card equals the CPU's bit for bit, and a
+decode window replayed from a CUDA graph equals the eager window.
 """
 import pytest
 import torch
 
 from repro_torch.core.helix import append_kv_quant, quantize_kv_token
-from repro_torch.core.kvcache import quantize_decode_state, state_to_paged
+from repro_torch.core.kvcache import (init_decode_state, quantize_decode_state,
+                                      state_to_paged)
+from repro_torch.core.sharding import HelixConfig
 from repro_torch.kernels import registry
 from repro_torch.kernels.flash_decode.ops import (flash_decode_shards,
                                                   flash_decode_shards_plain,
@@ -31,8 +34,12 @@ from repro_torch.kernels.ssd_prefill import ssd_prefill, ssd_prefill_plain
 from repro_torch.kernels.w8a16_matmul import (quantize_w8, w8a16_matmul,
                                               w8a16_matmul_ref)
 from repro_torch.launch.serve import serve_demo
+from repro_torch.models.model_zoo import (build_serve_multistep,
+                                          make_prefill_step)
 from repro_torch.models.transformer import init_params
 from repro_torch.configs import get_config
+from repro_torch.serving import sampling
+from repro_torch.serving.graph import WindowRunner
 
 ATOL = RTOL = 2e-5
 RR = 16
@@ -398,3 +405,83 @@ def test_prefill_chunk_rows_equal_one_shot_rows_on_card(h100):
             torch.cuda.synchronize()
             assert torch.equal(part.view(torch.int16),
                                one[:, off:off + 256].view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_sampler_on_card_matches_cpu(h100):
+    """The sampler's threefry words, uniforms and Gumbel noise on the card
+    equal the CPU's bit for bit (each log is rounded from float64), and so
+    do its tokens over a mixed greedy / top-k / top-p batch at V = 49155."""
+    gen = torch.Generator().manual_seed(11)
+    b, v = 8, 49155
+    seeds = torch.randint(0, 2**31 - 1, (b,), generator=gen)
+    idx = torch.randint(0, 5000, (b,), generator=gen).to(torch.int32)
+    key = sampling.fold_in(sampling.prng_key(seeds), idx)
+    bits = sampling.random_bits(key, v)
+    dkey = sampling.fold_in(sampling.prng_key(seeds.to(h100)), idx.to(h100))
+    dbits = sampling.random_bits(dkey, v)
+    assert torch.equal(dbits.cpu(), bits)
+    assert torch.equal(sampling.uniform(dbits).cpu(), sampling.uniform(bits))
+    assert torch.equal(sampling.gumbel_noise(seeds.to(h100), idx.to(h100),
+                                             v).cpu(),
+                       sampling.gumbel_noise(seeds, idx, v))
+    logits = torch.randn(b, v, generator=gen) * 3
+    temp = torch.tensor([0.0, 0.9, 0.9, 1.2, 0.7, 0.9, 1.0, 0.5])
+    topk = torch.tensor([0, 0, 5, 0, 40, 0, 0, 3], dtype=torch.int32)
+    topp = torch.tensor([1.0, 1.0, 1.0, 0.85, 0.9, 0.5, 0.95, 1.0])
+    args = (logits, temp, topk, topp, seeds, idx)
+    want = sampling.sample_tokens(*args)
+    got = sampling.sample_tokens(*(a.to(h100) for a in args))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite-3-2b", "mamba2-780m"])
+def test_window_graph_equals_eager_window_on_card(h100, arch):
+    """A window of 4 replayed from a captured CUDA graph equals the eager
+    window bit for bit over the whole state, with one row frozen by its
+    budget and top-p rows; the replay adds the launches its capture
+    counted."""
+    cfg = get_config(arch).reduced()
+    model = init_params(cfg, 0, dtype=torch.float32, device=h100)
+    hx = HelixConfig()
+    b, n, t = 3, 4, 40
+    toks = torch.randint(0, cfg.vocab, (b, t), device=h100,
+                         generator=torch.Generator(device=h100).manual_seed(3))
+    state = init_decode_state(cfg, b, 128, 1, dtype=torch.float32,
+                              device=h100, sampling=True)
+    _, pre = make_prefill_step(cfg, hx, s_cap=128)(model, {"tokens": toks})
+    for key in ("kcache", "vcache", "ssm_conv", "ssm_state"):
+        if key in state:
+            state[key].copy_(pre[key])
+    state["total_len"] = torch.full((b,), t, dtype=torch.int32, device=h100)
+    state["sample_temp"].fill_(0.9)
+    state["sample_topp"].fill_(0.85)
+    state["sample_seed"].copy_(torch.tensor([5, 6, 7], device=h100))
+    ctl = (toks[:, -1].to(torch.int32).contiguous(),
+           torch.tensor([n, 2, n], dtype=torch.int32, device=h100),
+           torch.full((b,), -1, dtype=torch.int32, device=h100),
+           torch.zeros(b, n, dtype=torch.int32, device=h100),
+           torch.zeros(b, dtype=torch.int32, device=h100))
+    multistep = build_serve_multistep(cfg, hx, window=n)
+    eager = {k: v.clone() for k, v in state.items()}
+    graph = {k: v.clone() for k, v in state.items()}
+    runner = WindowRunner(multistep)
+    runner.prepare(model, graph, *ctl)
+    registry.reset_launch_counts()
+    e_out, e_cur, e_new = multistep(model, eager, *ctl)
+    eager_counts = registry.launch_counts()
+    registry.reset_launch_counts()
+    g_out, g_cur, g_new = runner(model, graph, *ctl)
+    torch.cuda.synchronize()
+    assert runner.captures == 1 and runner.replays == 1
+    assert registry.launch_counts() == eager_counts
+    assert torch.equal(g_out, e_out) and torch.equal(g_cur, e_cur)
+    assert set(g_new) == set(e_new)
+    for key in e_new:
+        assert torch.equal(g_new[key], e_new[key]), key
+    moved = dict(g_new, total_len=g_new["total_len"].clone())
+    key = "kcache" if "kcache" in moved else "ssm_state"
+    moved[key] = moved[key].clone()
+    with pytest.raises(RuntimeError, match="moved"):
+        runner(model, moved, *ctl)
