@@ -37,9 +37,17 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    per-request offsets and lengths; paged == fixed bit for bit at pages
    16 and 64; rows of 4 chunk calls (T 256 at q_offset 0..768) == the same
    rows of one T 1024 call bit for bit, fixed and paged; lens == 0 rows
-   zero in both layouts; the on-device sampler (plain PyTorch) at B = 4,
-   V = 49155: threefry words, uniforms, Gumbel noise and tokens on the card
-   equal to its plain CPU run bit for bit;
+   zero in both layouts; at hymba-1.5b's shapes: flash_prefill at 5
+   query heads per kv head (B = 1, T = 1024, 25/5 heads: blocks of 12
+   positions and 4 dead rows), f32 and bf16, fixed and paged vs plain,
+   paged == fixed and chunk rows == one-shot rows bit for bit;
+   flash_decode at G = 5 (B = 4, lengths 700-1000), fixed and paged, fp
+   and int8, kvp 1 and 4, vs plain, paged == fixed bit for bit;
+   ssd_prefill at nh 50, hd 64, ds 16 (B = 1 and 4, T = 1024, a split at
+   512 == one pass bit for bit); w8a16_matmul at the untied head (M = 1
+   and 4, K = 1600, N = 32256); the on-device sampler (plain PyTorch) at
+   B = 4, V = 49155: threefry words, uniforms, Gumbel noise and tokens on
+   the card equal to its plain CPU run bit for bit;
 4. serve: granite-3-2b at full width (40 layers, bf16, seeded random
    weights) through ``serve_demo`` for the same 8 requests: the fp path and
    the int8 path (``HelixConfig(kv_cache_bits=8, lm_head_w8=True)``) in
@@ -76,7 +84,18 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    ``ref``, and prefill + 2 decode steps against ``forward`` over T + 2
    tokens.  Profiles of one 1024-token one-shot prefill of each model
    (host wall, device time, the prefill kernel's share; mamba2's go into
-   ssd_prefill's record as ``mamba2_prefill``).  The paged mode
+   ssd_prefill's record as ``mamba2_prefill``).  Then hymba-1.5b at full
+   width (32 layers, bf16, seeded random weights, attention and Mamba2
+   heads in every layer, untied head): 8 requests of 256-1024 tokens
+   (multiples of 64), 32 new tokens each, one-shot prefills: greedy at
+   window 1, top-p at window 1 and 4 and paged top-p at window 4 (equal
+   streams), greedy window 4 with the int8 head and the int8 KV cache;
+   launch counts layers x decode steps (warm-up window included) and
+   layers x prefills for flash_prefill and ssd_prefill; one graph window
+   == eager over a full-width state; decode-step and prefill profiles;
+   4-layer f32 checks: kernel path vs plain path and kvp 4 vs kvp 1, fp
+   and int8 (the prefill profile's shares go into the records
+   ``flash_prefill_hymba`` and ``ssd_prefill_hymba``).  The paged mode
    of flash_prefill, which no serving path of the JAX package calls, runs
    as one ragged chunk step over a 40-layer granite pool (40 launches,
    counted; every layer == the fixed layout bit for bit);
@@ -90,7 +109,10 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    2 groups x 4 members; flash_prefill at B = 1, T = 1024 causal, fixed and
    paged (16-position pages), and at the chunk shape B = 4, T = 256 at
    q_offset 0..768; w8a16_matmul at M = 4 with its CTAs;
-   ssd_prefill at B = 1, T = 1024 with its CTAs (one per chunk and head).
+   ssd_prefill at B = 1, T = 1024 with its CTAs (one per chunk and head);
+   and the hymba-1.5b shapes (records ``*_hymba``): flash_prefill at G =
+   5, flash_decode at the serve shape (fixed, int8, paged), ssd_prefill
+   at ds 16 and w8a16_matmul at K = 1600, N = 32256.
 
 The last lines are the card line, one JSON object of kernel records and
 ``{"ok": true, "device": {...}}``.
@@ -174,6 +196,9 @@ SSD_TOL = 4e-6
 QH, KH, HSZ, RR = 32, 8, 64, 16
 SSD_NH, SSD_HD, SSD_DS = 48, 64, 128    # mamba2-780m heads, head dim, state
 D_MODEL, VP = 2048, 49664           # granite-3-2b lm_head [d_model, padded vocab]
+HY_QH, HY_KH = 25, 5                # hymba-1.5b q / kv heads (G = 5)
+HY_NH, HY_DS = 50, 16               # hymba-1.5b SSM heads and state (hd 64)
+HY_D, HY_VP = 1600, 32256           # hymba-1.5b lm_head [d_model, padded vocab]
 KV8_W8 = HelixConfig(kv_cache_bits=8, lm_head_w8=True)
 WINDOW = 4                          # decode window of phase 4's window runs
 TOP_P = sampling.SamplingParams("top_p", temperature=0.9, top_p=0.85, seed=7)
@@ -1001,6 +1026,162 @@ def check_sampler(dev):
           "the plain CPU run, bit for bit")
 
 
+def check_prefill_g5(dev, errs, errs_paged):
+    """B2 at hymba's 5 query heads per kv head (B = 1, T = 1024, 25/5
+    heads, hsz 64: blocks of 12 positions, 4 dead rows of 64), bf16 and
+    f32: fixed and paged (16-position pages, a shuffled table, a +-1e4
+    sink page) against the plain versions; paged == fixed bit for bit; rows
+    of 4 chunk calls (T 256 at q_offset 0..768) == the same rows of one
+    call, bit for bit, fixed and paged."""
+    g = torch.Generator(device=dev).manual_seed(24)
+    t = 1024
+    full = torch.tensor([t], dtype=torch.int32, device=dev)
+    tab, n_pool = shuffled_tables(torch.Generator().manual_seed(24), full, 16,
+                                  t // 16)
+    tab = tab.to(dev)
+    for dt in (torch.float32, torch.bfloat16):
+        rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(dt)
+        q, k, v = rnd(1, t, HY_QH, HSZ), rnd(1, t, HY_KH, HSZ), \
+            rnd(1, t, HY_KH, HSZ)
+        junk = sink_garbage(g, dev, 16)
+        pk = prefill_pool(k, tab, n_pool, 16, junk)
+        pv = prefill_pool(v, tab, n_pool, 16, -junk)
+        layouts = (("fixed", (k, v), {}),
+                   ("paged", (pk, pv), dict(block_tables=tab)))
+        one = {mode: flash_prefill(q, *kv, seq_lens=full, **extra)
+               for mode, kv, extra in layouts}
+        want = flash_prefill_ref(q, k, v)
+        want_p = flash_prefill_paged_ref(q, pk, pv, tab, full)
+        torch.cuda.synchronize()
+        for mode, got, ref, lst in (("fixed", one["fixed"], want, errs),
+                                    ("paged", one["paged"], want_p,
+                                     errs_paged)):
+            e = maxerr(got, ref)
+            lst.append(e)
+            tag = f"prefill G=5 {mode} {str(dt)[6:]}"
+            print(f"  {tag} (B=1 T={t} {HY_QH}/{HY_KH} heads): max err "
+                  f"{e:.3g} (tol {TOL[dt]['out']:g})")
+            need(e <= TOL[dt]["out"], f"{tag}: kernel disagrees with plain")
+        need(torch.equal(bits(one["fixed"]), bits(one["paged"])),
+             "prefill G=5: paged != fixed")
+        for mode, kv, extra in layouts:
+            parts = [flash_prefill(q[:, o:o + 256].contiguous(), *kv,
+                                   q_offset=o, seq_lens=full * 0 + o + 256,
+                                   **extra) for o in range(0, t, 256)]
+            torch.cuda.synchronize()
+            need(torch.equal(bits(torch.cat(parts, 1)), bits(one[mode])),
+                 f"prefill G=5 {mode} {dt}: chunk rows != one-shot rows")
+        print(f"  prefill G=5 {str(dt)[6:]}: paged == fixed, and rows of 4 "
+              "chunk calls == one call (fixed and paged), bit for bit")
+
+
+def check_decode_g5(dev, errs):
+    """B1 at hymba's 25/5 heads (G = 5) at the serve shape (B = 4,
+    lengths 700-1000 with the new token, cap 1088), fused append, f32 and
+    bf16, kvp 1 and 4: fixed and paged (a shuffled table), fp and int8,
+    against the plain version, the appended rows equal to the plain
+    version's and paged == fixed, bit for bit.  ``errs`` maps
+    ``flash_decode_hymba``, ``_kv8`` and ``_paged`` (paged fp and int8)
+    to lists."""
+    g = torch.Generator(device=dev).manual_seed(25)
+    b, cap = 4, 1088
+    tl = torch.tensor([1000, 900, 800, 700], dtype=torch.int32, device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(dt)
+        q, kn, vn = rnd(b, HY_QH, HSZ), rnd(b, HY_KH, HSZ), rnd(b, HY_KH, HSZ)
+        base = {key: rnd(1, b, HY_KH, cap, HSZ) for key in ("kcache",
+                                                            "vcache")}
+        for quant, kvp in itertools.product((False, True), (1, 4)):
+            st = quantize_decode_state(base) if quant else base
+            keys = [key for key in ("kcache", "vcache", "kscale", "vscale")
+                    if key in st]
+            page = kvp * RR
+            tab, n_pool = shuffled_tables(torch.Generator().manual_seed(kvp),
+                                          tl, page, cap // page)
+            tab = tab.to(dev)
+            paged = state_to_paged(st, tab, n_pool, kvp, page)
+            sc = lambda c: dict(kscale=c[2], vscale=c[3]) if quant else {}
+            outs = {}
+            for mode, src, extra in (("fixed", st, {}),
+                                     ("paged", paged,
+                                      dict(block_tables=tab))):
+                c1, c2 = ([src[key][0].clone() for key in keys]
+                          for _ in range(2))
+                kw = dict(kvp=kvp, n_ranks=kvp, rank=0, rr_block=RR,
+                          window=0, contiguous=False, slot_offset=0,
+                          k_new=kn, v_new=vn, **extra)
+                o1, l1 = flash_decode_shards(q, c1[0], c1[1], tl, **sc(c1),
+                                             **kw)
+                o2, l2 = flash_decode_shards_plain(
+                    q, c2[0], c2[1], tl, scale=HSZ ** -0.5,
+                    block_s=kernel_block_s(512, cap // kvp), **sc(c2), **kw)
+                torch.cuda.synchronize()
+                eo, el = maxerr(o1, o2), maxerr(l1, l2)
+                name = ("flash_decode_hymba_paged" if mode == "paged" else
+                        "flash_decode_hymba_kv8" if quant else
+                        "flash_decode_hymba")
+                errs[name].append(eo)
+                tag = (f"decode G=5 {mode} {'int8' if quant else 'fp'} "
+                       f"{str(dt)[6:]} kvp={kvp}")
+                print(f"  {tag}: max err out {eo:.3g} lse {el:.3g} (tol "
+                      f"{TOL[dt]['out']:g}/{TOL[dt]['lse']:g})")
+                need(eo <= TOL[dt]["out"] and el <= TOL[dt]["lse"],
+                     f"{tag}: kernel disagrees with plain")
+                # the paged pool's sink page 0 takes no append here
+                need(all(torch.equal(bits(x), bits(y))
+                         for x, y in zip(c1, c2)),
+                     f"{tag}: appended rows differ from plain")
+                outs[mode] = (o1, l1)
+            need(all(torch.equal(bits(x), bits(y))
+                     for x, y in zip(outs["fixed"], outs["paged"])),
+                 f"decode G=5 {dt} quant={quant} kvp={kvp}: paged != fixed")
+        print(f"  decode G=5 {str(dt)[6:]}: paged == fixed bit for bit, fp "
+              "and int8, kvp 1 and 4")
+
+
+def check_hymba_ssd_w8(dev, errs_ssd, errs_mm):
+    """B5 at hymba's widths (nh 50, hd 64, ds 16, one B/C group: a state
+    tile holds 2 of its 8 column groups, and half the 8 warps hold no S
+    unit) at B = 1 and 4, T = 1024, from a nonzero state, f32 and bf16
+    inputs; two halves split at 512 chained through h_final == one pass
+    bit for bit.  B3 at hymba's untied head: M = 1 and 4, K = 1600, N =
+    32256."""
+    g = torch.Generator(device=dev).manual_seed(26)
+    for dt in (torch.float32, torch.bfloat16):
+        for b in (1, 4):
+            args, h0 = ssd_inputs(g, dev, b, 1024, dt, nh=HY_NH, ds=HY_DS)
+            got = ssd_prefill(*args, h0=h0)
+            torch.cuda.synchronize()
+            tag = f"ssd hymba {str(dt)[6:]} B={b} T=1024"
+            msg = ssd_err(tag, got, ssd_prefill_plain(*args, h0=h0),
+                          errs_ssd)
+            cut = lambda sl: [a[:, sl].contiguous() if a.ndim > 1 else a
+                              for a in args]
+            y1, h1 = ssd_prefill(*cut(slice(0, 512)), h0=h0)
+            y2, h2 = ssd_prefill(*cut(slice(512, None)), h0=h1)
+            torch.cuda.synchronize()
+            same = (torch.equal(bits(torch.cat([y1, y2], 1)), bits(got[0]))
+                    and torch.equal(bits(h2), bits(got[1])))
+            need(same, f"{tag}: split at 512 != one pass")
+            print(f"  {tag} (nh {HY_NH}, hd {SSD_HD}, ds {HY_DS}, from a "
+                  f"nonzero state): max err {msg} (tol {SSD_TOL:g} x max(1,"
+                  " |want|)); split at 512 == one pass bit for bit")
+    qw, scale = quantize_w8(torch.randn(HY_D, HY_VP, generator=g,
+                                        device=dev))
+    for m, dt in itertools.product((1, 4), (torch.float32, torch.bfloat16)):
+        x = torch.randn(m, HY_D, generator=g, device=dev).to(dt)
+        got = w8a16_matmul(x, qw, scale)
+        want = w8a16_matmul_ref(x, qw, scale)
+        torch.cuda.synchronize()
+        e, top = maxerr(got, want), want.float().abs().max().item()
+        errs_mm.append(e)
+        tag = f"w8a16 hymba head {str(dt)[6:]} M={m} K={HY_D} N={HY_VP}"
+        print(f"  {tag} ({w8a16_blocks(m, HY_VP)} CTAs): max err {e:.3g} "
+              f"(|out| <= {top:.3g}, tol {MM_TOL[dt]:g} x |out|)")
+        need(got.dtype == dt and e <= MM_TOL[dt] * top,
+             f"{tag}: kernel disagrees")
+
+
 # ------------------------------------------------------------- phase 4
 def serve_full(dev):
     """Every main path at full width, the same 8 requests each: fixed fp and
@@ -1367,6 +1548,123 @@ def compare_mamba(dev):
           f"tol {LOGIT_TOL:g} x max(1, |logits|))")
     need(e <= LOGIT_TOL * max(1.0, scale),
          "mamba2 decode steps disagree with forward")
+    del model
+    torch.cuda.empty_cache()
+
+
+def serve_hymba(dev):
+    """hymba-1.5b at full width (32 layers, bf16, seeded random weights)
+    through ``serve_demo``: 8 requests of 256-1024 tokens (multiples of 64,
+    the SSD scan's prompt-length contract), 32 new tokens each, max_batch
+    4, one-shot prefills (flash_prefill at G = 5 and ssd_prefill at ds 16
+    in every layer).  Runs: greedy at window 1; top-p (T 0.9, p 0.85, seed
+    7) at window 1 and 4, and at window 4 from the paged pool, all three
+    with equal streams; greedy window 4 with the int8 head and the int8
+    KV cache.  The counts are set to 0 just before each run: layers x
+    decode steps (warm-up window included), layers x prefills.  Then one
+    graph window == eager over a full-width state, and the decode-step
+    and prefill profiles."""
+    cfg = get_config("hymba-1.5b")
+    model = init_params(cfg, 0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    reqs = dict(n_requests=8, prompt_len=(256, 1024), prompt_multiple=64,
+                max_new=32)
+    layers, n = cfg.n_layers, reqs["n_requests"]
+
+    def counts(int8=False, paged=False):
+        return lambda steps: {
+            "flash_decode": layers * steps,
+            "flash_decode_kv8": layers * steps if int8 else 0,
+            "flash_decode_paged": layers * steps if paged else 0,
+            "flash_decode_grouped": 0, "prefix_pass": 0,
+            "flash_prefill": layers * n, "flash_prefill_paged": 0,
+            "w8a16_matmul": steps if int8 else 0, "ssd_prefill": layers * n}
+
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    plan = (("greedy w1", {}, counts()),
+            ("top-p w1", dict(sampling=TOP_P), counts()),
+            ("top-p w4", dict(sampling=TOP_P, decode_window=WINDOW),
+             counts()),
+            ("paged top-p w4", dict(sampling=TOP_P, decode_window=WINDOW,
+                                    paged_kv=True), counts(paged=True)),
+            ("int8 greedy w4", dict(hx=KV8_W8, decode_window=WINDOW),
+             counts(int8=True)))
+    for name, kw, want in plan:
+        streams, summ, c = window_run(dev, "hymba-1.5b", model,
+                                      f"hymba {name}", reqs, want, seed=0,
+                                      **kw)
+        runs[name] = {"streams": streams, "summ": summ, "counts": c}
+        if name in ("top-p w4", "paged top-p w4"):
+            need(streams == runs["top-p w1"]["streams"],
+                 f"hymba {name}: streams differ from top-p w1's")
+            print(f"    hymba {name} streams equal to top-p w1's (8 of 8)")
+    print(f"  hymba peak memory over the runs "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    rows = generate_rows(4, prompt_len=(700, 1000), max_tokens=1, seed=3)
+    for r in rows:               # the SSD scan's contract: multiples of 64
+        r.prompt_len = -(-r.prompt_len // 64) * 64
+    graph_vs_eager(dev, cfg, model, HelixConfig(),
+                   [prompt_tokens(r, cfg.vocab) for r in rows])
+    profile_decode(dev, cfg, model, HelixConfig())
+    prof = {label: profile_prefill(dev, cfg, model, HelixConfig(), key,
+                                   label)
+            for key, label in (("prefill_wgmma", "flash_prefill"),
+                               ("ssd_", "ssd_prefill"))}
+    del model
+    torch.cuda.empty_cache()
+    return {"runs": runs, "prefill": prof}
+
+
+def compare_hymba(dev):
+    """4-layer f32 hymba at full width: prefill (256 tokens) + 4 decode
+    steps, the kernel path against the plain path (``ref`` backends on the
+    card), kvp 4 against kvp 1, fp and with the int8 head and KV cache."""
+    cfg = dataclasses.replace(get_config("hymba-1.5b"), n_layers=4)
+    model = init_params(cfg, 1, dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(27)
+    t = 256
+    toks = torch.randint(0, cfg.vocab, (1, t), generator=g, device=dev)
+    plain = dict(attn_backend="ref", prefill_backend="ref", ssd_backend="ref",
+                 matmul_backend="ref")
+    runs = {}
+    for name, hx in (("kernel kvp=1", HelixConfig(kvp=1)),
+                     ("plain kvp=1", HelixConfig(kvp=1, **plain)),
+                     ("kernel kvp=4", HelixConfig(kvp=4)),
+                     ("int8 kernel kvp=1", KV8_W8),
+                     ("int8 plain kvp=1",
+                      dataclasses.replace(KV8_W8, **plain)),
+                     ("int8 kernel kvp=4",
+                      dataclasses.replace(KV8_W8, kvp=4))):
+        prepare_decode_params(model, hx)
+        logits, state = make_prefill_step(cfg, hx, s_cap=512)(
+            model, {"tokens": toks})
+        if hx.kv_cache_bits == 8:
+            state = quantize_decode_state(state)
+        state["total_len"] = torch.full((1,), t, dtype=torch.int32,
+                                        device=dev)
+        step = build_serve_step(cfg, hx, return_logits=True)
+        cur = torch.argmax(logits[:, :cfg.vocab], -1).to(torch.int32)
+        out = [logits]
+        for _ in range(4):
+            (cur, lg), state = step(model, state, cur)
+            out.append(lg)
+        runs[name] = torch.stack(out)[..., :cfg.vocab]
+    torch.cuda.synchronize()
+    for base_name, names in (("kernel kvp=1", ("plain kvp=1",
+                                               "kernel kvp=4")),
+                             ("int8 kernel kvp=1", ("int8 plain kvp=1",
+                                                    "int8 kernel kvp=4"))):
+        base = runs[base_name]
+        for name in names:
+            e, scale = maxerr(runs[name], base), base.abs().max().item()
+            print(f"  4-layer f32 hymba prefill+4 decode logits, {name} vs "
+                  f"{base_name}: max err {e:.3g} (|logits| <= {scale:.3g}, "
+                  f"tol {LOGIT_TOL:g} x max(1, |logits|))")
+            need(e <= LOGIT_TOL * max(1.0, scale),
+                 f"hymba {name} disagrees")
+            need(torch.equal(runs[name].argmax(-1), base.argmax(-1)),
+                 f"hymba {name}: greedy tokens differ")
     del model
     torch.cuda.empty_cache()
 
@@ -2168,6 +2466,142 @@ def times_ssd(dev):
     return r
 
 
+def times_hymba(dev):
+    """The kernels at hymba-1.5b's shapes, bf16, timed as the table's rows
+    are: flash_prefill at B = 1, T = 1024 causal, 25/5 heads (G = 5);
+    flash_decode at the serve shape (B = 4, lengths 700-1000 with the new
+    token, cap 1088, 25/5 heads, fused append, kvp 1), fixed fp, int8 (three
+    cache copies in turn) and paged (a shuffled table); ssd_prefill at B =
+    1, T = 1024, nh 50, hd 64, ds 16, a zero state; w8a16_matmul at the
+    untied head, M = 4, K = 1600, N = 32256.  Each beside its bound, its
+    plain version and its one-call PyTorch yardstick where there is one."""
+    g = torch.Generator(device=dev).manual_seed(28)
+    dt = torch.bfloat16
+    es = 2
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(dt)
+    out = {}
+    # prefill
+    t = 1024
+    qp, kp, vp = rnd(1, t, HY_QH, HSZ), rnd(1, t, HY_KH, HSZ), \
+        rnd(1, t, HY_KH, HSZ)
+    pre = {**timed(lambda: flash_prefill(qp, kp, vp, causal=True)),
+           "plain_ms": time_ms(lambda: flash_prefill_ref(qp, kp, vp,
+                                                         causal=True),
+                               iters=10),
+           "library_ms": queued_ms(lambda: F.scaled_dot_product_attention(
+               qp.transpose(1, 2), kp.transpose(1, 2), vp.transpose(1, 2),
+               is_causal=True, enable_gqa=True)),
+           "library": "sdpa, enable_gqa"}
+    pre.update(_bound((2 * t * HY_QH * HSZ + 2 * t * HY_KH * HSZ) * es,
+                      4 * HY_QH * HSZ * (t * (t + 1) // 2), PEAK[dt]))
+    out["flash_prefill_hymba"] = pre
+    # decode at the serve shape
+    b, cap = 4, 1088
+    tl = torch.tensor([1000, 900, 800, 700], dtype=torch.int32, device=dev)
+    q, kn = rnd(b, HY_QH, HSZ), rnd(b, HY_KH, HSZ)
+    k, v = rnd(b, HY_KH, cap, HSZ), rnd(b, HY_KH, cap, HSZ)
+    kw = dict(kvp=1, n_ranks=1, rank=0, rr_block=RR, window=0,
+              contiguous=False, slot_offset=0, k_new=kn, v_new=kn)
+    plain = dict(scale=HSZ ** -0.5, block_s=512)
+    slots = int(tl.sum())
+    dops = 4 * HY_QH * HSZ * slots
+    io = 2 * b * HY_QH * HSZ * es + b * HY_QH * 4 + 2 * b * HY_KH * HSZ * es
+    mask = (torch.arange(cap, device=dev)[None] < tl[:, None])[:, None, None]
+    fn = lambda: flash_decode_shards(q, k, v, tl, **kw)
+    dec = {**timed(fn), "device_ms": device_ms(fn, DECODE_KERNELS),
+           "plain_ms": time_ms(lambda: flash_decode_shards_plain(
+               q, k, v, tl, **plain, **kw), iters=3, warmup=1),
+           "library_ms": queued_ms(lambda: F.scaled_dot_product_attention(
+               q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)),
+           "library": "sdpa with a mask of the lengths, enable_gqa"}
+    dec.update(_bound(2 * HY_KH * slots * HSZ * es + io, dops, PEAK[dt]))
+    out["flash_decode_hymba"] = dec
+    copies = [quantize_kv_token(k) + quantize_kv_token(v) for _ in range(3)]
+    fns8 = [lambda c=c: flash_decode_shards(q, c[0], c[2], tl, kscale=c[1],
+                                            vscale=c[3], **kw)
+            for c in copies]
+    c0 = copies[0]
+    dec8 = {**timed(rotating(fns8)),
+            "device_ms": device_ms(rotating(fns8), DECODE_KERNELS),
+            "plain_ms": time_ms(lambda: flash_decode_shards_plain(
+                q, c0[0], c0[2], tl, kscale=c0[1], vscale=c0[3], **plain,
+                **kw), iters=3, warmup=1),
+            "library_ms": None,
+            "library": "no single PyTorch call attends over an int8 cache"}
+    dec8.update(_bound(2 * HY_KH * slots * (HSZ + 4) + io, dops, PEAK[dt]))
+    out["flash_decode_hymba_kv8"] = dec8
+    tab, n_pool = shuffled_tables(torch.Generator().manual_seed(29), tl, RR,
+                                  cap // RR)
+    tab = tab.to(dev)
+    pool = state_to_paged({"kcache": k[None], "vcache": v[None]}, tab, n_pool,
+                          1, RR)
+    pk, pv = pool["kcache"][0], pool["vcache"][0]
+    fnp = lambda: flash_decode_shards(q, pk, pv, tl, block_tables=tab, **kw)
+    decp = {**timed(fnp), "device_ms": device_ms(fnp, DECODE_KERNELS),
+            "plain_ms": time_ms(lambda: flash_decode_shards_plain(
+                q, pk, pv, tl, block_tables=tab, **plain, **kw), iters=3,
+                warmup=1),
+            "library_ms": None,
+            "library": "no single PyTorch call attends through a block "
+                       "table"}
+    decp.update(_bound(2 * HY_KH * slots * HSZ * es + io + tab.numel() * 4,
+                       dops, PEAK[dt]))
+    out["flash_decode_hymba_paged"] = decp
+    # the SSD scan
+    args, _ = ssd_inputs(g, dev, 1, t, dt, nh=HY_NH, ds=HY_DS)
+    h0 = torch.zeros(1, HY_NH, SSD_HD, HY_DS, device=dev)
+    call = lambda: ssd_prefill(*args, h0=h0)
+    ssd = {**timed(call),
+           "plain_ms": time_ms(lambda: ssd_prefill_plain(*args, h0=h0),
+                               iters=10),
+           "library_ms": None,
+           "library": "none: no single PyTorch call computes the SSD scan",
+           "device_ms": device_ms(call, "ssd_chunk_kernel"),
+           "ctas": HY_NH * len(chunk_spans(t, 64))}
+    state = HY_NH * SSD_HD * HY_DS * 4
+    sbytes = (t * HY_NH * SSD_HD * es + t * HY_NH * 4 + 2 * t * HY_DS * es
+              + 2 * HY_NH * 4 + state + t * HY_NH * SSD_HD * 4 + state)
+    sops = HY_NH * (t // 64) * 2 * (64 * 64 * HY_DS + 64 * 64 * SSD_HD
+                                    + 2 * 64 * HY_DS * SSD_HD)
+    ssd.update(_bound(sbytes, sops, PEAK[dt]))
+    out["ssd_prefill_hymba"] = ssd
+    # the untied int8 head
+    m = 4
+    x = rnd(m, HY_D)
+    qw, sc = quantize_w8(torch.randn(HY_D, HY_VP, generator=g, device=dev))
+    lib, lib_fn = w8a16_library(x, qw, sc)
+    mm = {**timed(lambda: w8a16_matmul(x, qw, sc)),
+          "plain_ms": time_ms(lambda: w8a16_matmul_ref(x, qw, sc), iters=10),
+          "library_ms": queued_ms(lib_fn), "library": lib,
+          "ctas": w8a16_blocks(m, HY_VP),
+          "device_ms": device_ms(lambda: w8a16_matmul(x, qw, sc),
+                                 "w8a16_kernel")}
+    mm.update(_bound(HY_D * HY_VP + HY_VP * 4 + m * HY_D * es + m * HY_VP * es,
+                     2 * m * HY_D * HY_VP, PEAK[dt]))
+    out["w8a16_matmul_hymba"] = mm
+    for name, shape in (
+            ("flash_prefill_hymba", f"B=1 T=1024 causal bf16, {HY_QH}/{HY_KH}"
+                                    " heads"),
+            ("flash_decode_hymba", "B=4 lengths 700-1000 cap 1088 bf16, "
+                                   f"{HY_QH}/{HY_KH} heads, fused append"),
+            ("flash_decode_hymba_kv8", "the same, int8 K/V"),
+            ("flash_decode_hymba_paged", f"the same, bf16 K/V in a {n_pool}-"
+                                         "page pool, shuffled table"),
+            ("ssd_prefill_hymba", f"B=1 T=1024 nh {HY_NH} hd {SSD_HD} ds "
+                                  f"{HY_DS}, {ssd['ctas']} CTAs"),
+            ("w8a16_matmul_hymba", f"M={m} K={HY_D} N={HY_VP} bf16 x, "
+                                   f"{mm['ctas']} CTAs")):
+        r = out[name]
+        lib_ms = ("none" if r["library_ms"] is None
+                  else f"{r['library_ms']:.4f} ms")
+        print(f"  {name} {shape}: kernel {r['ms']:.4f} ms (host-bound "
+              f"{r['host_ms']:.4f} ms, kernel records "
+              f"{fmt_ms(r.get('device_ms'))}), plain {r['plain_ms']:.4f} ms,"
+              f" library {lib_ms} ({r['library']}), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return out
+
+
 def rotating(fns):
     """One callable that calls ``fns`` in turn."""
     it = itertools.cycle(fns)
@@ -2236,7 +2670,11 @@ def main() -> int:
                                   "flash_decode_paged_kv8",
                                   "flash_decode_grouped", "flash_prefill",
                                   "flash_prefill_paged", "w8a16_matmul",
-                                  "ssd_prefill")}
+                                  "ssd_prefill", "flash_prefill_hymba",
+                                  "flash_decode_hymba",
+                                  "flash_decode_hymba_kv8",
+                                  "flash_decode_hymba_paged",
+                                  "ssd_prefill_hymba", "w8a16_matmul_hymba")}
     check_decode(dev, errs["flash_decode"])
     check_decode_kv8(dev, errs["flash_decode_kv8"])
     check_decode_paged(dev, errs["flash_decode_paged"],
@@ -2246,6 +2684,11 @@ def main() -> int:
     check_prefill(dev, errs["flash_prefill"], errs["flash_prefill_paged"])
     check_w8a16(dev, errs["w8a16_matmul"])
     check_ssd(dev, errs["ssd_prefill"])
+    check_prefill_g5(dev, errs["flash_prefill_hymba"],
+                     errs["flash_prefill_paged"])
+    check_decode_g5(dev, errs)
+    check_hymba_ssd_w8(dev, errs["ssd_prefill_hymba"],
+                       errs["w8a16_matmul_hymba"])
     check_sampler(dev)
 
     print(f"== 4 (t = {time.perf_counter() - T0:.1f} s) serve granite-3-2b "
@@ -2259,11 +2702,21 @@ def main() -> int:
           "(48 layers, bf16); 4-layer f32 checks")
     mamba = serve_mamba(dev)
     compare_mamba(dev)
+    print(f"== 4 (t = {time.perf_counter() - T0:.1f} s) serve hymba-1.5b "
+          "(32 layers, bf16): greedy, top-p at windows 1 and 4, paged, int8 "
+          "head + int8 KV; 4-layer f32 checks")
+    hymba = serve_hymba(dev)
+    compare_hymba(dev)
 
     print(f"== 5 times (t = {time.perf_counter() - T0:.1f} s)")
     timed = times(dev)
     timed["ssd_prefill"] = times_ssd(dev)
     timed["ssd_prefill"]["mamba2_prefill"] = mamba["prefill"]
+    timed.update(times_hymba(dev))
+    timed["flash_prefill_hymba"]["hymba_prefill"] = \
+        hymba["prefill"]["flash_prefill"]
+    timed["ssd_prefill_hymba"]["hymba_prefill"] = \
+        hymba["prefill"]["ssd_prefill"]
 
     # launches: each kernel's count in the run of the path it serves
     fp, int8 = runs["fp"][0]["counts"], runs["int8"][0]["counts"]
@@ -2281,10 +2734,23 @@ def main() -> int:
                     runs["a paged chunked"]["counts"]["flash_prefill"],
                 "w8a16_matmul": int8["w8a16_matmul"],
                 "ssd_prefill": mamba["counts"]["ssd_prefill"]}
+    hy = {name: run["counts"] for name, run in hymba["runs"].items()}
+    launches.update({
+        "flash_prefill_hymba": hy["greedy w1"]["flash_prefill"],
+        "flash_decode_hymba": hy["greedy w1"]["flash_decode"],
+        "flash_decode_hymba_kv8": hy["int8 greedy w4"]["flash_decode_kv8"],
+        "flash_decode_hymba_paged":
+            hy["paged top-p w4"]["flash_decode_paged"],
+        "ssd_prefill_hymba": hy["greedy w1"]["ssd_prefill"],
+        "w8a16_matmul_hymba": hy["int8 greedy w4"]["w8a16_matmul"]})
     decode_src = ("src/repro_torch/csrc/flash_decode.cu",
                   "src/repro/kernels/flash_decode/kernel.py:417")
     prefill_src = ("src/repro_torch/csrc/flash_prefill.cu",
                    "src/repro/kernels/flash_prefill/kernel.py:205")
+    ssd_src = ("src/repro_torch/csrc/ssd_prefill.cu",
+               "src/repro/kernels/ssd_prefill/kernel.py:97")
+    mm_src = ("src/repro_torch/csrc/w8a16_matmul.cu",
+              "src/repro/kernels/w8a16_matmul/kernel.py:63")
     sources = {"flash_decode": decode_src, "flash_decode_kv8": decode_src,
                "flash_decode_paged": decode_src,
                "flash_decode_paged_kv8": decode_src,
@@ -2293,10 +2759,12 @@ def main() -> int:
                                "src/repro/kernels/flash_decode/kernel.py:702"),
                "flash_prefill": prefill_src, "flash_prefill_paged": prefill_src,
                "flash_prefill_chunks": prefill_src,
-               "w8a16_matmul": ("src/repro_torch/csrc/w8a16_matmul.cu",
-                                "src/repro/kernels/w8a16_matmul/kernel.py:63"),
-               "ssd_prefill": ("src/repro_torch/csrc/ssd_prefill.cu",
-                               "src/repro/kernels/ssd_prefill/kernel.py:97")}
+               "w8a16_matmul": mm_src, "ssd_prefill": ssd_src,
+               "flash_prefill_hymba": prefill_src,
+               "flash_decode_hymba": decode_src,
+               "flash_decode_hymba_kv8": decode_src,
+               "flash_decode_hymba_paged": decode_src,
+               "ssd_prefill_hymba": ssd_src, "w8a16_matmul_hymba": mm_src}
     records = []
     for name, (src, replaces) in sources.items():
         need(launches[name] > 0, f"{name}: no launch on its main path")

@@ -1,6 +1,6 @@
 """Architecture configs of the port: only the fields its serving paths read
-(dense GQA and pure SSM), plus ``get_config``.  Mirrors
-``repro/configs/base.py``."""
+(dense GQA, pure SSM and the attention + SSM hybrid), plus ``get_config``.
+Mirrors ``repro/configs/base.py``."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,7 +12,7 @@ from repro_torch.utils import round_up
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                 # dense | ssm in this port
+    family: str                 # dense | ssm | hybrid in this port
     n_layers: int
     d_model: int
     n_heads: int
@@ -72,7 +72,8 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family variant for CPU tests (the reference's
-        ``ArchConfig.reduced`` rule for the dense and SSM families)."""
+        ``ArchConfig.reduced`` rule for the dense, SSM and hybrid
+        families)."""
         return dataclasses.replace(
             self, name=self.name + "-reduced",
             n_layers=min(self.n_layers, 2), d_model=128,
@@ -97,7 +98,15 @@ MAMBA2_780M = ArchConfig(
     tie_embeddings=True, ssm_state=128, ssm_conv=4, ssm_headdim=64,
     ssm_expand=2, ssm_ngroups=1)
 
-_CONFIGS = {c.name: c for c in (GRANITE_3_2B, MAMBA2_780M)}
+# hymba-1.5b [hybrid] — attention and Mamba2 heads side by side in every
+# layer, arXiv:2411.13676: GQA 25 q / 5 kv heads of 64, SSD state 16,
+# untied head.  At one card the 25/5 heads need no padding.
+HYMBA_1_5B = ArchConfig(
+    name="hymba-1.5b", family="hybrid", n_layers=32, d_model=1600,
+    n_heads=25, n_kv_heads=5, head_dim=64, d_ff=5504, vocab=32_001,
+    ssm_state=16, ssm_conv=4, ssm_headdim=64, ssm_expand=2, ssm_ngroups=1)
+
+_CONFIGS = {c.name: c for c in (GRANITE_3_2B, MAMBA2_780M, HYMBA_1_5B)}
 
 
 def get_config(name: str) -> ArchConfig:

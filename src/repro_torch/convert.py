@@ -8,8 +8,10 @@ pre-quantized int8 head (``lm_head_q8`` [d, Vp] int8 and ``lm_head_scale``
 [Vp] f32, from its ``quantize_lm_head``) is taken when both are present and
 copied exactly into the model's buffers of those names.  SSM layers take
 the ``layers/ssm/*`` leaves (``w_in``, ``conv_w``, ``conv_b``, ``A_log``,
-``D``, ``dt_bias``, ``norm_w``, ``w_out``); a ``dtype`` leaves the three the
-reference keeps in f32 (``A_log``, ``D``, ``dt_bias``) in f32.
+``D``, ``dt_bias``, ``norm_w``, ``w_out``), a hybrid layer both its
+``attn`` and ``ssm`` leaves; an untied model takes ``lm_head`` [d, Vp]; a
+``dtype`` leaves the three the reference keeps in f32 (``A_log``, ``D``,
+``dt_bias``) in f32.
 """
 from __future__ import annotations
 

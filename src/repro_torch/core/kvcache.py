@@ -119,9 +119,10 @@ def decode_state_shapes(cfg: ArchConfig, batch: int, seq_len: int, kvp: int,
     ``vcache``; ``pool_blocks > 0`` makes them pool planes ``[L,
     pool_blocks, Kh, page, hsz]`` beside ``block_tables [batch, max_pages]``
     (``max_pages`` defaults to ``pool_blocks``), with ``grouped`` also the
-    grouped decode's ``group_id``/``group_np`` [batch] int32 leaves.  SSM
-    archs: ``ssm_conv [L, batch, conv_dim, ssm_conv-1]`` and ``ssm_state
-    [L, batch, nh, hd, ds]`` (both f32), and no KV leaf.  ``sampling`` adds
+    grouped decode's ``group_id``/``group_np`` [batch] int32 leaves.  Archs
+    with SSM layers: ``ssm_conv [L, batch, conv_dim, ssm_conv-1]`` and
+    ``ssm_state [L, batch, nh, hd, ds]`` (both f32); a pure-SSM arch has no
+    KV leaf, a hybrid has both kinds.  ``sampling`` adds
     the sampler's [batch] leaves (``sampling_leaf_shapes``)."""
     if kv_bits not in KV_BITS:
         raise ValueError(f"kv_bits={kv_bits}; choose from {KV_BITS}")

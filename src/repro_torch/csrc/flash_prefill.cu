@@ -10,8 +10,13 @@
 // span is empty (lens == 0) give zeros.
 //
 // Both kernels: one thread block per (query block, kv head, batch row).  A
-// query block is BQ = 64 / G query positions times the G query heads of the
-// kv head: 64 rows that share every K/V tile.  The block loops over the kv
+// query block is BQ = 64 / G (rounded down) query positions times the G
+// query heads of the kv head: BQ * G live rows of the block's 64, which
+// share every K/V tile.  When G does not divide 64 (hymba's G = 5: 12
+// positions, 60 live rows) the 64 - BQ * G rows left over are dead: their
+// Q loads as zeros, every key is masked for them, and they store nothing;
+// each row's arithmetic is its own, so they change no live row's bits.
+// G runs from 1 to 64.  The block loops over the kv
 // tiles [lo, lo + nb) of prefill_block_range (blk_q = BQ, blk_k = 64), each
 // tile at absolute slots kb * 64, with an online softmax in f32.  The tile
 // loader is the only place that knows the layout, so the paged mode equals
@@ -120,11 +125,12 @@ __global__ void __launch_bounds__(NT) prefill_kernel(PrefillArgs a) {
   const int kv_hi = min(a.S, kv_len);   // rows at or beyond load as zeros
 
   const T* qp = reinterpret_cast<const T*>(a.q);
+  const int live = BQ * G;   // rows r >= live are dead
   for (int e = tid; e < ROWS * ROW_VECS; e += NT) {
     const int r = e / ROW_VECS, c = (e % ROW_VECS) * VN;
     const int t = qb * BQ + r / G;
     float f[VN];
-    if (t < a.T) {
+    if (r < live && t < a.T) {
       const long off = (((long)b * a.T + t) * Qh + h * G + r % G) * HSZ + c;
       unpack(*reinterpret_cast<const uint4*>(qp + off), f, T());
     } else {
@@ -140,11 +146,13 @@ __global__ void __launch_bounds__(NT) prefill_kernel(PrefillArgs a) {
 
   float m[RPT], l[RPT], o[RPT][DPT];
   int qpos[RPT];
+  bool dead[RPT];
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     m[i] = REPRO_NEG_INF;
     l[i] = 0.f;
     qpos[i] = q_offset + qb * BQ + (ty * RPT + i) / G;
+    dead[i] = ty * RPT + i >= live;
 #pragma unroll
     for (int d = 0; d < DPT; ++d) o[i][d] = 0.f;
   }
@@ -196,7 +204,7 @@ __global__ void __launch_bounds__(NT) prefill_kernel(PrefillArgs a) {
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
         const int kpos = kb * BK + tx + 16 * j;
-        ok[j] = kpos < kv_hi && (!a.causal || kpos <= qpos[i]) &&
+        ok[j] = !dead[i] && kpos < kv_hi && (!a.causal || kpos <= qpos[i]) &&
                 (a.window <= 0 || kpos > qpos[i] - a.window);
         if (!ok[j]) s[i][j] = REPRO_NEG_INF;
         mx = fmaxf(mx, s[i][j]);
@@ -247,7 +255,7 @@ __global__ void __launch_bounds__(NT) prefill_kernel(PrefillArgs a) {
   for (int i = 0; i < RPT; ++i) {
     const int r = ty * RPT + i;
     const int t = qb * BQ + r / G;
-    if (t >= a.T) continue;
+    if (dead[i] || t >= a.T) continue;
     const long base = (((long)b * a.T + t) * Qh + h * G + r % G) * HSZ;
 #pragma unroll
     for (int d = 0; d < DPT; ++d)
@@ -402,11 +410,12 @@ __global__ void __launch_bounds__(WG) prefill_wgmma(PrefillArgs a) {
     }
   };
   if (nb > 0) {
-    // Q tile: row r = position qb * BQ + r / G, head h * G + r % G
+    // Q tile: row r = position qb * BQ + r / G, head h * G + r % G; dead
+    // rows (r >= BQ * G) load as zeros
     for (int e = tid; e < ROWS * CH; e += WG) {
       const int r = e / CH, c = e % CH;
       const int t = qb * BQ + r / G;
-      const bool ok = t < a.T && c < CHV;
+      const bool ok = r < BQ * G && t < a.T && c < CHV;
       const bf16* src = ok ? qp + (((long)b * a.T + t) * Qh + h * G + r % G) * HSZ + c * 8 : qp;
       cp_async16(sq + sw_off(r, c, ROWS), src, ok ? 16 : 0);
     }
@@ -415,13 +424,14 @@ __global__ void __launch_bounds__(WG) prefill_wgmma(PrefillArgs a) {
   cp_async_commit();
 
   // this thread's two rows of the warpgroup's 64 (accumulator layout):
-  // r0 = 16 * warp + lane / 4 and r0 + 8; columns 8 j + 2 (lane % 4) + {0, 1}
+  // r0 = 16 * warp + lane / 4 and r0 + 8; columns 8 j + 2 (lane % 4) + {0, 1}.
+  // A dead row sees no key (kmax = -1).
   const int r0 = 16 * warp + lane / 4;
   int kmin[2], kmax[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int qpos = q_offset + qb * BQ + (r0 + 8 * i) / G;
-    kmax[i] = a.causal ? min(qpos, kv_hi - 1) : kv_hi - 1;
+    kmax[i] = r0 + 8 * i >= BQ * G ? -1 : a.causal ? min(qpos, kv_hi - 1) : kv_hi - 1;
     kmin[i] = a.window > 0 ? qpos - a.window + 1 : 0;
   }
   const float sl2 = a.scale * LOG2E;
@@ -526,7 +536,7 @@ __global__ void __launch_bounds__(WG) prefill_wgmma(PrefillArgs a) {
   for (int i = 0; i < 2; ++i) {
     const int r = r0 + 8 * i;
     const int t = qb * BQ + r / G;
-    if (t >= a.T) continue;
+    if (r >= BQ * G || t >= a.T) continue;
     const float den = fmaxf(l[i], 1e-37f);
     bf16* row = op + (((long)b * a.T + t) * Qh + h * G + r % G) * HSZ;
 #pragma unroll
@@ -583,7 +593,7 @@ extern "C" int flash_prefill_launch(const void* q, const void* k, const void* v,
                                     int B, int T, int S, int Kh, int G, int hsz,
                                     int causal, int window, int max_pages,
                                     int page, float scale, void* stream) {
-  if (G < 1 || ROWS % G != 0 || B * T * Kh == 0) return (int)cudaErrorInvalidValue;
+  if (G < 1 || G > ROWS || B * T * Kh == 0) return (int)cudaErrorInvalidValue;
   if (tables != nullptr && (page < 1 || max_pages < 1 || S != max_pages * page))
     return (int)cudaErrorInvalidValue;
   int page_shift = -1;

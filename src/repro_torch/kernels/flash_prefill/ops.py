@@ -22,7 +22,8 @@ from repro_torch.kernels.flash_prefill.ref import (flash_prefill_paged_ref,
 
 counter = build.Launches()          # every launch
 counter_paged = build.Launches()    # paged-mode launches among them
-ROWS = 64                   # query rows (positions x heads) per kernel block
+ROWS = 64                   # query rows per kernel block: 64 // G positions
+#                             x the G heads of a kv head, the rest dead
 BK = 64                     # keys per kernel kv tile
 HSZ = (32, 64, 128)
 
@@ -76,9 +77,9 @@ def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0,
     code = build.dtype_code(q.dtype)
     if not (k.dtype == v.dtype == q.dtype):
         raise ValueError(f"q/k/v dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
-    if hsz not in HSZ or ROWS % g:
+    if hsz not in HSZ or g > ROWS:
         raise ValueError(f"flash_prefill kernel takes hsz in {HSZ} and "
-                         f"{ROWS} % (Qh/Kh) == 0 (got hsz {hsz}, G {g})")
+                         f"Qh/Kh <= {ROWS} (got hsz {hsz}, G {g})")
     if k.shape[-1] != hsz or v.shape != k.shape or (not paged
                                                     and k.shape[0] != b):
         raise ValueError(f"k/v shapes {tuple(k.shape)} {tuple(v.shape)} do "

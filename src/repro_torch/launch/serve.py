@@ -26,6 +26,14 @@ the reference, which has no flag for it.
 prefill through the SSD scan (``--ssd-backend cuda|ref``) and O(1)-state
 decode steps.  As in the reference its prompts must be at most 64 tokens or
 a multiple of 64, and ``--chunk-tokens`` falls back to one-shot prefill.
+
+``--arch hymba-1.5b`` serves the hybrid: attention and Mamba2 heads side by
+side in every layer (flash_prefill at 5 query heads per kv head and the SSD
+scan in each prefill, flash_decode and the O(1)-state step in each decode
+step), an untied head.  The SSD scan's prompt contract holds (at most 64
+tokens or a multiple of 64), ``--chunk-tokens`` falls back to one-shot
+prefill and ``--prefix-share`` raises, as in the reference; ``--paged-kv``
+and ``--lm-head-w8`` work.
 """
 from __future__ import annotations
 

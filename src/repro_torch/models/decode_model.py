@@ -1,5 +1,5 @@
 """Helix decode step (port of the reference's ``models/decode_model.py``,
-dense attention layers and pure-SSM layers).
+dense attention layers, pure-SSM layers and hybrid layers).
 
 ``build_serve_step(cfg, hx)`` returns
 
@@ -8,10 +8,10 @@ dense attention layers and pure-SSM layers).
 one autoregressive step: per layer QKV + RoPE, the KV append fused into the
 flash_decode kernel (or a separate ``append_kv`` on the ``ref`` backend),
 Helix attention over the emulated KVP ranks with the LSE combine, the
-out-projection and the gated FFN; then the tied lm_head, the vocab pad mask
-and a greedy argmax.  The layer scan of the reference is a Python loop.
-The KV caches in ``state`` are updated **in place**; the returned state
-shares them.
+out-projection and the gated FFN; then the lm_head (``embed.T`` when
+tied), the vocab pad mask and a greedy argmax.  The layer scan of the
+reference is a Python loop.  The KV caches in ``state`` are updated **in
+place**; the returned state shares them.
 
 ``hx.kv_cache_bits == 8``: the caches are int8 with per-slot f32 scales
 (``kscale``/``vscale`` in ``state``); the new row is quantized inside the
@@ -30,6 +30,11 @@ PyTorch; the reference has no kernel there) on the state's ``ssm_conv``/
 sinusoidal embedding of position ``total_len`` to the token's.  The SSM
 recurrence has no length mask: idle rows evolve on junk until the engine's
 next scatter overwrites them, as in the reference.
+
+Hybrid archs (hymba): each layer runs the attention phase and the SSM
+phase on the same normed ``h`` and adds ``0.5 * (a_out + s_out)``, as the
+reference's decode step does; the state carries the KV leaves and the SSM
+leaves together.
 
 Token decision: the argmax, or, when the state holds the sampler's leaves
 (``core/kvcache.sampling_leaf_shapes``), ``serving/sampling.sample_tokens``
@@ -54,13 +59,15 @@ from repro_torch.kernels.w8a16_matmul import (quantize_w8, w8a16_matmul,
                                               w8a16_matmul_ref)
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import apply_rope, rms_norm, sinusoidal_at
-from repro_torch.models.transformer import ffn_block, vocab_mask
+from repro_torch.models.transformer import (ffn_block, head_weight,
+                                            mix_block_outputs, vocab_mask)
 
 
 def quantize_lm_head(model):
-    """Quantize the tied head ``embed.T`` [d, Vp] per column into the
-    model's ``lm_head_q8``/``lm_head_scale`` buffers (in place)."""
-    model.lm_head_q8, model.lm_head_scale = quantize_w8(model.embed.T)
+    """Quantize the head [d, Vp] per column (``lm_head`` when the model has
+    one, else the tied ``embed.T``) into the model's ``lm_head_q8``/
+    ``lm_head_scale`` buffers (in place)."""
+    model.lm_head_q8, model.lm_head_scale = quantize_w8(head_weight(model))
     return model
 
 
@@ -74,14 +81,15 @@ def prepare_decode_params(model, hx: HelixConfig | None):
 
 
 def head_matmul(hx: HelixConfig, model, x):
-    """Logits matmul ``x @ embed.T``; with ``hx.lm_head_w8`` through the
-    ``w8a16_matmul`` family (``hx.matmul_backend``) over the prepared int8
-    head, or over a head quantized in the step when it was not prepared."""
+    """Logits matmul ``x @ head`` (``lm_head``, or ``embed.T`` when tied);
+    with ``hx.lm_head_w8`` through the ``w8a16_matmul`` family
+    (``hx.matmul_backend``) over the prepared int8 head, or over a head
+    quantized in the step when it was not prepared."""
     if not hx.lm_head_w8:
-        return x @ model.embed.T
+        return x @ head_weight(model)
     qw, scale = model.lm_head_q8, model.lm_head_scale
     if qw is None:
-        qw, scale = quantize_w8(model.embed.T)
+        qw, scale = quantize_w8(head_weight(model))
     fn = w8a16_matmul if hx.matmul_backend == "cuda" else w8a16_matmul_ref
     return fn(x, qw, scale)
 
@@ -159,16 +167,18 @@ def _build_step_logits(cfg: ArchConfig, hx: HelixConfig):
         x = model.embed[tokens]
         if not cfg.use_rope:
             x = x + sinusoidal_at(tl.reshape(-1), cfg.d_model).to(x.dtype)
+        a_out = s_out = None        # the output a layer lacks
         for i, lp in enumerate(model.layers):
             h = rms_norm(x, lp.ln1)
             if cfg.has_attention:
                 ks = state["kscale"][i] if kv8 else None
                 vs = state["vscale"][i] if kv8 else None
-                x = x + attn_phase(lp.attn, h, state["kcache"][i],
+                a_out = attn_phase(lp.attn, h, state["kcache"][i],
                                    state["vcache"][i], ks, vs, tl_attn,
                                    tables, groups)
-            else:
-                x = x + ssm_phase(lp.ssm, h, state, i, advance)
+            if cfg.has_ssm:
+                s_out = ssm_phase(lp.ssm, h, state, i, advance)
+            x = x + mix_block_outputs(cfg, a_out, s_out)
             if cfg.d_ff:
                 x = x + ffn_block(cfg, lp.ffn, rms_norm(x, lp.ln2))
         x = rms_norm(x, model.ln_f)

@@ -40,8 +40,8 @@ def make_prefill_step(cfg: ArchConfig, hx: HelixConfig,
     """Build ``prefill_step(model, batch) -> (last_logits [B, Vp], state)``:
     the one-shot prefill (``hx.prefill_backend`` routes its attention,
     ``hx.ssd_backend`` its SSD scan) and the handoff of its caches into the
-    round-robin layout; SSM archs hand over their ``ssm_conv``/
-    ``ssm_state`` leaves as they are."""
+    round-robin layout; SSM and hybrid archs hand over their ``ssm_conv``/
+    ``ssm_state`` leaves as they are (a hybrid's state holds both kinds)."""
 
     def prefill_step(model, batch):
         tokens = batch["tokens"]

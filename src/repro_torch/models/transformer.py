@@ -1,17 +1,20 @@
-"""Dense GQA and pure-SSM decoders: parameters, seeded init and the prefill
-forward (port of the reference's ``models/transformer.py``, dense
-non-windowed and pure-SSM paths).
+"""Dense GQA, pure-SSM and hybrid decoders: parameters, seeded init and the
+prefill forward (port of the reference's ``models/transformer.py``, dense
+non-windowed, pure-SSM and hybrid paths).
 
 Parameter names and shapes follow the reference's pytree, with the stacked
 ``layers`` leaves split per layer: ``embed [Vp, d]``, ``ln_f [d]``,
 ``layers.{i}.ln1``, ``layers.{i}.attn.{wq [d, Qh*hsz], wk, wv [d, Kh*hsz],
 wo [Qh*hsz, d]}``, ``layers.{i}.ln2``, ``layers.{i}.ffn.{w1, w3 [d, f],
 w2 [f, d]}``; an SSM layer holds ``ln1`` and ``layers.{i}.ssm.*``
-(``models/ssm.SSMParams``) and no ``ln2``/``ffn`` (``d_ff = 0``).
-Projections are ``x @ w``; embeddings are tied.  The int8
-lm_head of the decode step (``decode_model.prepare_decode_params``) is held
-in the buffers ``lm_head_q8`` [d, Vp] int8 and ``lm_head_scale`` [Vp] f32,
-``None`` until prepared.
+(``models/ssm.SSMParams``) and no ``ln2``/``ffn`` (``d_ff = 0``); a
+hybrid layer holds ``attn`` and ``ssm`` together, both fed the same normed
+input, and adds ``0.5 * (a_out + s_out)``.  Projections are ``x @ w``.
+Tied models take their logits from ``embed.T``; untied ones hold
+``lm_head [d, Vp]``.  The int8 lm_head of the decode step
+(``decode_model.prepare_decode_params``) is held in the buffers
+``lm_head_q8`` [d, Vp] int8 and ``lm_head_scale`` [Vp] f32, ``None`` until
+prepared.
 """
 from __future__ import annotations
 
@@ -65,22 +68,26 @@ class DecoderLayer(nn.Module):
             self.ffn = FFN(cfg)
 
 
+FAMILIES = ("dense", "ssm", "hybrid")
+
+
 class Transformer(nn.Module):
-    """Parameter container of a dense or pure-SSM decoder; the forward
-    passes are the functions ``forward`` (prefill) and
+    """Parameter container of a dense, pure-SSM or hybrid decoder; the
+    forward passes are the functions ``forward`` (prefill) and
     ``decode_model.build_serve_step``."""
 
     def __init__(self, cfg: ArchConfig):
         super().__init__()
-        if cfg.family not in ("dense", "ssm") or not cfg.tie_embeddings:
-            raise ValueError(f"the port serves dense and pure-SSM tied-"
-                             f"embedding models ({cfg.name} is "
-                             f"{cfg.family})")
+        if cfg.family not in FAMILIES:
+            raise ValueError(f"the port serves the {', '.join(FAMILIES)} "
+                             f"families ({cfg.name} is {cfg.family})")
         self.cfg = cfg
         self.embed = _param(cfg.padded_vocab, cfg.d_model)
         self.ln_f = _param(cfg.d_model)
         self.layers = nn.ModuleList(DecoderLayer(cfg)
                                     for _ in range(cfg.n_layers))
+        if not cfg.tie_embeddings:
+            self.lm_head = _param(cfg.d_model, cfg.padded_vocab)
         self.register_buffer("lm_head_q8", None)
         self.register_buffer("lm_head_scale", None)
 
@@ -101,8 +108,9 @@ def cast_params(model: Transformer, *, device, dtype=None) -> Transformer:
 def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.float32,
                 device="cuda") -> Transformer:
     """Seeded random weights made on ``device`` with a ``torch.Generator``:
-    the reference's distributions (normal, fan-in scaled; out-projections
-    scaled down by sqrt(2L); embeddings 0.02; norm gains 0; SSM leaves by
+    the reference's distributions (normal, fan-in scaled, the untied
+    ``lm_head`` too; out-projections scaled down by sqrt(2L); embeddings
+    0.02; norm gains 0; SSM leaves by
     ``ssm.init_ssm``), not its values (``jax.random`` streams differ;
     ``convert.params_from_jax`` carries reference weights over exactly)."""
     model = cast_params(Transformer(cfg), device=device, dtype=dtype)
@@ -169,9 +177,24 @@ def ffn_block(cfg: ArchConfig, fp: FFN, h):
 def chunked_prefill_supported(cfg: ArchConfig) -> bool:
     """Whether ``cfg`` can prefill in prefix-attending chunks bit-exactly:
     every cross-position interaction must be causal attention (the
-    reference's rule: dense yes, SSM no; the engine falls back to one-shot
-    prefill for SSM)."""
+    reference's rule: dense yes, SSM and hybrid no; the engine falls back
+    to one-shot prefill for them)."""
     return cfg.family == "dense"
+
+
+def mix_block_outputs(cfg: ArchConfig, a_out, s_out):
+    """A layer's residual update from its attention and/or SSM outputs:
+    ``0.5 * (a_out + s_out)`` in a hybrid layer (the reference's order),
+    else the one output the layer has."""
+    if cfg.has_attention and cfg.has_ssm:
+        return 0.5 * (a_out + s_out)
+    return a_out if cfg.has_attention else s_out
+
+
+def head_weight(model: Transformer):
+    """The logits matmul's weight [d, Vp]: ``lm_head`` when the model is
+    untied, else ``embed.T``."""
+    return model.embed.T if model.cfg.tie_embeddings else model.lm_head
 
 
 @torch.no_grad()
@@ -206,6 +229,7 @@ def forward(cfg: ArchConfig, model: Transformer, tokens, *,
             + off.reshape(-1, 1)
         x = x + sinusoidal_at(pos, cfg.d_model).to(x.dtype)
     kcs, vcs, convs, ssms = [], [], [], []
+    a_out = s_out = None            # the output a layer lacks
     for i, lp in enumerate(model.layers):
         h = rms_norm(x, lp.ln1)
         if cfg.has_attention:
@@ -214,21 +238,20 @@ def forward(cfg: ArchConfig, model: Transformer, tokens, *,
             a_out, (k, v) = _attn_block(cfg, lp.attn, h, q_offset=q_offset,
                                         backend=prefill_backend,
                                         kv_buffer=buf)
-            x = x + a_out
             if return_cache:
                 kcs.append(k)
                 vcs.append(v)
-        else:
+        if cfg.has_ssm:
             s_out, st = ssm_lib.ssd_chunked(lp.ssm, cfg, h,
                                             backend=ssd_backend)
-            x = x + s_out
             if return_cache:
                 convs.append(st.conv)
                 ssms.append(st.ssm)
+        x = x + mix_block_outputs(cfg, a_out, s_out)
         if cfg.d_ff:
             x = x + ffn_block(cfg, lp.ffn, rms_norm(x, lp.ln2))
     x = rms_norm(x, model.ln_f)
-    logits = x @ model.embed.T + vocab_mask(cfg, x.dtype, x.device)
+    logits = x @ head_weight(model) + vocab_mask(cfg, x.dtype, x.device)
     extras = {}
     if prefix_state is not None:
         extras.update(kcache=prefix_state["kcache"],

@@ -40,6 +40,12 @@ The paged pool and prefix sharing are refused: in the reference the
 first needs a ``block_tables`` leaf no SSM state has (it fails at the first
 retirement) and the second needs chunked prefill.
 
+Hybrid archs (hymba): the decode state holds the KV leaves (fixed or
+paged, fp or int8) and the SSM leaves together; both are scattered at
+admission.  Prefills are one-shot (``chunk_tokens`` is ignored), so prefix
+sharing, which rides chunked prefill, is refused, as in the reference;
+the paged pool is allowed.
+
 On-device sampling (``sampling``, a ``SamplingParams``; per request
 ``Request.sampling``): the decode state carries the sampler's per-row
 leaves, installed at each request's first token with ``sample_idx`` at

@@ -15,7 +15,14 @@ P to bf16 for the tensor cores and its output to bf16, one bf16 ulp at
 |x| <= 2 being 2^-6; paged == fixed and chunk rows == one-shot rows are bit
 for bit.  The sampler on the card equals the CPU's bit for bit, and a
 decode window replayed from a CUDA graph equals the eager window.
+hymba-1.5b's shapes (flash_prefill at G = 3, 5, 6 and 7 query heads per kv
+head, flash_decode at G = 5, the SSD scan at ds 16, the untied int8 head)
+hold the same tolerances; two full-width hymba layers agree with the plain
+path within 1e-3 x max(1, |logits|) (f32 matmuls of width 1600-6482 and
+the 32256-row head over summation-order differences of ~1e-6).
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -35,7 +42,7 @@ from repro_torch.kernels.w8a16_matmul import (quantize_w8, w8a16_matmul,
                                               w8a16_matmul_ref)
 from repro_torch.launch.serve import serve_demo
 from repro_torch.models.model_zoo import (build_serve_multistep,
-                                          make_prefill_step)
+                                          build_serve_step, make_prefill_step)
 from repro_torch.models.transformer import init_params
 from repro_torch.configs import get_config
 from repro_torch.serving import sampling
@@ -408,6 +415,173 @@ def test_prefill_chunk_rows_equal_one_shot_rows_on_card(h100):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("g", [3, 5, 6, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_prefill_kernel_at_groups_not_dividing_64_on_card(h100, dtype, g):
+    """flash_prefill with G query heads per kv head where G does not divide
+    the block's 64 rows (hymba's G = 5: 12 positions, 4 dead rows): fixed
+    and paged vs the plain version at windows 0 and 64 with per-request
+    offsets and lengths, paged == fixed bit for bit, and rows of 4 chunk
+    calls == the same rows of one call, bit for bit."""
+    gen = torch.Generator(device=h100).manual_seed(20 + g)
+    rnd = lambda *sh: torch.randn(*sh, generator=gen,
+                                  device=h100).to(dtype)
+    b, t, kh, hsz, page = 2, 256, 5, 64, 16
+    q, k, v = rnd(b, t, kh * g, hsz), rnd(b, t, kh, hsz), rnd(b, t, kh, hsz)
+    offs = torch.tensor([0, 9], dtype=torch.int32, device=h100)
+    lens = torch.tensor([256, 201], dtype=torch.int32, device=h100)
+    tab, n_pool = _table(lens, t // page, page, g)
+    pk, pv = (_pool(x, tab, n_pool, page, 1e4) for x in (k, v))
+    ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for window in (0, 64):
+        kw = dict(causal=True, window=window, q_offset=offs, seq_lens=lens)
+        fixed = flash_prefill(q, k, v, **kw)
+        paged = flash_prefill(q, pk, pv, block_tables=tab, **kw)
+        want = flash_prefill_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(fixed, want, atol=PREFILL_TOL[dtype],
+                                   rtol=0)
+        assert torch.equal(fixed.view(ints), paged.view(ints))
+    full = torch.tensor([t], dtype=torch.int32, device=h100)
+    one = flash_prefill(q[:1], k[:1], v[:1], seq_lens=full)
+    for off in range(0, t, 64):
+        part = flash_prefill(q[:1, off:off + 64].contiguous(), k[:1], v[:1],
+                             q_offset=off, seq_lens=full * 0 + off + 64)
+        torch.cuda.synchronize()
+        assert torch.equal(part.view(ints), one[:, off:off + 64].view(ints))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True], ids=["fixed", "paged"])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_decode_kernel_at_g5_on_card(h100, quant, paged):
+    """flash_decode at hymba's 25 q / 5 kv heads, kvp 2, with the fused
+    append: kernel vs plain (f32), the appended rows bit for bit, fixed and
+    paged, fp and int8."""
+    gen = torch.Generator(device=h100).manual_seed(21)
+    b, kvp, s_loc, kh = 4, 2, 256, 5
+    rnd = lambda *sh: torch.randn(*sh, generator=gen, device=h100)
+    q, kn, vn = rnd(b, 5 * kh, 64), rnd(b, kh, 64), rnd(b, kh, 64)
+    k, v = rnd(b, kh, kvp * s_loc, 64), rnd(b, kh, kvp * s_loc, 64)
+    tl = torch.tensor([1, 37, 300, kvp * s_loc], dtype=torch.int32,
+                      device=h100)
+    st = {"kcache": k[None], "vcache": v[None]}
+    if quant:
+        st = quantize_decode_state(st)
+    if paged:
+        tab = torch.arange(1, 1 + b * kvp * s_loc // (kvp * RR),
+                           dtype=torch.int32).reshape(b, -1)
+        st = state_to_paged(dict(st, total_len=tl), tab, 1 + tab.numel(),
+                            kvp, kvp * RR)
+    planes = {key: val[0] for key, val in st.items()
+              if key in ("kcache", "vcache", "kscale", "vscale")}
+    kw = dict(kvp=kvp, n_ranks=kvp, rank=0, rr_block=RR, window=0,
+              contiguous=False, slot_offset=0, k_new=kn, v_new=vn,
+              block_tables=st["block_tables"] if paged else None)
+    mine = {key: val.clone() for key, val in planes.items()}
+    plain = {key: val.clone() for key, val in planes.items()}
+    sc = lambda c: ({"kscale": c["kscale"], "vscale": c["vscale"]} if quant
+                    else {})
+    o1, l1 = flash_decode_shards(q, mine["kcache"], mine["vcache"], tl,
+                                 **sc(mine), **kw)
+    o2, l2 = flash_decode_shards_plain(q, plain["kcache"], plain["vcache"],
+                                       tl, scale=64 ** -0.5,
+                                       block_s=kernel_block_s(512, s_loc),
+                                       **sc(plain), **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o1, o2, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(l1, l2, atol=ATOL, rtol=RTOL)
+    for key in mine:
+        assert torch.equal(mine[key], plain[key]), key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_ssd_prefill_kernel_at_hymba_widths_on_card(h100, dtype):
+    """The SSD scan kernel at hymba's widths (nh 50, hd 64, ds 16, one B/C
+    group: a state tile holds 2 of its 8 column groups and half the warps
+    hold no S unit) vs its plain version at T = 1024 and a ragged 37 from
+    a nonzero state; two halves split on the chunk grid chained through
+    h_final == one pass, bit for bit."""
+    gen = torch.Generator(device=h100).manual_seed(22)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=h100)
+    nh, hd, ds = 50, 64, 16
+    for b, t in ((1, 1024), (2, 37)):
+        x = rnd(b, t, nh, hd).to(dtype)
+        dt = torch.nn.functional.softplus(rnd(b, t, nh) - 1.0)
+        a = -torch.exp(rnd(nh) * 0.3)
+        bm, cm = ((rnd(b, t, 1, ds) * 0.5).to(dtype) for _ in range(2))
+        d, h0 = torch.ones(nh, device=h100), rnd(b, nh, hd, ds) * 0.2
+        y, h = ssd_prefill(x, dt, a, bm, cm, d, h0=h0)
+        yp, hp = ssd_prefill_plain(x, dt, a, bm, cm, d, h0=h0)
+        torch.cuda.synchronize()
+        for got, want in ((y, yp), (h, hp)):
+            tol = 2e-4 * max(1.0, want.abs().max().item())
+            assert (got - want).abs().max().item() <= tol
+        if t == 1024:
+            y1, h1 = ssd_prefill(x[:, :512], dt[:, :512].contiguous(), a,
+                                 bm[:, :512], cm[:, :512], d, h0=h0)
+            y2, h2 = ssd_prefill(x[:, 512:], dt[:, 512:].contiguous(), a,
+                                 bm[:, 512:], cm[:, 512:], d, h0=h1)
+            assert torch.equal(torch.cat([y1, y2], 1), y)
+            assert torch.equal(h2, h)
+
+
+@pytest.mark.gpu
+def test_w8a16_kernel_at_hymba_head_on_card(h100):
+    """The int8 head of hymba: K = 1600, N = 32256, M = 1 and 4."""
+    g = torch.Generator(device=h100).manual_seed(23)
+    qw, scale = quantize_w8(torch.randn(1600, 32256, generator=g,
+                                        device=h100))
+    for m in (1, 4):
+        x = torch.randn(m, 1600, generator=g, device=h100)
+        got = w8a16_matmul(x, qw, scale)
+        want = w8a16_matmul_ref(x, qw, scale)
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_hymba_two_layers_kernel_path_matches_plain_path_on_card(h100):
+    """Two layers of hymba-1.5b at full width, f32: prefill (128 tokens)
+    and 2 decode steps through the kernels (flash_prefill at G = 5,
+    ssd_prefill at ds 16, flash_decode at G = 5) against the plain path on
+    the card, logits within 1e-3 x max(1, |logits|) (two layers of width
+    1600-6482 matmuls and the 32256-row head over summation-order
+    differences of ~1e-6); each kernel launched once per layer per call."""
+    cfg = dataclasses.replace(get_config("hymba-1.5b"), n_layers=2)
+    model = init_params(cfg, 1, dtype=torch.float32, device=h100)
+    toks = torch.randint(0, cfg.vocab, (2, 128), device=h100,
+                         generator=torch.Generator(device=h100).manual_seed(4))
+    plain = HelixConfig(attn_backend="ref", prefill_backend="ref",
+                        ssd_backend="ref")
+    runs = {}
+    for name, hx in (("kernel", HelixConfig()), ("plain", plain)):
+        registry.reset_launch_counts()
+        logits, state = make_prefill_step(cfg, hx, s_cap=256)(
+            model, {"tokens": toks})
+        state["total_len"] = torch.full((2,), 128, dtype=torch.int32,
+                                        device=h100)
+        step = build_serve_step(cfg, hx, return_logits=True)
+        cur = torch.argmax(logits[:, :cfg.vocab], -1).to(torch.int32)
+        out = [logits]
+        for _ in range(2):
+            (cur, lg), state = step(model, state, cur)
+            out.append(lg)
+        torch.cuda.synchronize()
+        runs[name] = (torch.stack(out)[..., :cfg.vocab],
+                      registry.launch_counts())
+    (kern, counts), (ref, plain_counts) = runs["kernel"], runs["plain"]
+    assert (kern - ref).abs().max().item() <= 1e-3 * max(
+        1.0, ref.abs().max().item())
+    assert (counts["flash_prefill"], counts["ssd_prefill"],
+            counts["flash_decode"]) == (2, 2, 4)
+    assert sum(plain_counts.values()) == 0
+
+
+@pytest.mark.gpu
 def test_sampler_on_card_matches_cpu(h100):
     """The sampler's threefry words, uniforms and Gumbel noise on the card
     equal the CPU's bit for bit (each log is rounded from float64), and so
@@ -436,7 +610,8 @@ def test_sampler_on_card_matches_cpu(h100):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["granite-3-2b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["granite-3-2b", "mamba2-780m",
+                                  "hymba-1.5b"])
 def test_window_graph_equals_eager_window_on_card(h100, arch):
     """A window of 4 replayed from a captured CUDA graph equals the eager
     window bit for bit over the whole state, with one row frozen by its

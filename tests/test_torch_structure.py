@@ -81,3 +81,39 @@ def test_params_from_jax_refuses_unknown_and_missing_leaves():
     del layers["ln2"]
     with pytest.raises(KeyError):
         params_from_jax(dict(tree, layers=layers), cfg)
+    # an untied model (hymba): lm_head is required; a tied one refuses it
+    ucfg = get_config("hymba-1.5b").reduced()
+    with pytest.raises(KeyError, match="lm_head"):
+        params_from_jax(_hybrid_tree(ucfg, rng, head=False), ucfg)
+    model = params_from_jax(_hybrid_tree(ucfg, rng), ucfg)
+    assert model.lm_head.shape == (ucfg.d_model, ucfg.padded_vocab)
+    tree = _hybrid_tree(ucfg, rng)
+    tree["layers"]["ssm"]["extra"] = np.zeros((ucfg.n_layers, 3))
+    with pytest.raises(KeyError):
+        params_from_jax(tree, ucfg)
+
+
+def _hybrid_tree(cfg, rng, head=True):
+    """A reference-shaped pytree of a hybrid layer stack (attn, ssm, ffn and
+    norms in every layer), with ``lm_head`` unless ``head`` is False."""
+    L, d, f, di = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.d_inner
+    nh, cd = cfg.ssm_heads, cfg.conv_dim
+    n_in = 2 * di + 2 * cfg.ssm_ngroups * cfg.ssm_state + nh
+    z = lambda *s: np.zeros(s, np.float32)
+    tree = {
+        "embed": rng.standard_normal((cfg.padded_vocab, d)),
+        "ln_f": z(d),
+        "layers": {
+            "ln1": z(L, d), "ln2": z(L, d),
+            "attn": {"wq": z(L, d, cfg.q_dim), "wk": z(L, d, cfg.kv_dim),
+                     "wv": z(L, d, cfg.kv_dim), "wo": z(L, cfg.q_dim, d)},
+            "ssm": {"w_in": z(L, d, n_in), "conv_w": z(L, cd, cfg.ssm_conv),
+                    "conv_b": z(L, cd), "A_log": z(L, nh), "D": z(L, nh),
+                    "dt_bias": z(L, nh), "norm_w": z(L, di),
+                    "w_out": z(L, di, d)},
+            "ffn": {"w1": z(L, d, f), "w2": z(L, f, d), "w3": z(L, d, f)},
+        },
+    }
+    if head:
+        tree["lm_head"] = rng.standard_normal((d, cfg.padded_vocab))
+    return tree
