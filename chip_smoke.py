@@ -45,7 +45,13 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    and int8, kvp 1 and 4, vs plain, paged == fixed bit for bit;
    ssd_prefill at nh 50, hd 64, ds 16 (B = 1 and 4, T = 1024, a split at
    512 == one pass bit for bit); w8a16_matmul at the untied head (M = 1
-   and 4, K = 1600, N = 32256); the on-device sampler (plain PyTorch) at
+   and 4, K = 1600, N = 32256); at granite-moe-1b-a400m's shapes:
+   flash_prefill at G = 2 (16/8 heads) and flash_decode at G = 2, the
+   same checks as at G = 5, w8a16_matmul at its tied head (M = 1 and 4, K
+   = 1024, N = 49664), and its MoE layer at full width (E 32, top 8, H
+   1024, Fe 512, f32) on the card against the CPU at T = 4 (decode
+   capacity) and T = 1024 (prefill capacity): routes, slots and token
+   plans equal, y within MOE_TOL; the on-device sampler (plain PyTorch) at
    B = 4, V = 49155: threefry words, uniforms, Gumbel noise and tokens on
    the card equal to its plain CPU run bit for bit;
 4. serve: granite-3-2b at full width (40 layers, bf16, seeded random
@@ -95,7 +101,16 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    == eager over a full-width state; decode-step and prefill profiles;
    4-layer f32 checks: kernel path vs plain path and kvp 4 vs kvp 1, fp
    and int8 (the prefill profile's shares go into the records
-   ``flash_prefill_hymba`` and ``ssd_prefill_hymba``).  The paged mode
+   ``flash_prefill_hymba`` and ``ssd_prefill_hymba``).  Then
+   granite-moe-1b-a400m at full width (24 layers, bf16, seeded random
+   weights, 32 experts, top 8, tied head): 8 requests of 128-1024 tokens,
+   32 new tokens each, one-shot prefills, the same five runs as hymba's
+   with the same launch counts (no ssd_prefill); one graph window ==
+   eager; the decode-step profile beside its byte bound and the MoE FFNs'
+   device time and share; the prefill profile; 4-layer f32 checks, kernel
+   vs plain and kvp 4 vs 1, fp and int8, with every layer's routes equal
+   between the compared runs (a token routed otherwise is printed with
+   its distance from a tie, and fails the run).  The paged mode
    of flash_prefill, which no serving path of the JAX package calls, runs
    as one ragged chunk step over a 40-layer granite pool (40 launches,
    counted; every layer == the fixed layout bit for bit);
@@ -112,11 +127,15 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    ssd_prefill at B = 1, T = 1024 with its CTAs (one per chunk and head);
    and the hymba-1.5b shapes (records ``*_hymba``): flash_prefill at G =
    5, flash_decode at the serve shape (fixed, int8, paged), ssd_prefill
-   at ds 16 and w8a16_matmul at K = 1600, N = 32256.
+   at ds 16 and w8a16_matmul at K = 1600, N = 32256; and the
+   granite-moe shapes (records ``*_moe``): flash_prefill at G = 2,
+   flash_decode at the serve shape and w8a16_matmul at K = 1024, N =
+   49664.
 
 The last lines are the card line, one JSON object of kernel records and
 ``{"ok": true, "device": {...}}``.
 """
+import copy
 import dataclasses
 import itertools
 import json
@@ -161,6 +180,7 @@ from repro_torch.kernels.w8a16_matmul.ops import (  # noqa: E402
     blocks as w8a16_blocks)
 from repro_torch.launch.serve import (generate_rows,  # noqa: E402
                                      prompt_tokens, serve_demo)
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models.decode_model import prepare_decode_params  # noqa: E402
 from repro_torch.models.model_zoo import (  # noqa: E402
     build_serve_multistep, build_serve_step, finalize_chunked_prefill,
@@ -199,6 +219,15 @@ D_MODEL, VP = 2048, 49664           # granite-3-2b lm_head [d_model, padded voca
 HY_QH, HY_KH = 25, 5                # hymba-1.5b q / kv heads (G = 5)
 HY_NH, HY_DS = 50, 16               # hymba-1.5b SSM heads and state (hd 64)
 HY_D, HY_VP = 1600, 32256           # hymba-1.5b lm_head [d_model, padded vocab]
+MOE = "granite-moe-1b-a400m"
+MOE_QH, MOE_KH = 16, 8              # granite-moe q / kv heads (G = 2)
+MOE_D, MOE_VP = 1024, 49664         # granite-moe lm_head [d_model, padded vocab]
+# the MoE layer at full width, f32, card vs CPU: routes, slots and token
+# plans equal; gates differ by the f32 router product's summation order
+# (1024 terms, ~1e-7), y by three f32 matmuls (1024 and 512 terms) summed
+# over 8 choices, relative to max(1, |y|)
+ROUTE_TOL = 1e-6
+MOE_TOL = 2e-5
 KV8_W8 = HelixConfig(kv_cache_bits=8, lm_head_w8=True)
 WINDOW = 4                          # decode window of phase 4's window runs
 TOP_P = sampling.SamplingParams("top_p", temperature=0.9, top_p=0.85, seed=7)
@@ -991,6 +1020,55 @@ def check_ssd(dev, errs):
                 tag, got, ssd_prefill_plain(*args, h0=h0), errs))
 
 
+def check_moe_ffn(dev):
+    """The MoE layer at granite-moe's full width (E 32, top 8, H 1024, Fe
+    512, f32, weights by ``moe.init_moe``) on the card against the same
+    layer on the CPU, the same inputs: T = 4 at the decode capacity factor
+    (4.0) and T = 1024 at the prefill's (1.25).  ``expert_idx``,
+    ``slot_of`` and ``tok_of`` equal; gates within ROUTE_TOL, the aux loss
+    within ROUTE_TOL and y within MOE_TOL x max(1, |y|).  Prints the
+    dropped assignments at T = 1024."""
+    cfg = get_config(MOE)
+    m = cfg.moe
+    card = moe_lib.MoEParams(m, cfg.d_model).to(dev)
+    moe_lib.init_moe(card, m, cfg.d_model,
+                     torch.Generator(device=dev).manual_seed(31))
+    cpu = copy.deepcopy(card).cpu()
+    g = torch.Generator(device=dev).manual_seed(32)
+    for t, cf in ((4, m.decode_capacity_factor), (1024, m.capacity_factor)):
+        x = torch.randn(t, cfg.d_model, generator=g, device=dev)
+        cap = moe_lib.capacity(t, m, cf)
+        out = {}
+        for where, mp, xs in (("card", card, x), ("cpu", cpu, x.cpu())):
+            r = moe_lib.route(mp.router, xs, m)
+            slot, tok = moe_lib.dispatch_plan(r.expert_idx, m.n_experts, cap)
+            y, aux = moe_lib.moe_ffn(mp, xs, m, F.silu, capacity_factor=cf)
+            out[where] = [v.cpu() for v in (r.expert_idx, r.gates, slot, tok,
+                                            y, aux)]
+        (ci, cg, cs, ct, cy, ca), (hi, hg, hs, ht, hy, ha) = (out["card"],
+                                                              out["cpu"])
+        tag = f"moe_ffn T={t} cf {cf:g} (cap {cap})"
+        p = torch.softmax(x.cpu() @ cpu.router, -1).sort(-1, True).values
+        flips = route_flips(f"{tag} card vs CPU", [(ci, None)],
+                            [(hi, p[:, m.topk - 1] - p[:, m.topk])], 1)
+        need(not flips, f"{tag}: {flips} tokens routed otherwise on the card")
+        need(torch.equal(cs, hs) and torch.equal(ct, ht),
+             f"{tag}: slot_of / tok_of differ between card and CPU")
+        eg, ea, ey = maxerr(cg, hg), maxerr(ca, ha), maxerr(cy, hy)
+        top = hy.abs().max().item()
+        dropped = int((hs >= cap).sum())
+        print(f"  {tag}, E {m.n_experts} top {m.topk} H {cfg.d_model} Fe "
+              f"{m.d_ff} f32, card vs CPU: routes, slots and token plans "
+              f"equal; gates max err {eg:.3g}, aux {ea:.3g} (tol "
+              f"{ROUTE_TOL:g}), y {ey:.3g} (|y| <= {top:.3g}, tol "
+              f"{MOE_TOL:g} x max(1, |y|)); {dropped} of {t * m.topk} "
+              "assignments dropped")
+        need(eg <= ROUTE_TOL and ea <= ROUTE_TOL
+             and ey <= MOE_TOL * max(1.0, top), f"{tag}: card disagrees")
+        if t == 4:
+            need(dropped == 0, f"{tag}: a decode assignment was dropped")
+
+
 def check_sampler(dev):
     """The on-device sampler (plain PyTorch on the card: the JAX package
     computes it outside any Pallas kernel) at the lm_head shape, B = 4,
@@ -1026,23 +1104,24 @@ def check_sampler(dev):
           "the plain CPU run, bit for bit")
 
 
-def check_prefill_g5(dev, errs, errs_paged):
-    """B2 at hymba's 5 query heads per kv head (B = 1, T = 1024, 25/5
-    heads, hsz 64: blocks of 12 positions, 4 dead rows of 64), bf16 and
-    f32: fixed and paged (16-position pages, a shuffled table, a +-1e4
-    sink page) against the plain versions; paged == fixed bit for bit; rows
-    of 4 chunk calls (T 256 at q_offset 0..768) == the same rows of one
-    call, bit for bit, fixed and paged."""
-    g = torch.Generator(device=dev).manual_seed(24)
+def check_prefill_group(dev, errs, errs_paged, qh=HY_QH, kh=HY_KH, seed=24):
+    """B2 at ``qh / kh`` query heads per kv head (B = 1, T = 1024, hsz 64;
+    hymba's 25/5 by default: blocks of 12 positions, 4 dead rows of 64;
+    granite-moe's 16/8: G = 2), bf16 and f32: fixed and paged
+    (16-position pages, a shuffled table, a +-1e4 sink page) against the
+    plain versions; paged == fixed bit for bit; rows of 4 chunk calls (T
+    256 at q_offset 0..768) == the same rows of one call, bit for bit,
+    fixed and paged."""
+    grp = f"G={qh // kh}"
+    g = torch.Generator(device=dev).manual_seed(seed)
     t = 1024
     full = torch.tensor([t], dtype=torch.int32, device=dev)
-    tab, n_pool = shuffled_tables(torch.Generator().manual_seed(24), full, 16,
-                                  t // 16)
+    tab, n_pool = shuffled_tables(torch.Generator().manual_seed(seed), full,
+                                  16, t // 16)
     tab = tab.to(dev)
     for dt in (torch.float32, torch.bfloat16):
         rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(dt)
-        q, k, v = rnd(1, t, HY_QH, HSZ), rnd(1, t, HY_KH, HSZ), \
-            rnd(1, t, HY_KH, HSZ)
+        q, k, v = rnd(1, t, qh, HSZ), rnd(1, t, kh, HSZ), rnd(1, t, kh, HSZ)
         junk = sink_garbage(g, dev, 16)
         pk = prefill_pool(k, tab, n_pool, 16, junk)
         pv = prefill_pool(v, tab, n_pool, 16, -junk)
@@ -1058,39 +1137,40 @@ def check_prefill_g5(dev, errs, errs_paged):
                                      errs_paged)):
             e = maxerr(got, ref)
             lst.append(e)
-            tag = f"prefill G=5 {mode} {str(dt)[6:]}"
-            print(f"  {tag} (B=1 T={t} {HY_QH}/{HY_KH} heads): max err "
+            tag = f"prefill {grp} {mode} {str(dt)[6:]}"
+            print(f"  {tag} (B=1 T={t} {qh}/{kh} heads): max err "
                   f"{e:.3g} (tol {TOL[dt]['out']:g})")
             need(e <= TOL[dt]["out"], f"{tag}: kernel disagrees with plain")
         need(torch.equal(bits(one["fixed"]), bits(one["paged"])),
-             "prefill G=5: paged != fixed")
+             f"prefill {grp}: paged != fixed")
         for mode, kv, extra in layouts:
             parts = [flash_prefill(q[:, o:o + 256].contiguous(), *kv,
                                    q_offset=o, seq_lens=full * 0 + o + 256,
                                    **extra) for o in range(0, t, 256)]
             torch.cuda.synchronize()
             need(torch.equal(bits(torch.cat(parts, 1)), bits(one[mode])),
-                 f"prefill G=5 {mode} {dt}: chunk rows != one-shot rows")
-        print(f"  prefill G=5 {str(dt)[6:]}: paged == fixed, and rows of 4 "
+                 f"prefill {grp} {mode} {dt}: chunk rows != one-shot rows")
+        print(f"  prefill {grp} {str(dt)[6:]}: paged == fixed, and rows of 4 "
               "chunk calls == one call (fixed and paged), bit for bit")
 
 
-def check_decode_g5(dev, errs):
-    """B1 at hymba's 25/5 heads (G = 5) at the serve shape (B = 4,
-    lengths 700-1000 with the new token, cap 1088), fused append, f32 and
-    bf16, kvp 1 and 4: fixed and paged (a shuffled table), fp and int8,
-    against the plain version, the appended rows equal to the plain
-    version's and paged == fixed, bit for bit.  ``errs`` maps
-    ``flash_decode_hymba``, ``_kv8`` and ``_paged`` (paged fp and int8)
-    to lists."""
-    g = torch.Generator(device=dev).manual_seed(25)
+def check_decode_group(dev, errs, qh=HY_QH, kh=HY_KH, seed=25,
+                       name="flash_decode_hymba"):
+    """B1 at ``qh / kh`` heads (hymba's 25/5, G = 5, by default;
+    granite-moe's 16/8, G = 2) at the serve shape (B = 4, lengths
+    700-1000 with the new token, cap 1088), fused append, f32 and bf16,
+    kvp 1 and 4: fixed and paged (a shuffled table), fp and int8, against
+    the plain version, the appended rows equal to the plain version's and
+    paged == fixed, bit for bit.  ``errs`` maps ``name``, ``name + "_kv8"``
+    and ``name + "_paged"`` (paged fp and int8) to lists."""
+    grp = f"G={qh // kh}"
+    g = torch.Generator(device=dev).manual_seed(seed)
     b, cap = 4, 1088
     tl = torch.tensor([1000, 900, 800, 700], dtype=torch.int32, device=dev)
     for dt in (torch.float32, torch.bfloat16):
         rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(dt)
-        q, kn, vn = rnd(b, HY_QH, HSZ), rnd(b, HY_KH, HSZ), rnd(b, HY_KH, HSZ)
-        base = {key: rnd(1, b, HY_KH, cap, HSZ) for key in ("kcache",
-                                                            "vcache")}
+        q, kn, vn = rnd(b, qh, HSZ), rnd(b, kh, HSZ), rnd(b, kh, HSZ)
+        base = {key: rnd(1, b, kh, cap, HSZ) for key in ("kcache", "vcache")}
         for quant, kvp in itertools.product((False, True), (1, 4)):
             st = quantize_decode_state(base) if quant else base
             keys = [key for key in ("kcache", "vcache", "kscale", "vscale")
@@ -1117,11 +1197,9 @@ def check_decode_g5(dev, errs):
                     block_s=kernel_block_s(512, cap // kvp), **sc(c2), **kw)
                 torch.cuda.synchronize()
                 eo, el = maxerr(o1, o2), maxerr(l1, l2)
-                name = ("flash_decode_hymba_paged" if mode == "paged" else
-                        "flash_decode_hymba_kv8" if quant else
-                        "flash_decode_hymba")
-                errs[name].append(eo)
-                tag = (f"decode G=5 {mode} {'int8' if quant else 'fp'} "
+                errs[name + ("_paged" if mode == "paged" else
+                             "_kv8" if quant else "")].append(eo)
+                tag = (f"decode {grp} {mode} {'int8' if quant else 'fp'} "
                        f"{str(dt)[6:]} kvp={kvp}")
                 print(f"  {tag}: max err out {eo:.3g} lse {el:.3g} (tol "
                       f"{TOL[dt]['out']:g}/{TOL[dt]['lse']:g})")
@@ -1134,8 +1212,8 @@ def check_decode_g5(dev, errs):
                 outs[mode] = (o1, l1)
             need(all(torch.equal(bits(x), bits(y))
                      for x, y in zip(outs["fixed"], outs["paged"])),
-                 f"decode G=5 {dt} quant={quant} kvp={kvp}: paged != fixed")
-        print(f"  decode G=5 {str(dt)[6:]}: paged == fixed bit for bit, fp "
+                 f"decode {grp} {dt} quant={quant} kvp={kvp}: paged != fixed")
+        print(f"  decode {grp} {str(dt)[6:]}: paged == fixed bit for bit, fp "
               "and int8, kvp 1 and 4")
 
 
@@ -1166,17 +1244,21 @@ def check_hymba_ssd_w8(dev, errs_ssd, errs_mm):
             print(f"  {tag} (nh {HY_NH}, hd {SSD_HD}, ds {HY_DS}, from a "
                   f"nonzero state): max err {msg} (tol {SSD_TOL:g} x max(1,"
                   " |want|)); split at 512 == one pass bit for bit")
-    qw, scale = quantize_w8(torch.randn(HY_D, HY_VP, generator=g,
-                                        device=dev))
+    check_w8a16_head(dev, errs_mm, g, HY_D, HY_VP, "hymba")
+
+
+def check_w8a16_head(dev, errs, g, d, vp, label):
+    """B3 at a model's int8 head [d, vp], M = 1 and 4, f32 and bf16 x."""
+    qw, scale = quantize_w8(torch.randn(d, vp, generator=g, device=dev))
     for m, dt in itertools.product((1, 4), (torch.float32, torch.bfloat16)):
-        x = torch.randn(m, HY_D, generator=g, device=dev).to(dt)
+        x = torch.randn(m, d, generator=g, device=dev).to(dt)
         got = w8a16_matmul(x, qw, scale)
         want = w8a16_matmul_ref(x, qw, scale)
         torch.cuda.synchronize()
         e, top = maxerr(got, want), want.float().abs().max().item()
-        errs_mm.append(e)
-        tag = f"w8a16 hymba head {str(dt)[6:]} M={m} K={HY_D} N={HY_VP}"
-        print(f"  {tag} ({w8a16_blocks(m, HY_VP)} CTAs): max err {e:.3g} "
+        errs.append(e)
+        tag = f"w8a16 {label} head {str(dt)[6:]} M={m} K={d} N={vp}"
+        print(f"  {tag} ({w8a16_blocks(m, vp)} CTAs): max err {e:.3g} "
               f"(|out| <= {top:.3g}, tol {MM_TOL[dt]:g} x |out|)")
         need(got.dtype == dt and e <= MM_TOL[dt] * top,
              f"{tag}: kernel disagrees")
@@ -1391,6 +1473,22 @@ def graph_vs_eager(dev, cfg, model, hx, prompts):
           f"{len(e_new)} state leaves ({size / 2**20:.1f} MiB)")
 
 
+def path_counts(layers, prefills, *, int8=False, paged=False, ssd=False):
+    """``steps -> counts``: the launches a one-shot-prefill serve run of
+    ``prefills`` requests must make, flash_decode ``layers`` x decode steps
+    (its int8 and paged modes too in int8 and paged runs), flash_prefill
+    (and ssd_prefill for an SSM arch) ``layers`` x prefills and w8a16_matmul
+    once per step with the int8 head."""
+    return lambda steps: {
+        "flash_decode": layers * steps,
+        "flash_decode_kv8": layers * steps if int8 else 0,
+        "flash_decode_paged": layers * steps if paged else 0,
+        "flash_decode_grouped": 0, "prefix_pass": 0,
+        "flash_prefill": layers * prefills, "flash_prefill_paged": 0,
+        "w8a16_matmul": steps if int8 else 0,
+        "ssd_prefill": layers * prefills if ssd else 0}
+
+
 def serve_windows(dev, cfg, model, runs):
     """Decode windows of 4 at full width, the fp run's 8 requests: top-p
     (T 0.9, p 0.85, seed 7) at window 1 and 4 on the fixed layout, window 4
@@ -1398,17 +1496,7 @@ def serve_windows(dev, cfg, model, runs):
     fixed layout and on the int8 path, whose streams must equal the one-step
     fp and int8 runs'.  Then one window from a graph vs eager."""
     reqs = dict(n_requests=8, prompt_len=(128, 1024), max_new=32)
-    layers = cfg.n_layers
-
-    def counts(int8=False, paged=False):
-        return lambda steps: {
-            "flash_decode": layers * steps,
-            "flash_decode_kv8": layers * steps if int8 else 0,
-            "flash_decode_paged": layers * steps if paged else 0,
-            "flash_decode_grouped": 0, "prefix_pass": 0,
-            "flash_prefill": layers * reqs["n_requests"],
-            "flash_prefill_paged": 0, "w8a16_matmul": steps if int8 else 0,
-            "ssd_prefill": 0}
+    counts = lambda **kw: path_counts(cfg.n_layers, reqs["n_requests"], **kw)
 
     out = {}
     plan = (("top-p w1", {}, 1, counts()), ("top-p w4", {}, WINDOW, counts()),
@@ -1552,34 +1640,13 @@ def compare_mamba(dev):
     torch.cuda.empty_cache()
 
 
-def serve_hymba(dev):
-    """hymba-1.5b at full width (32 layers, bf16, seeded random weights)
-    through ``serve_demo``: 8 requests of 256-1024 tokens (multiples of 64,
-    the SSD scan's prompt-length contract), 32 new tokens each, max_batch
-    4, one-shot prefills (flash_prefill at G = 5 and ssd_prefill at ds 16
-    in every layer).  Runs: greedy at window 1; top-p (T 0.9, p 0.85, seed
-    7) at window 1 and 4, and at window 4 from the paged pool, all three
-    with equal streams; greedy window 4 with the int8 head and the int8
-    KV cache.  The counts are set to 0 just before each run: layers x
-    decode steps (warm-up window included), layers x prefills.  Then one
-    graph window == eager over a full-width state, and the decode-step
-    and prefill profiles."""
-    cfg = get_config("hymba-1.5b")
-    model = init_params(cfg, 0, dtype=torch.bfloat16, device=dev)
-    torch.cuda.synchronize()
-    reqs = dict(n_requests=8, prompt_len=(256, 1024), prompt_multiple=64,
-                max_new=32)
-    layers, n = cfg.n_layers, reqs["n_requests"]
-
-    def counts(int8=False, paged=False):
-        return lambda steps: {
-            "flash_decode": layers * steps,
-            "flash_decode_kv8": layers * steps if int8 else 0,
-            "flash_decode_paged": layers * steps if paged else 0,
-            "flash_decode_grouped": 0, "prefix_pass": 0,
-            "flash_prefill": layers * n, "flash_prefill_paged": 0,
-            "w8a16_matmul": steps if int8 else 0, "ssd_prefill": layers * n}
-
+def serve_plan(dev, arch, model, label, reqs, counts):
+    """The five window runs of a model served at full width: greedy at
+    window 1; top-p (T 0.9, p 0.85, seed 7) at window 1 and 4, and at
+    window 4 from the paged pool, all three with equal streams; greedy
+    window 4 with the int8 head and the int8 KV cache.  ``counts(**kw)``
+    gives each run's expected launches (``path_counts``); the counts are
+    set to 0 just before each run.  Returns the runs by name."""
     torch.cuda.reset_peak_memory_stats()
     runs = {}
     plan = (("greedy w1", {}, counts()),
@@ -1591,16 +1658,35 @@ def serve_hymba(dev):
             ("int8 greedy w4", dict(hx=KV8_W8, decode_window=WINDOW),
              counts(int8=True)))
     for name, kw, want in plan:
-        streams, summ, c = window_run(dev, "hymba-1.5b", model,
-                                      f"hymba {name}", reqs, want, seed=0,
-                                      **kw)
+        streams, summ, c = window_run(dev, arch, model, f"{label} {name}",
+                                      reqs, want, seed=0, **kw)
         runs[name] = {"streams": streams, "summ": summ, "counts": c}
         if name in ("top-p w4", "paged top-p w4"):
             need(streams == runs["top-p w1"]["streams"],
-                 f"hymba {name}: streams differ from top-p w1's")
-            print(f"    hymba {name} streams equal to top-p w1's (8 of 8)")
-    print(f"  hymba peak memory over the runs "
+                 f"{label} {name}: streams differ from top-p w1's")
+            print(f"    {label} {name} streams equal to top-p w1's (8 of 8)")
+    print(f"  {label} peak memory over the runs "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return runs
+
+
+def serve_hymba(dev):
+    """hymba-1.5b at full width (32 layers, bf16, seeded random weights)
+    through ``serve_demo``: 8 requests of 256-1024 tokens (multiples of 64,
+    the SSD scan's prompt-length contract), 32 new tokens each, max_batch
+    4, one-shot prefills (flash_prefill at G = 5 and ssd_prefill at ds 16
+    in every layer), the runs of ``serve_plan``: layers x decode steps
+    (warm-up window included), layers x prefills.  Then one graph window
+    == eager over a full-width state, and the decode-step and prefill
+    profiles."""
+    cfg = get_config("hymba-1.5b")
+    model = init_params(cfg, 0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    reqs = dict(n_requests=8, prompt_len=(256, 1024), prompt_multiple=64,
+                max_new=32)
+    runs = serve_plan(dev, "hymba-1.5b", model, "hymba", reqs,
+                      lambda **kw: path_counts(cfg.n_layers, 8, ssd=True,
+                                               **kw))
     rows = generate_rows(4, prompt_len=(700, 1000), max_tokens=1, seed=3)
     for r in rows:               # the SSD scan's contract: multiples of 64
         r.prompt_len = -(-r.prompt_len // 64) * 64
@@ -1616,18 +1702,135 @@ def serve_hymba(dev):
     return {"runs": runs, "prefill": prof}
 
 
-def compare_hymba(dev):
-    """4-layer f32 hymba at full width: prefill (256 tokens) + 4 decode
-    steps, the kernel path against the plain path (``ref`` backends on the
-    card), kvp 4 against kvp 1, fp and with the int8 head and KV cache."""
-    cfg = dataclasses.replace(get_config("hymba-1.5b"), n_layers=4)
+def serve_moe(dev):
+    """granite-moe-1b-a400m at full width (24 layers, bf16, seeded random
+    weights, 32 experts, top 8) through ``serve_demo``: 8 requests of
+    128-1024 tokens, 32 new tokens each, max_batch 4, one-shot prefills
+    (flash_prefill at G = 2, the MoE at capacity factor 1.25), the runs of
+    ``serve_plan``: layers x decode steps (warm-up window included),
+    layers x prefills.  Then one graph window == eager over a full-width
+    state, the decode-step profile with the MoE FFNs' device time and
+    share, and the prefill profile."""
+    cfg = get_config(MOE)
+    model = init_params(cfg, 0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    reqs = dict(n_requests=8, prompt_len=(128, 1024), max_new=32)
+    runs = serve_plan(dev, MOE, model, "moe", reqs,
+                      lambda **kw: path_counts(cfg.n_layers, 8, **kw))
+    prompts = [prompt_tokens(r, cfg.vocab) for r in generate_rows(
+        4, prompt_len=(700, 1000), max_tokens=1, seed=3)]
+    graph_vs_eager(dev, cfg, model, HelixConfig(), prompts)
+    step = profile_decode(dev, cfg, model, HelixConfig())
+    moe_ms = profile_moe_decode(dev, cfg, model)
+    tl = (1000, 900, 800, 700)
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    kv = 2 * cfg.n_layers * cfg.kv_dim * 2 * sum(tl)
+    bound = (wbytes + kv) / HBM_BPS * 1e3
+    expert_bytes = sum(getattr(lp.moe, w).numel() * 2 for lp in model.layers
+                       for w in ("w1", "w2", "w3"))
+    share = (None if step["device_ms"] is None or moe_ms is None
+             else moe_ms / step["device_ms"])
+    print(f"  moe decode step (B=4, lengths 700-1000): device "
+          f"{fmt_ms(step['device_ms'])} per step against its byte bound "
+          f"{bound:.4f} ms ({wbytes / 1e9:.3f} GB of weights, "
+          f"{expert_bytes / 1e9:.3f} GB of them experts, {kv / 1e6:.1f} MB "
+          f"of K/V); MoE FFNs {fmt_ms(moe_ms)} per step "
+          f"({cfg.n_layers} layers, profiler kernel records at the step's "
+          f"shapes), share of the step's device time "
+          f"{'not measured' if share is None else f'{share:.3f}'}")
+    prof = profile_prefill(dev, cfg, model, HelixConfig(), "prefill_wgmma",
+                           "flash_prefill")
+    del model
+    torch.cuda.empty_cache()
+    return {"runs": runs, "prefill": prof,
+            "decode": dict(step, moe_ms=moe_ms, share=share,
+                           bound_ms=bound)}
+
+
+def profile_moe_decode(dev, cfg, model, n=5):
+    """Device time (ms) of the MoE FFNs of one decode step: every layer's
+    ``moe_ffn`` at the step's shape (4 bf16 rows, the decode capacity
+    factor) over the model's own weights, from torch.profiler's kernel
+    records; None when the profiler saw no device events."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device=dev).manual_seed(33)
+    xs = [torch.randn(4, cfg.d_model, generator=g, device=dev).to(
+        torch.bfloat16) for _ in model.layers]
+    cf = cfg.moe.decode_capacity_factor
+
+    def run():
+        for lp, x in zip(model.layers, xs):
+            moe_lib.moe_ffn(lp.moe, x, cfg.moe, F.silu, capacity_factor=cf)
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    device = sum(getattr(e, "self_device_time_total", 0)
+                 for e in prof.key_averages()
+                 if not e.key.startswith("aten::")) / n / 1e3
+    return device if device > 0 else None
+
+
+class RouteLog:
+    """While active, records every ``moe.route`` call's ``expert_idx`` and,
+    per token, the gap between its k-th and (k+1)-th router probability
+    (how far the route is from a tie)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        self._route = route = moe_lib.route
+
+        def logged(router_w, x, m):
+            r = route(router_w, x, m)
+            p = torch.softmax(x.float() @ router_w, -1).sort(
+                -1, descending=True).values
+            self.calls.append((r.expert_idx, p[:, m.topk - 1] - p[:, m.topk]))
+            return r
+
+        moe_lib.route = logged
+        return self
+
+    def __exit__(self, *exc):
+        moe_lib.route = self._route
+
+
+def route_flips(tag, calls, base, layers):
+    """The routes of two runs, call by call (prefill then steps, ``layers``
+    calls each): prints each token whose experts differ, where and by how
+    much its base route was from a tie.  Returns the number of such
+    tokens."""
+    need(len(calls) == len(base), f"{tag}: {len(calls)} routes vs "
+         f"{len(base)}")
+    flips = 0
+    for i, ((idx, _), (bidx, gap)) in enumerate(zip(calls, base)):
+        rows = (idx != bidx).any(-1).nonzero().flatten().tolist()
+        flips += len(rows)
+        for r in rows[:4]:
+            print(f"  {tag}: {'prefill' if i < layers else f'step {i // layers}'}"
+                  f" layer {i % layers} token {r}: experts "
+                  f"{idx[r].tolist()} vs {bidx[r].tolist()}, gap between "
+                  f"the k-th and (k+1)-th probability {gap[r].item():.3g}")
+    return flips
+
+
+def compare_small(dev, arch, seed, plain, label):
+    """A 4-layer f32 model of ``arch`` at full width: prefill (256 tokens)
+    + 4 decode steps, the kernel path against the plain path (``plain``
+    backends, ``ref``, on the card), kvp 4 against kvp 1, fp and with the
+    int8 head and KV cache: logits within LOGIT_TOL x max(1, |logits|) and
+    the same greedy tokens; an MoE's routes equal in every layer and step."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=4)
     model = init_params(cfg, 1, dtype=torch.float32, device=dev)
-    g = torch.Generator(device=dev).manual_seed(27)
+    g = torch.Generator(device=dev).manual_seed(seed)
     t = 256
     toks = torch.randint(0, cfg.vocab, (1, t), generator=g, device=dev)
-    plain = dict(attn_backend="ref", prefill_backend="ref", ssd_backend="ref",
-                 matmul_backend="ref")
-    runs = {}
+    runs, routes = {}, {}
     for name, hx in (("kernel kvp=1", HelixConfig(kvp=1)),
                      ("plain kvp=1", HelixConfig(kvp=1, **plain)),
                      ("kernel kvp=4", HelixConfig(kvp=4)),
@@ -1637,19 +1840,21 @@ def compare_hymba(dev):
                      ("int8 kernel kvp=4",
                       dataclasses.replace(KV8_W8, kvp=4))):
         prepare_decode_params(model, hx)
-        logits, state = make_prefill_step(cfg, hx, s_cap=512)(
-            model, {"tokens": toks})
-        if hx.kv_cache_bits == 8:
-            state = quantize_decode_state(state)
-        state["total_len"] = torch.full((1,), t, dtype=torch.int32,
-                                        device=dev)
-        step = build_serve_step(cfg, hx, return_logits=True)
-        cur = torch.argmax(logits[:, :cfg.vocab], -1).to(torch.int32)
-        out = [logits]
-        for _ in range(4):
-            (cur, lg), state = step(model, state, cur)
-            out.append(lg)
+        with RouteLog() as log:
+            logits, state = make_prefill_step(cfg, hx, s_cap=512)(
+                model, {"tokens": toks})
+            if hx.kv_cache_bits == 8:
+                state = quantize_decode_state(state)
+            state["total_len"] = torch.full((1,), t, dtype=torch.int32,
+                                            device=dev)
+            step = build_serve_step(cfg, hx, return_logits=True)
+            cur = torch.argmax(logits[:, :cfg.vocab], -1).to(torch.int32)
+            out = [logits]
+            for _ in range(4):
+                (cur, lg), state = step(model, state, cur)
+                out.append(lg)
         runs[name] = torch.stack(out)[..., :cfg.vocab]
+        routes[name] = log.calls
     torch.cuda.synchronize()
     for base_name, names in (("kernel kvp=1", ("plain kvp=1",
                                                "kernel kvp=4")),
@@ -1658,21 +1863,48 @@ def compare_hymba(dev):
         base = runs[base_name]
         for name in names:
             e, scale = maxerr(runs[name], base), base.abs().max().item()
-            print(f"  4-layer f32 hymba prefill+4 decode logits, {name} vs "
+            print(f"  4-layer f32 {label} prefill+4 decode logits, {name} vs "
                   f"{base_name}: max err {e:.3g} (|logits| <= {scale:.3g}, "
                   f"tol {LOGIT_TOL:g} x max(1, |logits|))")
             need(e <= LOGIT_TOL * max(1.0, scale),
-                 f"hymba {name} disagrees")
+                 f"{label} {name} disagrees")
             need(torch.equal(runs[name].argmax(-1), base.argmax(-1)),
-                 f"hymba {name}: greedy tokens differ")
+                 f"{label} {name}: greedy tokens differ")
+            if cfg.moe:
+                base_routes = routes[base_name]
+                flips = route_flips(f"{label} {name}", routes[name],
+                                    base_routes, cfg.n_layers)
+                need(not flips, f"{label} {name}: {flips} tokens routed "
+                     f"otherwise than in {base_name}")
+                gap = min(gp.min().item() for _, gp in base_routes)
+                print(f"    routes equal to {base_name}'s in all "
+                      f"{len(base_routes)} calls ({cfg.n_layers} layers x "
+                      f"(prefill + 4 steps)); smallest gap to a tie "
+                      f"{gap:.3g}")
     del model
     torch.cuda.empty_cache()
 
 
+def compare_hymba(dev):
+    """4-layer f32 hymba at full width (``compare_small``)."""
+    compare_small(dev, "hymba-1.5b", 27, dict(
+        attn_backend="ref", prefill_backend="ref", ssd_backend="ref",
+        matmul_backend="ref"), "hymba")
+
+
+def compare_moe(dev):
+    """4-layer f32 granite-moe at full width (``compare_small``), routes
+    equal in every layer between the compared runs."""
+    compare_small(dev, MOE, 34, dict(attn_backend="ref",
+                                     prefill_backend="ref",
+                                     matmul_backend="ref"), "moe")
+
+
 def profile_prefill(dev, cfg, model, hx, kernel, label):
     """Host wall time vs device time of one-shot prefills of 1024 tokens
-    (torch.profiler), and the share of the prefill kernel's launches whose
-    profiler names contain ``kernel`` (``label`` in the output).  Returns
+    (torch.profiler), the share of the prefill kernel's launches whose
+    profiler names contain ``kernel`` (``label`` in the output), and the
+    three kernels that take the most device time.  Returns
     ``{"wall_ms", "device_ms", "kernel_ms", "share"}`` (device numbers None
     when the profiler saw no device events)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1700,6 +1932,11 @@ def profile_prefill(dev, cfg, model, hx, kernel, label):
               f"{device / wall:.3f}, {label} {mine:.2f} ms "
               f"({cfg.n_layers} launches, {mine / device:.3f} of the device "
               "time)")
+        top = sorted((e for e in rows if not e.key.startswith("aten::")),
+                     key=dev_us, reverse=True)[:3]
+        print("    largest kernels: " + "; ".join(
+            f"{e.key[:60]} {dev_us(e) / n / 1e3:.2f} ms ({e.count // n} a "
+            "prefill)" for e in top))
         return {"wall_ms": wall, "device_ms": device, "kernel_ms": mine,
                 "share": mine / device}
     print(f"  {cfg.name} prefill profile: host wall {wall:.2f} ms; "
@@ -1951,7 +2188,9 @@ def profile_decode(dev, cfg, model, hx):
     ``hx.paged_kv`` the same caches in a pool under a shuffled table; with
     ``hx.grouped_decode`` the 4 rows also map the same first 32 pages (512
     positions) and form one group; an SSM arch's 4 rows carry random
-    ``ssm_state`` leaves instead of caches."""
+    ``ssm_state`` leaves instead of caches.  Returns ``{"wall_ms",
+    "device_ms"}`` per step (``device_ms`` None when the profiler saw no
+    device events)."""
     from torch.profiler import ProfilerActivity, profile
     state = init_decode_state(cfg, 4, 1088, 1, RR, dtype=torch.bfloat16,
                               device=dev)
@@ -2000,6 +2239,7 @@ def profile_decode(dev, cfg, model, hx):
         if calls:
             per_call[tag] = sum(dev_us(e) for e in rows
                                 if any(k in e.key for k in keys)) / calls / 1e3
+    out = {"wall_ms": wall, "device_ms": device if device > 0 else None}
     if device > 0:
         calls = ", ".join(f"{k} {v:.4f} ms/call" for k, v in per_call.items())
         mode = ("grouped, " if hx.grouped_decode else "") + \
@@ -2012,6 +2252,7 @@ def profile_decode(dev, cfg, model, hx):
     else:
         print(f"  decode step profile: host wall {wall:.2f} ms/step; device "
               "time not measured (the profiler saw no device events)")
+    return out
 
 
 def compare_paths(dev):
@@ -2466,6 +2707,94 @@ def times_ssd(dev):
     return r
 
 
+def time_prefill_at(g, dev, qh, kh, t=1024):
+    """flash_prefill's record at B = 1, T = ``t`` causal, bf16, ``qh / kh``
+    heads of 64: kernel, plain, SDPA (``enable_gqa``) and the bound."""
+    dt, es = torch.bfloat16, 2
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(dt)
+    qp, kp, vp = rnd(1, t, qh, HSZ), rnd(1, t, kh, HSZ), rnd(1, t, kh, HSZ)
+    pre = {**timed(lambda: flash_prefill(qp, kp, vp, causal=True)),
+           "plain_ms": time_ms(lambda: flash_prefill_ref(qp, kp, vp,
+                                                         causal=True),
+                               iters=10),
+           "library_ms": queued_ms(lambda: F.scaled_dot_product_attention(
+               qp.transpose(1, 2), kp.transpose(1, 2), vp.transpose(1, 2),
+               is_causal=True, enable_gqa=True)),
+           "library": "sdpa, enable_gqa"}
+    pre.update(_bound((2 * t * qh * HSZ + 2 * t * kh * HSZ) * es,
+                      4 * qh * HSZ * (t * (t + 1) // 2), PEAK[dt]))
+    return pre
+
+
+def decode_serve_inputs(g, dev, qh, kh):
+    """flash_decode's inputs at the serve shape (B = 4, lengths 700-1000
+    with the new token, cap 1088, ``qh / kh`` heads of 64, fused append,
+    kvp 1), bf16, with the work they need (``slots``, ``dops``, ``io``)."""
+    dt, es = torch.bfloat16, 2
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(dt)
+    b, cap = 4, 1088
+    tl = torch.tensor([1000, 900, 800, 700], dtype=torch.int32, device=dev)
+    q, kn = rnd(b, qh, HSZ), rnd(b, kh, HSZ)
+    k, v = rnd(b, kh, cap, HSZ), rnd(b, kh, cap, HSZ)
+    slots = int(tl.sum())
+    return dict(q=q, k=k, v=v, tl=tl, cap=cap, qh=qh, kh=kh, slots=slots,
+                kw=dict(kvp=1, n_ranks=1, rank=0, rr_block=RR, window=0,
+                        contiguous=False, slot_offset=0, k_new=kn, v_new=kn),
+                plain=dict(scale=HSZ ** -0.5, block_s=512),
+                dops=4 * qh * HSZ * slots,
+                io=(2 * b * qh * HSZ * es + b * qh * 4
+                    + 2 * b * kh * HSZ * es))
+
+
+def time_decode_at(d):
+    """flash_decode's record over ``decode_serve_inputs``' fixed bf16
+    cache: kernel, plain, SDPA (a mask of the lengths, ``enable_gqa``) and
+    the bound."""
+    q, k, v, tl, kw = d["q"], d["k"], d["v"], d["tl"], d["kw"]
+    mask = (torch.arange(d["cap"], device=tl.device)[None]
+            < tl[:, None])[:, None, None]
+    fn = lambda: flash_decode_shards(q, k, v, tl, **kw)
+    dec = {**timed(fn), "device_ms": device_ms(fn, DECODE_KERNELS),
+           "plain_ms": time_ms(lambda: flash_decode_shards_plain(
+               q, k, v, tl, **d["plain"], **kw), iters=3, warmup=1),
+           "library_ms": queued_ms(lambda: F.scaled_dot_product_attention(
+               q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)),
+           "library": "sdpa with a mask of the lengths, enable_gqa"}
+    dec.update(_bound(2 * d["kh"] * d["slots"] * HSZ * 2 + d["io"],
+                      d["dops"], PEAK[torch.bfloat16]))
+    return dec
+
+
+def time_w8a16_at(g, dev, d, vp, m=4):
+    """w8a16_matmul's record at a model's int8 head [d, vp], M = ``m``
+    bf16 rows: kernel, plain, the library call and the bound."""
+    x = torch.randn(m, d, generator=g, device=dev).to(torch.bfloat16)
+    qw, sc = quantize_w8(torch.randn(d, vp, generator=g, device=dev))
+    lib, lib_fn = w8a16_library(x, qw, sc)
+    mm = {**timed(lambda: w8a16_matmul(x, qw, sc)),
+          "plain_ms": time_ms(lambda: w8a16_matmul_ref(x, qw, sc), iters=10),
+          "library_ms": queued_ms(lib_fn), "library": lib,
+          "ctas": w8a16_blocks(m, vp),
+          "device_ms": device_ms(lambda: w8a16_matmul(x, qw, sc),
+                                 "w8a16_kernel")}
+    mm.update(_bound(d * vp + vp * 4 + m * d * 2 + m * vp * 2,
+                     2 * m * d * vp, PEAK[torch.bfloat16]))
+    return mm
+
+
+def print_times(out, shapes):
+    """One line per record of ``out``, each with its shape."""
+    for name, shape in shapes:
+        r = out[name]
+        lib_ms = ("none" if r["library_ms"] is None
+                  else f"{r['library_ms']:.4f} ms")
+        print(f"  {name} {shape}: kernel {r['ms']:.4f} ms (host-bound "
+              f"{r['host_ms']:.4f} ms, kernel records "
+              f"{fmt_ms(r.get('device_ms'))}), plain {r['plain_ms']:.4f} ms,"
+              f" library {lib_ms} ({r['library']}), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
 def times_hymba(dev):
     """The kernels at hymba-1.5b's shapes, bf16, timed as the table's rows
     are: flash_prefill at B = 1, T = 1024 causal, 25/5 heads (G = 5);
@@ -2478,44 +2807,13 @@ def times_hymba(dev):
     g = torch.Generator(device=dev).manual_seed(28)
     dt = torch.bfloat16
     es = 2
-    rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(dt)
-    out = {}
-    # prefill
+    out = {"flash_prefill_hymba": time_prefill_at(g, dev, HY_QH, HY_KH)}
     t = 1024
-    qp, kp, vp = rnd(1, t, HY_QH, HSZ), rnd(1, t, HY_KH, HSZ), \
-        rnd(1, t, HY_KH, HSZ)
-    pre = {**timed(lambda: flash_prefill(qp, kp, vp, causal=True)),
-           "plain_ms": time_ms(lambda: flash_prefill_ref(qp, kp, vp,
-                                                         causal=True),
-                               iters=10),
-           "library_ms": queued_ms(lambda: F.scaled_dot_product_attention(
-               qp.transpose(1, 2), kp.transpose(1, 2), vp.transpose(1, 2),
-               is_causal=True, enable_gqa=True)),
-           "library": "sdpa, enable_gqa"}
-    pre.update(_bound((2 * t * HY_QH * HSZ + 2 * t * HY_KH * HSZ) * es,
-                      4 * HY_QH * HSZ * (t * (t + 1) // 2), PEAK[dt]))
-    out["flash_prefill_hymba"] = pre
-    # decode at the serve shape
-    b, cap = 4, 1088
-    tl = torch.tensor([1000, 900, 800, 700], dtype=torch.int32, device=dev)
-    q, kn = rnd(b, HY_QH, HSZ), rnd(b, HY_KH, HSZ)
-    k, v = rnd(b, HY_KH, cap, HSZ), rnd(b, HY_KH, cap, HSZ)
-    kw = dict(kvp=1, n_ranks=1, rank=0, rr_block=RR, window=0,
-              contiguous=False, slot_offset=0, k_new=kn, v_new=kn)
-    plain = dict(scale=HSZ ** -0.5, block_s=512)
-    slots = int(tl.sum())
-    dops = 4 * HY_QH * HSZ * slots
-    io = 2 * b * HY_QH * HSZ * es + b * HY_QH * 4 + 2 * b * HY_KH * HSZ * es
-    mask = (torch.arange(cap, device=dev)[None] < tl[:, None])[:, None, None]
-    fn = lambda: flash_decode_shards(q, k, v, tl, **kw)
-    dec = {**timed(fn), "device_ms": device_ms(fn, DECODE_KERNELS),
-           "plain_ms": time_ms(lambda: flash_decode_shards_plain(
-               q, k, v, tl, **plain, **kw), iters=3, warmup=1),
-           "library_ms": queued_ms(lambda: F.scaled_dot_product_attention(
-               q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)),
-           "library": "sdpa with a mask of the lengths, enable_gqa"}
-    dec.update(_bound(2 * HY_KH * slots * HSZ * es + io, dops, PEAK[dt]))
-    out["flash_decode_hymba"] = dec
+    d = decode_serve_inputs(g, dev, HY_QH, HY_KH)
+    out["flash_decode_hymba"] = time_decode_at(d)
+    q, k, v, tl, kw, plain = (d[key] for key in ("q", "k", "v", "tl", "kw",
+                                                 "plain"))
+    slots, dops, io, cap = d["slots"], d["dops"], d["io"], d["cap"]
     copies = [quantize_kv_token(k) + quantize_kv_token(v) for _ in range(3)]
     fns8 = [lambda c=c: flash_decode_shards(q, c[0], c[2], tl, kscale=c[1],
                                             vscale=c[3], **kw)
@@ -2565,40 +2863,40 @@ def times_hymba(dev):
                                     + 2 * 64 * HY_DS * SSD_HD)
     ssd.update(_bound(sbytes, sops, PEAK[dt]))
     out["ssd_prefill_hymba"] = ssd
-    # the untied int8 head
-    m = 4
-    x = rnd(m, HY_D)
-    qw, sc = quantize_w8(torch.randn(HY_D, HY_VP, generator=g, device=dev))
-    lib, lib_fn = w8a16_library(x, qw, sc)
-    mm = {**timed(lambda: w8a16_matmul(x, qw, sc)),
-          "plain_ms": time_ms(lambda: w8a16_matmul_ref(x, qw, sc), iters=10),
-          "library_ms": queued_ms(lib_fn), "library": lib,
-          "ctas": w8a16_blocks(m, HY_VP),
-          "device_ms": device_ms(lambda: w8a16_matmul(x, qw, sc),
-                                 "w8a16_kernel")}
-    mm.update(_bound(HY_D * HY_VP + HY_VP * 4 + m * HY_D * es + m * HY_VP * es,
-                     2 * m * HY_D * HY_VP, PEAK[dt]))
-    out["w8a16_matmul_hymba"] = mm
-    for name, shape in (
-            ("flash_prefill_hymba", f"B=1 T=1024 causal bf16, {HY_QH}/{HY_KH}"
-                                    " heads"),
-            ("flash_decode_hymba", "B=4 lengths 700-1000 cap 1088 bf16, "
-                                   f"{HY_QH}/{HY_KH} heads, fused append"),
-            ("flash_decode_hymba_kv8", "the same, int8 K/V"),
-            ("flash_decode_hymba_paged", f"the same, bf16 K/V in a {n_pool}-"
-                                         "page pool, shuffled table"),
-            ("ssd_prefill_hymba", f"B=1 T=1024 nh {HY_NH} hd {SSD_HD} ds "
-                                  f"{HY_DS}, {ssd['ctas']} CTAs"),
-            ("w8a16_matmul_hymba", f"M={m} K={HY_D} N={HY_VP} bf16 x, "
-                                   f"{mm['ctas']} CTAs")):
-        r = out[name]
-        lib_ms = ("none" if r["library_ms"] is None
-                  else f"{r['library_ms']:.4f} ms")
-        print(f"  {name} {shape}: kernel {r['ms']:.4f} ms (host-bound "
-              f"{r['host_ms']:.4f} ms, kernel records "
-              f"{fmt_ms(r.get('device_ms'))}), plain {r['plain_ms']:.4f} ms,"
-              f" library {lib_ms} ({r['library']}), bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    out["w8a16_matmul_hymba"] = mm = time_w8a16_at(g, dev, HY_D, HY_VP)
+    print_times(out, (
+        ("flash_prefill_hymba", f"B=1 T=1024 causal bf16, {HY_QH}/{HY_KH}"
+                                " heads"),
+        ("flash_decode_hymba", "B=4 lengths 700-1000 cap 1088 bf16, "
+                               f"{HY_QH}/{HY_KH} heads, fused append"),
+        ("flash_decode_hymba_kv8", "the same, int8 K/V"),
+        ("flash_decode_hymba_paged", f"the same, bf16 K/V in a {n_pool}-"
+                                     "page pool, shuffled table"),
+        ("ssd_prefill_hymba", f"B=1 T=1024 nh {HY_NH} hd {SSD_HD} ds "
+                              f"{HY_DS}, {ssd['ctas']} CTAs"),
+        ("w8a16_matmul_hymba", f"M=4 K={HY_D} N={HY_VP} bf16 x, "
+                               f"{mm['ctas']} CTAs")))
+    return out
+
+
+def times_moe(dev):
+    """The kernels at granite-moe-1b-a400m's serve shapes, bf16, timed as
+    the table's rows are: flash_prefill at B = 1, T = 1024 causal, 16/8
+    heads (G = 2); flash_decode at the serve shape (B = 4, lengths
+    700-1000, cap 1088, 16/8 heads, fused append, kvp 1); w8a16_matmul at
+    the tied int8 head, M = 4, K = 1024, N = 49664."""
+    g = torch.Generator(device=dev).manual_seed(35)
+    out = {"flash_prefill_moe": time_prefill_at(g, dev, MOE_QH, MOE_KH),
+           "flash_decode_moe": time_decode_at(decode_serve_inputs(
+               g, dev, MOE_QH, MOE_KH)),
+           "w8a16_matmul_moe": time_w8a16_at(g, dev, MOE_D, MOE_VP)}
+    print_times(out, (
+        ("flash_prefill_moe", f"B=1 T=1024 causal bf16, {MOE_QH}/{MOE_KH} "
+                              "heads"),
+        ("flash_decode_moe", "B=4 lengths 700-1000 cap 1088 bf16, "
+                             f"{MOE_QH}/{MOE_KH} heads, fused append"),
+        ("w8a16_matmul_moe", f"M=4 K={MOE_D} N={MOE_VP} bf16 x, "
+                             f"{out['w8a16_matmul_moe']['ctas']} CTAs")))
     return out
 
 
@@ -2674,7 +2972,11 @@ def main() -> int:
                                   "flash_decode_hymba",
                                   "flash_decode_hymba_kv8",
                                   "flash_decode_hymba_paged",
-                                  "ssd_prefill_hymba", "w8a16_matmul_hymba")}
+                                  "ssd_prefill_hymba", "w8a16_matmul_hymba",
+                                  "flash_prefill_moe", "flash_decode_moe",
+                                  "flash_decode_moe_kv8",
+                                  "flash_decode_moe_paged",
+                                  "w8a16_matmul_moe")}
     check_decode(dev, errs["flash_decode"])
     check_decode_kv8(dev, errs["flash_decode_kv8"])
     check_decode_paged(dev, errs["flash_decode_paged"],
@@ -2684,11 +2986,18 @@ def main() -> int:
     check_prefill(dev, errs["flash_prefill"], errs["flash_prefill_paged"])
     check_w8a16(dev, errs["w8a16_matmul"])
     check_ssd(dev, errs["ssd_prefill"])
-    check_prefill_g5(dev, errs["flash_prefill_hymba"],
-                     errs["flash_prefill_paged"])
-    check_decode_g5(dev, errs)
+    check_prefill_group(dev, errs["flash_prefill_hymba"],
+                        errs["flash_prefill_paged"])
+    check_decode_group(dev, errs)
     check_hymba_ssd_w8(dev, errs["ssd_prefill_hymba"],
                        errs["w8a16_matmul_hymba"])
+    check_prefill_group(dev, errs["flash_prefill_moe"],
+                        errs["flash_prefill_paged"], MOE_QH, MOE_KH, 30)
+    check_decode_group(dev, errs, MOE_QH, MOE_KH, 36, "flash_decode_moe")
+    check_w8a16_head(dev, errs["w8a16_matmul_moe"],
+                     torch.Generator(device=dev).manual_seed(37), MOE_D,
+                     MOE_VP, "moe")
+    check_moe_ffn(dev)
     check_sampler(dev)
 
     print(f"== 4 (t = {time.perf_counter() - T0:.1f} s) serve granite-3-2b "
@@ -2707,6 +3016,11 @@ def main() -> int:
           "head + int8 KV; 4-layer f32 checks")
     hymba = serve_hymba(dev)
     compare_hymba(dev)
+    print(f"== 4 (t = {time.perf_counter() - T0:.1f} s) serve {MOE} (24 "
+          "layers, bf16, 32 experts, top 8): greedy, top-p at windows 1 and "
+          "4, paged, int8 head + int8 KV; 4-layer f32 checks")
+    moe = serve_moe(dev)
+    compare_moe(dev)
 
     print(f"== 5 times (t = {time.perf_counter() - T0:.1f} s)")
     timed = times(dev)
@@ -2717,6 +3031,9 @@ def main() -> int:
         hymba["prefill"]["flash_prefill"]
     timed["ssd_prefill_hymba"]["hymba_prefill"] = \
         hymba["prefill"]["ssd_prefill"]
+    timed.update(times_moe(dev))
+    timed["flash_prefill_moe"]["moe_prefill"] = moe["prefill"]
+    timed["flash_decode_moe"]["moe_decode_step"] = moe["decode"]
 
     # launches: each kernel's count in the run of the path it serves
     fp, int8 = runs["fp"][0]["counts"], runs["int8"][0]["counts"]
@@ -2743,6 +3060,11 @@ def main() -> int:
             hy["paged top-p w4"]["flash_decode_paged"],
         "ssd_prefill_hymba": hy["greedy w1"]["ssd_prefill"],
         "w8a16_matmul_hymba": hy["int8 greedy w4"]["w8a16_matmul"]})
+    mo = {name: run["counts"] for name, run in moe["runs"].items()}
+    launches.update({
+        "flash_prefill_moe": mo["greedy w1"]["flash_prefill"],
+        "flash_decode_moe": mo["greedy w1"]["flash_decode"],
+        "w8a16_matmul_moe": mo["int8 greedy w4"]["w8a16_matmul"]})
     decode_src = ("src/repro_torch/csrc/flash_decode.cu",
                   "src/repro/kernels/flash_decode/kernel.py:417")
     prefill_src = ("src/repro_torch/csrc/flash_prefill.cu",
@@ -2764,7 +3086,9 @@ def main() -> int:
                "flash_decode_hymba": decode_src,
                "flash_decode_hymba_kv8": decode_src,
                "flash_decode_hymba_paged": decode_src,
-               "ssd_prefill_hymba": ssd_src, "w8a16_matmul_hymba": mm_src}
+               "ssd_prefill_hymba": ssd_src, "w8a16_matmul_hymba": mm_src,
+               "flash_prefill_moe": prefill_src,
+               "flash_decode_moe": decode_src, "w8a16_matmul_moe": mm_src}
     records = []
     for name, (src, replaces) in sources.items():
         need(launches[name] > 0, f"{name}: no launch on its main path")

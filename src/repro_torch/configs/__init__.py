@@ -1,6 +1,6 @@
 """Architecture configs of the port: only the fields its serving paths read
-(dense GQA, pure SSM and the attention + SSM hybrid), plus ``get_config``.
-Mirrors ``repro/configs/base.py``."""
+(dense GQA, pure SSM, the attention + SSM hybrid and the mixture of
+experts), plus ``get_config``.  Mirrors ``repro/configs/base.py``."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,9 +10,20 @@ from repro_torch.utils import round_up
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    topk: int
+    d_ff: int                      # per-expert intermediate dim
+    capacity_factor: float = 1.25  # prefill (train-time) capacity factor
+    decode_capacity_factor: float = 4.0
+    router_z_coef: float = 1e-3
+    aux_coef: float = 1e-2
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                 # dense | ssm | hybrid in this port
+    family: str                 # dense | ssm | hybrid | moe in this port
     n_layers: int
     d_model: int
     n_heads: int
@@ -30,6 +41,7 @@ class ArchConfig:
     ssm_headdim: int = 64       # P
     ssm_expand: int = 2
     ssm_ngroups: int = 1
+    moe: MoEConfig | None = None  # routed experts beside or instead of d_ff
 
     @property
     def hsz(self) -> int:
@@ -72,8 +84,12 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family variant for CPU tests (the reference's
-        ``ArchConfig.reduced`` rule for the dense, SSM and hybrid
-        families)."""
+        ``ArchConfig.reduced`` rule for the dense, SSM, hybrid and MoE
+        families: at most 8 experts, top at most 2, expert ``d_ff`` 64 and
+        a capacity factor of 8, so that reduced prefills drop no token)."""
+        moe = self.moe and dataclasses.replace(
+            self.moe, n_experts=min(self.moe.n_experts, 8),
+            topk=min(self.moe.topk, 2), d_ff=64, capacity_factor=8.0)
         return dataclasses.replace(
             self, name=self.name + "-reduced",
             n_layers=min(self.n_layers, 2), d_model=128,
@@ -81,7 +97,7 @@ class ArchConfig:
             n_kv_heads=min(self.n_kv_heads, 2), head_dim=32,
             d_ff=256 if self.d_ff else 0, vocab=512,
             ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
-            ssm_headdim=32 if self.has_ssm else self.ssm_headdim)
+            ssm_headdim=32 if self.has_ssm else self.ssm_headdim, moe=moe)
 
 
 # granite-3-2b [dense] — GQA, hf:ibm-granite/granite-3.0-2b-base.
@@ -106,7 +122,16 @@ HYMBA_1_5B = ArchConfig(
     n_heads=25, n_kv_heads=5, head_dim=64, d_ff=5504, vocab=32_001,
     ssm_state=16, ssm_conv=4, ssm_headdim=64, ssm_expand=2, ssm_ngroups=1)
 
-_CONFIGS = {c.name: c for c in (GRANITE_3_2B, MAMBA2_780M, HYMBA_1_5B)}
+# granite-moe-1b-a400m [moe] — hf:ibm-granite/granite-3.0-1b-a400m-base:
+# GQA 16 q / 8 kv heads of 64, every FFN a mixture of 32 experts of d_ff
+# 512 with top-8 routing (no dense FFN), tied embeddings.
+GRANITE_MOE_1B_A400M = ArchConfig(
+    name="granite-moe-1b-a400m", family="moe", n_layers=24, d_model=1024,
+    n_heads=16, n_kv_heads=8, d_ff=0, vocab=49_155, tie_embeddings=True,
+    moe=MoEConfig(n_experts=32, topk=8, d_ff=512))
+
+_CONFIGS = {c.name: c for c in (GRANITE_3_2B, MAMBA2_780M, HYMBA_1_5B,
+                                GRANITE_MOE_1B_A400M)}
 
 
 def get_config(name: str) -> ArchConfig:

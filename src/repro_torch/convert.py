@@ -9,9 +9,10 @@ pre-quantized int8 head (``lm_head_q8`` [d, Vp] int8 and ``lm_head_scale``
 copied exactly into the model's buffers of those names.  SSM layers take
 the ``layers/ssm/*`` leaves (``w_in``, ``conv_w``, ``conv_b``, ``A_log``,
 ``D``, ``dt_bias``, ``norm_w``, ``w_out``), a hybrid layer both its
-``attn`` and ``ssm`` leaves; an untied model takes ``lm_head`` [d, Vp]; a
-``dtype`` leaves the three the reference keeps in f32 (``A_log``, ``D``,
-``dt_bias``) in f32.
+``attn`` and ``ssm`` leaves; an MoE layer its ``layers/moe/*`` leaves
+(``router``, ``w1``, ``w3``, ``w2``); an untied model takes ``lm_head``
+[d, Vp]; a ``dtype`` leaves the four the reference keeps in f32
+(``A_log``, ``D``, ``dt_bias`` and the MoE ``router``) in f32.
 """
 from __future__ import annotations
 

@@ -34,6 +34,13 @@ step), an untied head.  The SSD scan's prompt contract holds (at most 64
 tokens or a multiple of 64), ``--chunk-tokens`` falls back to one-shot
 prefill and ``--prefix-share`` raises, as in the reference; ``--paged-kv``
 and ``--lm-head-w8`` work.
+
+``--arch granite-moe-1b-a400m`` serves the mixture of experts: every FFN
+routes each token to 8 of 32 experts (capacity factor 1.25 in the prefill,
+4 in the decode steps, where nothing is dropped).  Capacity routing mixes
+the whole prompt, so ``--chunk-tokens`` falls back to one-shot prefill and
+``--prefix-share`` raises, as in the reference; ``--paged-kv``,
+``--lm-head-w8``, ``--sampling`` and ``--decode-window`` work.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """Helix decode step (port of the reference's ``models/decode_model.py``,
-dense attention layers, pure-SSM layers and hybrid layers).
+dense attention layers, pure-SSM layers, hybrid layers and MoE FFNs).
 
 ``build_serve_step(cfg, hx)`` returns
 
@@ -36,6 +36,13 @@ phase on the same normed ``h`` and adds ``0.5 * (a_out + s_out)``, as the
 reference's decode step does; the state carries the KV leaves and the SSM
 leaves together.
 
+MoE archs: each layer's FFN phase adds the dense FFN's delta (when the
+config has a ``d_ff``) and the MoE's, routed over all B rows of the step,
+idle rows included, as one group at ``moe.decode_capacity_factor``.  With
+distinct top-k experts per row and that factor of 4, ``cap = int(4 *
+ceil(B * k / E) + 0.5) >= B`` slots per expert at every B, so no
+assignment is dropped and no row's output depends on another row's.
+
 Token decision: the argmax, or, when the state holds the sampler's leaves
 (``core/kvcache.sampling_leaf_shapes``), ``serving/sampling.sample_tokens``
 with each row's policy; ``serve_step`` then advances ``sample_idx`` by one.
@@ -59,7 +66,7 @@ from repro_torch.kernels.w8a16_matmul import (quantize_w8, w8a16_matmul,
                                               w8a16_matmul_ref)
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import apply_rope, rms_norm, sinusoidal_at
-from repro_torch.models.transformer import (ffn_block, head_weight,
+from repro_torch.models.transformer import (ffn_delta, head_weight,
                                             mix_block_outputs, vocab_mask)
 
 
@@ -113,6 +120,7 @@ def _build_step_logits(cfg: ArchConfig, hx: HelixConfig):
     with ``advance`` [B] bool only on its rows: the others keep theirs, as
     the reference's window holds a frozen row)."""
     kv8 = hx.kv_cache_bits == 8
+    decode_cf = cfg.moe.decode_capacity_factor if cfg.moe else None
     fused = fuse_append_applicable(hx, quant=kv8, paged=hx.paged_kv)
     o_dim = helix_out_dim(cfg.q_dim, hx.kvp)
 
@@ -179,8 +187,9 @@ def _build_step_logits(cfg: ArchConfig, hx: HelixConfig):
             if cfg.has_ssm:
                 s_out = ssm_phase(lp.ssm, h, state, i, advance)
             x = x + mix_block_outputs(cfg, a_out, s_out)
-            if cfg.d_ff:
-                x = x + ffn_block(cfg, lp.ffn, rms_norm(x, lp.ln2))
+            if cfg.d_ff or cfg.moe:
+                x = x + ffn_delta(cfg, lp, rms_norm(x, lp.ln2),
+                                  capacity_factor=decode_cf)[0]
         x = rms_norm(x, model.ln_f)
         return (head_matmul(hx, model, x)
                 + vocab_mask(cfg, x.dtype, x.device))

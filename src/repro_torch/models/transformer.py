@@ -1,6 +1,7 @@
-"""Dense GQA, pure-SSM and hybrid decoders: parameters, seeded init and the
-prefill forward (port of the reference's ``models/transformer.py``, dense
-non-windowed, pure-SSM and hybrid paths).
+"""Dense GQA, pure-SSM, hybrid and mixture-of-experts decoders: parameters,
+seeded init and the prefill forward (port of the reference's
+``models/transformer.py``, dense non-windowed, pure-SSM, hybrid and MoE
+paths).
 
 Parameter names and shapes follow the reference's pytree, with the stacked
 ``layers`` leaves split per layer: ``embed [Vp, d]``, ``ln_f [d]``,
@@ -9,7 +10,10 @@ wo [Qh*hsz, d]}``, ``layers.{i}.ln2``, ``layers.{i}.ffn.{w1, w3 [d, f],
 w2 [f, d]}``; an SSM layer holds ``ln1`` and ``layers.{i}.ssm.*``
 (``models/ssm.SSMParams``) and no ``ln2``/``ffn`` (``d_ff = 0``); a
 hybrid layer holds ``attn`` and ``ssm`` together, both fed the same normed
-input, and adds ``0.5 * (a_out + s_out)``.  Projections are ``x @ w``.
+input, and adds ``0.5 * (a_out + s_out)``; an MoE layer holds ``ln2`` and
+``layers.{i}.moe.{router [d, E], w1, w3 [E, d, Fe], w2 [E, Fe, d]}``
+(``models/moe.MoEParams``), beside ``ffn`` when the config also has a
+``d_ff``.  Projections are ``x @ w``.
 Tied models take their logits from ``embed.T``; untied ones hold
 ``lm_head [d, Vp]``.  The int8 lm_head of the decode step
 (``decode_model.prepare_decode_params``) is held in the buffers
@@ -24,6 +28,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs import ArchConfig
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import prefill_attention
 from repro_torch.models.layers import (activation, apply_rope, rms_norm,
@@ -54,7 +59,8 @@ class FFN(nn.Module):
 
 class DecoderLayer(nn.Module):
     """The reference's ``_init_layer`` structure: ``ln1``, then ``attn``
-    and/or ``ssm``, then ``ln2`` + ``ffn`` when ``d_ff``."""
+    and/or ``ssm``, then ``ln2`` when ``d_ff`` or ``moe``, ``ffn`` when
+    ``d_ff`` and ``moe`` when ``moe``."""
 
     def __init__(self, cfg: ArchConfig):
         super().__init__()
@@ -63,16 +69,19 @@ class DecoderLayer(nn.Module):
             self.attn = Attention(cfg)
         if cfg.has_ssm:
             self.ssm = ssm_lib.SSMParams(cfg)
-        if cfg.d_ff:
+        if cfg.d_ff or cfg.moe:
             self.ln2 = _param(cfg.d_model)
+        if cfg.d_ff:
             self.ffn = FFN(cfg)
+        if cfg.moe:
+            self.moe = moe_lib.MoEParams(cfg.moe, cfg.d_model)
 
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "ssm", "hybrid", "moe")
 
 
 class Transformer(nn.Module):
-    """Parameter container of a dense, pure-SSM or hybrid decoder; the
+    """Parameter container of a dense, pure-SSM, hybrid or MoE decoder; the
     forward passes are the functions ``forward`` (prefill) and
     ``decode_model.build_serve_step``."""
 
@@ -93,13 +102,15 @@ class Transformer(nn.Module):
 
 
 def cast_params(model: Transformer, *, device, dtype=None) -> Transformer:
-    """``model.to(device, dtype)``, except that the SSM leaves the reference
-    keeps in f32 in any model (``ssm.F32_LEAVES``: A_log, D, dt_bias) stay
-    f32: in bf16 every decay would change."""
+    """``model.to(device, dtype)``, except that the leaves the reference
+    keeps in f32 in any model stay f32: the SSM's (``ssm.F32_LEAVES``:
+    A_log, D, dt_bias; in bf16 every decay would change) and the MoE
+    router (``moe.F32_LEAVES``; routing in bf16 would flip near-ties)."""
+    keep_f32 = ssm_lib.F32_LEAVES + moe_lib.F32_LEAVES
     model = model.to(device=device)
     if dtype is not None:
         for name, p in model.named_parameters():
-            keep = name.rsplit(".", 1)[-1] in ssm_lib.F32_LEAVES
+            keep = name.rsplit(".", 1)[-1] in keep_f32
             p.data = p.data.to(torch.float32 if keep else dtype)
     return model
 
@@ -110,15 +121,15 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.float32,
     """Seeded random weights made on ``device`` with a ``torch.Generator``:
     the reference's distributions (normal, fan-in scaled, the untied
     ``lm_head`` too; out-projections scaled down by sqrt(2L); embeddings
-    0.02; norm gains 0; SSM leaves by
-    ``ssm.init_ssm``), not its values (``jax.random`` streams differ;
+    0.02; norm gains 0; SSM leaves by ``ssm.init_ssm``, MoE leaves by
+    ``moe.init_moe``), not its values (``jax.random`` streams differ;
     ``convert.params_from_jax`` carries reference weights over exactly)."""
     model = cast_params(Transformer(cfg), device=device, dtype=dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
     depth = 1.0 / math.sqrt(2 * cfg.n_layers)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if ".ssm." in name:
+        if ".ssm." in name or ".moe." in name:
             continue
         if leaf.startswith("ln"):
             p.zero_()
@@ -131,6 +142,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.float32,
     for lp in model.layers:
         if cfg.has_ssm:
             ssm_lib.init_ssm(lp.ssm, cfg, gen)
+        if cfg.moe:
+            moe_lib.init_moe(lp.moe, cfg.moe, cfg.d_model, gen)
     return model
 
 
@@ -174,11 +187,28 @@ def ffn_block(cfg: ArchConfig, fp: FFN, h):
     return (activation(cfg.act)(h @ fp.w1) * (h @ fp.w3)) @ fp.w2
 
 
+def ffn_delta(cfg: ArchConfig, lp: DecoderLayer, h2, *, capacity_factor):
+    """A layer's FFN update from its normed input ``h2`` [..., d]: the
+    dense FFN's, then the MoE's over the flattened tokens (one dispatch
+    group, ``capacity_factor``), added in the reference's order.  Returns
+    ``(delta, aux_loss)`` (``aux_loss`` None without experts)."""
+    delta, aux = 0.0, None
+    if cfg.d_ff:
+        delta = ffn_block(cfg, lp.ffn, h2)
+    if cfg.moe:
+        y, aux = moe_lib.moe_ffn(lp.moe, h2.reshape(-1, h2.shape[-1]),
+                                 cfg.moe, activation("silu"),
+                                 capacity_factor=capacity_factor, groups=1)
+        delta = delta + y.reshape(h2.shape)
+    return delta, aux
+
+
 def chunked_prefill_supported(cfg: ArchConfig) -> bool:
     """Whether ``cfg`` can prefill in prefix-attending chunks bit-exactly:
     every cross-position interaction must be causal attention (the
-    reference's rule: dense yes, SSM and hybrid no; the engine falls back
-    to one-shot prefill for them)."""
+    reference's rule: dense yes; SSM, hybrid and MoE no, since a scan or a
+    capacity-routed dispatch mixes the whole sequence; the engine falls
+    back to one-shot prefill for them)."""
     return cfg.family == "dense"
 
 
@@ -208,7 +238,10 @@ def forward(cfg: ArchConfig, model: Transformer, tokens, *,
     hd, ds] (f32, the state after the prompt, of every SSM layer).
     ``prefill_backend`` / ``ssd_backend`` route the attention and the SSD
     scan core (kernel families flash_prefill and ssd_prefill).  Archs
-    without RoPE add sinusoidal positions to the embeddings.
+    without RoPE add sinusoidal positions to the embeddings.  MoE archs
+    route every layer's B*T tokens as one group at the config's
+    ``capacity_factor``, and extras hold ``aux_loss``, the layers' summed
+    load-balance and z-losses (f32 scalar).
 
     Chunked prefill: ``prefix_state`` = {"kcache"/"vcache": [L, B, S_buf,
     Kh, hsz]} carry buffers whose rows ``[0, q_offset)`` hold the
@@ -228,7 +261,7 @@ def forward(cfg: ArchConfig, model: Transformer, tokens, *,
         pos = torch.arange(tokens.shape[1], device=x.device)[None, :] \
             + off.reshape(-1, 1)
         x = x + sinusoidal_at(pos, cfg.d_model).to(x.dtype)
-    kcs, vcs, convs, ssms = [], [], [], []
+    kcs, vcs, convs, ssms, auxs = [], [], [], [], []
     a_out = s_out = None            # the output a layer lacks
     for i, lp in enumerate(model.layers):
         h = rms_norm(x, lp.ln1)
@@ -248,11 +281,15 @@ def forward(cfg: ArchConfig, model: Transformer, tokens, *,
                 convs.append(st.conv)
                 ssms.append(st.ssm)
         x = x + mix_block_outputs(cfg, a_out, s_out)
-        if cfg.d_ff:
-            x = x + ffn_block(cfg, lp.ffn, rms_norm(x, lp.ln2))
+        if cfg.d_ff or cfg.moe:
+            delta, aux = ffn_delta(cfg, lp, rms_norm(x, lp.ln2),
+                                   capacity_factor=None)
+            x = x + delta
+            if aux is not None:
+                auxs.append(aux)
     x = rms_norm(x, model.ln_f)
     logits = x @ head_weight(model) + vocab_mask(cfg, x.dtype, x.device)
-    extras = {}
+    extras = {"aux_loss": torch.stack(auxs).sum()} if auxs else {}
     if prefix_state is not None:
         extras.update(kcache=prefix_state["kcache"],
                       vcache=prefix_state["vcache"])

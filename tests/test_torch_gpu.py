@@ -20,7 +20,12 @@ head, flash_decode at G = 5, the SSD scan at ds 16, the untied int8 head)
 hold the same tolerances; two full-width hymba layers agree with the plain
 path within 1e-3 x max(1, |logits|) (f32 matmuls of width 1600-6482 and
 the 32256-row head over summation-order differences of ~1e-6).
+granite-moe-1b-a400m's shapes (flash_prefill and flash_decode at G = 2)
+hold the same tolerances; its MoE layer at full width routes, slots and
+plans every token on the card as on the CPU, its output within 2e-5 x
+max(1, |y|).
 """
+import copy
 import dataclasses
 
 import pytest
@@ -41,6 +46,7 @@ from repro_torch.kernels.ssd_prefill import ssd_prefill, ssd_prefill_plain
 from repro_torch.kernels.w8a16_matmul import (quantize_w8, w8a16_matmul,
                                               w8a16_matmul_ref)
 from repro_torch.launch.serve import serve_demo
+from repro_torch.models import moe
 from repro_torch.models.model_zoo import (build_serve_multistep,
                                           build_serve_step, make_prefill_step)
 from repro_torch.models.transformer import init_params
@@ -459,10 +465,24 @@ def test_decode_kernel_at_g5_on_card(h100, quant, paged):
     """flash_decode at hymba's 25 q / 5 kv heads, kvp 2, with the fused
     append: kernel vs plain (f32), the appended rows bit for bit, fixed and
     paged, fp and int8."""
-    gen = torch.Generator(device=h100).manual_seed(21)
-    b, kvp, s_loc, kh = 4, 2, 256, 5
+    _decode_group_case(h100, quant, paged, g=5, kh=5, seed=21)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True], ids=["fixed", "paged"])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_decode_kernel_at_g2_on_card(h100, quant, paged):
+    """flash_decode at granite-moe's 16 q / 8 kv heads (G = 2), kvp 2,
+    with the fused append: kernel vs plain (f32), the appended rows bit
+    for bit, fixed and paged, fp and int8."""
+    _decode_group_case(h100, quant, paged, g=2, kh=8, seed=24)
+
+
+def _decode_group_case(h100, quant, paged, *, g, kh, seed):
+    gen = torch.Generator(device=h100).manual_seed(seed)
+    b, kvp, s_loc = 4, 2, 256
     rnd = lambda *sh: torch.randn(*sh, generator=gen, device=h100)
-    q, kn, vn = rnd(b, 5 * kh, 64), rnd(b, kh, 64), rnd(b, kh, 64)
+    q, kn, vn = rnd(b, g * kh, 64), rnd(b, kh, 64), rnd(b, kh, 64)
     k, v = rnd(b, kh, kvp * s_loc, 64), rnd(b, kh, kvp * s_loc, 64)
     tl = torch.tensor([1, 37, 300, kvp * s_loc], dtype=torch.int32,
                       device=h100)
@@ -494,6 +514,64 @@ def test_decode_kernel_at_g5_on_card(h100, quant, paged):
     torch.testing.assert_close(l1, l2, atol=ATOL, rtol=RTOL)
     for key in mine:
         assert torch.equal(mine[key], plain[key]), key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_prefill_kernel_at_g2_on_card(h100, dtype):
+    """flash_prefill at granite-moe's 16 q / 8 kv heads (G = 2, hsz 64):
+    fixed and paged vs the plain version, causal, per-request offsets and
+    lengths, paged == fixed bit for bit."""
+    gen = torch.Generator(device=h100).manual_seed(25)
+    rnd = lambda *sh: torch.randn(*sh, generator=gen,
+                                  device=h100).to(dtype)
+    b, t, kh, hsz, page = 2, 256, 8, 64, 16
+    q, k, v = rnd(b, t, 2 * kh, hsz), rnd(b, t, kh, hsz), rnd(b, t, kh, hsz)
+    offs = torch.tensor([0, 9], dtype=torch.int32, device=h100)
+    lens = torch.tensor([256, 201], dtype=torch.int32, device=h100)
+    tab, n_pool = _table(lens, t // page, page, 2)
+    pk, pv = (_pool(x, tab, n_pool, page, 1e4) for x in (k, v))
+    ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    kw = dict(causal=True, q_offset=offs, seq_lens=lens)
+    fixed = flash_prefill(q, k, v, **kw)
+    paged = flash_prefill(q, pk, pv, block_tables=tab, **kw)
+    want = flash_prefill_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(fixed, want, atol=PREFILL_TOL[dtype], rtol=0)
+    assert torch.equal(fixed.view(ints), paged.view(ints))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [4, 1024])
+def test_moe_ffn_on_card_matches_cpu(h100, t):
+    """granite-moe's MoE layer at full width (E 32, top 8, H 1024, Fe 512,
+    f32) on the card against the CPU: routes, slots and token plans equal,
+    y within 2e-5 x max(1, |y|) (f32 matmuls of 1024 and 512 terms in
+    another order); T = 4 at the decode capacity factor drops nothing."""
+    cfg = get_config("granite-moe-1b-a400m")
+    m = cfg.moe
+    card = moe.MoEParams(m, cfg.d_model).to(h100)
+    moe.init_moe(card, m, cfg.d_model,
+                 torch.Generator(device=h100).manual_seed(26))
+    cpu = copy.deepcopy(card).cpu()
+    cf = m.decode_capacity_factor if t == 4 else m.capacity_factor
+    cap = moe.capacity(t, m, cf)
+    x = torch.randn(t, cfg.d_model, device=h100,
+                    generator=torch.Generator(device=h100).manual_seed(27))
+    outs = []
+    for mp, xs in ((card, x), (cpu, x.cpu())):
+        r = moe.route(mp.router, xs, m)
+        plan = moe.dispatch_plan(r.expert_idx, m.n_experts, cap)
+        y, _ = moe.moe_ffn(mp, xs, m, torch.nn.functional.silu,
+                           capacity_factor=cf)
+        outs.append([v.cpu() for v in (r.expert_idx, *plan, y)])
+    (ci, cs, ct, cy), (hi, hs, ht, hy) = outs
+    assert torch.equal(ci, hi) and torch.equal(cs, hs) and torch.equal(ct, ht)
+    assert (cy - hy).abs().max().item() <= 2e-5 * max(1.0,
+                                                      hy.abs().max().item())
+    if t == 4:
+        assert bool((hs < cap).all())
 
 
 @pytest.mark.gpu
@@ -611,7 +689,7 @@ def test_sampler_on_card_matches_cpu(h100):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["granite-3-2b", "mamba2-780m",
-                                  "hymba-1.5b"])
+                                  "hymba-1.5b", "granite-moe-1b-a400m"])
 def test_window_graph_equals_eager_window_on_card(h100, arch):
     """A window of 4 replayed from a captured CUDA graph equals the eager
     window bit for bit over the whole state, with one row frozen by its
