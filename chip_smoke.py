@@ -7,7 +7,9 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
 
 1. device: CUDA, capability 9.0, card name and power limit, TF32 off;
 2. build: the five CUDA kernels from ``src/repro_torch/csrc`` (ptxas
-   lines), one ``nvcc`` per source, all started together;
+   lines), one ``nvcc`` per source, all started together; then the
+   registers and spill bytes of every head-size-256 instance (gemma3-12b's
+   flash_decode, prefix_pass and flash_prefill) and any C75xx advisory;
 3. kernels vs their plain PyTorch versions on the card at granite-3-2b
    widths (Qh 32, Kh 8, hsz 64) in f32 and bf16, plus pruned == dense and
    fused == unfused append, bit for bit, in the fp and the int8 mode of
@@ -51,7 +53,17 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    = 1024, N = 49664), and its MoE layer at full width (E 32, top 8, H
    1024, Fe 512, f32) on the card against the CPU at T = 4 (decode
    capacity) and T = 1024 (prefill capacity): routes, slots and token
-   plans equal, y within MOE_TOL; the on-device sampler (plain PyTorch) at
+   plans equal, y within MOE_TOL; at gemma3-12b's shapes (16 q / 8 kv
+   heads of 256): flash_prefill at B = 1, T = 2048, windows 0 and 1024,
+   f32 and bf16, fixed and paged vs plain, paged == fixed and rows of 8
+   chunk calls (q_offset up to 1792, past the window) == one call bit for
+   bit; flash_decode at B = 4, lengths 700-2100 (three past the window),
+   windows 0 and 1024, fixed and paged, fp and int8, kvp 1 and 4, vs plain;
+   grouped decode over 4 rows sharing 512 positions, windows 0 and 1024
+   (the window leaves the prefix wholly for one row, whose prefix state is
+   then empty), grouped == ungrouped bit for bit, f32, bf16 and int8; and
+   w8a16_matmul at the tied head (M = 1 and 4, K = 3840, N = 262144);
+   the on-device sampler (plain PyTorch) at
    B = 4, V = 49155: threefry words, uniforms, Gumbel noise and tokens on
    the card equal to its plain CPU run bit for bit;
 4. serve: granite-3-2b at full width (40 layers, bf16, seeded random
@@ -110,7 +122,18 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    device time and share; the prefill profile; 4-layer f32 checks, kernel
    vs plain and kvp 4 vs 1, fp and int8, with every layer's routes equal
    between the compared runs (a token routed otherwise is printed with
-   its distance from a tie, and fails the run).  The paged mode
+   its distance from a tie, and fails the run).  Then gemma3-12b at full
+   width (48 layers: 40 local of a 1024-token window, 8 global; head size
+   256, softcap 30, bf16, seeded random weights, tied head): peak memory
+   after the build and after the int8 head is quantized; 8 requests of
+   1024-2048 tokens, 32 new tokens each, one-shot prefills, hymba's five
+   runs with their launch counts and each run's peak memory; the chunked
+   runs (a)-(c) over 8 requests of 1024-1536 tokens sharing their first
+   512 (equal streams; prefix_pass in c); one graph window == eager; the
+   decode-step profile beside its byte bound and the profile of a
+   2048-token prefill beside its operation bound; a 6-layer f32 check (one
+   whole local:global period, a 1280-token prefill, 4 decode steps),
+   kernel vs plain and kvp 4 vs 1, fp and int8.  The paged mode
    of flash_prefill, which no serving path of the JAX package calls, runs
    as one ragged chunk step over a 40-layer granite pool (40 launches,
    counted; every layer == the fixed layout bit for bit);
@@ -130,7 +153,11 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    at ds 16 and w8a16_matmul at K = 1600, N = 32256; and the
    granite-moe shapes (records ``*_moe``): flash_prefill at G = 2,
    flash_decode at the serve shape and w8a16_matmul at K = 1024, N =
-   49664.
+   49664; and the gemma3-12b shapes (records ``*_gemma3``): flash_prefill
+   at B = 1, T = 2048, hsz 256 (window 1024 beside it), flash_decode at B =
+   4, lengths 700-2100, window 1024 (fixed, int8 and paged), prefix_pass
+   over 4 members sharing 512 positions and w8a16_matmul at K = 3840, N =
+   262144.
 
 The last lines are the card line, one JSON object of kernel records and
 ``{"ok": true, "device": {...}}``.
@@ -140,6 +167,7 @@ import dataclasses
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -185,7 +213,8 @@ from repro_torch.models.decode_model import prepare_decode_params  # noqa: E402
 from repro_torch.models.model_zoo import (  # noqa: E402
     build_serve_multistep, build_serve_step, finalize_chunked_prefill,
     init_prefill_buffers, make_chunk_prefill_step, make_prefill_step)
-from repro_torch.models.transformer import forward, init_params  # noqa: E402
+from repro_torch.models.transformer import (forward,  # noqa: E402
+                                            init_params, layer_windows)
 from repro_torch.serving import sampling  # noqa: E402
 from repro_torch.serving.engine import DecodeEngine  # noqa: E402
 from repro_torch.serving.graph import WindowRunner  # noqa: E402
@@ -222,6 +251,12 @@ HY_D, HY_VP = 1600, 32256           # hymba-1.5b lm_head [d_model, padded vocab]
 MOE = "granite-moe-1b-a400m"
 MOE_QH, MOE_KH = 16, 8              # granite-moe q / kv heads (G = 2)
 MOE_D, MOE_VP = 1024, 49664         # granite-moe lm_head [d_model, padded vocab]
+GEMMA = "gemma3-12b"
+GE_QH, GE_KH, GE_HSZ = 16, 8, 256   # gemma3-12b q / kv heads of 256 (G = 2)
+GE_D, GE_VP = 3840, 262144          # gemma3-12b tied head [d_model, vocab]
+GE_WIN = 1024                       # gemma3-12b local layers' window
+GE_TL = (2100, 1500, 1100, 700)     # B1 lengths (new token in): 3 past the window
+GE_CAP = 2112                       # their capacity, a multiple of 4 x 16
 # the MoE layer at full width, f32, card vs CPU: routes, slots and token
 # plans equal; gates differ by the f32 router product's summation order
 # (1024 terms, ~1e-7), y by three f32 matmuls (1024 and 512 terms) summed
@@ -358,6 +393,31 @@ def shuffled_tables(gen, tl, page: int, max_pages: int):
         tab[r, :n] = perm[i:i + n]
         i += n
     return tab, 1 + sum(need)
+
+
+# ------------------------------------------------------------- phase 2
+def ptxas_instances(lines, tag="Li256E"):
+    """The ptxas report of each kernel instance whose mangled name holds
+    ``tag`` (``Li256E``: a template argument of 256, the head size):
+    ``[(name, registers, spill stores, spill loads)]``, in build order, and
+    every C75xx advisory (e.g. C7514: wgmmas serialized)."""
+    out, cur, notes = [], None, []
+    for ln in lines:
+        if "(C75" in ln:
+            notes.append(ln)
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            cur = [name, None, None, None] if tag in name else None
+            if cur:
+                out.append(cur)
+        elif cur is not None and "spill stores" in ln:
+            f = ln.replace(",", " ").split()
+            cur[2] = int(f[f.index("spill") - 2])
+            cur[3] = int(f[f.index("loads") - 3])
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            f = ln.replace(",", " ").split()
+            cur[1] = int(f[f.index("registers") - 1])
+    return [tuple(x) for x in out], notes
 
 
 # ------------------------------------------------------------- phase 3
@@ -837,9 +897,9 @@ def prefill_pool(x, tab, n_pool, page, garbage):
     return pool
 
 
-def sink_garbage(gen, dev, page):
+def sink_garbage(gen, dev, page, hsz=HSZ):
     """Finite garbage of magnitude 1e4 for the sink page, [page, hsz]."""
-    return 1e4 * torch.sign(torch.randn(page, HSZ, generator=gen,
+    return 1e4 * torch.sign(torch.randn(page, hsz, generator=gen,
                                         device=dev) + 0.1)
 
 
@@ -1104,74 +1164,87 @@ def check_sampler(dev):
           "the plain CPU run, bit for bit")
 
 
-def check_prefill_group(dev, errs, errs_paged, qh=HY_QH, kh=HY_KH, seed=24):
-    """B2 at ``qh / kh`` query heads per kv head (B = 1, T = 1024, hsz 64;
-    hymba's 25/5 by default: blocks of 12 positions, 4 dead rows of 64;
-    granite-moe's 16/8: G = 2), bf16 and f32: fixed and paged
-    (16-position pages, a shuffled table, a +-1e4 sink page) against the
-    plain versions; paged == fixed bit for bit; rows of 4 chunk calls (T
-    256 at q_offset 0..768) == the same rows of one call, bit for bit,
-    fixed and paged."""
-    grp = f"G={qh // kh}"
+def check_prefill_group(dev, errs, errs_paged, qh=HY_QH, kh=HY_KH, seed=24,
+                        hsz=HSZ, t=1024, windows=(0,)):
+    """B2 at ``qh / kh`` query heads per kv head (B = 1, T = ``t``, head
+    size ``hsz``; hymba's 25/5 by default: blocks of 12 positions, 4 dead
+    rows of 64; granite-moe's 16/8: G = 2; gemma3's 16/8 at hsz 256, T =
+    2048, windows 0 and 1024), bf16 and f32, at each of ``windows``: fixed
+    and paged (16-position pages, a shuffled table, a +-1e4 sink page)
+    against the plain versions; paged == fixed bit for bit; rows of chunk
+    calls of 256 (at q_offset 0, 256, ..., past the window) == the same
+    rows of one call, bit for bit, fixed and paged."""
+    grp = f"G={qh // kh}" + (f" hsz {hsz}" if hsz != HSZ else "")
     g = torch.Generator(device=dev).manual_seed(seed)
-    t = 1024
     full = torch.tensor([t], dtype=torch.int32, device=dev)
     tab, n_pool = shuffled_tables(torch.Generator().manual_seed(seed), full,
                                   16, t // 16)
     tab = tab.to(dev)
     for dt in (torch.float32, torch.bfloat16):
         rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(dt)
-        q, k, v = rnd(1, t, qh, HSZ), rnd(1, t, kh, HSZ), rnd(1, t, kh, HSZ)
-        junk = sink_garbage(g, dev, 16)
+        q, k, v = rnd(1, t, qh, hsz), rnd(1, t, kh, hsz), rnd(1, t, kh, hsz)
+        junk = sink_garbage(g, dev, 16, hsz)
         pk = prefill_pool(k, tab, n_pool, 16, junk)
         pv = prefill_pool(v, tab, n_pool, 16, -junk)
         layouts = (("fixed", (k, v), {}),
                    ("paged", (pk, pv), dict(block_tables=tab)))
-        one = {mode: flash_prefill(q, *kv, seq_lens=full, **extra)
-               for mode, kv, extra in layouts}
-        want = flash_prefill_ref(q, k, v)
-        want_p = flash_prefill_paged_ref(q, pk, pv, tab, full)
-        torch.cuda.synchronize()
-        for mode, got, ref, lst in (("fixed", one["fixed"], want, errs),
-                                    ("paged", one["paged"], want_p,
-                                     errs_paged)):
-            e = maxerr(got, ref)
-            lst.append(e)
-            tag = f"prefill {grp} {mode} {str(dt)[6:]}"
-            print(f"  {tag} (B=1 T={t} {qh}/{kh} heads): max err "
-                  f"{e:.3g} (tol {TOL[dt]['out']:g})")
-            need(e <= TOL[dt]["out"], f"{tag}: kernel disagrees with plain")
-        need(torch.equal(bits(one["fixed"]), bits(one["paged"])),
-             f"prefill {grp}: paged != fixed")
-        for mode, kv, extra in layouts:
-            parts = [flash_prefill(q[:, o:o + 256].contiguous(), *kv,
-                                   q_offset=o, seq_lens=full * 0 + o + 256,
-                                   **extra) for o in range(0, t, 256)]
+        for window in windows:
+            wtag = f" window {window}" if window else ""
+            one = {mode: flash_prefill(q, *kv, seq_lens=full, window=window,
+                                       **extra)
+                   for mode, kv, extra in layouts}
+            want = flash_prefill_ref(q, k, v, window=window)
+            want_p = flash_prefill_paged_ref(q, pk, pv, tab, full,
+                                             window=window)
             torch.cuda.synchronize()
-            need(torch.equal(bits(torch.cat(parts, 1)), bits(one[mode])),
-                 f"prefill {grp} {mode} {dt}: chunk rows != one-shot rows")
-        print(f"  prefill {grp} {str(dt)[6:]}: paged == fixed, and rows of 4 "
-              "chunk calls == one call (fixed and paged), bit for bit")
+            for mode, got, ref, lst in (("fixed", one["fixed"], want, errs),
+                                        ("paged", one["paged"], want_p,
+                                         errs_paged)):
+                e = maxerr(got, ref)
+                lst.append(e)
+                tag = f"prefill {grp} {mode} {str(dt)[6:]}{wtag}"
+                print(f"  {tag} (B=1 T={t} {qh}/{kh} heads): max err "
+                      f"{e:.3g} (tol {TOL[dt]['out']:g})")
+                need(e <= TOL[dt]["out"], f"{tag}: kernel disagrees with "
+                                          "plain")
+            need(torch.equal(bits(one["fixed"]), bits(one["paged"])),
+                 f"prefill {grp}{wtag}: paged != fixed")
+            for mode, kv, extra in layouts:
+                parts = [flash_prefill(q[:, o:o + 256].contiguous(), *kv,
+                                       q_offset=o, window=window,
+                                       seq_lens=full * 0 + o + 256, **extra)
+                         for o in range(0, t, 256)]
+                torch.cuda.synchronize()
+                need(torch.equal(bits(torch.cat(parts, 1)), bits(one[mode])),
+                     f"prefill {grp} {mode} {dt}{wtag}: chunk rows != "
+                     "one-shot rows")
+            print(f"  prefill {grp} {str(dt)[6:]}{wtag}: paged == fixed, and "
+                  f"rows of {t // 256} chunk calls == one call (fixed and "
+                  "paged), bit for bit")
 
 
 def check_decode_group(dev, errs, qh=HY_QH, kh=HY_KH, seed=25,
-                       name="flash_decode_hymba"):
+                       name="flash_decode_hymba", hsz=HSZ,
+                       tl=(1000, 900, 800, 700), cap=1088, windows=(0,)):
     """B1 at ``qh / kh`` heads (hymba's 25/5, G = 5, by default;
-    granite-moe's 16/8, G = 2) at the serve shape (B = 4, lengths
-    700-1000 with the new token, cap 1088), fused append, f32 and bf16,
-    kvp 1 and 4: fixed and paged (a shuffled table), fp and int8, against
-    the plain version, the appended rows equal to the plain version's and
-    paged == fixed, bit for bit.  ``errs`` maps ``name``, ``name + "_kv8"``
-    and ``name + "_paged"`` (paged fp and int8) to lists."""
-    grp = f"G={qh // kh}"
+    granite-moe's 16/8, G = 2; gemma3's 16/8 at hsz 256, lengths 700-2100,
+    windows 0 and 1024) at the serve shape (B = 4, lengths ``tl`` with the
+    new token, capacity ``cap``), fused append, f32 and bf16, kvp 1 and 4,
+    at each of ``windows``: fixed and paged (a shuffled table), fp and
+    int8, against the plain version, the appended rows equal to the plain
+    version's and paged == fixed, bit for bit.  ``errs`` maps ``name``,
+    ``name + "_kv8"`` and ``name + "_paged"`` (paged fp and int8) to
+    lists."""
+    grp = f"G={qh // kh}" + (f" hsz {hsz}" if hsz != HSZ else "")
     g = torch.Generator(device=dev).manual_seed(seed)
-    b, cap = 4, 1088
-    tl = torch.tensor([1000, 900, 800, 700], dtype=torch.int32, device=dev)
+    b = len(tl)
+    tl = torch.tensor(tl, dtype=torch.int32, device=dev)
     for dt in (torch.float32, torch.bfloat16):
         rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(dt)
-        q, kn, vn = rnd(b, qh, HSZ), rnd(b, kh, HSZ), rnd(b, kh, HSZ)
-        base = {key: rnd(1, b, kh, cap, HSZ) for key in ("kcache", "vcache")}
-        for quant, kvp in itertools.product((False, True), (1, 4)):
+        q, kn, vn = rnd(b, qh, hsz), rnd(b, kh, hsz), rnd(b, kh, hsz)
+        base = {key: rnd(1, b, kh, cap, hsz) for key in ("kcache", "vcache")}
+        for quant, kvp, window in itertools.product((False, True), (1, 4),
+                                                    windows):
             st = quantize_decode_state(base) if quant else base
             keys = [key for key in ("kcache", "vcache", "kscale", "vscale")
                     if key in st]
@@ -1188,19 +1261,20 @@ def check_decode_group(dev, errs, qh=HY_QH, kh=HY_KH, seed=25,
                 c1, c2 = ([src[key][0].clone() for key in keys]
                           for _ in range(2))
                 kw = dict(kvp=kvp, n_ranks=kvp, rank=0, rr_block=RR,
-                          window=0, contiguous=False, slot_offset=0,
+                          window=window, contiguous=False, slot_offset=0,
                           k_new=kn, v_new=vn, **extra)
                 o1, l1 = flash_decode_shards(q, c1[0], c1[1], tl, **sc(c1),
                                              **kw)
                 o2, l2 = flash_decode_shards_plain(
-                    q, c2[0], c2[1], tl, scale=HSZ ** -0.5,
+                    q, c2[0], c2[1], tl, scale=hsz ** -0.5,
                     block_s=kernel_block_s(512, cap // kvp), **sc(c2), **kw)
                 torch.cuda.synchronize()
                 eo, el = maxerr(o1, o2), maxerr(l1, l2)
                 errs[name + ("_paged" if mode == "paged" else
                              "_kv8" if quant else "")].append(eo)
                 tag = (f"decode {grp} {mode} {'int8' if quant else 'fp'} "
-                       f"{str(dt)[6:]} kvp={kvp}")
+                       f"{str(dt)[6:]} kvp={kvp}"
+                       + (f" window={window}" if window else ""))
                 print(f"  {tag}: max err out {eo:.3g} lse {el:.3g} (tol "
                       f"{TOL[dt]['out']:g}/{TOL[dt]['lse']:g})")
                 need(eo <= TOL[dt]["out"] and el <= TOL[dt]["lse"],
@@ -1212,9 +1286,92 @@ def check_decode_group(dev, errs, qh=HY_QH, kh=HY_KH, seed=25,
                 outs[mode] = (o1, l1)
             need(all(torch.equal(bits(x), bits(y))
                      for x, y in zip(outs["fixed"], outs["paged"])),
-                 f"decode {grp} {dt} quant={quant} kvp={kvp}: paged != fixed")
+                 f"decode {grp} {dt} quant={quant} kvp={kvp} window="
+                 f"{window}: paged != fixed")
         print(f"  decode {grp} {str(dt)[6:]}: paged == fixed bit for bit, fp "
-              "and int8, kvp 1 and 4")
+              "and int8, kvp 1 and 4"
+              + (f", windows {list(windows)}" if windows != (0,) else ""))
+
+
+def check_grouped_gemma3(dev, errs):
+    """B4 and B1's grouped-suffix mode at gemma3's shapes (16 q / 8 kv
+    heads of 256, pages of 16, kvp 1): 4 rows of lengths 2100, 1500, 1100
+    and 700 share their first 512 positions (32 pages) in one group, fused
+    append, f32, bf16 and int8, windows 0 and 1024.  At 1024 the window
+    leaves the shared prefix wholly (the 2100 row: its folded prefix state
+    is empty, l = 0), cuts it (1500, 1100) or keeps it (700).  Grouped ==
+    ungrouped bit for bit (outputs, LSEs, appended pages), and the plain
+    grouped decode within the tolerance."""
+    qh, kh, hsz, b = GE_QH, GE_KH, GE_HSZ, 4
+    gen = torch.Generator(device=dev).manual_seed(41)
+    tl_l = [2100, 1500, 1100, 700]
+    need_pg = [-(-t // RR) for t in tl_l]
+    mp = max(need_pg)
+    perm = (torch.randperm(sum(need_pg), generator=torch.Generator()
+                           .manual_seed(42)) + 1).tolist()
+    common = [perm.pop() for _ in range(32)]
+    tab = torch.zeros(b, mp, dtype=torch.int32)
+    for i, n in enumerate(need_pg):
+        tab[i, :n] = torch.tensor(common + [perm.pop() for _ in range(n - 32)],
+                                  dtype=torch.int32)
+    tab = tab.to(dev)
+    n_pool = 1 + sum(need_pg)
+    as_dev = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)
+    tl, groups = as_dev(tl_l), (as_dev([0] * b), as_dev([32] * b))
+    for mode in ("f32", "bf16", "int8"):
+        dt = torch.float32 if mode == "f32" else torch.bfloat16
+        rnd = lambda *sh: torch.randn(*sh, generator=gen, device=dev).to(dt)
+        cache = {"kcache": rnd(n_pool, kh, RR, hsz),
+                 "vcache": rnd(n_pool, kh, RR, hsz)}
+        if mode == "int8":
+            cache = quantize_decode_state(cache)
+        keys = [k for k in ("kcache", "vcache", "kscale", "vscale")
+                if k in cache]
+        q, kn, vn = rnd(b, qh, hsz), rnd(b, kh, hsz), rnd(b, kh, hsz)
+        sc = lambda p: dict(kscale=p[2], vscale=p[3]) if len(p) == 4 else {}
+        for window in (0, 1024):
+            kw = dict(kvp=1, n_ranks=1, rank=0, rr_block=RR, window=window,
+                      block_tables=tab, k_new=kn, v_new=vn)
+
+            def run(fn, grp, **extra):
+                p = [cache[k].clone() for k in keys]
+                o, l = fn(q, p[0], p[1], tl, groups=grp, **sc(p), **kw,
+                          **extra)
+                return o, l, p
+
+            og, lg, pg = run(flash_decode_shards, groups)
+            of, lf, pf = run(flash_decode_shards, None)
+            op, lp, pp = run(flash_decode_shards_plain, groups,
+                             scale=hsz ** -0.5, contiguous=False,
+                             slot_offset=0,
+                             block_s=kernel_block_s(512, mp * RR))
+            p = [cache[k] for k in keys]
+            _, _, fl = prefix_pass(q, p[0], p[1], tl, tab, *groups, kvp=1,
+                                   n_ranks=1, rank=0, rr_block=RR,
+                                   window=window, **sc(p))
+            torch.cuda.synchronize()
+            eo, el = maxerr(og, op), maxerr(lg, lp)
+            errs.append(eo)
+            tag = f"grouped decode gemma3 {mode} window={window}"
+            empty = [bool((fl[0, i] == 0).all()) for i in range(b)]
+            print(f"  {tag} (lengths {tl_l}, 512 shared): max err out "
+                  f"{eo:.3g} lse {el:.3g} (tol {TOL[dt]['out']:g}/"
+                  f"{TOL[dt]['lse']:g}); rows whose folded prefix state is "
+                  f"empty: {empty}")
+            need(eo <= TOL[dt]["out"] and el <= TOL[dt]["lse"],
+                 f"{tag}: kernel disagrees with plain")
+            need(torch.equal(bits(og), bits(of))
+                 and torch.equal(bits(lg), bits(lf)),
+                 f"{tag}: grouped != ungrouped")
+            need(all(torch.equal(bits(a[1:]), bits(c[1:]))
+                     and torch.equal(bits(a[1:]), bits(d[1:]))
+                     for a, c, d in zip(pg, pf, pp)),
+                 f"{tag}: appended pages differ")
+            need(empty == ([True, False, False, False] if window
+                           else [False] * b),
+                 f"{tag}: the prefix pass's empty rows are {empty}")
+    print("  grouped decode gemma3: grouped == ungrouped bit for bit, a "
+          "prefix wholly outside a member's window an exact empty partial")
 
 
 def check_hymba_ssd_w8(dev, errs_ssd, errs_mm):
@@ -1646,8 +1803,8 @@ def serve_plan(dev, arch, model, label, reqs, counts):
     window 4 from the paged pool, all three with equal streams; greedy
     window 4 with the int8 head and the int8 KV cache.  ``counts(**kw)``
     gives each run's expected launches (``path_counts``); the counts are
-    set to 0 just before each run.  Returns the runs by name."""
-    torch.cuda.reset_peak_memory_stats()
+    set to 0 just before each run; each run's peak memory is printed.
+    Returns the runs by name."""
     runs = {}
     plan = (("greedy w1", {}, counts()),
             ("top-p w1", dict(sampling=TOP_P), counts()),
@@ -1657,16 +1814,20 @@ def serve_plan(dev, arch, model, label, reqs, counts):
                                     paged_kv=True), counts(paged=True)),
             ("int8 greedy w4", dict(hx=KV8_W8, decode_window=WINDOW),
              counts(int8=True)))
+    peak = 0
     for name, kw, want in plan:
+        torch.cuda.reset_peak_memory_stats()
         streams, summ, c = window_run(dev, arch, model, f"{label} {name}",
                                       reqs, want, seed=0, **kw)
+        summ["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        peak = max(peak, summ["peak_gib"])
+        print(f"    {label} {name} peak memory {summ['peak_gib']:.2f} GiB")
         runs[name] = {"streams": streams, "summ": summ, "counts": c}
         if name in ("top-p w4", "paged top-p w4"):
             need(streams == runs["top-p w1"]["streams"],
                  f"{label} {name}: streams differ from top-p w1's")
             print(f"    {label} {name} streams equal to top-p w1's (8 of 8)")
-    print(f"  {label} peak memory over the runs "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"  {label} peak memory over the runs {peak:.2f} GiB")
     return runs
 
 
@@ -1747,6 +1908,75 @@ def serve_moe(dev):
                            bound_ms=bound)}
 
 
+def serve_gemma3(dev):
+    """gemma3-12b at full width (48 layers: 40 local of a 1024-token
+    window, 8 global; bf16, seeded random weights, head size 256, softcap
+    30, tied head) through ``serve_demo``: 8 requests of 1024-2048 tokens,
+    32 new tokens each, max_batch 4, one-shot prefills, so every decode
+    runs past the window; the runs of ``serve_plan`` (layers x decode
+    steps, warm-up window included; layers x prefills).  Then the chunked
+    runs of ``serve_shared`` over 8 requests of 1024-1536 tokens sharing
+    their first 512 (chunks of 256, paged; unshared, prefix-shared,
+    grouped: equal streams; the shared prefix falls partly or wholly out
+    of the local layers' windows), one graph window == eager over a
+    full-width state, the decode-step profile beside its byte bound and
+    the profile of a 2048-token prefill beside its operation bound.  Peak
+    memory after the model is built, after the int8 head is quantized and
+    after each run."""
+    cfg = get_config(GEMMA)
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, 0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    mem = {"model_gib": torch.cuda.max_memory_allocated() / 2**30}
+    torch.cuda.reset_peak_memory_stats()
+    prepare_decode_params(model, KV8_W8)        # the int8 head, in blocks
+    torch.cuda.synchronize()
+    mem["int8_head_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  gemma3 model: {wbytes / 1e9:.3f} GB of bf16 weights; peak "
+          f"memory {mem['model_gib']:.2f} GiB after the build, "
+          f"{mem['int8_head_gib']:.2f} GiB while the int8 head "
+          f"[{GE_D}, {GE_VP}] was quantized in column blocks")
+    reqs = dict(n_requests=8, prompt_len=(1024, 2048), max_new=32)
+    runs = serve_plan(dev, GEMMA, model, "gemma3", reqs,
+                      lambda **kw: path_counts(cfg.n_layers, 8, **kw))
+    shared = serve_shared(dev, cfg, model, (1024, 1536), label="gemma3 ",
+                          profile=dict(tl=GE_TL, cap=GE_CAP))
+    prompts = [prompt_tokens(r, cfg.vocab) for r in generate_rows(
+        4, prompt_len=(1100, 1500), max_tokens=1, seed=3)]
+    graph_vs_eager(dev, cfg, model, HelixConfig(), prompts)
+    step = profile_decode(dev, cfg, model, HelixConfig(), tl=GE_TL,
+                          cap=GE_CAP)
+    wins = layer_windows(cfg)
+    kv = sum(2 * cfg.kv_dim * 2 * sum(min(x, w) if w else x for x in GE_TL)
+             for w in wins)
+    bound = (wbytes + kv) / HBM_BPS * 1e3
+    print(f"  gemma3 decode step (B=4, lengths {list(GE_TL)}): device "
+          f"{fmt_ms(step['device_ms'])} per step against its byte bound "
+          f"{bound:.4f} ms ({wbytes / 1e9:.3f} GB of weights, {kv / 1e9:.3f} "
+          f"GB of K/V in the windows: {wins.count(0)} global, "
+          f"{len(wins) - wins.count(0)} local layers)")
+    t = 2048
+    pairs = {w: sum(min(j + 1, w) if w else j + 1 for j in range(t))
+             for w in set(wins)}
+    ops = (2 * t * (wbytes // 2 - cfg.d_model * (2 * cfg.n_layers + 1))
+           + sum(4 * cfg.q_dim * pairs[w] for w in wins))
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile_prefill(dev, cfg, model, HelixConfig(), "prefill_wgmma",
+                           "flash_prefill", t=t)
+    prof["bound_ms"] = ops / PEAK[torch.bfloat16] * 1e3
+    mem["prefill_2048_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  gemma3 prefill (B=1, T={t}): device "
+          f"{fmt_ms(prof['device_ms'])} against its operation bound "
+          f"{prof['bound_ms']:.4f} ms ({ops / 1e12:.2f} TFLOP at "
+          f"{PEAK[torch.bfloat16] / 1e12:.0f} TFLOP/s); peak memory "
+          f"{mem['prefill_2048_gib']:.2f} GiB")
+    del model
+    torch.cuda.empty_cache()
+    return {"runs": runs, "shared": shared, "prefill": prof,
+            "decode": dict(step, bound_ms=bound), "memory": mem}
+
+
 def profile_moe_decode(dev, cfg, model, n=5):
     """Device time (ms) of the MoE FFNs of one decode step: every layer's
     ``moe_ffn`` at the step's shape (4 bf16 rows, the decode capacity
@@ -1819,16 +2049,17 @@ def route_flips(tag, calls, base, layers):
     return flips
 
 
-def compare_small(dev, arch, seed, plain, label):
-    """A 4-layer f32 model of ``arch`` at full width: prefill (256 tokens)
-    + 4 decode steps, the kernel path against the plain path (``plain``
-    backends, ``ref``, on the card), kvp 4 against kvp 1, fp and with the
-    int8 head and KV cache: logits within LOGIT_TOL x max(1, |logits|) and
-    the same greedy tokens; an MoE's routes equal in every layer and step."""
-    cfg = dataclasses.replace(get_config(arch), n_layers=4)
+def compare_small(dev, arch, seed, plain, label, n_layers=4, t=256,
+                  s_cap=512):
+    """An ``n_layers``-layer f32 model of ``arch`` at full width: prefill
+    (``t`` tokens) + 4 decode steps, the kernel path against the plain path
+    (``plain`` backends, ``ref``, on the card), kvp 4 against kvp 1, fp and
+    with the int8 head and KV cache: logits within LOGIT_TOL x max(1,
+    |logits|) and the same greedy tokens; an MoE's routes equal in every
+    layer and step."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
     model = init_params(cfg, 1, dtype=torch.float32, device=dev)
     g = torch.Generator(device=dev).manual_seed(seed)
-    t = 256
     toks = torch.randint(0, cfg.vocab, (1, t), generator=g, device=dev)
     runs, routes = {}, {}
     for name, hx in (("kernel kvp=1", HelixConfig(kvp=1)),
@@ -1841,7 +2072,7 @@ def compare_small(dev, arch, seed, plain, label):
                       dataclasses.replace(KV8_W8, kvp=4))):
         prepare_decode_params(model, hx)
         with RouteLog() as log:
-            logits, state = make_prefill_step(cfg, hx, s_cap=512)(
+            logits, state = make_prefill_step(cfg, hx, s_cap=s_cap)(
                 model, {"tokens": toks})
             if hx.kv_cache_bits == 8:
                 state = quantize_decode_state(state)
@@ -1863,7 +2094,8 @@ def compare_small(dev, arch, seed, plain, label):
         base = runs[base_name]
         for name in names:
             e, scale = maxerr(runs[name], base), base.abs().max().item()
-            print(f"  4-layer f32 {label} prefill+4 decode logits, {name} vs "
+            print(f"  {n_layers}-layer f32 {label} prefill ({t}) + 4 "
+                  f"decode logits, {name} vs "
                   f"{base_name}: max err {e:.3g} (|logits| <= {scale:.3g}, "
                   f"tol {LOGIT_TOL:g} x max(1, |logits|))")
             need(e <= LOGIT_TOL * max(1.0, scale),
@@ -1892,6 +2124,16 @@ def compare_hymba(dev):
         matmul_backend="ref"), "hymba")
 
 
+def compare_gemma3(dev):
+    """One whole local:global period of gemma3-12b (6 layers: 5 local, 1
+    global) at full width, f32 (``compare_small``): a 1280-token prefill,
+    past the window, then 4 decode steps."""
+    compare_small(dev, GEMMA, 43, dict(attn_backend="ref",
+                                       prefill_backend="ref",
+                                       matmul_backend="ref"), "gemma3",
+                  n_layers=6, t=1280, s_cap=1344)
+
+
 def compare_moe(dev):
     """4-layer f32 granite-moe at full width (``compare_small``), routes
     equal in every layer between the compared runs."""
@@ -1900,8 +2142,8 @@ def compare_moe(dev):
                                      matmul_backend="ref"), "moe")
 
 
-def profile_prefill(dev, cfg, model, hx, kernel, label):
-    """Host wall time vs device time of one-shot prefills of 1024 tokens
+def profile_prefill(dev, cfg, model, hx, kernel, label, t=1024):
+    """Host wall time vs device time of one-shot prefills of ``t`` tokens
     (torch.profiler), the share of the prefill kernel's launches whose
     profiler names contain ``kernel`` (``label`` in the output), and the
     three kernels that take the most device time.  Returns
@@ -1909,7 +2151,7 @@ def profile_prefill(dev, cfg, model, hx, kernel, label):
     when the profiler saw no device events)."""
     from torch.profiler import ProfilerActivity, profile
     g = torch.Generator(device=dev).manual_seed(14)
-    toks = torch.randint(0, cfg.vocab, (1, 1024), generator=g, device=dev)
+    toks = torch.randint(0, cfg.vocab, (1, t), generator=g, device=dev)
     step = make_prefill_step(cfg, hx)
     step(model, {"tokens": toks})
     torch.cuda.synchronize()
@@ -1927,7 +2169,7 @@ def profile_prefill(dev, cfg, model, hx, kernel, label):
                  if not e.key.startswith("aten::")) / n / 1e3
     mine = sum(dev_us(e) for e in rows if kernel in e.key) / n / 1e3
     if device > 0:
-        print(f"  {cfg.name} prefill profile (B=1, T=1024): host wall "
+        print(f"  {cfg.name} prefill profile (B=1, T={t}): host wall "
               f"{wall:.2f} ms, device kernels {device:.2f} ms, busy share "
               f"{device / wall:.3f}, {label} {mine:.2f} ms "
               f"({cfg.n_layers} launches, {mine / device:.3f} of the device "
@@ -2009,7 +2251,21 @@ def serve_prefix(dev, cfg, model, fp_streams):
     fp run's requests chunked on the fixed layout against the one-shot
     fp run (``chunked_vs_oneshot``).  Counts set to 0 just before each
     run."""
-    paged = dict(paged_kv=True, n_requests=8, prompt_len=(768, 1024),
+    out = serve_shared(dev, cfg, model, (768, 1024))
+    out.update(chunked_vs_oneshot(dev, cfg, model, fp_streams))
+    return out
+
+
+def serve_shared(dev, cfg, model, prompt_len, label="", profile=None):
+    """The runs (a)-(c) of ``serve_prefix`` for ``cfg``: 8 requests of
+    ``prompt_len`` tokens whose first 512 are shared, budgets 16-48,
+    chunks of 256, paged, max_batch 4, kvp 1: (a) unshared, (b) with
+    prefix sharing, (c) with grouped decode as well, equal streams; the
+    launch counts layers x decode steps (grouped mode and prefix_pass in
+    c) and layers x chunks, set to 0 just before each run.  Then the
+    grouped decode step's profile (``profile_decode``'s shape arguments in
+    ``profile``).  Returns the runs by name."""
+    paged = dict(paged_kv=True, n_requests=8, prompt_len=prompt_len,
                  max_new=(16, 48), shared_prefix_len=512)
     plan = (("a paged chunked", paged),
             ("b + prefix_share", dict(paged, prefix_share=True)),
@@ -2017,16 +2273,17 @@ def serve_prefix(dev, cfg, model, fp_streams):
                                         grouped_decode=True)))
     out = {}
     for name, extra in plan:
-        print(f"  -- {name}: {extra}")
+        print(f"  -- {label}{name}: {extra}")
         registry.reset_launch_counts()
-        fin, summ = serve_demo("granite-3-2b", max_batch=4, kvp=1,
+        torch.cuda.reset_peak_memory_stats()
+        fin, summ = serve_demo(cfg.name, max_batch=4, kvp=1,
                                chunk_tokens=256, dtype=torch.bfloat16,
                                device=dev, model=model, seed=0, **extra)
         counts = registry.launch_counts()
         steps = summ["decode_syncs"]
         need(len(fin) == 8 and all(r.finish_reason == "max_tokens"
                                    for r in fin),
-             f"serve {name}: {[r.finish_reason for r in fin]}")
+             f"serve {label}{name}: {[r.finish_reason for r in fin]}")
         grouped = "grouped_decode" in extra
         want = {"flash_decode": cfg.n_layers * steps, "flash_decode_kv8": 0,
                 "flash_decode_paged": cfg.n_layers * steps,
@@ -2040,30 +2297,33 @@ def serve_prefix(dev, cfg, model, fp_streams):
         print(f"  {len(fin)} requests, prompts "
               f"{sorted(len(r.prompt) for r in fin)}, {summ['n_tokens']} "
               f"tokens, TTFT p50 {summ['ttft_s']['p50'] * 1e3:.1f} ms, TTL "
-              f"p50 {summ['ttl_s']['p50'] * 1e3:.2f} ms, {steps} decode "
-              f"steps, {summ['prefill_calls']} prefill chunks; "
-              f"prefix_hit_rate {summ['prefix_hit_rate']:.4f}, "
+              f"p50 {summ['ttl_s']['p50'] * 1e3:.2f} ms, {summ['tok_s']:.1f} "
+              f"tok/s, {steps} decode steps, {summ['prefill_calls']} prefill "
+              f"chunks; prefix_hit_rate {summ['prefix_hit_rate']:.4f}, "
               f"pages_shared_peak {summ['pages_shared_peak']}, "
-              f"prefix_pass launches with gnp > 0: {live}")
+              f"prefix_pass launches with gnp > 0: {live}, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         print(f"  launches {counts} (expected {want})")
         need(counts == want and steps > 0,
-             f"serve {name}: launch counts {counts} != expected {want}")
+             f"serve {label}{name}: launch counts {counts} != expected "
+             f"{want}")
         streams = {r.rid: r.out_tokens for r in fin}
         if name != "a paged chunked":
             base = out["a paged chunked"]["streams"]
             same = sum(streams[r] == base[r] for r in streams)
             print(f"  streams equal the unshared run's: {same} of 8")
-            need(same == 8, f"serve {name}: streams differ from unshared")
+            need(same == 8, f"serve {label}{name}: streams differ from "
+                            "unshared")
             need(summ["pages_shared_peak"] > 0
                  and summ["prefix_hit_rate"] > 0,
-                 f"serve {name}: nothing was shared")
+                 f"serve {label}{name}: nothing was shared")
             need(not grouped or live > 0,
-                 f"serve {name}: no prefix_pass launch had a group")
+                 f"serve {label}{name}: no prefix_pass launch had a group")
         out[name] = {"counts": counts, "summ": summ, "streams": streams}
         if grouped:
             profile_decode(dev, cfg, model, HelixConfig(paged_kv=True,
-                                                        grouped_decode=True))
-    out.update(chunked_vs_oneshot(dev, cfg, model, fp_streams))
+                                                        grouped_decode=True),
+                           **(profile or {}))
     return out
 
 
@@ -2182,9 +2442,11 @@ def chunked_vs_oneshot(dev, cfg, model, fp_streams):
     return {"d fixed chunked": {"counts": counts, "streams": ch}}
 
 
-def profile_decode(dev, cfg, model, hx):
+def profile_decode(dev, cfg, model, hx, tl=(1000, 900, 800, 700),
+                   cap=1088):
     """Host wall time vs device kernel time of one decode step at the serve
-    shape (4 rows of 700-1000 tokens, cap 1088), from torch.profiler; with
+    shape (4 rows of ``tl`` tokens, 700-1000 by default, capacity ``cap``),
+    from torch.profiler; with
     ``hx.paged_kv`` the same caches in a pool under a shuffled table; with
     ``hx.grouped_decode`` the 4 rows also map the same first 32 pages (512
     positions) and form one group; an SSM arch's 4 rows carry random
@@ -2192,7 +2454,7 @@ def profile_decode(dev, cfg, model, hx):
     "device_ms"}`` per step (``device_ms`` None when the profiler saw no
     device events)."""
     from torch.profiler import ProfilerActivity, profile
-    state = init_decode_state(cfg, 4, 1088, 1, RR, dtype=torch.bfloat16,
+    state = init_decode_state(cfg, 4, cap, 1, RR, dtype=torch.bfloat16,
                               device=dev)
     for key in ("kcache", "vcache", "ssm_state"):
         if key in state:
@@ -2200,9 +2462,9 @@ def profile_decode(dev, cfg, model, hx):
     if hx.kv_cache_bits == 8:
         state = quantize_decode_state(state)
     if hx.paged_kv:
-        full = torch.full((4,), 1088, dtype=torch.int32)
+        full = torch.full((4,), cap, dtype=torch.int32)
         tab, n_pool = shuffled_tables(torch.Generator().manual_seed(10), full,
-                                      RR, 1088 // RR)
+                                      RR, cap // RR)
         if hx.grouped_decode:
             tab[:, :32] = tab[0, :32]
         state = state_to_paged(state, tab, n_pool, 1, RR)
@@ -2210,8 +2472,7 @@ def profile_decode(dev, cfg, model, hx):
             state["group_id"] = torch.zeros(4, dtype=torch.int32, device=dev)
             state["group_np"] = torch.full((4,), 32, dtype=torch.int32,
                                            device=dev)
-    state["total_len"] = torch.tensor([1000, 900, 800, 700],
-                                      dtype=torch.int32, device=dev)
+    state["total_len"] = torch.tensor(tl, dtype=torch.int32, device=dev)
     step = build_serve_step(cfg, hx)
     tok = torch.zeros(4, dtype=torch.int32, device=dev)
     for _ in range(3):
@@ -2244,8 +2505,8 @@ def profile_decode(dev, cfg, model, hx):
         calls = ", ".join(f"{k} {v:.4f} ms/call" for k, v in per_call.items())
         mode = ("grouped, " if hx.grouped_decode else "") + \
             ("paged, " if hx.paged_kv else "")
-        print(f"  decode step profile ({mode}B=4, "
-              f"lengths 700-1000): host wall "
+        print(f"  {cfg.name} decode step profile ({mode}B=4, "
+              f"lengths {min(tl)}-{max(tl)}): host wall "
               f"{wall:.2f} ms/step, device kernels {device:.2f} ms/step, "
               f"busy share {device / wall:.3f}, {ops:.0f} aten ops/step, "
               f"{calls}")
@@ -2707,62 +2968,124 @@ def times_ssd(dev):
     return r
 
 
-def time_prefill_at(g, dev, qh, kh, t=1024):
-    """flash_prefill's record at B = 1, T = ``t`` causal, bf16, ``qh / kh``
-    heads of 64: kernel, plain, SDPA (``enable_gqa``) and the bound."""
+def time_prefill_at(g, dev, qh, kh, t=1024, hsz=HSZ, window=0):
+    """flash_prefill's record at B = 1, T = ``t`` causal (``window`` > 0: a
+    sliding window), bf16, ``qh / kh`` heads of ``hsz``: kernel, plain,
+    SDPA (``enable_gqa``; ``is_causal``, or a boolean mask of the window)
+    and the bound (the pairs the mask keeps)."""
     dt, es = torch.bfloat16, 2
     rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(dt)
-    qp, kp, vp = rnd(1, t, qh, HSZ), rnd(1, t, kh, HSZ), rnd(1, t, kh, HSZ)
-    pre = {**timed(lambda: flash_prefill(qp, kp, vp, causal=True)),
+    qp, kp, vp = rnd(1, t, qh, hsz), rnd(1, t, kh, hsz), rnd(1, t, kh, hsz)
+    sd = dict(is_causal=True)
+    pairs = t * (t + 1) // 2
+    if window:
+        i = torch.arange(t, device=dev)
+        sd = dict(attn_mask=(i[None] <= i[:, None])
+                  & (i[None] > i[:, None] - window))
+        pairs = sum(min(j + 1, window) for j in range(t))
+    pre = {**timed(lambda: flash_prefill(qp, kp, vp, causal=True,
+                                         window=window)),
            "plain_ms": time_ms(lambda: flash_prefill_ref(qp, kp, vp,
-                                                         causal=True),
+                                                         causal=True,
+                                                         window=window),
                                iters=10),
            "library_ms": queued_ms(lambda: F.scaled_dot_product_attention(
                qp.transpose(1, 2), kp.transpose(1, 2), vp.transpose(1, 2),
-               is_causal=True, enable_gqa=True)),
-           "library": "sdpa, enable_gqa"}
-    pre.update(_bound((2 * t * qh * HSZ + 2 * t * kh * HSZ) * es,
-                      4 * qh * HSZ * (t * (t + 1) // 2), PEAK[dt]))
+               enable_gqa=True, **sd)),
+           "library": "sdpa, enable_gqa" + (", a boolean mask of the window"
+                                            if window else "")}
+    pre.update(_bound((2 * t * qh * hsz + 2 * t * kh * hsz) * es,
+                      4 * qh * hsz * pairs, PEAK[dt]))
     return pre
 
 
-def decode_serve_inputs(g, dev, qh, kh):
-    """flash_decode's inputs at the serve shape (B = 4, lengths 700-1000
-    with the new token, cap 1088, ``qh / kh`` heads of 64, fused append,
-    kvp 1), bf16, with the work they need (``slots``, ``dops``, ``io``)."""
+def decode_serve_inputs(g, dev, qh, kh, hsz=HSZ, tl=(1000, 900, 800, 700),
+                        cap=1088, window=0):
+    """flash_decode's inputs at the serve shape (B = 4, lengths ``tl`` with
+    the new token, 700-1000 by default, capacity ``cap``, ``qh / kh`` heads
+    of ``hsz``, ``window``, fused append, kvp 1), bf16, with the work they
+    need (``slots`` in the windows, ``dops``, ``io``)."""
     dt, es = torch.bfloat16, 2
     rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(dt)
-    b, cap = 4, 1088
-    tl = torch.tensor([1000, 900, 800, 700], dtype=torch.int32, device=dev)
-    q, kn = rnd(b, qh, HSZ), rnd(b, kh, HSZ)
-    k, v = rnd(b, kh, cap, HSZ), rnd(b, kh, cap, HSZ)
-    slots = int(tl.sum())
-    return dict(q=q, k=k, v=v, tl=tl, cap=cap, qh=qh, kh=kh, slots=slots,
-                kw=dict(kvp=1, n_ranks=1, rank=0, rr_block=RR, window=0,
+    b = len(tl)
+    slots = sum(min(x, window) if window else x for x in tl)
+    tl = torch.tensor(tl, dtype=torch.int32, device=dev)
+    q, kn = rnd(b, qh, hsz), rnd(b, kh, hsz)
+    k, v = rnd(b, kh, cap, hsz), rnd(b, kh, cap, hsz)
+    return dict(q=q, k=k, v=v, tl=tl, cap=cap, qh=qh, kh=kh, hsz=hsz,
+                slots=slots, window=window,
+                kw=dict(kvp=1, n_ranks=1, rank=0, rr_block=RR, window=window,
                         contiguous=False, slot_offset=0, k_new=kn, v_new=kn),
-                plain=dict(scale=HSZ ** -0.5, block_s=512),
-                dops=4 * qh * HSZ * slots,
-                io=(2 * b * qh * HSZ * es + b * qh * 4
-                    + 2 * b * kh * HSZ * es))
+                plain=dict(scale=hsz ** -0.5,
+                           block_s=kernel_block_s(512, cap)),
+                dops=4 * qh * hsz * slots,
+                io=(2 * b * qh * hsz * es + b * qh * 4
+                    + 2 * b * kh * hsz * es))
 
 
 def time_decode_at(d):
     """flash_decode's record over ``decode_serve_inputs``' fixed bf16
-    cache: kernel, plain, SDPA (a mask of the lengths, ``enable_gqa``) and
-    the bound."""
+    cache: kernel, plain, SDPA (a mask of the lengths and the window,
+    ``enable_gqa``) and the bound."""
     q, k, v, tl, kw = d["q"], d["k"], d["v"], d["tl"], d["kw"]
-    mask = (torch.arange(d["cap"], device=tl.device)[None]
-            < tl[:, None])[:, None, None]
+    pos = torch.arange(d["cap"], device=tl.device)[None]
+    mask = pos < tl[:, None]
+    if d["window"]:
+        mask &= pos >= tl[:, None] - d["window"]
+    mask = mask[:, None, None]
     fn = lambda: flash_decode_shards(q, k, v, tl, **kw)
     dec = {**timed(fn), "device_ms": device_ms(fn, DECODE_KERNELS),
            "plain_ms": time_ms(lambda: flash_decode_shards_plain(
                q, k, v, tl, **d["plain"], **kw), iters=3, warmup=1),
            "library_ms": queued_ms(lambda: F.scaled_dot_product_attention(
                q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)),
-           "library": "sdpa with a mask of the lengths, enable_gqa"}
-    dec.update(_bound(2 * d["kh"] * d["slots"] * HSZ * 2 + d["io"],
+           "library": "sdpa with a mask of the lengths"
+                      + (" and the window" if d["window"] else "")
+                      + ", enable_gqa"}
+    dec.update(_bound(2 * d["kh"] * d["slots"] * d["hsz"] * 2 + d["io"],
                       d["dops"], PEAK[torch.bfloat16]))
     return dec
+
+
+def time_decode_modes(g, dev, d):
+    """flash_decode's int8 and paged records over ``decode_serve_inputs``'
+    cache: int8 K/V (three copies in turn), and bf16 K/V in a pool under a
+    shuffled table; neither has a one-call PyTorch yardstick."""
+    q, k, v, tl, kw, plain = (d[key] for key in ("q", "k", "v", "tl", "kw",
+                                                 "plain"))
+    slots, dops, io, cap, kh, hsz = (d[key] for key in (
+        "slots", "dops", "io", "cap", "kh", "hsz"))
+    dt, es = torch.bfloat16, 2
+    copies = [quantize_kv_token(k) + quantize_kv_token(v) for _ in range(3)]
+    fns8 = [lambda c=c: flash_decode_shards(q, c[0], c[2], tl, kscale=c[1],
+                                            vscale=c[3], **kw)
+            for c in copies]
+    c0 = copies[0]
+    dec8 = {**timed(rotating(fns8)),
+            "device_ms": device_ms(rotating(fns8), DECODE_KERNELS),
+            "plain_ms": time_ms(lambda: flash_decode_shards_plain(
+                q, c0[0], c0[2], tl, kscale=c0[1], vscale=c0[3], **plain,
+                **kw), iters=3, warmup=1),
+            "library_ms": None,
+            "library": "no single PyTorch call attends over an int8 cache"}
+    dec8.update(_bound(2 * kh * slots * (hsz + 4) + io, dops, PEAK[dt]))
+    tab, n_pool = shuffled_tables(torch.Generator().manual_seed(29), tl, RR,
+                                  cap // RR)
+    tab = tab.to(dev)
+    pool = state_to_paged({"kcache": k[None], "vcache": v[None]}, tab, n_pool,
+                          1, RR)
+    pk, pv = pool["kcache"][0], pool["vcache"][0]
+    fnp = lambda: flash_decode_shards(q, pk, pv, tl, block_tables=tab, **kw)
+    decp = {**timed(fnp), "device_ms": device_ms(fnp, DECODE_KERNELS),
+            "plain_ms": time_ms(lambda: flash_decode_shards_plain(
+                q, pk, pv, tl, block_tables=tab, **plain, **kw), iters=3,
+                warmup=1),
+            "library_ms": None,
+            "library": "no single PyTorch call attends through a block "
+                       "table"}
+    decp.update(_bound(2 * kh * slots * hsz * es + io + tab.numel() * 4,
+                       dops, PEAK[dt]))
+    return dec8, decp, n_pool
 
 
 def time_w8a16_at(g, dev, d, vp, m=4):
@@ -2811,39 +3134,8 @@ def times_hymba(dev):
     t = 1024
     d = decode_serve_inputs(g, dev, HY_QH, HY_KH)
     out["flash_decode_hymba"] = time_decode_at(d)
-    q, k, v, tl, kw, plain = (d[key] for key in ("q", "k", "v", "tl", "kw",
-                                                 "plain"))
-    slots, dops, io, cap = d["slots"], d["dops"], d["io"], d["cap"]
-    copies = [quantize_kv_token(k) + quantize_kv_token(v) for _ in range(3)]
-    fns8 = [lambda c=c: flash_decode_shards(q, c[0], c[2], tl, kscale=c[1],
-                                            vscale=c[3], **kw)
-            for c in copies]
-    c0 = copies[0]
-    dec8 = {**timed(rotating(fns8)),
-            "device_ms": device_ms(rotating(fns8), DECODE_KERNELS),
-            "plain_ms": time_ms(lambda: flash_decode_shards_plain(
-                q, c0[0], c0[2], tl, kscale=c0[1], vscale=c0[3], **plain,
-                **kw), iters=3, warmup=1),
-            "library_ms": None,
-            "library": "no single PyTorch call attends over an int8 cache"}
-    dec8.update(_bound(2 * HY_KH * slots * (HSZ + 4) + io, dops, PEAK[dt]))
+    dec8, decp, n_pool = time_decode_modes(g, dev, d)
     out["flash_decode_hymba_kv8"] = dec8
-    tab, n_pool = shuffled_tables(torch.Generator().manual_seed(29), tl, RR,
-                                  cap // RR)
-    tab = tab.to(dev)
-    pool = state_to_paged({"kcache": k[None], "vcache": v[None]}, tab, n_pool,
-                          1, RR)
-    pk, pv = pool["kcache"][0], pool["vcache"][0]
-    fnp = lambda: flash_decode_shards(q, pk, pv, tl, block_tables=tab, **kw)
-    decp = {**timed(fnp), "device_ms": device_ms(fnp, DECODE_KERNELS),
-            "plain_ms": time_ms(lambda: flash_decode_shards_plain(
-                q, pk, pv, tl, block_tables=tab, **plain, **kw), iters=3,
-                warmup=1),
-            "library_ms": None,
-            "library": "no single PyTorch call attends through a block "
-                       "table"}
-    decp.update(_bound(2 * HY_KH * slots * HSZ * es + io + tab.numel() * 4,
-                       dops, PEAK[dt]))
     out["flash_decode_hymba_paged"] = decp
     # the SSD scan
     args, _ = ssd_inputs(g, dev, 1, t, dt, nh=HY_NH, ds=HY_DS)
@@ -2897,6 +3189,85 @@ def times_moe(dev):
                              f"{MOE_QH}/{MOE_KH} heads, fused append"),
         ("w8a16_matmul_moe", f"M=4 K={MOE_D} N={MOE_VP} bf16 x, "
                              f"{out['w8a16_matmul_moe']['ctas']} CTAs")))
+    return out
+
+
+def time_prefix_gemma3(g, dev):
+    """prefix_pass's record at gemma3's shapes: one group of the 4 rows of
+    ``GE_TL`` sharing their first 512 positions (32 pages of 16), 16 q / 8
+    kv heads of 256, bf16, kvp 1, window 0 (a global layer reads the whole
+    prefix); six pool copies rotate so that every launch reads cold."""
+    b, qh, kh, hsz, shared = 4, GE_QH, GE_KH, GE_HSZ, 512
+    need_pg = [-(-x // RR) for x in GE_TL]
+    tab = torch.zeros(b, max(need_pg), dtype=torch.int32)
+    nxt = 33
+    for i, n in enumerate(need_pg):
+        tab[i, :32] = torch.arange(1, 33)
+        tab[i, 32:n] = torch.arange(nxt, nxt + n - 32)
+        nxt += n - 32
+    tab = tab.to(dev)
+    tl = torch.tensor(GE_TL, dtype=torch.int32, device=dev)
+    groups = (torch.zeros(b, dtype=torch.int32, device=dev),
+              torch.full((b,), 32, dtype=torch.int32, device=dev))
+    q = torch.randn(b, qh, hsz, generator=g, device=dev).to(torch.bfloat16)
+    pools = [{k: torch.randn(nxt, kh, RR, hsz, generator=g,
+                             device=dev).to(torch.bfloat16)
+              for k in ("kcache", "vcache")} for _ in range(6)]
+
+    def pre(c, fn=prefix_pass, **kw):
+        return fn(q, c["kcache"], c["vcache"], tl, tab, *groups, kvp=1,
+                  n_ranks=1, rank=0, rr_block=RR, window=0, **kw)
+
+    fns = [lambda c=c: pre(c, chunks=True) for c in pools]
+    pr = {**timed(rotating(fns)),
+          "device_ms": device_ms(rotating(fns), "prefix_kernel"),
+          "plain_ms": time_ms(lambda: pre(pools[0], fn=prefix_pass_plain,
+                                          scale=hsz ** -0.5),
+                              iters=3, warmup=1),
+          "library_ms": None,
+          "library": "no single PyTorch call attends through a block table"}
+    # the shared K/V once, the members' q, and the partials of the 2
+    # chunks below the split
+    pr.update(_bound(2 * shared * kh * hsz * 2 + b * qh * hsz * 2
+                     + 2 * b * qh * (hsz + 2) * 4,
+                     4 * hsz * qh * shared * b, PEAK[torch.bfloat16]))
+    return pr
+
+
+def times_gemma3(dev):
+    """The kernels at gemma3-12b's serve shapes, bf16, timed as the table's
+    rows are: flash_prefill at B = 1, T = 2048 causal, 16/8 heads of 256
+    (and the same with the 1024-token window, under ``window_1024``);
+    flash_decode at B = 4, lengths 2100/1500/1100/700 with the new token,
+    cap 2112, the local layers' window of 1024, fused append, kvp 1, fixed
+    fp, int8 and paged; prefix_pass over 4 members sharing 512 positions;
+    w8a16_matmul at the tied head, M = 4, K = 3840, N = 262144."""
+    g = torch.Generator(device=dev).manual_seed(44)
+    pre = time_prefill_at(g, dev, GE_QH, GE_KH, t=2048, hsz=GE_HSZ)
+    pre["window_1024"] = time_prefill_at(g, dev, GE_QH, GE_KH, t=2048,
+                                         hsz=GE_HSZ, window=GE_WIN)
+    out = {"flash_prefill_gemma3": pre}
+    d = decode_serve_inputs(g, dev, GE_QH, GE_KH, hsz=GE_HSZ, tl=GE_TL,
+                            cap=GE_CAP, window=GE_WIN)
+    out["flash_decode_gemma3"] = time_decode_at(d)
+    out["flash_decode_gemma3_kv8"], out["flash_decode_gemma3_paged"], \
+        n_pool = time_decode_modes(g, dev, d)
+    out["prefix_pass_gemma3"] = time_prefix_gemma3(g, dev)
+    out["w8a16_matmul_gemma3"] = mm = time_w8a16_at(g, dev, GE_D, GE_VP)
+    shape = (f"B=4 lengths {list(GE_TL)} cap {GE_CAP} window {GE_WIN} bf16, "
+             f"{GE_QH}/{GE_KH} heads of {GE_HSZ}, fused append")
+    print_times(dict(out, flash_prefill_gemma3_w1024=pre["window_1024"]), (
+        ("flash_prefill_gemma3", f"B=1 T=2048 causal bf16, {GE_QH}/{GE_KH}"
+                                 f" heads of {GE_HSZ}"),
+        ("flash_prefill_gemma3_w1024", f"the same, window {GE_WIN}"),
+        ("flash_decode_gemma3", shape),
+        ("flash_decode_gemma3_kv8", "the same, int8 K/V"),
+        ("flash_decode_gemma3_paged", f"the same, bf16 K/V in a {n_pool}-"
+                                      "page pool, shuffled table"),
+        ("prefix_pass_gemma3", f"4 members sharing 512 positions, "
+                               f"{GE_QH}/{GE_KH} heads of {GE_HSZ}, bf16"),
+        ("w8a16_matmul_gemma3", f"M=4 K={GE_D} N={GE_VP} bf16 x, "
+                                f"{mm['ctas']} CTAs")))
     return out
 
 
@@ -2960,6 +3331,17 @@ def main() -> int:
         print(f"  {bk.name}: nvcc {bk.seconds:.1f} s")
         for ln in bk.ptxas:
             print(f"    {ln}")
+    print("  the hsz 256 instances (gemma3-12b): registers, spill stores / "
+          "loads (bytes)")
+    for bk in built.values():
+        inst, notes = ptxas_instances(bk.ptxas)
+        for name, regs, st, ld in inst:
+            short = re.sub(r"^\d+", "", name.split("_cu_")[-1][8:])
+            short = short.split("EvNS_")[0]
+            print(f"    {bk.name}: {short}: {regs} registers, spill {st} / "
+                  f"{ld}")
+        for ln in notes:
+            print(f"    {bk.name}: {ln}")
 
     print(f"== 3 kernels vs plain on the card (t = "
           f"{time.perf_counter() - T0:.1f} s)")
@@ -2976,7 +3358,12 @@ def main() -> int:
                                   "flash_prefill_moe", "flash_decode_moe",
                                   "flash_decode_moe_kv8",
                                   "flash_decode_moe_paged",
-                                  "w8a16_matmul_moe")}
+                                  "w8a16_matmul_moe", "flash_prefill_gemma3",
+                                  "flash_decode_gemma3",
+                                  "flash_decode_gemma3_kv8",
+                                  "flash_decode_gemma3_paged",
+                                  "prefix_pass_gemma3",
+                                  "w8a16_matmul_gemma3")}
     check_decode(dev, errs["flash_decode"])
     check_decode_kv8(dev, errs["flash_decode_kv8"])
     check_decode_paged(dev, errs["flash_decode_paged"],
@@ -2998,6 +3385,15 @@ def main() -> int:
                      torch.Generator(device=dev).manual_seed(37), MOE_D,
                      MOE_VP, "moe")
     check_moe_ffn(dev)
+    check_prefill_group(dev, errs["flash_prefill_gemma3"],
+                        errs["flash_prefill_paged"], GE_QH, GE_KH, 40,
+                        hsz=GE_HSZ, t=2048, windows=(0, GE_WIN))
+    check_decode_group(dev, errs, GE_QH, GE_KH, 45, "flash_decode_gemma3",
+                       hsz=GE_HSZ, tl=GE_TL, cap=GE_CAP, windows=(0, GE_WIN))
+    check_grouped_gemma3(dev, errs["prefix_pass_gemma3"])
+    check_w8a16_head(dev, errs["w8a16_matmul_gemma3"],
+                     torch.Generator(device=dev).manual_seed(46), GE_D,
+                     GE_VP, "gemma3")
     check_sampler(dev)
 
     print(f"== 4 (t = {time.perf_counter() - T0:.1f} s) serve granite-3-2b "
@@ -3021,6 +3417,12 @@ def main() -> int:
           "4, paged, int8 head + int8 KV; 4-layer f32 checks")
     moe = serve_moe(dev)
     compare_moe(dev)
+    print(f"== 4 (t = {time.perf_counter() - T0:.1f} s) serve {GEMMA} (48 "
+          "layers, bf16, 40 local of a 1024-token window, head size 256): "
+          "greedy, top-p at windows 1 and 4, paged, int8 head + int8 KV; "
+          "chunked unshared, prefix-shared and grouped; 6-layer f32 checks")
+    gemma = serve_gemma3(dev)
+    compare_gemma3(dev)
 
     print(f"== 5 times (t = {time.perf_counter() - T0:.1f} s)")
     timed = times(dev)
@@ -3034,6 +3436,9 @@ def main() -> int:
     timed.update(times_moe(dev))
     timed["flash_prefill_moe"]["moe_prefill"] = moe["prefill"]
     timed["flash_decode_moe"]["moe_decode_step"] = moe["decode"]
+    timed.update(times_gemma3(dev))
+    timed["flash_prefill_gemma3"]["gemma3_prefill"] = gemma["prefill"]
+    timed["flash_decode_gemma3"]["gemma3_decode_step"] = gemma["decode"]
 
     # launches: each kernel's count in the run of the path it serves
     fp, int8 = runs["fp"][0]["counts"], runs["int8"][0]["counts"]
@@ -3065,6 +3470,16 @@ def main() -> int:
         "flash_prefill_moe": mo["greedy w1"]["flash_prefill"],
         "flash_decode_moe": mo["greedy w1"]["flash_decode"],
         "w8a16_matmul_moe": mo["int8 greedy w4"]["w8a16_matmul"]})
+    ge = {name: run["counts"] for name, run in gemma["runs"].items()}
+    launches.update({
+        "flash_prefill_gemma3": ge["greedy w1"]["flash_prefill"],
+        "flash_decode_gemma3": ge["greedy w1"]["flash_decode"],
+        "flash_decode_gemma3_kv8": ge["int8 greedy w4"]["flash_decode_kv8"],
+        "flash_decode_gemma3_paged":
+            ge["paged top-p w4"]["flash_decode_paged"],
+        "prefix_pass_gemma3":
+            gemma["shared"]["c + grouped_decode"]["counts"]["prefix_pass"],
+        "w8a16_matmul_gemma3": ge["int8 greedy w4"]["w8a16_matmul"]})
     decode_src = ("src/repro_torch/csrc/flash_decode.cu",
                   "src/repro/kernels/flash_decode/kernel.py:417")
     prefill_src = ("src/repro_torch/csrc/flash_prefill.cu",
@@ -3088,7 +3503,15 @@ def main() -> int:
                "flash_decode_hymba_paged": decode_src,
                "ssd_prefill_hymba": ssd_src, "w8a16_matmul_hymba": mm_src,
                "flash_prefill_moe": prefill_src,
-               "flash_decode_moe": decode_src, "w8a16_matmul_moe": mm_src}
+               "flash_decode_moe": decode_src, "w8a16_matmul_moe": mm_src,
+               "flash_prefill_gemma3": prefill_src,
+               "flash_decode_gemma3": decode_src,
+               "flash_decode_gemma3_kv8": decode_src,
+               "flash_decode_gemma3_paged": decode_src,
+               "prefix_pass_gemma3": ("src/repro_torch/csrc/prefix_pass.cu",
+                                      "src/repro/kernels/flash_decode/"
+                                      "kernel.py:702"),
+               "w8a16_matmul_gemma3": mm_src}
     records = []
     for name, (src, replaces) in sources.items():
         need(launches[name] > 0, f"{name}: no launch on its main path")

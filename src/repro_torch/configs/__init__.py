@@ -1,6 +1,7 @@
 """Architecture configs of the port: only the fields its serving paths read
-(dense GQA, pure SSM, the attention + SSM hybrid and the mixture of
-experts), plus ``get_config``.  Mirrors ``repro/configs/base.py``."""
+(dense GQA, local:global windowed attention, pure SSM, the attention + SSM
+hybrid and the mixture of experts), plus ``get_config``.  Mirrors
+``repro/configs/base.py``."""
 from __future__ import annotations
 
 import dataclasses
@@ -31,10 +32,15 @@ class ArchConfig:
     d_ff: int
     vocab: int
     head_dim: int = 0           # 0 -> d_model // n_heads
-    act: str = "silu"           # gated SiLU FFN
+    act: str = "silu"           # gated FFN: silu | gelu_gated (tanh GELU)
     rope_theta: float = 10_000.0
     tie_embeddings: bool = False
     use_rope: bool = True       # False -> sinusoidal positions on the input
+    softcap: float = 0.0        # final-logit softcap cap * tanh(x / cap); 0 off
+    # local/global attention mix: local_ratio windowed layers of
+    # local_window positions, then one global layer (0: all global)
+    local_window: int = 0
+    local_ratio: int = 0
     # Mamba2 (SSD) block
     ssm_state: int = 0          # N (dstate)
     ssm_conv: int = 4           # depthwise causal conv width
@@ -84,20 +90,24 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family variant for CPU tests (the reference's
-        ``ArchConfig.reduced`` rule for the dense, SSM, hybrid and MoE
-        families: at most 8 experts, top at most 2, expert ``d_ff`` 64 and
-        a capacity factor of 8, so that reduced prefills drop no token)."""
+        ``ArchConfig.reduced`` rule for the dense, windowed, SSM, hybrid and
+        MoE families: one whole local:global period and a window of at most
+        32 for windowed archs, else 2 layers; at most 8 experts, top at most
+        2, expert ``d_ff`` 64 and a capacity factor of 8, so that reduced
+        prefills drop no token)."""
         moe = self.moe and dataclasses.replace(
             self.moe, n_experts=min(self.moe.n_experts, 8),
             topk=min(self.moe.topk, 2), d_ff=64, capacity_factor=8.0)
         return dataclasses.replace(
             self, name=self.name + "-reduced",
-            n_layers=min(self.n_layers, 2), d_model=128,
+            n_layers=(self.local_ratio + 1 if self.local_ratio
+                      else min(self.n_layers, 2)), d_model=128,
             n_heads=min(self.n_heads, 4),
             n_kv_heads=min(self.n_kv_heads, 2), head_dim=32,
             d_ff=256 if self.d_ff else 0, vocab=512,
             ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
-            ssm_headdim=32 if self.has_ssm else self.ssm_headdim, moe=moe)
+            ssm_headdim=32 if self.has_ssm else self.ssm_headdim, moe=moe,
+            local_window=min(self.local_window, 32))
 
 
 # granite-3-2b [dense] — GQA, hf:ibm-granite/granite-3.0-2b-base.
@@ -130,8 +140,19 @@ GRANITE_MOE_1B_A400M = ArchConfig(
     n_heads=16, n_kv_heads=8, d_ff=0, vocab=49_155, tie_embeddings=True,
     moe=MoEConfig(n_experts=32, topk=8, d_ff=512))
 
+# gemma3-12b [dense, windowed] — Gemma 3, arXiv:2503.19786: 5 local layers
+# (1024-token sliding window) then 1 global, GQA 16 q / 8 kv heads of 256,
+# gated GELU (tanh form), final-logit softcap 30, tied embeddings.
+# As in the JAX package: no q/k norms, no sandwich norms, no sqrt(d) embedding
+# scale, one RoPE base for all layers, and a vocab of 262144 (not 262208).
+GEMMA3_12B = ArchConfig(
+    name="gemma3-12b", family="dense", n_layers=48, d_model=3840,
+    n_heads=16, n_kv_heads=8, head_dim=256, d_ff=15_360, vocab=262_144,
+    act="gelu_gated", local_window=1024, local_ratio=5, tie_embeddings=True,
+    softcap=30.0)
+
 _CONFIGS = {c.name: c for c in (GRANITE_3_2B, MAMBA2_780M, HYMBA_1_5B,
-                                GRANITE_MOE_1B_A400M)}
+                                GRANITE_MOE_1B_A400M, GEMMA3_12B)}
 
 
 def get_config(name: str) -> ArchConfig:

@@ -75,6 +75,9 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
+// Hopper's largest opt-in dynamic shared memory per block (bytes).
+constexpr int SMEM_OPTIN = 232448;
+
 // Set the dynamic shared-memory limit when a kernel needs more than 48 KB;
 // without it the launch is refused and only cudaGetLastError says so.
 template <typename K>

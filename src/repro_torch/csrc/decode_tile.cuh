@@ -207,12 +207,24 @@ struct Rows {
   }
 };
 
-// Load this lane's DPL dims of row j of a V tile as floats.
+// Load this lane's DPL dims of row j of a V tile as floats.  Dims of
+// different 16-byte units sit at different swizzled places, so DPL beyond
+// one unit (f32 at hsz 256: 8 dims, two units) loads unit by unit.
 template <typename KT, int HSZ>
 __device__ __forceinline__ void load_dims(const KT* vt, int j, int lane, float* f) {
   using L = Layout<KT, HSZ>;
   constexpr int DPL = L::DPL;
   const int d0 = lane * DPL;
+  if constexpr (DPL > L::VN) {
+    constexpr int UPL = DPL / L::VN;   // whole units per lane
+#pragma unroll
+    for (int i = 0; i < UPL; ++i) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(
+          vt + j * HSZ + L::swz(j, d0 / L::VN + i) * L::VN);
+      unpack(raw, f + i * L::VN, KT());
+    }
+    return;
+  }
   const KT* p = vt + j * HSZ + L::swz(j, d0 / L::VN) * L::VN + d0 % L::VN;
   if constexpr (std::is_same<KT, float>::value) {
     if constexpr (DPL == 4) {
@@ -225,7 +237,9 @@ __device__ __forceinline__ void load_dims(const KT* vt, int j, int lane, float* 
       f[0] = *p;
     }
   } else if constexpr (std::is_same<KT, bf16>::value) {
-    if constexpr (DPL == 4) {
+    if constexpr (DPL == 8) {
+      unpack(*reinterpret_cast<const uint4*>(p), f, KT());
+    } else if constexpr (DPL == 4) {
       const uint2 w = *reinterpret_cast<const uint2*>(p);
       f[0] = __uint_as_float(w.x << 16); f[1] = __uint_as_float(w.x & 0xffff0000u);
       f[2] = __uint_as_float(w.y << 16); f[3] = __uint_as_float(w.y & 0xffff0000u);

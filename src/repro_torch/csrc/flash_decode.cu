@@ -30,6 +30,11 @@
 // not written and not merged; a masked tile or an empty chunk is an exact
 // identity (decode_tile.cuh), so pruned == dense bit for bit.
 //
+// Head size 256 (gemma3): a lane holds 8 dims of a row (two 16-byte units
+// in f32, loaded unit by unit through the swizzle); an f32 stage is 64 KB,
+// so the ring has its floor of 3 stages and the CTA 212,496 bytes of
+// shared memory, one CTA an SM.
+//
 // Bound: decode reads every K/V byte of the valid span once and does
 // ~4*G*hsz flops per slot, far below Hopper's ~295 flop/byte ridge, so it is
 // bound by bytes (3.35 TB/s).  The design keeps K/V in their storage type in
@@ -344,6 +349,8 @@ __global__ void __launch_bounds__(HSZ) merge_kernel(DecodeArgs a) {
 template <typename T, typename KT, int HSZ, int RW>
 cudaError_t launch(DecodeArgs& a, cudaStream_t stream) {
   const size_t smem = Smem<KT, HSZ, RW>::BYTES;
+  // f32 at hsz 256: a 3-stage ring of 64 KB stages, 212,496 bytes in all
+  static_assert(Smem<KT, HSZ, RW>::BYTES <= SMEM_OPTIN, "shared memory");
   cudaError_t err = allow_smem(decode_kernel<T, KT, HSZ, RW>, smem);
   if (err != cudaSuccess) return err;
   static int per_sm = 0, sms = 0;
@@ -378,6 +385,7 @@ cudaError_t launch_hsz(DecodeArgs& a, int hsz, cudaStream_t stream) {
     case 32: return launch_rw<T, KT, 32>(a, stream);
     case 64: return launch_rw<T, KT, 64>(a, stream);
     case 128: return launch_rw<T, KT, 128>(a, stream);
+    case 256: return launch_rw<T, KT, 256>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -354,8 +354,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// HSZ: head size (32, 64, 128); HP: columns held in shared memory (a
-// multiple of the 64-column panel; hsz 32 is zero-padded).
+// HSZ: head size (32, 64, 128, 256); HP: columns held in shared memory (a
+// multiple of the 64-column panel; hsz 32 is zero-padded).  At 256 a
+// thread holds 128 f32 of O (4 panels of 32) beside S's 32 and P's 16
+// packed words: 219 registers, no spill and no serialized wgmma (ptxas,
+// CUDA 12.8), and 164,864 bytes of shared memory (Q, K[2], V[2]).
 template <int HSZ>
 __global__ void __launch_bounds__(WG) prefill_wgmma(PrefillArgs a) {
   constexpr int HP = HSZ < PANEL ? PANEL : HSZ;
@@ -577,6 +580,7 @@ cudaError_t launch_hsz(const PrefillArgs& a, int hsz, cudaStream_t stream) {
     case 32: return launch<T, 32>(a, stream);
     case 64: return launch<T, 64>(a, stream);
     case 128: return launch<T, 128>(a, stream);
+    case 256: return launch<T, 256>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }

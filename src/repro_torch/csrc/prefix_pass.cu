@@ -213,6 +213,8 @@ __global__ void __launch_bounds__(NT) fold_kernel(PrefixArgs a) {
 template <typename T, typename KT, int HSZ, int RW>
 cudaError_t launch(const PrefixArgs& a, cudaStream_t stream) {
   const size_t smem = Smem<KT, HSZ, RW>::bytes(a.B);
+  static_assert(Smem<KT, HSZ, RW>::MEM <= SMEM_OPTIN, "shared memory");
+  if (smem > SMEM_OPTIN) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(prefix_kernel<T, KT, HSZ, RW>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(a.st_nc, a.B * a.Kh, a.n_ranks * a.nrb);
@@ -227,8 +229,11 @@ cudaError_t launch(const PrefixArgs& a, cudaStream_t stream) {
 // than 4 per SM) takes 1, so that a group's rows spread over more CTAs
 // (each reading the shared tiles, mostly from L2); otherwise 4, or 8 above
 // 4 x NW rows, so that one row block holds all B x G rows up to 8 x NW and
-// each shared tile is read once per group.  The rows' arithmetic is the
-// same either way (decode_tile.cuh).
+// each shared tile is read once per group.  At hsz 256 a row holds 8 dims
+// a lane (40 accumulators in tile_update), and 4 rows a warp would spill
+// and, in f32, overflow shared memory (the ring alone is 192 KB): 2 rows a
+// warp there, 16 rows a row block.  The rows' arithmetic is the same
+// either way (decode_tile.cuh).
 template <typename T, typename KT, int HSZ>
 cudaError_t launch_rw(PrefixArgs a, cudaStream_t stream) {
   static int sms = 0;
@@ -241,10 +246,14 @@ cudaError_t launch_rw(PrefixArgs a, cudaStream_t stream) {
   }
   const int rows = a.B * a.G;
   const long items = (long)a.st_nc * a.B * a.Kh * a.n_ranks;
-  const int rw = items < 4L * sms ? 1 : rows <= 4 * NW ? 4 : 8;
+  const int rw = items < 4L * sms ? 1 : HSZ >= 256 ? 2 : rows <= 4 * NW ? 4 : 8;
   a.nrb = (rows + NW * rw - 1) / (NW * rw);
   if (rw == 1) return launch<T, KT, HSZ, 1>(a, stream);
-  return rw == 4 ? launch<T, KT, HSZ, 4>(a, stream) : launch<T, KT, HSZ, 8>(a, stream);
+  if constexpr (HSZ >= 256) {
+    return launch<T, KT, HSZ, 2>(a, stream);
+  } else {
+    return rw == 4 ? launch<T, KT, HSZ, 4>(a, stream) : launch<T, KT, HSZ, 8>(a, stream);
+  }
 }
 
 template <typename T, typename KT>
@@ -253,6 +262,7 @@ cudaError_t launch_hsz(const PrefixArgs& a, int hsz, cudaStream_t stream) {
     case 32: return launch_rw<T, KT, 32>(a, stream);
     case 64: return launch_rw<T, KT, 64>(a, stream);
     case 128: return launch_rw<T, KT, 128>(a, stream);
+    case 256: return launch_rw<T, KT, 256>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -113,11 +113,13 @@ def build_all(names=KERNELS) -> dict[str, BuiltKernel]:
                     raise KernelUnavailable(
                         f"nvcc failed for {n}.cu (rc {proc.returncode}):\n{log}")
                 os.replace(tmp, out)
+                # the spill line ("N bytes stack frame, N bytes spill
+                # stores, ...") does not start with "ptxas"
                 ptxas = [ln.strip() for ln in log.splitlines()
-                         if "ptxas" in ln and ("registers" in ln
-                                               or "smem" in ln
-                                               or "spill" in ln
-                                               or "entry function" in ln)]
+                         if "spill" in ln or "(C75" in ln
+                         or ("ptxas" in ln and ("registers" in ln
+                                                or "smem" in ln
+                                                or "entry function" in ln))]
             _LOADED[n] = BuiltKernel(n, ctypes.CDLL(out), secs, ptxas)
     return {n: _LOADED[n] for n in names}
 

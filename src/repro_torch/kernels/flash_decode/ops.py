@@ -52,7 +52,7 @@ counter_grouped = build.Launches()  # ... in the grouped-suffix mode among them
 counter_prefix = build.Launches()   # launches of the prefix_pass kernel
 last_launch = {"chunks_per_cta": 1}  # the decode kernel's last grid choice
 MAX_G = 8                   # query heads per KV head the kernel holds
-HSZ = (32, 64, 128)         # head sizes the kernel is compiled for
+HSZ = (32, 64, 128, 256)    # head sizes the kernel is compiled for
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _WS: dict = {}              # (name, device) -> cached workspace tensor

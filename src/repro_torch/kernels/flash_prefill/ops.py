@@ -25,7 +25,7 @@ counter_paged = build.Launches()    # paged-mode launches among them
 ROWS = 64                   # query rows per kernel block: 64 // G positions
 #                             x the G heads of a kv head, the rest dead
 BK = 64                     # keys per kernel kv tile
-HSZ = (32, 64, 128)
+HSZ = (32, 64, 128, 256)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 

@@ -35,6 +35,14 @@ tokens or a multiple of 64), ``--chunk-tokens`` falls back to one-shot
 prefill and ``--prefix-share`` raises, as in the reference; ``--paged-kv``
 and ``--lm-head-w8`` work.
 
+``--arch gemma3-12b`` serves the windowed dense model: 5 local layers of a
+1024-token sliding window, then 1 global, head size 256, a gated GELU and
+the final-logit softcap 30.  Every layer's window reaches the prefill (one
+shot or ``--chunk-tokens``) and every decode step, grouped decode's prefix
+pass included, so every flag of the dense path works: ``--paged-kv``,
+``--prefix-share --grouped-decode``, ``--lm-head-w8``, ``--sampling`` and
+``--decode-window``.
+
 ``--arch granite-moe-1b-a400m`` serves the mixture of experts: every FFN
 routes each token to 8 of 32 experts (capacity factor 1.25 in the prefill,
 4 in the decode steps, where nothing is dropped).  Capacity routing mixes

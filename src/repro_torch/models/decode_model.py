@@ -36,6 +36,12 @@ phase on the same normed ``h`` and adds ``0.5 * (a_out + s_out)``, as the
 reference's decode step does; the state carries the KV leaves and the SSM
 leaves together.
 
+Windowed archs (gemma3): layer i's attention takes the static window
+``transformer.layer_windows(cfg)[i]`` (the reference scans over
+local:global periods for the same effect), and the logits pass the
+config's softcap before the vocab mask, so the argmax and the sampler see
+capped logits.
+
 MoE archs: each layer's FFN phase adds the dense FFN's delta (when the
 config has a ``d_ff``) and the MoE's, routed over all B rows of the step,
 idle rows included, as one group at ``moe.decode_capacity_factor``.  With
@@ -65,16 +71,30 @@ from repro_torch.core.sharding import HelixConfig
 from repro_torch.kernels.w8a16_matmul import (quantize_w8, w8a16_matmul,
                                               w8a16_matmul_ref)
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import apply_rope, rms_norm, sinusoidal_at
+from repro_torch.models.layers import (apply_rope, rms_norm, sinusoidal_at,
+                                       softcap)
 from repro_torch.models.transformer import (ffn_delta, head_weight,
-                                            mix_block_outputs, vocab_mask)
+                                            layer_windows, mix_block_outputs,
+                                            vocab_mask)
+
+
+HEAD_BLOCK = 32768      # head columns quantized at a time
 
 
 def quantize_lm_head(model):
     """Quantize the head [d, Vp] per column (``lm_head`` when the model has
     one, else the tied ``embed.T``) into the model's ``lm_head_q8``/
-    ``lm_head_scale`` buffers (in place)."""
-    model.lm_head_q8, model.lm_head_scale = quantize_w8(head_weight(model))
+    ``lm_head_scale`` buffers (in place).  Columns go ``HEAD_BLOCK`` at a
+    time, so the f32 temporaries stay ~``d * HEAD_BLOCK * 4`` bytes
+    (gemma3's head is 1.0 B elements); each column's scale and payload are
+    those of one ``quantize_w8`` over the whole head."""
+    w = head_weight(model)
+    qw = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    scale = torch.empty(w.shape[1], dtype=torch.float32, device=w.device)
+    for c in range(0, w.shape[1], HEAD_BLOCK):
+        cols = slice(c, c + HEAD_BLOCK)
+        qw[:, cols], scale[cols] = quantize_w8(w[:, cols])
+    model.lm_head_q8, model.lm_head_scale = qw, scale
     return model
 
 
@@ -124,7 +144,9 @@ def _build_step_logits(cfg: ArchConfig, hx: HelixConfig):
     fused = fuse_append_applicable(hx, quant=kv8, paged=hx.paged_kv)
     o_dim = helix_out_dim(cfg.q_dim, hx.kvp)
 
-    def attn_phase(ap, h, kc, vc, ks, vs, tl_attn, tables, groups):
+    windows = layer_windows(cfg)
+
+    def attn_phase(ap, h, kc, vc, ks, vs, tl_attn, tables, groups, window):
         b = h.shape[0]
         q = (h @ ap.wq).reshape(b, cfg.n_heads, cfg.hsz)
         kn = (h @ ap.wk).reshape(b, cfg.n_kv_heads, cfg.hsz)
@@ -133,8 +155,8 @@ def _build_step_logits(cfg: ArchConfig, hx: HelixConfig):
         q = apply_rope(q[:, None], pos, cfg.rope_theta)[:, 0]
         kn = apply_rope(kn[:, None], pos, cfg.rope_theta)[:, 0]
         if fused:
-            out = helix_attention(hx, q, kc, vc, tl_attn, kscale=ks,
-                                  vscale=vs, k_new=kn, v_new=vn,
+            out = helix_attention(hx, q, kc, vc, tl_attn, window=window,
+                                  kscale=ks, vscale=vs, k_new=kn, v_new=vn,
                                   block_tables=tables, groups=groups)
         else:
             if kv8:
@@ -143,8 +165,8 @@ def _build_step_logits(cfg: ArchConfig, hx: HelixConfig):
             else:
                 append_kv(kc, vc, kn, vn, tl_attn, kvp=hx.kvp,
                           rr_block=hx.rr_block, block_tables=tables)
-            out = helix_attention(hx, q, kc, vc, tl_attn, kscale=ks,
-                                  vscale=vs, block_tables=tables,
+            out = helix_attention(hx, q, kc, vc, tl_attn, window=window,
+                                  kscale=ks, vscale=vs, block_tables=tables,
                                   groups=groups)
         wo = ap.wo
         if o_dim != wo.shape[0]:
@@ -183,7 +205,7 @@ def _build_step_logits(cfg: ArchConfig, hx: HelixConfig):
                 vs = state["vscale"][i] if kv8 else None
                 a_out = attn_phase(lp.attn, h, state["kcache"][i],
                                    state["vcache"][i], ks, vs, tl_attn,
-                                   tables, groups)
+                                   tables, groups, windows[i])
             if cfg.has_ssm:
                 s_out = ssm_phase(lp.ssm, h, state, i, advance)
             x = x + mix_block_outputs(cfg, a_out, s_out)
@@ -191,7 +213,7 @@ def _build_step_logits(cfg: ArchConfig, hx: HelixConfig):
                 x = x + ffn_delta(cfg, lp, rms_norm(x, lp.ln2),
                                   capacity_factor=decode_cf)[0]
         x = rms_norm(x, model.ln_f)
-        return (head_matmul(hx, model, x)
+        return (softcap(head_matmul(hx, model, x), cfg.softcap)
                 + vocab_mask(cfg, x.dtype, x.device))
 
     return step_logits

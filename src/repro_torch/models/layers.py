@@ -14,8 +14,21 @@ def rms_norm(x, weight, eps: float = 1e-6):
     return (y * (1.0 + weight.float())).to(x.dtype)
 
 
+def _gelu_tanh(x):
+    # jax.nn.gelu's default (approximate=True); the erf form is ~5e-4 off
+    return F.gelu(x, approximate="tanh")
+
+
 def activation(name: str):
-    return {"silu": F.silu}[name]
+    return {"silu": F.silu, "gelu_gated": _gelu_tanh}[name]
+
+
+def softcap(x, cap: float):
+    """Final-logit softcap ``cap * tanh(x / cap)``; ``x`` itself when
+    ``cap`` is 0."""
+    if not cap:
+        return x
+    return cap * torch.tanh(x / cap)
 
 
 def rope_freqs(hsz: int, theta: float, device=None):

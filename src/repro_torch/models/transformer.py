@@ -1,7 +1,7 @@
 """Dense GQA, pure-SSM, hybrid and mixture-of-experts decoders: parameters,
 seeded init and the prefill forward (port of the reference's
-``models/transformer.py``, dense non-windowed, pure-SSM, hybrid and MoE
-paths).
+``models/transformer.py``, dense (global or local:global windowed),
+pure-SSM, hybrid and MoE paths).
 
 Parameter names and shapes follow the reference's pytree, with the stacked
 ``layers`` leaves split per layer: ``embed [Vp, d]``, ``ln_f [d]``,
@@ -15,7 +15,9 @@ input, and adds ``0.5 * (a_out + s_out)``; an MoE layer holds ``ln2`` and
 (``models/moe.MoEParams``), beside ``ffn`` when the config also has a
 ``d_ff``.  Projections are ``x @ w``.
 Tied models take their logits from ``embed.T``; untied ones hold
-``lm_head [d, Vp]``.  The int8 lm_head of the decode step
+``lm_head [d, Vp]``; a config's ``softcap`` caps them before the vocab
+mask.  Windowed archs (gemma3) attend over ``layer_windows(cfg)[i]``
+positions in layer i (0: global).  The int8 lm_head of the decode step
 (``decode_model.prepare_decode_params``) is held in the buffers
 ``lm_head_q8`` [d, Vp] int8 and ``lm_head_scale`` [Vp] f32, ``None`` until
 prepared.
@@ -32,7 +34,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import prefill_attention
 from repro_torch.models.layers import (activation, apply_rope, rms_norm,
-                                       sinusoidal_at)
+                                       sinusoidal_at, softcap)
 
 
 def _param(*shape):
@@ -105,8 +107,20 @@ def cast_params(model: Transformer, *, device, dtype=None) -> Transformer:
     """``model.to(device, dtype)``, except that the leaves the reference
     keeps in f32 in any model stay f32: the SSM's (``ssm.F32_LEAVES``:
     A_log, D, dt_bias; in bf16 every decay would change) and the MoE
-    router (``moe.F32_LEAVES``; routing in bf16 would flip near-ties)."""
+    router (``moe.F32_LEAVES``; routing in bf16 would flip near-ties).
+    A model built on the meta device gets uninitialized leaves of those
+    types on ``device``, with no f32 copy of the whole model on the way
+    (gemma3-12b's would be 47 GB)."""
     keep_f32 = ssm_lib.F32_LEAVES + moe_lib.F32_LEAVES
+    if any(p.is_meta for p in model.parameters()):
+        for mod in model.modules():
+            for name, p in mod._parameters.items():
+                dt = (p.dtype if dtype is None or name in keep_f32
+                      else dtype)
+                mod._parameters[name] = nn.Parameter(
+                    torch.empty(p.shape, dtype=dt, device=device),
+                    requires_grad=False)
+        return model
     model = model.to(device=device)
     if dtype is not None:
         for name, p in model.named_parameters():
@@ -124,7 +138,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.float32,
     0.02; norm gains 0; SSM leaves by ``ssm.init_ssm``, MoE leaves by
     ``moe.init_moe``), not its values (``jax.random`` streams differ;
     ``convert.params_from_jax`` carries reference weights over exactly)."""
-    model = cast_params(Transformer(cfg), device=device, dtype=dtype)
+    with torch.device("meta"):
+        model = Transformer(cfg)
+    model = cast_params(model, device=device, dtype=dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
     depth = 1.0 / math.sqrt(2 * cfg.n_layers)
     for name, p in model.named_parameters():
@@ -138,7 +154,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.float32,
             std = 0.02
         else:
             std = p.shape[0] ** -0.5 * (depth if leaf in ("wo", "w2") else 1.0)
-        p.copy_(torch.randn(p.shape, generator=gen, device=device) * std)
+        p.copy_(torch.randn(p.shape, generator=gen, device=device).mul_(std))
     for lp in model.layers:
         if cfg.has_ssm:
             ssm_lib.init_ssm(lp.ssm, cfg, gen)
@@ -153,9 +169,21 @@ def vocab_mask(cfg: ArchConfig, dtype, device):
     return torch.where(ids < cfg.vocab, 0.0, -1e30).to(dtype)
 
 
+def layer_windows(cfg: ArchConfig) -> list[int]:
+    """Per-layer sliding-window sizes (0 = global attention): with
+    ``local_window`` and ``local_ratio`` set, layer i is local unless
+    ``(i + 1) % (local_ratio + 1) == 0`` (5 local then 1 global)."""
+    if not (cfg.local_window and cfg.local_ratio):
+        return [0] * cfg.n_layers
+    period = cfg.local_ratio + 1
+    return [0 if (i + 1) % period == 0 else cfg.local_window
+            for i in range(cfg.n_layers)]
+
+
 def _attn_block(cfg: ArchConfig, ap: Attention, h, *, q_offset,
-                backend: str, kv_buffer=None):
-    """Projections, RoPE, attention and out-projection of one layer.
+                backend: str, kv_buffer=None, window: int = 0):
+    """Projections, RoPE, attention and out-projection of one layer
+    (``window`` > 0: sliding-window attention over that many positions).
     ``q_offset`` is an int or a [B] tensor: the global position of each
     row's first token.  ``kv_buffer`` (chunked prefill): a pair of carry
     buffers ``[B, S_buf, Kh, hsz]`` holding the K/V of positions
@@ -177,8 +205,8 @@ def _attn_block(cfg: ArchConfig, ap: Attention, h, *, q_offset,
         kbuf[rows, pos.expand(b, t)] = k.to(kbuf.dtype)
         vbuf[rows, pos.expand(b, t)] = v.to(vbuf.dtype)
         k, v = kbuf, vbuf
-    out = prefill_attention(q, k, v, causal=True, q_offset=q_offset,
-                            backend=backend)
+    out = prefill_attention(q, k, v, causal=True, window=window,
+                            q_offset=q_offset, backend=backend)
     return out.reshape(b, t, cfg.q_dim) @ ap.wo, (k, v)
 
 
@@ -263,6 +291,7 @@ def forward(cfg: ArchConfig, model: Transformer, tokens, *,
         x = x + sinusoidal_at(pos, cfg.d_model).to(x.dtype)
     kcs, vcs, convs, ssms, auxs = [], [], [], [], []
     a_out = s_out = None            # the output a layer lacks
+    windows = layer_windows(cfg)
     for i, lp in enumerate(model.layers):
         h = rms_norm(x, lp.ln1)
         if cfg.has_attention:
@@ -270,7 +299,7 @@ def forward(cfg: ArchConfig, model: Transformer, tokens, *,
                    (prefix_state["kcache"][i], prefix_state["vcache"][i]))
             a_out, (k, v) = _attn_block(cfg, lp.attn, h, q_offset=q_offset,
                                         backend=prefill_backend,
-                                        kv_buffer=buf)
+                                        kv_buffer=buf, window=windows[i])
             if return_cache:
                 kcs.append(k)
                 vcs.append(v)
@@ -288,7 +317,8 @@ def forward(cfg: ArchConfig, model: Transformer, tokens, *,
             if aux is not None:
                 auxs.append(aux)
     x = rms_norm(x, model.ln_f)
-    logits = x @ head_weight(model) + vocab_mask(cfg, x.dtype, x.device)
+    logits = (softcap(x @ head_weight(model), cfg.softcap)
+              + vocab_mask(cfg, x.dtype, x.device))
     extras = {"aux_loss": torch.stack(auxs).sum()} if auxs else {}
     if prefix_state is not None:
         extras.update(kcache=prefix_state["kcache"],

@@ -23,7 +23,9 @@ the 32256-row head over summation-order differences of ~1e-6).
 granite-moe-1b-a400m's shapes (flash_prefill and flash_decode at G = 2)
 hold the same tolerances; its MoE layer at full width routes, slots and
 plans every token on the card as on the CPU, its output within 2e-5 x
-max(1, |y|).
+max(1, |y|).  gemma3-12b's head size 256 (flash_prefill, flash_decode
+with windows, grouped decode whose window cuts the shared prefix) holds
+the same tolerances.
 """
 import copy
 import dataclasses
@@ -229,7 +231,21 @@ def test_grouped_decode_kernels_match_plain_and_ungrouped_on_card(h100, quant):
     (2e-5) and vs the ungrouped paged kernel, bit for bit in outputs, LSEs
     and appended pages: rows 0, 1, 3 share 5 pages (the split falls inside
     a tile), row 2 decodes alone; kvp 1 and 2, windows 0 and 40."""
-    g = torch.Generator(device=h100).manual_seed(3)
+    _grouped_case(h100, quant, hsz=64, qh=32, seed=3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_grouped_decode_kernels_at_hsz256_on_card(h100, quant):
+    """The grouped decode's case at gemma3's head size 256 (16 q / 8 kv
+    heads): with the window of 40 the shared pages lie partly (rows 0, 1)
+    or wholly (row 3) before a member's window, whose prefix partial is
+    then empty and merges exactly."""
+    _grouped_case(h100, quant, hsz=256, qh=16, seed=33)
+
+
+def _grouped_case(h100, quant, *, hsz, qh, seed):
+    g = torch.Generator(device=h100).manual_seed(seed)
     for kvp in (1, 2):
         page, mp = kvp * RR, 12
         tl = torch.tensor([100, 90, 50, 120], dtype=torch.int32,
@@ -246,14 +262,14 @@ def test_grouped_decode_kernels_match_plain_and_ungrouped_on_card(h100, quant):
         n_pool = nxt
         gid = torch.tensor([0, 0, 2, 0], dtype=torch.int32, device=h100)
         gnp = torch.tensor([5, 5, 0, 5], dtype=torch.int32, device=h100)
-        cache = {k: torch.randn(n_pool, 8, page, 64, generator=g,
+        cache = {k: torch.randn(n_pool, 8, page, hsz, generator=g,
                                 device=h100) for k in ("kcache", "vcache")}
         if quant:
             cache = quantize_decode_state(cache)
         keys = [k for k in ("kcache", "vcache", "kscale", "vscale")
                 if k in cache]
-        q = torch.randn(4, 32, 64, generator=g, device=h100)
-        kn = torch.randn(4, 8, 64, generator=g, device=h100)
+        q = torch.randn(4, qh, hsz, generator=g, device=h100)
+        kn = torch.randn(4, 8, hsz, generator=g, device=h100)
         for window in (0, 40):
             kw = dict(kvp=kvp, n_ranks=kvp, rank=0, rr_block=RR,
                       window=window, block_tables=tab, k_new=kn, v_new=kn)
@@ -270,7 +286,7 @@ def test_grouped_decode_kernels_match_plain_and_ungrouped_on_card(h100, quant):
             assert registry.launch_counts()["prefix_pass"] == 1
             of, lf, cf = run(flash_decode_shards, None)
             op, lp, cp = run(flash_decode_shards_plain, (gid, gnp),
-                             scale=64 ** -0.5, contiguous=False,
+                             scale=hsz ** -0.5, contiguous=False,
                              slot_offset=0,
                              block_s=kernel_block_s(512, mp * RR))
             torch.cuda.synchronize()
@@ -356,7 +372,7 @@ PREFILL_TOL = {torch.float32: 2e-5, torch.bfloat16: 1.6e-2}
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hsz", [32, 64, 128])
+@pytest.mark.parametrize("hsz", [32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_prefill_kernel_fixed_and_paged_on_card(h100, dtype, hsz):
@@ -478,12 +494,26 @@ def test_decode_kernel_at_g2_on_card(h100, quant, paged):
     _decode_group_case(h100, quant, paged, g=2, kh=8, seed=24)
 
 
-def _decode_group_case(h100, quant, paged, *, g, kh, seed):
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 100])
+@pytest.mark.parametrize("paged", [False, True], ids=["fixed", "paged"])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_decode_kernel_at_hsz256_on_card(h100, quant, paged, window):
+    """flash_decode at gemma3's 16 q / 8 kv heads of 256, kvp 2, with the
+    fused append and windows 0 and 100 (shorter than 3 of the 4 lengths):
+    kernel vs plain (f32), the appended rows bit for bit, fixed and paged,
+    fp and int8."""
+    _decode_group_case(h100, quant, paged, g=2, kh=8, seed=34, hsz=256,
+                       window=window)
+
+
+def _decode_group_case(h100, quant, paged, *, g, kh, seed, hsz=64,
+                       window=0):
     gen = torch.Generator(device=h100).manual_seed(seed)
     b, kvp, s_loc = 4, 2, 256
     rnd = lambda *sh: torch.randn(*sh, generator=gen, device=h100)
-    q, kn, vn = rnd(b, g * kh, 64), rnd(b, kh, 64), rnd(b, kh, 64)
-    k, v = rnd(b, kh, kvp * s_loc, 64), rnd(b, kh, kvp * s_loc, 64)
+    q, kn, vn = rnd(b, g * kh, hsz), rnd(b, kh, hsz), rnd(b, kh, hsz)
+    k, v = rnd(b, kh, kvp * s_loc, hsz), rnd(b, kh, kvp * s_loc, hsz)
     tl = torch.tensor([1, 37, 300, kvp * s_loc], dtype=torch.int32,
                       device=h100)
     st = {"kcache": k[None], "vcache": v[None]}
@@ -496,7 +526,7 @@ def _decode_group_case(h100, quant, paged, *, g, kh, seed):
                             kvp, kvp * RR)
     planes = {key: val[0] for key, val in st.items()
               if key in ("kcache", "vcache", "kscale", "vscale")}
-    kw = dict(kvp=kvp, n_ranks=kvp, rank=0, rr_block=RR, window=0,
+    kw = dict(kvp=kvp, n_ranks=kvp, rank=0, rr_block=RR, window=window,
               contiguous=False, slot_offset=0, k_new=kn, v_new=vn,
               block_tables=st["block_tables"] if paged else None)
     mine = {key: val.clone() for key, val in planes.items()}
@@ -506,7 +536,7 @@ def _decode_group_case(h100, quant, paged, *, g, kh, seed):
     o1, l1 = flash_decode_shards(q, mine["kcache"], mine["vcache"], tl,
                                  **sc(mine), **kw)
     o2, l2 = flash_decode_shards_plain(q, plain["kcache"], plain["vcache"],
-                                       tl, scale=64 ** -0.5,
+                                       tl, scale=hsz ** -0.5,
                                        block_s=kernel_block_s(512, s_loc),
                                        **sc(plain), **kw)
     torch.cuda.synchronize()
