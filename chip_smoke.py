@@ -136,7 +136,30 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    kernel vs plain and kvp 4 vs 1, fp and int8.  The paged mode
    of flash_prefill, which no serving path of the JAX package calls, runs
    as one ragged chunk step over a 40-layer granite pool (40 launches,
-   counted; every layer == the fixed layout bit for bit);
+   counted; every layer == the fixed layout bit for bit).  The host KV
+   tier and the multi-tenant front end on full-width granite-3-2b
+   (``serve_tier``, paged, through ``serve_steps``, which hands the
+   engine back between engine steps, so the run preempts there): (t1)
+   the paged fp run's requests with two decoding requests preempted,
+   spilled and restored: streams and launches equal the paged
+   fp run's, no re-prefill, each spill's bytes and its gather, copy and
+   put (CRC) times, each restore's verify, copy and scatter times; (t2)
+   the same on the int8 path; (t3) a preempt inside top-p windows of 4:
+   the window-4 streams, one capture, every window a replay; (t4) (t1)
+   under each injected fault (a lost restore, a corrupt page, a full
+   store, a 2-step delay): each fallback and its re-prefills counted,
+   streams held to the near-tie rule against (t1) (logits kept by token,
+   in runs of their own that swap in steps returning logits, each first
+   held equal to its plain run), the other slots decoding while a delayed
+   restore is held; (t5) 2-turn sessions of 4 requests of 256 tokens,
+   chunks of 256, with and without session KV, at windows 1 and 4: window
+   4 == 1, session vs sessionless by the near-tie rule (window 1 again,
+   logits kept), 4 restores and no re-prefill, ``turn2_ttft_s``
+   both ways; (t6) a Poisson trace of 12 requests, tenants chat
+   (interactive, weight 2) and bulk (batch), under a ``VirtualClock``
+   without and with the TTL governor (equal streams, sheds through clean
+   spills and restores, a cap raise), then at window 4 on the wall clock
+   without and with it (per-class TTL, sheds, cap raises);
 5. times of each kernel, its plain version and a one-call PyTorch
    yardstick where there is one, beside the card's bound: ``ms`` and
    ``library_ms`` are device time per call with every launch queued behind
@@ -207,7 +230,8 @@ from repro_torch.kernels.w8a16_matmul import (quantize_w8,  # noqa: E402
 from repro_torch.kernels.w8a16_matmul.ops import (  # noqa: E402
     blocks as w8a16_blocks)
 from repro_torch.launch.serve import (generate_rows,  # noqa: E402
-                                     prompt_tokens, serve_demo)
+                                     prompt_tokens, serve_demo,
+                                     serve_steps)
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models.decode_model import prepare_decode_params  # noqa: E402
 from repro_torch.models.model_zoo import (  # noqa: E402
@@ -218,7 +242,8 @@ from repro_torch.models.transformer import (forward,  # noqa: E402
 from repro_torch.serving import sampling  # noqa: E402
 from repro_torch.serving.engine import DecodeEngine  # noqa: E402
 from repro_torch.serving.graph import WindowRunner  # noqa: E402
-from repro_torch.serving.scheduler import DECODE, Request  # noqa: E402
+from repro_torch.serving.scheduler import (DECODE, RESTORING,  # noqa: E402
+                                           Request)
 
 HBM_BPS = 3.35e12          # H100 SXM HBM3 bytes/s (data sheet)
 PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense FLOP/s
@@ -264,6 +289,7 @@ GE_CAP = 2112                       # their capacity, a multiple of 4 x 16
 ROUTE_TOL = 1e-6
 MOE_TOL = 2e-5
 KV8_W8 = HelixConfig(kv_cache_bits=8, lm_head_w8=True)
+GRANITE_LAYERS = 40                 # granite-3-2b
 WINDOW = 4                          # decode window of phase 4's window runs
 TOP_P = sampling.SamplingParams("top_p", temperature=0.9, top_p=0.85, seed=7)
 
@@ -1538,9 +1564,422 @@ def serve_full(dev):
           " above what was allocated before it")
     runs.update(serve_windows(dev, cfg, model, runs))
     runs.update(serve_prefix(dev, cfg, model, runs["fp"][0]["streams"]))
+    runs.update(serve_tier(dev, cfg, model, runs))
     del model
     torch.cuda.empty_cache()
     return runs
+
+
+class TierHook:
+    """Acts on a host-tier run's engine between two of ``serve_steps``'s
+    engine steps: preempts the decoding request of the lowest slot before
+    each engine step in ``preempt_at`` and notes every slot's tokens while
+    a restore is held (a request in RESTORING).  With ``logits`` it also
+    swaps the engine's step functions for ones that keep the logits behind
+    every emitted token by (rid, token index): the decode steps', the
+    one-shot prefills' and the finishing chunks' (forced catch-up steps
+    emit nothing and are not kept).  The swapped steps run the same
+    kernels; a gate on bits runs without them, and a run with them is
+    first held equal to that run's streams."""
+
+    def __init__(self, preempt_at=(), logits=False):
+        self.preempt_at = set(preempt_at)
+        self.want_logits = logits
+        self.engine = None
+        self.logits = {}
+        self.preempted = []
+        self.held = []
+
+    def __call__(self, eng, step):
+        if self.engine is None:
+            self.engine = eng
+            if self.want_logits:
+                self._wrap(eng)
+        restoring = [i for i, r in enumerate(eng.slots)
+                     if r is not None and r.state == RESTORING]
+        if restoring:
+            self.held.append((step, restoring, [
+                len(r.out_tokens) if r is not None else None
+                for r in eng.slots]))
+        if step in self.preempt_at:
+            rid = next((r.rid for r in eng.slots
+                        if r is not None and r.state == DECODE), None)
+            need(rid is not None, f"no decoding request at step {step}")
+            need(eng.preempt(rid), f"preempt({rid}) found no slot")
+            self.preempted.append((step, rid))
+
+    def _keep(self, rid, j, row):
+        self.logits[(rid, j)] = row[:self.engine.cfg.vocab].float().clone()
+
+    def _wrap(self, eng):
+        cfg, hx = eng.cfg, eng.hx
+        inner = build_serve_step(cfg, hx, return_logits=True)
+
+        def serve(model, state, tokens):
+            (nxt, lg), state = inner(model, state, tokens)
+            for i, r in enumerate(eng.slots):
+                if r is not None and r.state == DECODE and not r.forced_tokens:
+                    self._keep(r.rid, len(r.out_tokens), lg[i])
+            return nxt, state
+
+        prefill = eng.prefill_step
+
+        def oneshot(model, batch):
+            last, st = prefill(model, batch)
+            toks = batch["tokens"][0].tolist()
+            r = next(r for r in eng.slots
+                     if r is not None and r.resume_tokens() == toks)
+            self._keep(r.rid, len(r.out_tokens), last[0])
+            return last, st
+
+        eng.serve_step, eng.prefill_step = serve, oneshot
+        if eng.chunk_tokens:
+            cinner = make_chunk_prefill_step(cfg, hx, return_last_logits=True)
+
+            def chunk(model, tokens, bufs, offs):
+                nxt, last, bufs = cinner(model, tokens, bufs, offs)
+                for i, (row, off) in enumerate(zip(tokens.tolist(),
+                                                   offs.tolist())):
+                    for r in eng.slots:
+                        if (r is not None and r.prefill_tokens is not None
+                                and r.prefill_pos == off
+                                and r.prefill_tokens[off:off + len(row)] == row
+                                and off + len(row) >= len(r.prefill_tokens)):
+                            self._keep(r.rid, len(r.out_tokens), last[i])
+                return nxt, bufs
+
+            eng.chunk_step = chunk
+
+
+def near_ties(tag, base, base_logits, streams, logits):
+    """Streams of two routes to the same K/V held as ``chunked_vs_oneshot``
+    holds chunked against one-shot: the first tokens equal, the logits
+    behind every token up to a request's first differing token within
+    BF16_LOGIT_TOL, so a stream may part only at a near-tie; each parting
+    is printed with the baseline's logit gap between the two tokens."""
+    same, flips, worst, n_cmp = 0, [], 0.0, 0
+    for rid, a in base.items():
+        b = streams[rid]
+        first = next((i for i in range(min(len(a), len(b))) if a[i] != b[i]),
+                     None)
+        same += first is None and a == b
+        need(first is None or first >= 1,
+             f"{tag} rid {rid}: the first tokens differ")
+        upto = len(a) if first is None else first + 1
+        for j in range(upto):
+            if (rid, j) in base_logits and (rid, j) in logits:
+                n_cmp += 1
+                worst = max(worst, maxerr(base_logits[rid, j],
+                                          logits[rid, j]))
+        if first is not None:
+            lg = base_logits[rid, first]
+            flips.append((rid, first, float(lg[a[first]] - lg[b[first]])))
+    print(f"  {tag}: streams equal {same} of {len(base)}; logits compared "
+          f"at {n_cmp} tokens, max err {worst:.4g} (tol {BF16_LOGIT_TOL:g}); "
+          f"partings at a near-tie (rid, token, baseline logit gap): {flips}")
+    need(worst <= BF16_LOGIT_TOL,
+         f"{tag}: logits beyond the tolerance ({worst:.4g})")
+    need(all(abs(g) <= 2 * BF16_LOGIT_TOL for _, _, g in flips),
+         f"{tag}: a stream parted away from a near-tie: {flips}")
+
+
+def tier_run(dev, model, name, reqs, *, int8=False, hook=None, **kw):
+    """One host-tier run on full-width granite-3-2b (paged, max_batch 4,
+    kvp 1) through ``serve_steps``, ``hook`` acting on the engine before
+    each engine step; counts set to 0 just before it.  Every request
+    must finish its budget; the launches must be the path's: flash_decode
+    (paged; int8 in int8 runs) layers x decode steps (window runs: x N,
+    the warm-up window included), flash_prefill layers x prefill calls
+    (one-shot prefills or chunks, re-prefills included), w8a16_matmul once
+    per step with the int8 head.  Returns (streams, summary, counts,
+    hook)."""
+    hook = hook or TierHook()
+    registry.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = serve_steps("granite-3-2b", **reqs, max_batch=4,
+                      hx=KV8_W8 if int8 else None, kvp=1, paged_kv=True,
+                      dtype=torch.bfloat16, device=dev, model=model, seed=0,
+                      **kw)
+    for step in itertools.count():
+        try:
+            eng = next(run)
+        except StopIteration as done:
+            fin, summ = done.value
+            break
+        hook(eng, step)
+    counts = registry.launch_counts()
+    wall = time.perf_counter() - t0
+    n = summ["decode_window"]
+    need(all(r.finish_reason == "max_tokens" for r in fin),
+         f"{name}: reasons {[r.finish_reason for r in fin]}")
+    steps = (summ["decode_syncs"] if n == 1
+             else n * (summ["decode_syncs"] + summ["graph_captures"]))
+    if n > 1:
+        need(summ["graph_captures"] == 1
+             and summ["graph_replays"] == summ["decode_syncs"],
+             f"{name}: {summ['graph_captures']} captures, "
+             f"{summ['graph_replays']} replays, {summ['decode_syncs']} "
+             "windows")
+    want = path_counts(GRANITE_LAYERS, summ["prefill_calls"], int8=int8,
+                       paged=True)(steps)
+    ttl = summ["ttl_s"]
+    print(f"  {name}: {len(fin)} requests, {summ['n_tokens']} tokens, "
+          f"{summ['engine_steps']} engine steps, {summ['decode_syncs']} "
+          f"decode {'windows' if n > 1 else 'steps'}, "
+          f"{summ['prefill_calls']} prefill calls, {wall:.2f} s; TTFT p50 "
+          f"{summ['ttft_s']['p50'] * 1e3:.2f} ms, TTL p50 "
+          f"{ttl['p50'] * 1e3:.3f} ms p95 {ttl['p95'] * 1e3:.3f} ms; "
+          f"preempts {summ['preempts']} (spills {summ['preempt_spills']}, "
+          f"drops {summ['preempt_drops']}), spills {summ['spills']}, "
+          f"restores {summ['restores']}, restores_failed "
+          f"{summ['restores_failed']}, checksum_mismatches "
+          f"{summ['checksum_mismatches']}, store_full {summ['store_full']}, "
+          f"resume_reprefill_chunks {summ['resume_reprefill_chunks']}, "
+          f"restore_s p50 {summ['restore_s']['p50'] * 1e3:.2f} ms (n "
+          f"{summ['restore_s']['n']})"
+          + (f", graphs {summ['graph_captures']} captured "
+             f"{summ['graph_replays']} replayed" if n > 1 else ""))
+    print(f"    launches {counts} (expected {want})")
+    need(counts == want, f"{name}: launch counts {counts} != {want}")
+    for e in hook.engine.tier_log:
+        if e["kind"] == "restore":
+            print(f"    restore rid {e['rid']} ({e['key']}): {e['pages']} "
+                  f"pages, {e['tokens']} tokens, {e['bytes'] / 2**20:.2f} "
+                  f"MiB; store verify (CRC) {e['verify_ms']:.2f} ms, "
+                  f"host->device {fmt_ms(e['h2d_ms'])}, scatter "
+                  f"{fmt_ms(e['scatter_ms'])}, host wall {e['host_ms']:.2f} "
+                  "ms")
+        else:
+            print(f"    {e['kind']} rid {e['rid']}: {e['pages']} pages, "
+                  f"{e['tokens']} tokens, {e['bytes'] / 2**20:.2f} MiB, "
+                  f"{'kept' if e['ok'] else 'refused'}; gather "
+                  f"{fmt_ms(e['gather_ms'])}, device->host "
+                  f"{fmt_ms(e['d2h_ms'])} (events), host wait "
+                  f"{e['host_wait_ms']:.2f} ms, put (copy + CRC) "
+                  f"{e['put_ms']:.2f} ms")
+    return {r.rid: r.out_tokens for r in fin}, summ, counts, hook
+
+
+def serve_tier(dev, cfg, model, runs):
+    """The host KV tier and the multi-tenant front end at full width
+    (granite-3-2b, 40 layers, bf16, paged, max_batch 4, kvp 1):
+
+    (t1) the "paged fp" run's 8 requests with two decoding requests
+    preempted at engine steps 12 and 40 (host tier of 4096 pages): streams
+    equal the paged fp run's bit for bit, 2 spills, 2 restores, no
+    re-prefill, the paged fp run's launches; (t2) the same on the int8 path
+    against "paged int8" (int8 payloads and f32 scales as bytes); (t3)
+    top-p at window 4 with one preempt: the paged top-p window-4 streams,
+    one capture and every window replayed across the restore; (t4) (t1)
+    under restore_fail, corrupt, store_full and a 2-step delay: each
+    fallback counted, its re-prefills counted and launched, streams by the
+    near-tie rule against (t1) run again keeping logits (equal to t1 bit
+    for bit), and the other slots decoding while a delayed restore is
+    held; (t5) 4 requests of 256 tokens, 32 new, 2 turns, chunks of 256,
+    with and without session KV, at windows 1 and 4, then at window 1
+    again keeping logits: window 4 == window 1, session vs sessionless by
+    the near-tie rule, 4 restores and no re-prefill with sessions; (t6) a
+    Poisson trace of 12 requests of 256-1024 tokens, 32 new, tenants
+    chat:2:interactive:0.5 and bulk:1:batch:0.5, under a VirtualClock
+    without and with the governor (equal streams, at least one shed and
+    one cap raise, spills = restores = sheds, no re-prefill), then at
+    window 4 on the wall clock without and with it (figures only)."""
+    out = {}
+    reqs = dict(n_requests=8, prompt_len=(128, 1024), max_new=32)
+    big = dict(host_pages=4096)
+    print("  -- t1 preempt, fp: two decoding requests at steps 12 and 40")
+    streams, summ, counts, drv = tier_run(dev, model, "t1 preempt fp", reqs,
+                                          hook=TierHook((12, 40)), **big)
+    print(f"    preempted (step, rid): {drv.preempted}")
+    need(streams == runs["paged fp"][0]["streams"],
+         "t1: streams differ from the paged fp run's")
+    need(summ["spills"] == summ["restores"] == 2
+         and summ["resume_reprefill_chunks"] == 0
+         and summ["restores_failed"] == 0,
+         f"t1: spills {summ['spills']} restores {summ['restores']} "
+         f"re-prefill chunks {summ['resume_reprefill_chunks']}")
+    need(counts == runs["paged fp"][0]["counts"],
+         "t1: launches differ from the paged fp run's")
+    print("    t1 streams equal the paged fp run's bit for bit (8 of 8), "
+          "launches equal too")
+    out["t1"] = {"streams": streams, "summ": summ, "counts": counts}
+
+    print("  -- t2 preempt, int8 K/V and head")
+    streams, summ, counts, _ = tier_run(dev, model, "t2 preempt int8", reqs,
+                                        int8=True,
+                                        hook=TierHook((12, 40)), **big)
+    need(streams == runs["paged int8"][0]["streams"],
+         "t2: streams differ from the paged int8 run's")
+    need(summ["spills"] == summ["restores"] == 2
+         and summ["resume_reprefill_chunks"] == 0,
+         "t2: not 2 spills and 2 restores without re-prefill")
+    print("    t2 streams equal the paged int8 run's bit for bit (8 of 8)")
+    out["t2"] = {"summ": summ, "counts": counts}
+
+    print("  -- t3 preempt inside windows: top-p, window 4, paged")
+    streams, summ, counts, _ = tier_run(
+        dev, model, "t3 top-p w4 preempt", reqs, hook=TierHook((5,)),
+        sampling=TOP_P, decode_window=WINDOW, **big)
+    need(streams == runs["windows"]["paged top-p w4"]["streams"],
+         "t3: streams differ from the paged top-p window-4 run's")
+    need(summ["restores"] == 1 and summ["resume_reprefill_chunks"] == 0,
+         "t3: no clean restore")
+    print("    t3 streams equal the paged top-p w4 run's (8 of 8); the graph "
+          "replayed every window across the restore")
+    out["t3"] = {"summ": summ, "counts": counts}
+
+    print("  -- t1 again, keeping logits: the baseline of the near-tie rule")
+    base, _, _, drv = tier_run(dev, model, "t1 preempt fp, logits kept",
+                               reqs, hook=TierHook((12, 40), logits=True),
+                               **big)
+    need(base == out["t1"]["streams"],
+         "t1: the run keeping logits differs from the one that did not")
+    print("    streams equal t1's bit for bit (8 of 8)")
+    base_logits = drv.logits
+    faults = (("restore_fail", "seed=5,restore_fail=1"),
+              ("corrupt", "seed=5,corrupt=1"),
+              ("store_full", "seed=5,store_full=1"),
+              ("delay", "seed=5,delay=1,delay_steps=2"))
+    for fault, plan in faults:
+        print(f"  -- t4 fault {plan}")
+        streams, summ, counts, drv = tier_run(
+            dev, model, f"t4 {fault}", reqs,
+            hook=TierHook((12, 40), logits=True), fault_plan=plan, **big)
+        need(summ["prefill_calls"] == 8 + summ["resume_reprefill_chunks"],
+             f"t4 {fault}: prefill calls {summ['prefill_calls']}")
+        if fault == "delay":
+            need(summ["restores"] == 2
+                 and summ["resume_reprefill_chunks"] == 0,
+                 "t4 delay: the late restores did not land cleanly")
+            advanced = [h for h in drv.held]
+            print(f"    held steps (step, restoring slots, tokens per slot):"
+                  f" {advanced}")
+            need(len(advanced) >= 4, "t4 delay: the restores were not held")
+            for (s0, slots, a), (s1, _, b) in zip(advanced, advanced[1:]):
+                others = [i for i in range(4) if i not in slots
+                          and a[i] is not None and b[i] is not None]
+                need(s1 != s0 + 1 or not others
+                     or any(b[i] > a[i] for i in others),
+                     f"t4 delay: other slots stalled at step {s0}")
+            need(streams == base, "t4 delay: streams differ from t1's")
+        else:
+            # corrupt: a flipped byte (checksum) or a bumped generation
+            caught = {"restore_fail": summ["restores_failed"],
+                      "corrupt": summ["checksum_mismatches"]
+                      + summ["stale_generations"],
+                      "store_full": summ["store_full"]}[fault]
+            need(caught >= 2 and summ["resume_reprefill_chunks"] >= 2
+                 and summ["restores"] == 0,
+                 f"t4 {fault}: {caught} caught, re-prefill chunks "
+                 f"{summ['resume_reprefill_chunks']}")
+            near_ties(f"t4 {fault}", base, base_logits, streams, drv.logits)
+        out[f"t4 {fault}"] = {"summ": summ, "counts": counts}
+
+    out.update(tier_sessions(dev, model))
+    out.update(tier_tenants(dev, model))
+    return {"tier": out}
+
+
+def tier_sessions(dev, model):
+    """(t5) of ``serve_tier``: the four runs with the engine's own step
+    functions, then the two window-1 runs again keeping logits (equal to
+    the first ones), for the near-tie rule."""
+    reqs = dict(n_requests=4, prompt_len=256, max_new=32, turns=2,
+                chunk_tokens=256)
+    res = {}
+    for sess in (False, True):
+        for n in (1, WINDOW):
+            name = (f"t5 {'session' if sess else 'sessionless'} "
+                    f"w{n}")
+            print(f"  -- {name}")
+            streams, summ, counts, _ = tier_run(
+                dev, model, name, reqs, session_kv=sess, decode_window=n)
+            need(summ["n_finished"] == 8, f"{name}: {summ['n_finished']}")
+            if sess:
+                need(summ["restores"] == 4
+                     and summ["resume_reprefill_chunks"] == 0,
+                     f"{name}: restores {summ['restores']}, re-prefill "
+                     f"chunks {summ['resume_reprefill_chunks']}")
+            print(f"    turn2_ttft_s {summ['turn2_ttft_s'] * 1e3:.1f} ms")
+            res[sess, n] = (streams, summ)
+    for sess in (False, True):
+        need(res[sess, WINDOW][0] == res[sess, 1][0],
+             f"t5 {'session' if sess else 'sessionless'}: window 4 != 1")
+    print("  t5 window-4 streams equal window 1's, with and without session"
+          " KV")
+    logits = {}
+    for sess in (False, True):
+        name = f"t5 {'session' if sess else 'sessionless'} w1, logits kept"
+        print(f"  -- {name}")
+        streams, _, _, drv = tier_run(dev, model, name, reqs,
+                                      hook=TierHook(logits=True),
+                                      session_kv=sess)
+        need(streams == res[sess, 1][0],
+             f"{name}: streams differ from the run without the logits")
+        logits[sess] = drv.logits
+    print("    the runs keeping logits equal the runs without, bit for bit")
+    near_ties("t5 session vs sessionless", res[False, 1][0], logits[False],
+              res[True, 1][0], logits[True])
+    print("  t5 turn2_ttft_s: " + ", ".join(
+        f"{'session' if s else 'sessionless'} w{n} "
+        f"{res[s, n][1]['turn2_ttft_s'] * 1e3:.1f} ms"
+        for s in (False, True) for n in (1, WINDOW)))
+    return {f"t5 {'session' if s else 'sessionless'} w{n}":
+            {"summ": res[s, n][1]} for s in (False, True)
+            for n in (1, WINDOW)}
+
+
+def tier_tenants(dev, model):
+    """(t6) of ``serve_tier``.  The governed run's target, 2.8 ms of the
+    VirtualClock, lies between the modelled TTL of a step of 3 decoding
+    slots (2.5 ms) and of 4 (3.0 ms): below the ungoverned run's
+    interactive p95, which a full batch sets."""
+    reqs = dict(n_requests=12, prompt_len=(256, 1024), max_new=32,
+                traffic="poisson", arrival_rate=0.25,
+                tenants="chat:2:interactive:0.5,bulk:1:batch:0.5",
+                host_pages=4096)
+    out = {}
+    print("  -- t6 tenants, VirtualClock, no governor")
+    s0, u, _, _ = tier_run(dev, model, "t6 ungoverned", reqs,
+                           virtual_clock=True)
+    p95 = u["per_class"]["interactive"]["ttl_s"]["p95"]
+    target_ms = 2.8
+    print(f"    trace {u['trace_id']}; interactive TTL p95 "
+          f"{p95 * 1e3:.3f} ms (modelled); target {target_ms} ms")
+    need(p95 * 1e3 > target_ms, "t6: the target is not below the p95")
+    print("  -- t6 tenants, VirtualClock, governor")
+    s1, g, _, _ = tier_run(dev, model, "t6 governed", reqs,
+                           virtual_clock=True, slo_ttl_ms=target_ms)
+    print(f"    governor sheds {g['governor_sheds']}, cap raises "
+          f"{g['governor_cap_raises']}; interactive TTL p95 "
+          f"{g['per_class']['interactive']['ttl_s']['p95'] * 1e3:.3f} ms, "
+          f"miss rate {g['ttl_target_miss_rate']:.4f}")
+    need(g["governor_sheds"] >= 1 and g["governor_cap_raises"] >= 1,
+         "t6: the governor did not shed and raise")
+    need(g["spills"] == g["restores"] == g["governor_sheds"]
+         and g["resume_reprefill_chunks"] == 0,
+         "t6: sheds did not go through clean spills and restores")
+    need(s1 == s0, "t6: governed streams differ from the ungoverned run's")
+    print("    t6 governed streams equal the ungoverned run's (12 of 12)")
+    out["t6 virtual"] = {"summ": u}
+    out["t6 governed"] = {"summ": g}
+    for slo in (0.0, None):
+        name = "t6 wall w4 " + ("ungoverned" if slo == 0.0 else "governed")
+        if slo is None:
+            slo = 0.9 * out["t6 wall w4 ungoverned"]["summ"]["per_class"][
+                "interactive"]["ttl_s"]["p95"] * 1e3
+            print(f"  -- {name}: target {slo:.3f} ms, 0.9 x the ungoverned "
+                  "wall-clock interactive p95")
+        _, s, _, _ = tier_run(dev, model, name, reqs, decode_window=WINDOW,
+                              slo_ttl_ms=slo)
+        pc = s["per_class"]
+        print("    " + "; ".join(
+            f"{c} TTL p50 {pc[c]['ttl_s']['p50'] * 1e3:.3f} ms p95 "
+            f"{pc[c]['ttl_s']['p95'] * 1e3:.3f} ms" for c in sorted(pc))
+              + f"; sheds {s['governor_sheds']}, cap raises "
+              f"{s['governor_cap_raises']}, tok/s {s['tok_s']:.1f}")
+        out[name] = {"summ": s}
+    return out
 
 
 def window_figures(name, summ) -> str:
@@ -1848,9 +2287,10 @@ def serve_hymba(dev):
     runs = serve_plan(dev, "hymba-1.5b", model, "hymba", reqs,
                       lambda **kw: path_counts(cfg.n_layers, 8, ssd=True,
                                                **kw))
-    rows = generate_rows(4, prompt_len=(700, 1000), max_tokens=1, seed=3)
-    for r in rows:               # the SSD scan's contract: multiples of 64
-        r.prompt_len = -(-r.prompt_len // 64) * 64
+    # the SSD scan's contract: multiples of 64
+    rows = [dataclasses.replace(r, prompt_len=-(-r.prompt_len // 64) * 64)
+            for r in generate_rows(4, prompt_len=(700, 1000), max_tokens=1,
+                                   seed=3)]
     graph_vs_eager(dev, cfg, model, HelixConfig(),
                    [prompt_tokens(r, cfg.vocab) for r in rows])
     profile_decode(dev, cfg, model, HelixConfig())

@@ -72,6 +72,33 @@ def pages_to_cache(pages, kvp: int):
     return r.reshape(l, kh, p * page, *trail)
 
 
+def gather_pool_pages(state: dict, phys) -> dict:
+    """The pool pages ``phys`` (logical-page order) of every pool plane in
+    ``state`` (K/V payloads and, in the int8 mode, the f32 scale planes) as
+    ``[L, P, ...]`` stacks on the state's device: one gather per plane, for
+    the host spill.  The caller makes the one device->host transfer, so
+    the exact pool bytes go to the host tier."""
+    some = next(state[k] for k in CACHE_KEYS if k in state)
+    idx = torch.as_tensor(list(phys), dtype=torch.int64, device=some.device)
+    return {key: state[key].index_select(1, idx)
+            for key in CACHE_KEYS if key in state}
+
+
+def scatter_pool_pages(state: dict, phys, planes: dict) -> dict:
+    """Inverse of ``gather_pool_pages``, the host->device restore: each
+    plane's ``[L, P, ...]`` stack is written at the physical pages ``phys``
+    (granted anew at re-admission), as its bytes were spilled.  The pool
+    planes are written in place (``index_copy_``): a decode window's CUDA
+    graph holds their addresses.  Returns ``state``."""
+    some = next(state[k] for k in CACHE_KEYS if k in state)
+    idx = torch.as_tensor(list(phys), dtype=torch.int64, device=some.device)
+    for key, stack in planes.items():
+        plane = state[key]
+        plane.index_copy_(1, idx, stack.to(device=plane.device,
+                                           dtype=plane.dtype))
+    return state
+
+
 def state_to_paged(state: dict, tables, n_pool: int, kvp: int,
                    page: int) -> dict:
     """Fixed-layout decode state -> the equivalent paged state (test

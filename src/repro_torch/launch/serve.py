@@ -6,12 +6,12 @@ engine on one card (counterpart of the reference's ``launch/serve.py``).
       --dtype bfloat16 --metrics
 
 Runs on ``cuda`` unless ``--device cpu`` is given (the kernels' plain
-PyTorch versions then run).  Only the flags of the ported main path exist:
-one-shot or chunked prefill (``--chunk-tokens N``), FCFS/SJF admission,
-batch arrivals, the fixed or the paged KV layout (``--paged-kv
-[--pool-blocks N]``), prefix sharing and grouped shared-prefix decode over
-prompts with a common head (``--prefix-share --grouped-decode
---shared-prefix-len N``, paged and chunked), the int8 lm_head
+PyTorch versions then run).  The flags: one-shot or chunked prefill
+(``--chunk-tokens N``), FCFS/SJF admission, the fixed or the paged KV
+layout (``--paged-kv [--pool-blocks N]``), prefix sharing and grouped
+shared-prefix decode over prompts with a common head (``--prefix-share
+--grouped-decode --shared-prefix-len N``, paged and chunked), the int8
+lm_head
 (``--lm-head-w8 [--matmul-backend]``), on-device sampling (``--sampling
 greedy|temperature|top_k|top_p`` with ``--temperature``, ``--top-k``,
 ``--top-p``; ``--seed`` keys the per-request streams) and decode windows
@@ -43,6 +43,24 @@ pass included, so every flag of the dense path works: ``--paged-kv``,
 ``--prefix-share --grouped-decode``, ``--lm-head-w8``, ``--sampling`` and
 ``--decode-window``.
 
+Host KV tier and tenancy (paged): ``--host-pages N`` sizes the host store
+that spills a preempted request's pool pages, so its resume restores them
+with no prefill chunk; ``--session-kv`` keeps a retired request's pages by
+session, so ``--turns T`` conversations restore their history;
+``--fault-plan 'seed=9,restore_fail=0.5,...'`` injects the tier's faults,
+each of which degrades to a counted re-prefill.  Every run replays a trace:
+``--trace FILE``, or one generated from ``--traffic batch|poisson|bursty``
+(``--arrival-rate``, ``--burst``) and ``--tenants
+'name[:weight[:slo[:share]]],...'``, which also arms weighted-fair
+admission; ``--slo-ttl-ms`` arms the TTL governor (batch slots shed through
+the spill while the interactive TTL p95 is past the target) and
+``--virtual-clock`` makes the latencies the cost model's, so a replay gives
+the same summary.  The summary gains ``tier_stats()``, ``trace_id`` and
+``turn2_ttft_s``.  SSM and hybrid archs refuse the host tier, as in the
+reference.  ``serve_steps`` is ``serve_demo`` one engine step at a time: a
+generator that hands the engine back between steps, where a caller may
+``preempt`` a request.
+
 ``--arch granite-moe-1b-a400m`` serves the mixture of experts: every FFN
 routes each token to 8 of 32 experts (capacity factor 1.25 in the prefill,
 4 in the decode steps, where nothing is dropped).  Capacity routing mixes
@@ -70,51 +88,46 @@ from repro_torch.models.model_zoo import (build_serve_multistep,
                                           make_prefill_step)
 from repro_torch.models.transformer import init_params
 from repro_torch.serving import DecodeEngine, Request
+from repro_torch.serving.metrics import VirtualClock
 from repro_torch.serving.sampling import SAMPLING_KINDS, SamplingParams
 from repro_torch.serving.scheduler import POLICIES
+from repro_torch.serving.workload import (TenantSpec, generate_trace,
+                                          load_trace, parse_tenants,
+                                          requests_from_trace, trace_id)
+# re-exported beside generate_rows for callers of this module
+from repro_torch.serving.workload import prompt_tokens  # noqa: F401
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-@dataclasses.dataclass
-class TraceRow:
-    """One request of a synthetic batch-arrival workload (the fields of the
-    reference's ``serving/workload.py`` ``TraceRow`` this path reads)."""
-    rid: int
-    prompt_len: int
-    max_tokens: int
-    seed: int
+def _span(x) -> tuple[int, int]:
+    """An int or an inclusive ``(lo, hi)`` range, as a range."""
+    return (int(x), int(x)) if np.isscalar(x) else (int(x[0]), int(x[1]))
 
 
 def generate_rows(n: int, *, prompt_len, max_tokens, seed: int = 0):
-    """``n`` rows with lengths drawn uniformly from ``prompt_len`` /
-    ``max_tokens`` (ints or inclusive ``(lo, hi)`` ranges): the same draws
-    as the reference's single-tenant ``generate_trace(arrival="batch")``,
-    so both packages serve identical requests for one seed."""
-    plo, phi = (prompt_len, prompt_len) if np.isscalar(prompt_len) else prompt_len
-    mlo, mhi = (max_tokens, max_tokens) if np.isscalar(max_tokens) else max_tokens
-    rng = np.random.default_rng([seed, 0xC0FFEE])
-    rows = []
-    for rid in range(n):
-        rng.choice(1, p=np.ones(1))          # tenant draw (one tenant)
-        rows.append(TraceRow(rid=rid,
-                             prompt_len=int(rng.integers(plo, phi + 1)),
-                             max_tokens=int(rng.integers(mlo, mhi + 1)),
-                             seed=int(rng.integers(0, 2**31 - 1))))
-    return rows
+    """``n`` batch-arrival rows of one tenant, lengths drawn uniformly from
+    ``prompt_len`` / ``max_tokens`` (ints or inclusive ``(lo, hi)``
+    ranges): ``generate_trace(arrival="batch")``, the reference's draws for
+    one seed."""
+    return generate_trace(n, arrival="batch", tenants=(TenantSpec(
+        "default", prompt_len=_span(prompt_len),
+        max_tokens=_span(max_tokens)),), seed=seed)
 
 
-def prompt_tokens(row: TraceRow, vocab: int, shared_prefix=()) -> list[int]:
-    """Materialise ``row``'s synthetic prompt: the workload-wide
-    ``shared_prefix`` (cut to the row's length) plus a suffix drawn from the
-    row's own seed (the reference's ``serving/workload.prompt_tokens``)."""
-    shared = list(shared_prefix)[:row.prompt_len]
-    suffix = np.random.default_rng(row.seed).integers(
-        0, vocab, row.prompt_len - len(shared)).tolist()
-    return shared + suffix
+def serve_demo(arch: str = "granite-3-2b", **kw):
+    """Serve ``n_requests`` synthetic prompts through the engine, to the
+    end.  Returns ``(finished Requests, metrics summary)``; the arguments
+    are ``serve_steps``'s."""
+    steps = serve_steps(arch, **kw)
+    while True:
+        try:
+            next(steps)
+        except StopIteration as done:
+            return done.value
 
 
-def serve_demo(arch: str = "granite-3-2b", *, reduced: bool = False,
+def serve_steps(arch: str = "granite-3-2b", *, reduced: bool = False,
                n_requests: int = 8, prompt_len=32, max_new=16,
                max_batch: int = 8, hx: HelixConfig | None = None,
                kvp: int | None = None,
@@ -129,10 +142,17 @@ def serve_demo(arch: str = "granite-3-2b", *, reduced: bool = False,
                shared_prefix_len: int = 0, prompt_multiple: int = 1,
                sched_policy: str = "fcfs", sampling=None,
                temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0,
-               decode_window: int = 1, dtype=torch.float32,
+               decode_window: int = 1, traffic: str = "batch",
+               arrival_rate: float = 0.5, burst: int = 4, trace=None,
+               tenants=None, slo_ttl_ms: float = 0.0, virtual_clock=False,
+               host_pages: int = 0, session_kv: bool = False,
+               fault_plan=None, turns: int = 1, dtype=torch.float32,
                device="cuda", model=None, seed: int = 0, log=print):
-    """Serve ``n_requests`` synthetic prompts through the engine.  Returns
-    ``(finished Requests, metrics summary)``.
+    """``serve_demo`` one engine step at a time: a generator that yields
+    the ``DecodeEngine`` before each engine step, after that step's
+    arrivals are submitted, and returns ``(finished Requests, metrics
+    summary)``.  Between two steps a caller may act on the engine as a
+    server's control plane would, e.g. ``preempt`` a request.
 
     ``prompt_len`` / ``max_new`` are ints or inclusive ``(lo, hi)`` ranges;
     each drawn prompt length is rounded up to a multiple of
@@ -160,6 +180,23 @@ def serve_demo(arch: str = "granite-3-2b", *, reduced: bool = False,
     > 1 decodes that many steps per engine step (``build_serve_multistep``),
     and the summary carries ``sync_stats()``.  Raises on a host without
     CUDA unless ``device="cpu"``.
+
+    The run replays a trace (``serving/workload.py``): ``trace`` (a path
+    or ``TraceRow``s), else one generated from ``traffic`` (``"batch"`` |
+    ``"poisson"`` | ``"bursty"``, ``arrival_rate`` requests per engine step,
+    ``burst``) and ``tenants`` (a ``parse_tenants`` spec or
+    ``TenantSpec``s, whose ranges default to ``prompt_len``/``max_new``);
+    the summary's ``trace_id`` names it.  ``tenants`` also arms the fair
+    queue, ``slo_ttl_ms`` > 0 the TTL governor, and ``virtual_clock`` (True
+    or a ``VirtualClock``) makes every latency the cost model's.  Host KV
+    tier (paged): ``host_pages`` sizes the store that spills preempted
+    requests, ``session_kv`` keeps retired requests' pages by session,
+    ``fault_plan`` (a ``FaultPlan`` or its spec) injects faults; the
+    summary carries ``tier_stats()``.  ``turns`` > 1: each request is a
+    session whose next turn, submitted the step the last one finishes, is
+    its whole conversation so far plus ``prompt_len`` fresh tokens (the
+    top of a range), drawn from the same generator as the reference's;
+    ``turn2_ttft_s`` is the mean TTFT of the later turns.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -180,12 +217,27 @@ def serve_demo(arch: str = "granite-3-2b", *, reduced: bool = False,
     hx = dataclasses.replace(hx or HelixConfig(), **overrides)
     if model is None:
         model = init_params(cfg, seed, dtype=dtype, device=device)
-    rows = generate_rows(n_requests, prompt_len=prompt_len,
-                         max_tokens=max_new, seed=seed)
-    for r in rows:
-        r.prompt_len = -(-r.prompt_len // prompt_multiple) * prompt_multiple
-    max_seq = (max(r.prompt_len for r in rows)
-               + max(r.max_tokens for r in rows) + 1)
+    if isinstance(tenants, str):
+        tenants = parse_tenants(tenants)
+    if trace is not None:
+        rows = load_trace(trace) if isinstance(trace, str) else list(trace)
+    else:
+        spans = dict(prompt_len=_span(prompt_len), max_tokens=_span(max_new))
+        rows = generate_trace(
+            n_requests, arrival=traffic, rate=arrival_rate, burst=burst,
+            tenants=tuple(dataclasses.replace(
+                t, **{k: getattr(t, k) or v for k, v in spans.items()})
+                for t in (tenants or (TenantSpec("default"),))),
+            seed=seed)
+    rows = sorted((dataclasses.replace(r, prompt_len=-(-r.prompt_len
+                                                       // prompt_multiple)
+                                       * prompt_multiple) for r in rows),
+                  key=lambda r: (r.arrival_step, r.rid))
+    fresh = _span(prompt_len)[1]
+    p_max = max(r.prompt_len for r in rows)
+    m_max = max(r.max_tokens for r in rows)
+    # a later turn holds the whole conversation so far
+    max_seq = p_max + m_max + 1 + (turns - 1) * (fresh + m_max)
     chunked = chunk_tokens > 0 and chunked_prefill_supported(cfg)
     if chunk_tokens > 0 and not chunked:
         log(f"[serve] {cfg.name}: chunked prefill unsupported for this "
@@ -203,18 +255,47 @@ def serve_demo(arch: str = "granite-3-2b", *, reduced: bool = False,
             cfg, hx, return_last_logits=sp is not None) if chunked else None),
         prefix_share=prefix_share, sampling=sp, decode_window=decode_window,
         serve_multistep=(build_serve_multistep(cfg, hx, window=decode_window)
-                         if decode_window > 1 else None))
-    shared = np.random.default_rng(seed).integers(
-        0, cfg.vocab, shared_prefix_len).tolist()
-    for r in rows:
-        engine.submit(Request(rid=r.rid,
-                              prompt=prompt_tokens(r, cfg.vocab, shared),
-                              max_new_tokens=r.max_tokens))
+                         if decode_window > 1 else None),
+        host_pages=host_pages, session_kv=session_kv, fault_plan=fault_plan,
+        tenants=({t.name: t.tenant_config() for t in tenants}
+                 if tenants else None),
+        slo_ttl_s=slo_ttl_ms / 1e3 if slo_ttl_ms else None,
+        clock=(VirtualClock() if virtual_clock is True
+               else virtual_clock or time.monotonic))
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, cfg.vocab, shared_prefix_len).tolist()
+    pending = requests_from_trace(rows, cfg.vocab, shared_prefix=shared)
+    if turns > 1:
+        for r in pending:
+            if r.session_id is None:
+                r.session_id = f"s{r.rid}"
+    arrivals = [r.arrival_step for r in rows]
+    turn_of = {r.rid: 1 for r in pending}
+    next_rid = max((r.rid for r in pending), default=-1) + 1
     finished: list[Request] = []
     t0 = time.perf_counter()
     steps = 0
-    while engine.pending():
-        finished += engine.step()
+    while pending or engine.pending():
+        while pending and arrivals[0] <= steps:
+            engine.submit(pending.pop(0))
+            arrivals.pop(0)
+        yield engine
+        for r in engine.step():
+            finished.append(r)
+            t = turn_of[r.rid]
+            if (t < turns and r.session_id is not None
+                    and r.finish_reason in ("eos", "max_tokens")):
+                # the next turn: the conversation so far + fresh tokens
+                nxt = Request(
+                    rid=next_rid,
+                    prompt=(list(r.prompt) + list(r.out_tokens)
+                            + rng.integers(0, cfg.vocab, fresh).tolist()),
+                    max_new_tokens=_span(max_new)[1],
+                    session_id=r.session_id, tenant=r.tenant,
+                    slo_class=r.slo_class)
+                turn_of[next_rid] = t + 1
+                next_rid += 1
+                engine.submit(nxt)
         steps += 1
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -222,7 +303,13 @@ def serve_demo(arch: str = "granite-3-2b", *, reduced: bool = False,
     toks = sum(len(r.out_tokens) for r in finished)
     summary = engine.metrics.summary()
     summary.update(engine.pool_stats())
+    summary.update(engine.tier_stats())
     summary.update(engine.sync_stats())
+    summary["trace_id"] = trace_id(rows)
+    late = [engine.metrics.requests[r.rid].ttft for r in finished
+            if turn_of.get(r.rid, 1) >= 2
+            and engine.metrics.requests[r.rid].ttft is not None]
+    summary["turn2_ttft_s"] = float(np.mean(late)) if late else 0.0
     summary.update(decode_syncs=engine.decode_syncs,
                    prefill_calls=engine.prefill_calls, engine_steps=steps,
                    wall_s=dt, tok_s=toks / max(dt, 1e-9),
@@ -292,6 +379,44 @@ def main(argv=None):
                     help="decode steps per engine step: one CUDA graph "
                          "replay and ONE [batch, N] token transfer per "
                          "window (streams equal to N = 1)")
+    ap.add_argument("--traffic", default="batch",
+                    choices=("batch", "poisson", "bursty"),
+                    help="arrivals: all at once, a Poisson process over "
+                         "engine steps, or closed bursts with Poisson gaps")
+    ap.add_argument("--arrival-rate", type=float, default=0.5,
+                    help="poisson/bursty: mean requests per engine step")
+    ap.add_argument("--burst", type=int, default=4,
+                    help="bursty: arrivals per burst")
+    ap.add_argument("--trace", default=None,
+                    help="replay a saved JSONL trace instead of generating "
+                         "one (the summary's trace_id names it)")
+    ap.add_argument("--tenants", default=None,
+                    help="tenant mix 'name[:weight[:slo[:share]]],...', "
+                         "e.g. 'chat:2:interactive:0.5,bulk:1:batch:0.5'; "
+                         "arms weighted-fair admission")
+    ap.add_argument("--slo-ttl-ms", type=float, default=0.0,
+                    help="interactive TTL p95 target in ms; > 0 arms the "
+                         "TTL governor, which sheds batch slots through "
+                         "the host tier's spill")
+    ap.add_argument("--virtual-clock", action="store_true",
+                    help="the deterministic cost-model metrics clock: a "
+                         "replayed trace gives the same latency summary")
+    ap.add_argument("--host-pages", type=int, default=0,
+                    help="host KV tier capacity in pool pages: preempted "
+                         "requests spill their pages and resume with no "
+                         "prefill chunk (needs --paged-kv)")
+    ap.add_argument("--session-kv", action="store_true",
+                    help="keep retired requests' pages by session, so the "
+                         "next turn restores its history (needs "
+                         "--paged-kv)")
+    ap.add_argument("--fault-plan", default=None,
+                    help="inject host-tier faults, 'k=v,...' over seed, "
+                         "restore_fail, corrupt, store_full, delay, "
+                         "delay_steps; each degrades to re-prefilling")
+    ap.add_argument("--turns", type=int, default=1,
+                    help="each request is a session of this many turns, "
+                         "each the conversation so far plus --prompt-len "
+                         "fresh tokens")
     ap.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0,
@@ -318,7 +443,12 @@ def main(argv=None):
         shared_prefix_len=args.shared_prefix_len,
         sched_policy=args.sched_policy, sampling=args.sampling,
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
-        decode_window=args.decode_window, dtype=DTYPES[args.dtype],
+        decode_window=args.decode_window, traffic=args.traffic,
+        arrival_rate=args.arrival_rate, burst=args.burst, trace=args.trace,
+        tenants=args.tenants, slo_ttl_ms=args.slo_ttl_ms,
+        virtual_clock=args.virtual_clock, host_pages=args.host_pages,
+        session_kv=args.session_kv, fault_plan=args.fault_plan,
+        turns=args.turns, dtype=DTYPES[args.dtype],
         device=args.device, seed=args.seed)
     if args.metrics:
         print(json.dumps(summary, indent=2))

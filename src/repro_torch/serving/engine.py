@@ -59,7 +59,31 @@ token (j-major), so retirements and metrics follow the single-step
 engine's order and the streams are equal to N = 1 bit for bit.
 ``sync_stats()`` reports the transfers per decoded token.
 
-Not ported yet: the host KV tier, tenancy and the TTL governor.
+Host KV tier (``host_pages``, ``session_kv``, ``fault_plan``; paged only):
+``preempt`` spills a decoding request's pool pages to a
+``serving/tier.HostPageStore`` (one gather per plane and ONE device->host
+synchronisation), and its resume restores them (one host->device copy per
+plane, scattered in place into the pages granted at re-admission) with no
+prefill chunk; the tokens known past the restored span are teacher-forced
+through decode steps (``forced_tokens``; in a window, through its forced
+block).  ``session_kv`` keeps a retired request's pages under its session
+id, so the next turn of the conversation restores its history.  Every
+fault the plan injects (a lost restore, a corrupt page, a full store, a
+late restore) degrades to re-prefilling, counted in
+``resume_reprefill_chunks``.  The pool planes are written in place, so a
+window's CUDA graph replays across a restore.  Archs with SSM state are
+refused, as in the reference: a restore could not rebuild it.  With a
+store, the prefix index keeps its K/V blobs there too.  An engine with
+``prefix_share`` and no host tier builds no store and keeps them inline,
+paying no host copy or CRC per registration; the reference builds its
+store for ``prefix_share`` alone too.
+
+Tenancy (``tenants``): a fair queue of weighted tenants and SLO classes in
+the scheduler.  ``slo_ttl_s`` arms the TTL governor, which after each
+step may lower the batch cap and shed the youngest decoding batch request
+through the spill.  With a
+``VirtualClock`` as ``clock`` every latency is the cost model's, so runs
+replay exactly.
 """
 from __future__ import annotations
 
@@ -71,20 +95,26 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.core.kvcache import (cache_capacity, cache_to_pages,
-                                      init_decode_state, page_positions,
-                                      quantize_decode_state)
+                                      gather_pool_pages, init_decode_state,
+                                      page_positions, quantize_decode_state,
+                                      scatter_pool_pages)
 from repro_torch.core.sharding import HelixConfig
 from repro_torch.kernels import registry
 from repro_torch.models.decode_model import prepare_decode_params
 from repro_torch.models.model_zoo import (chunked_prefill_supported,
                                           finalize_chunked_prefill,
                                           init_prefill_buffers)
+from repro_torch.serving.faults import FaultPlan
+from repro_torch.serving.governor import GovernorConfig, TTLGovernor
 from repro_torch.serving.graph import WindowRunner
-from repro_torch.serving.metrics import EngineMetrics
+from repro_torch.serving.metrics import EngineMetrics, VirtualClock
 from repro_torch.serving.pool import BlockAllocator
 from repro_torch.serving.sampling import request_seed, sample_tokens
-from repro_torch.serving.scheduler import (DECODE, DONE, PREFILL, PrefixIndex,
-                                           Request, Scheduler)
+from repro_torch.serving.scheduler import (DECODE, DONE, PREFILL, RESTORING,
+                                           SLO_BATCH, PrefixIndex, Request,
+                                           Scheduler)
+from repro_torch.serving.tier import (HostPageStore, device_planes,
+                                      host_planes)
 
 __all__ = ["DecodeEngine", "Request"]
 
@@ -104,7 +134,16 @@ class DecodeEngine:
     reference).  ``sampling`` (a ``SamplingParams``) arms the on-device
     sampler; a sampling engine's chunk step must be built with
     ``return_last_logits=True``.  ``decode_window`` > 1 decodes that many
-    tokens per engine step through ``serve_multistep``."""
+    tokens per engine step through ``serve_multistep``.
+
+    Host tier (module doc): ``host_pages`` sizes the store that spills
+    preempted requests (0: no spill), ``session_kv`` keeps retired
+    requests' pages by session, ``fault_plan`` (a ``FaultPlan`` or its
+    spec) injects faults; the store also holds the prefix index's blobs
+    when there is one.  ``tenants`` (``TenantConfig``s) arms the fair
+    queue, ``slo_ttl_s`` (seconds) the TTL governor; ``clock`` is the
+    metrics clock (a ``VirtualClock`` is advanced by the engine's
+    work)."""
 
     def __init__(self, cfg: ArchConfig, model, serve_step: Callable,
                  prefill_step: Callable, *, max_batch: int, max_seq: int,
@@ -115,8 +154,19 @@ class DecodeEngine:
                  chunk_prefill_step: Callable | None = None,
                  prefix_share: bool = False, sampling=None,
                  decode_window: int = 1,
-                 serve_multistep: Callable | None = None):
+                 serve_multistep: Callable | None = None,
+                 host_pages: int = 0, session_kv: bool = False,
+                 fault_plan=None, tenants=None,
+                 slo_ttl_s: float | None = None):
         device = torch.device(device)
+        if (host_pages or session_kv) and not hx.paged_kv:
+            raise ValueError("the host KV tier (host_pages / session_kv) "
+                             "needs hx.paged_kv: spill and restore go by "
+                             "pages")
+        if (host_pages or session_kv) and cfg.has_ssm:
+            raise ValueError("the host KV tier only spills pool planes; "
+                             f"{cfg.name} keeps SSM state leaves a restore "
+                             "could not rebuild")
         if sampling is not None:
             sampling.validate()
         if decode_window < 1:
@@ -195,6 +245,21 @@ class DecodeEngine:
                              "(build one with make_chunk_prefill_step)")
         self.chunk_tokens = chunk_tokens
         self.chunk_step = chunk_prefill_step
+        # host KV tier: the store spills preempted requests (host_pages)
+        # and keeps sessions (session_kv); the prefix index's blobs go
+        # there too when it exists, and stay inline without a tier
+        self.session_kv = session_kv
+        self.spill_enabled = host_pages > 0
+        if isinstance(fault_plan, str):
+            fault_plan = FaultPlan.parse(fault_plan)
+        self.store = None
+        if self.paged and (host_pages or session_kv):
+            self.store = HostPageStore(
+                host_pages or max(4 * self.pool.capacity, 256),
+                faults=fault_plan)
+        self._restores: dict[int, dict] = {}    # slot -> restore in flight
+        self.tier_log: list[dict] = []          # each spill's and restore's
+        #                                         bytes and times
         # prefix sharing: suffix-only prefill is a resumed chunked prefill,
         # and the pages to share live in the pool
         self.prefix_index = None
@@ -203,15 +268,26 @@ class DecodeEngine:
                 raise ValueError("prefix_share needs hx.paged_kv and "
                                  "chunk_tokens (suffix-only prefill rides "
                                  "the chunked-prefill q_offset contract)")
-            self.prefix_index = PrefixIndex(self.block_s, self.pool)
+            self.prefix_index = PrefixIndex(self.block_s, self.pool,
+                                            store=self.store)
         self._prefix_admits = 0
         self._prefix_hits = 0
         self.grouped_steps = 0          # decode steps with a group formed
+        governor = (GovernorConfig(ttl_target_s=slo_ttl_s)
+                    if slo_ttl_s is not None else None)
+        self.governor = (TTLGovernor(governor, max_batch)
+                         if governor is not None else None)
         self.sched = Scheduler(max_batch=max_batch, cap=self.cap,
                                policy=sched_policy, pool=self.pool,
                                max_pages=self.max_pages,
-                               prefix_index=self.prefix_index)
-        self.metrics = EngineMetrics(clock=clock)
+                               prefix_index=self.prefix_index,
+                               tenants=tenants,
+                               slo_aware=(True if (tenants or governor)
+                                          else None))
+        self.metrics = EngineMetrics(
+            clock=clock,
+            ttl_target_s=governor.ttl_target_s if governor else None)
+        self._admission_retired: list[Request] = []
         self.decode_syncs = 0           # decode steps or windows (one
         #                                 transfer each)
         self.decoded_tokens = 0         # tokens the decode loop emitted
@@ -224,28 +300,176 @@ class DecodeEngine:
     # ------------------------------------------------------------- requests
     def submit(self, req: Request) -> None:
         """Queue ``req``; ``step()`` admits it when a slot frees up."""
+        self._check_sampling(req)
+        self.metrics.on_submit(req.rid, tenant=req.tenant,
+                               slo_class=req.slo_class)
+        self.sched.submit(req)
+
+    def _check_sampling(self, req: Request) -> None:
         if req.sampling is not None and self.sampling is None:
             raise ValueError("request carries SamplingParams but the "
                              "engine was built without sampling= (the "
                              "decode state has no sampling leaves)")
-        self.metrics.on_submit(req.rid)
-        self.sched.submit(req)
 
     def pending(self) -> bool:
-        """True while any request is queued or holds a slot."""
-        return bool(self.sched.queue) or any(self.slots)
+        """True while any request is queued, holds a slot, or retired at
+        admission and not yet returned by ``step()``."""
+        return (bool(self.sched.queue) or any(self.slots)
+                or bool(self._admission_retired))
+
+    def add_request(self, req: Request) -> bool:
+        """Immediate admission past the queue: a one-shot prefill of
+        ``req`` into a free slot now; False when none is free (nothing is
+        queued).  A request that can never fit is taken (True) and retired
+        "rejected"; like a first token that retires it, the next
+        ``step()`` returns it."""
+        self._check_sampling(req)
+        if req.rid not in self.metrics.requests:
+            self.metrics.on_submit(req.rid, tenant=req.tenant,
+                                   slo_class=req.slo_class)
+        slot = self.sched.assign_direct(req)
+        if slot is None:
+            if self.sched.rejected and self.sched.rejected[-1] is req:
+                self.sched.rejected.pop()
+                self.metrics.on_finish(req.rid, "rejected")
+                self._admission_retired.append(req)
+                return True
+            return False
+        self.metrics.on_admit(req.rid)
+        self.slots[slot] = req
+        first = int(self._oneshot_prefill(req, slot))
+        self._admission_retired += self._commit_first_token(req, slot, first)
+        return True
+
+    def preempt(self, rid: int) -> bool:
+        """Take ``rid``'s slot mid-flight and requeue it at the queue front.
+        With a host tier (``host_pages``) a decoding request's pool pages
+        are spilled first, so its resume restores them with no prefill
+        chunk; without one, or when the store refuses them, the pages are
+        dropped and the resume re-prefills the prompt and the tokens so
+        far.  A restore still in flight is cancelled (its store entry
+        stays, so the resume tries again).  False when ``rid`` holds no
+        slot."""
+        for slot, req in enumerate(self.slots):
+            if req is None or req.rid != rid:
+                continue
+            spilled = False
+            if slot in self._restores:
+                self._restores.pop(slot)
+            elif (req.state == DECODE and self.spill_enabled
+                    and self.store is not None):
+                spilled = self._spill(req, slot)
+            req.buffers = None
+            req.prefill_pos = 0
+            req.prefill_tokens = None
+            req.forced_tokens = None
+            self.slots[slot] = None
+            self.state["total_len"][slot] = 0
+            if self.paged:
+                # the pages go back to the pool; park the row on the sink
+                self.state["block_tables"][slot] = 0
+            self.sched.preempt(slot, req)
+            self.metrics.on_preempt(rid, spilled=spilled)
+            return True
+        return False
+
+    def _save_pages(self, req: Request, slot: int, key: str,
+                    kind: str) -> bool | None:
+        """Put ``req``'s committed pool pages into the store under ``key``,
+        as exact bytes (int8 payloads and scale planes included): one
+        gather per plane, one device->host copy each and ONE
+        synchronisation before the host copy is read.  Logs the bytes and
+        times in ``tier_log``.  None when nothing is committed, else
+        whether the store took them."""
+        committed = self.sched.slot_len[slot]
+        phys = self.pool.pages(req.rid)[:self.pool.pages_for(committed)]
+        if committed <= 0 or not phys:
+            return None
+        t0 = time.perf_counter()
+        ev = self._event()
+        planes = gather_pool_pages(self.state, phys)
+        mid = self._event()
+        if self.device.type == "cuda":
+            host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                    for k, v in planes.items()}
+            for k, v in planes.items():
+                host[k].copy_(v, non_blocking=True)
+        else:
+            host = planes
+        end = self._event()
+        if end is not None:
+            end.synchronize()               # the one sync of the spill
+        t1 = time.perf_counter()
+        ok = self.store.put(key, host_planes(host),
+                            tokens=req.resume_tokens()[:committed])
+        t2 = time.perf_counter()
+        self.tier_log.append({
+            "kind": kind, "rid": req.rid, "ok": ok, "pages": len(phys),
+            "tokens": committed,
+            "bytes": sum(v.numel() * v.element_size()
+                         for v in planes.values()),
+            "gather_ms": ev.elapsed_time(mid) if ev else None,
+            "d2h_ms": mid.elapsed_time(end) if ev else None,
+            "host_wait_ms": (t1 - t0) * 1e3, "put_ms": (t2 - t1) * 1e3})
+        return ok
+
+    def _spill(self, req: Request, slot: int) -> bool:
+        """Spill ``req``'s pages before the pool takes them back
+        (``_save_pages`` under ``spill:<rid>``); True when the store took
+        them."""
+        ok = bool(self._save_pages(req, slot, f"spill:{req.rid}", "spill"))
+        req.spill_key = f"spill:{req.rid}" if ok else None
+        req.spill_len = self.sched.slot_len[slot] if ok else 0
+        if ok:
+            self.metrics.bump("spills")
+        self._sync_store_counters()
+        return ok
 
     def step(self) -> list[Request]:
-        """Admission, at most one prefill chunk, then one decode step (or
-        one window of ``decode_window`` steps); returns the requests
-        retired."""
-        finished = self._admit()
+        """Restores due this step, admission, at most one prefill chunk,
+        one decode step (or one window of ``decode_window`` steps), then
+        the TTL governor's decision; returns the requests retired."""
+        self._tick(steps=1)
+        self._advance_restores()
+        finished = self._admission_retired + self._admit()
+        self._admission_retired = []
         finished += self._prefill_chunk()
         if self.decode_window > 1:
             finished += self._decode_window()
         else:
             finished += self._decode_step()
+        self._govern()
         return finished
+
+    def run_to_completion(self, max_steps: int = 10_000) -> None:
+        """Step until the queue and the slots drain (or ``max_steps``)."""
+        for _ in range(max_steps):
+            if not self.pending():
+                return
+            self.step()
+
+    def _tick(self, **work) -> None:
+        """Advance a ``VirtualClock`` by one tranche of modelled work (the
+        step's base cost, then each phase's slots or prompt tokens as it
+        runs); nothing on a wall clock."""
+        if isinstance(self.metrics.clock, VirtualClock):
+            self.metrics.clock.advance(**work)
+
+    def _govern(self) -> None:
+        """One TTL-governor decision: the decoding batch requests, youngest
+        first; a shed goes through ``preempt``, the spill."""
+        if self.governor is None:
+            return
+        batch = sorted(((r.admit_seq, r.rid) for r in self.slots
+                        if r is not None and r.state == DECODE
+                        and r.slo_class == SLO_BATCH), reverse=True)
+        rid = self.governor.step(self.metrics, self.sched,
+                                 [b[1] for b in batch])
+        if rid is not None:
+            self.preempt(rid)
+        self.metrics.set_counter("governor_sheds", self.governor.sheds)
+        self.metrics.set_counter("governor_cap_raises",
+                                 self.governor.cap_raises)
 
     # -------------------------------------------------------------- phases
     def _admit(self) -> list[Request]:
@@ -254,6 +478,8 @@ class DecodeEngine:
         for req, slot in self.sched.admit():
             self.metrics.on_admit(req.rid)
             self.slots[slot] = req
+            if self._try_restore(req, slot):
+                continue
             if not self.chunk_tokens:
                 deferred.append((req, slot, self._oneshot_prefill(req, slot)))
                 continue
@@ -277,6 +503,142 @@ class DecodeEngine:
             self.metrics.on_finish(req.rid, "rejected")
             retired.append(req)
         return retired
+
+    def _restore_candidate(self, req: Request) -> tuple[str | None, int]:
+        """The store entry that can resume ``req`` without a prefill, and
+        the committed tokens it covers: its own spill first, else (session
+        KV) its session's entry when the stored tokens begin its prompt.
+        The restored span leaves at least one token to decode (the engine
+        decodes ``resume[m]`` next and teacher-forces the rest), and a
+        longer prefix-share match wins over a session."""
+        resume = req.resume_tokens()
+        if req.spill_key is not None:
+            toks = self.store.tokens(req.spill_key)
+            m = 0 if toks is None else len(toks)
+            if 0 < m < len(resume) and tuple(resume[:m]) == toks:
+                return req.spill_key, m
+        if self.session_kv and req.session_id is not None:
+            key = f"session:{req.session_id}"
+            toks = self.store.tokens(key)
+            if toks:
+                m = min(len(toks), len(resume) - 1)
+                if (m > 0 and tuple(resume[:m]) == toks[:m]
+                        and m > req.shared_len):
+                    return key, m
+        return None, 0
+
+    def _try_restore(self, req: Request, slot: int) -> bool:
+        """The resume without prefill, at admission: on a store hit ``req``
+        enters RESTORING and a restore job is queued, committed this step
+        or, under an injected delay, that many steps later while the other
+        slots go on.  Any failure (no entry, an injected loss, a checksum
+        or generation mismatch) returns False, and the caller re-prefills:
+        counted, never divergent."""
+        if self.store is None:
+            return False
+        key, committed = self._restore_candidate(req)
+        if key is None:
+            return False
+        t0 = time.perf_counter()
+        planes, delay, why = self.store.restore(key)
+        verify_ms = (time.perf_counter() - t0) * 1e3
+        self._sync_store_counters()
+        if planes is None:
+            if why != "missing":
+                self.metrics.bump("restores_failed")
+            req.resume_fallback = True       # this admission re-prefills
+            if req.spill_key == key:
+                req.spill_key = None         # do not retry a dead entry
+                req.spill_len = 0
+            return False
+        req.state = RESTORING
+        req.prefill_tokens = None
+        req.buffers = None
+        self._restores[slot] = {"req": req, "planes": planes,
+                                "remaining": delay, "committed": committed,
+                                "t0": self.metrics.clock(), "key": key,
+                                "verify_ms": verify_ms}
+        if delay == 0:
+            self._commit_restore(slot)
+        return True
+
+    def _advance_restores(self) -> None:
+        """Tick the delayed restores by one step, committing those due.
+        Runs before admission, so a delay of d holds its slot for exactly
+        d steps while every other slot prefills and decodes."""
+        for slot in list(self._restores):
+            job = self._restores[slot]
+            job["remaining"] -= 1
+            if job["remaining"] <= 0:
+                self._commit_restore(slot)
+
+    def _commit_restore(self, slot: int) -> None:
+        """Land a restore: one host->device copy per plane, scattered in
+        place into the pages granted at re-admission (past any leading
+        pages shared with a prefix, which hold the same bytes), the
+        block-table row, the committed length, and DECODE with the known
+        tokens past the span to teacher-force; no prefill chunk."""
+        job = self._restores.pop(slot)
+        req: Request = job["req"]
+        committed: int = job["committed"]
+        n = self.pool.pages_for(committed)
+        phys = self.pool.pages(req.rid)[:n]
+        s0 = min(req.shared_pages, n)
+        t0 = time.perf_counter()
+        ev = mid = end = None
+        if s0 < n:
+            planes = device_planes(
+                {k: v[:, s0:n] for k, v in job["planes"].items()},
+                {k: self.state[k].dtype for k in job["planes"]})
+            ev = self._event()
+            if self.device.type == "cuda":
+                planes = {k: v.pin_memory().to(self.device, non_blocking=True)
+                          for k, v in planes.items()}
+            mid = self._event()
+            scatter_pool_pages(self.state, phys[s0:n], planes)
+            end = self._event()
+        self._mirror_table(slot)
+        self.state["total_len"][slot] = committed
+        self.sched.slot_len[slot] = committed
+        resume = req.resume_tokens()
+        self.cur_tokens[slot] = int(resume[committed])
+        req.forced_tokens = list(resume[committed + 1:])
+        req.shared_kv = None
+        req.state = DECODE
+        self._install_sampling(req, slot)
+        if req.spill_key is not None:
+            # one use: the entry is stale once decoding goes on
+            self.store.drop(req.spill_key)
+            req.spill_key = None
+            req.spill_len = 0
+        if end is not None:
+            end.synchronize()
+        self.tier_log.append({
+            "kind": "restore", "rid": req.rid, "key": job["key"],
+            "pages": n - s0, "tokens": committed,
+            "bytes": sum(v[:, s0:n].nbytes for v in job["planes"].values()),
+            "verify_ms": job["verify_ms"],
+            "h2d_ms": ev.elapsed_time(mid) if ev else None,
+            "scatter_ms": mid.elapsed_time(end) if ev else None,
+            "host_ms": (time.perf_counter() - t0) * 1e3})
+        self.metrics.bump("restores")
+        self.metrics.on_restore(req.rid, self.metrics.clock() - job["t0"])
+        self._sync_store_counters()
+
+    def _sync_store_counters(self) -> None:
+        """Mirror the store's monotonic fault counters into the metrics."""
+        self.metrics.set_counter("checksum_mismatches",
+                                 self.store.checksum_mismatches
+                                 + self.store.stale_generations)
+        self.metrics.set_counter("store_evictions", self.store.evictions)
+
+    def _is_resume(self, req: Request) -> bool:
+        """Whether this request's prefill recomputes context the host tier
+        could have restored: it was preempted before, or a restore failed
+        at this admission."""
+        m = self.metrics.requests.get(req.rid)
+        return bool((m is not None and m.n_preempts > 0)
+                    or req.resume_fallback)
 
     def _restore_prefix(self, req: Request) -> None:
         """Install the prefix index's host fp K/V of the matched prefix into
@@ -322,6 +684,12 @@ class DecodeEngine:
 
         c = width(min(pre, key=lambda sr: sr[1].admit_seq)[1])
         group = [(s, r) for s, r in pre if width(r) == c]
+        self._tick(prefill_tokens=c * len(group))
+        for _, r in group:
+            if self._is_resume(r):
+                # a chunk that reruns known context: none on the host
+                # tier's good path, counted on every fallback
+                self.metrics.bump("resume_reprefill_chunks")
         tokens = torch.tensor([r.prefill_tokens[r.prefill_pos:r.prefill_pos + c]
                                for _, r in group], dtype=torch.int64,
                               device=self.device)
@@ -378,6 +746,9 @@ class DecodeEngine:
     def _oneshot_prefill(self, req: Request, slot: int):
         """Prefill ``req`` into ``slot``; returns its first token (device)."""
         toks_list = req.resume_tokens()
+        if self._is_resume(req):
+            # the whole one-shot prefill is one chunk of redone work
+            self.metrics.bump("resume_reprefill_chunks")
         toks = torch.tensor([toks_list], dtype=torch.int64, device=self.device)
         last_logits, pstate = self.prefill_step(self.model, {"tokens": toks})
         self.prefill_calls += 1
@@ -496,6 +867,7 @@ class DecodeEngine:
         req.state = DECODE
         self._install_sampling(req, slot)
         self.metrics.on_token(req.rid)
+        self.sched.record_served(slot)
         if req.eos_id is not None and token == req.eos_id:
             return [self._retire(req, slot, "eos")]
         if len(req.out_tokens) >= req.max_new_tokens:
@@ -580,6 +952,7 @@ class DecodeEngine:
                   if r is not None and r.state == DECODE]
         if not active:
             return []
+        self._tick(decode_slots=len(active))
         t0 = time.perf_counter()
         if self.prefix_index is not None:
             self._cow_guard(active)
@@ -600,11 +973,23 @@ class DecodeEngine:
         self.decode_syncs += 1
         self._add_device_time(ev)
         finished = []
+        forced: list[tuple[int, int]] = []
         for i in active:
             req = self.slots[i]
+            if req.forced_tokens:
+                # catch-up after a restore: this step appended the K/V of
+                # the current known token, and the next known one replaces
+                # the sample.  Nothing is emitted; the length advances.
+                forced.append((i, req.forced_tokens.pop(0)))
+                self.sched.on_token(i)
+                r = self._grow_or_retire(req, i)
+                if r is not None:
+                    finished.append(r)
+                continue
             tok = int(toks[i])
             req.out_tokens.append(tok)
             self.sched.on_token(i)
+            self.sched.record_served(i)
             self.metrics.on_token(req.rid)
             self.decoded_tokens += 1
             if req.eos_id is not None and tok == req.eos_id:
@@ -615,6 +1000,15 @@ class DecodeEngine:
                 r = self._grow_or_retire(req, i)
                 if r is not None:
                     finished.append(r)
+        if forced:
+            idx = torch.tensor([i for i, _ in forced], device=self.device)
+            self.cur_tokens[idx] = torch.tensor(
+                [t for _, t in forced], dtype=self.cur_tokens.dtype,
+                device=self.device)
+            if self.sampling is not None:
+                # a forced step sampled nothing: rewind the counter the
+                # step advanced, so the stream rejoins where it left off
+                self.state["sample_idx"][idx] -= 1
         if self.paged:
             self._sample_pool()
         self.decode_wall_s += time.perf_counter() - t0
@@ -644,15 +1038,16 @@ class DecodeEngine:
         finished = []
         b = self.max_batch
         # one host array, one host->device copy: budgets, EOS ids, forced
-        # counts, then the [B, N] forced tokens (the port has no host tier,
-        # so nothing is forced from the engine)
+        # counts, then the [B, N] forced tokens (a restore's catch-up)
         ctl = np.zeros((b, 3 + n), np.int32)
         ctl[:, 1] = -1
         wants = [0] * b
         stepping = []
         for i in active:
             req = self.slots[i]
-            want = min(n, max(req.max_new_tokens - len(req.out_tokens), 0))
+            nf = min(len(req.forced_tokens or ()), n)
+            want = min(n, nf + max(req.max_new_tokens - len(req.out_tokens),
+                                   0))
             grant = self.sched.grow_for_window(i, want)
             if self.paged and grant:
                 self._mirror_table(i)
@@ -663,6 +1058,9 @@ class DecodeEngine:
             ctl[i, 0], wants[i] = grant, want
             if req.eos_id is not None:
                 ctl[i, 1] = req.eos_id
+            if nf:
+                ctl[i, 2] = nf
+                ctl[i, 3:3 + nf] = req.forced_tokens[:nf]
             stepping.append(i)
         if not stepping:
             self.decode_wall_s += time.perf_counter() - t_host
@@ -690,17 +1088,30 @@ class DecodeEngine:
         t1 = self.metrics.clock()
         budgets = ctl[:, 0]
         nsteps = int(max(budgets[i] for i in stepping))
+        virtual = isinstance(self.metrics.clock, VirtualClock)
         retired: set[int] = set()
         for j in range(nsteps):
             rows = [i for i in stepping if i not in retired and budgets[i] > j]
             if not rows:
                 break
-            at = t0 + (t1 - t0) * (j + 1) / nsteps
+            at = None
+            if virtual:
+                # the cost model ticks once per replayed step
+                self._tick(decode_slots=len(rows))
+            else:
+                at = t0 + (t1 - t0) * (j + 1) / nsteps
             for i in rows:
                 req = self.slots[i]
+                if req.forced_tokens:
+                    # the window fed the known token instead of a sample
+                    # (and emitted the pad): only the length advances
+                    req.forced_tokens.pop(0)
+                    self.sched.on_token(i)
+                    continue
                 tok = toks[i][j]
                 req.out_tokens.append(tok)
                 self.sched.on_token(i)
+                self.sched.record_served(i)
                 self.metrics.on_token(req.rid, at=at)
                 self.decoded_tokens += 1
                 if req.eos_id is not None and tok == req.eos_id:
@@ -760,10 +1171,32 @@ class DecodeEngine:
                 "graph_setup_s": self.graph_setup_s,
                 "graph_replays": runner.replays if runner else 0}
 
+    def tier_stats(self) -> dict:
+        """The host store's occupancy and save/restore/fault counters
+        (``HostPageStore.stats``); zeros without a store."""
+        if self.store is None:
+            return {k: 0 for k in (
+                "host_pages_capacity", "host_pages_used", "host_entries",
+                "host_saves", "host_restores", "restores_failed",
+                "checksum_mismatches", "stale_generations",
+                "store_evictions", "store_full")}
+        return self.store.stats()
+
     def _retire(self, req: Request, slot: int, reason: str) -> Request:
         req.done = True
         req.state = DONE
         req.finish_reason = reason
+        # session KV: keep the committed pages under the session id before
+        # the pool takes them back, for the next turn to restore
+        if (self.session_kv and req.session_id is not None
+                and self.store is not None
+                and reason in ("eos", "max_tokens")):
+            self._save_session(req, slot)
+        if req.spill_key is not None:
+            # a retired request never resumes
+            self.store.drop(req.spill_key)
+            req.spill_key = None
+            req.spill_len = 0
         self.slots[slot] = None
         self.sched.release(slot)
         self.state["total_len"][slot] = 0
@@ -773,6 +1206,16 @@ class DecodeEngine:
             self.state["block_tables"][slot] = 0
         self.metrics.on_finish(req.rid, reason)
         return req
+
+    def _save_session(self, req: Request, slot: int) -> None:
+        """Keep a retiring request's committed pages under
+        ``session:<id>`` (``_save_pages``).  The stored tokens, prompt and
+        all outputs but the last, are a proper prefix of the next turn's
+        prompt, so the restore's check is a prefix match."""
+        if self._save_pages(req, slot, f"session:{req.session_id}",
+                            "session"):
+            self.metrics.bump("spills")
+        self._sync_store_counters()
 
     def _sample_pool(self) -> None:
         """One internal-fragmentation sample of the allocated pages (1 -
@@ -798,7 +1241,8 @@ class DecodeEngine:
             return {"paged_kv": False, "pool_occupancy_peak": 0.0,
                     "pool_frag_mean": 0.0, "capacity_retired": cap_retired,
                     "prefix_hit_rate": 0.0, "pages_shared_peak": 0,
-                    "pool_waits": 0, "grouped_steps": 0}
+                    "store_evictions": 0, "pool_waits": 0,
+                    "grouped_steps": 0}
         frag = (sum(self._frag_samples) / len(self._frag_samples)
                 if self._frag_samples else 0.0)
         return {"paged_kv": True,
@@ -808,6 +1252,8 @@ class DecodeEngine:
                 "prefix_hit_rate":
                     self._prefix_hits / max(self._prefix_admits, 1),
                 "pages_shared_peak": self.pool.pages_shared_peak,
+                "store_evictions":
+                    self.store.evictions if self.store is not None else 0,
                 "pool_waits": self.sched.pool_waits,
                 "grouped_steps": self.grouped_steps}
 

@@ -25,7 +25,9 @@ hold the same tolerances; its MoE layer at full width routes, slots and
 plans every token on the card as on the CPU, its output within 2e-5 x
 max(1, |y|).  gemma3-12b's head size 256 (flash_prefill, flash_decode
 with windows, grouped decode whose window cuts the shared prefix) holds
-the same tolerances.
+the same tolerances.  The host tier moves pool pages to the host and back
+as exact bytes, in place, and a preemption between two windows of a
+captured graph restores without a recapture, the streams unchanged.
 """
 import copy
 import dataclasses
@@ -768,3 +770,80 @@ def test_window_graph_equals_eager_window_on_card(h100, arch):
     moved[key] = moved[key].clone()
     with pytest.raises(RuntimeError, match="moved"):
         runner(model, moved, *ctl)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv8", [False, True])
+def test_pool_pages_round_trip_through_host_on_card(h100, kv8):
+    """A bf16 (or int8 + f32 scales) pool's pages gathered, copied to host
+    numpy (bf16 as int16 views), back and scattered into other pages: the
+    bytes exact, every plane written in place."""
+    from repro_torch.core.kvcache import (gather_pool_pages,
+                                          scatter_pool_pages)
+    from repro_torch.serving.tier import device_planes, host_planes
+    g = torch.Generator(device=h100).manual_seed(11)
+    shape = (4, 17, 8, 16, 64)
+    st = {"kcache": torch.randn(shape, generator=g, device=h100)
+          .to(torch.bfloat16),
+          "vcache": torch.randn(shape, generator=g, device=h100)
+          .to(torch.bfloat16)}
+    if kv8:
+        st = quantize_decode_state({k: v.float() for k, v in st.items()})
+    ptrs = {k: v.data_ptr() for k, v in st.items()}
+    src, dst = [3, 9, 1, 14], [16, 2, 7, 5]
+    want = {k: v[:, src].clone() for k, v in st.items()}
+    host = host_planes({k: v.cpu() for k, v in gather_pool_pages(st, src)
+                        .items()})
+    back = device_planes(host, {k: v.dtype for k, v in st.items()}, h100)
+    scatter_pool_pages(st, dst, back)
+    for k, v in st.items():
+        assert v.data_ptr() == ptrs[k], k
+        assert torch.equal(v[:, dst].view(torch.uint8),
+                           want[k].view(torch.uint8)), k
+
+
+@pytest.mark.gpu
+def test_preempt_restore_between_graph_windows_on_card(h100):
+    """Two full-width granite-3-2b layers (bf16, paged, top-p windows of
+    4): one request preempted between two windows of the captured graph
+    and restored from the host tier; no recapture, every window a replay,
+    and the streams of the run never preempted."""
+    from repro_torch.serving import DecodeEngine, Request
+    cfg = dataclasses.replace(get_config("granite-3-2b"), n_layers=2)
+    model = init_params(cfg, 0, dtype=torch.bfloat16, device=h100)
+    hx = HelixConfig(paged_kv=True)
+    top_p = sampling.SamplingParams("top_p", temperature=0.9, top_p=0.85,
+                                    seed=1)
+    g = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).tolist()
+               for n in (300, 120, 240, 180)]
+
+    def run(preempt_at):
+        eng = DecodeEngine(
+            cfg, model, build_serve_step(cfg, hx), make_prefill_step(cfg, hx),
+            max_batch=4, max_seq=340, hx=hx, dtype=torch.bfloat16,
+            device=h100, sampling=top_p, decode_window=4,
+            serve_multistep=build_serve_multistep(cfg, hx, window=4),
+            host_pages=512)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=24)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        step = 0
+        while eng.pending():
+            if step == preempt_at:
+                assert eng.preempt(next(r.rid for r in eng.slots
+                                        if r is not None
+                                        and r.state == "decode"))
+            eng.step()
+            step += 1
+        return [r.out_tokens for r in reqs], eng
+
+    base, _ = run(-1)
+    streams, eng = run(2)
+    summ = eng.metrics.summary()
+    assert summ["preempts"] == summ["spills"] == summ["restores"] == 1
+    assert summ["resume_reprefill_chunks"] == 0
+    runner = eng.window_runner
+    assert runner.captures == 1 and runner.replays == eng.decode_syncs
+    assert streams == base

@@ -31,7 +31,8 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
     for module in ("serving/sampling.py", "serving/graph.py",
-                   "models/moe.py"):
+                   "models/moe.py", "serving/tier.py", "serving/faults.py",
+                   "serving/governor.py", "serving/workload.py"):
         assert ROOT / "src" / "repro_torch" / module in files, module
     for path in files:
         for mod in _imports(path):
