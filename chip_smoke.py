@@ -92,10 +92,12 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    calls (flash_prefill; one-shot prefills or chunks) and decode steps
    (w8a16_matmul, int8 runs).  Then 4-layer f32 runs of the same widths
    where the kernel path, the plain path, kvp = 4 and a chunked prefill
-   agree, fp and int8.  Then mamba2-780m at full width (48 layers, bf16,
-   seeded random weights) through ``serve_demo``: 8 requests of 256-1024
-   tokens (multiples of 256, the reference's prompt-length contract), 32
-   new tokens each, ssd_prefill launched 48 x prefills, then the same
+   agree, fp and int8.  Then mamba2-780m at full width, 24 of its 48
+   layers (bf16, seeded random weights; mamba2, hymba and granite-moe are
+   served at half their depth to keep the script's time)
+   through ``serve_demo``: 8 requests of 256-1024 tokens (multiples of
+   256, the reference's prompt-length contract), 32 new tokens each,
+   ssd_prefill launched 24 x prefills, then the same
    requests with top-p sampling at window 1 and 4 (equal streams) and one
    graph window == eager over a full-width state; and 4-layer f32
    checks: prefill logits and state of the ssd backends ``cuda`` and
@@ -103,7 +105,7 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    tokens.  Profiles of one 1024-token one-shot prefill of each model
    (host wall, device time, the prefill kernel's share; mamba2's go into
    ssd_prefill's record as ``mamba2_prefill``).  Then hymba-1.5b at full
-   width (32 layers, bf16, seeded random weights, attention and Mamba2
+   width (16 of 32 layers, bf16, seeded random weights, attention and Mamba2
    heads in every layer, untied head): 8 requests of 256-1024 tokens
    (multiples of 64), 32 new tokens each, one-shot prefills: greedy at
    window 1, top-p at window 1 and 4 and paged top-p at window 4 (equal
@@ -114,7 +116,7 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    4-layer f32 checks: kernel path vs plain path and kvp 4 vs kvp 1, fp
    and int8 (the prefill profile's shares go into the records
    ``flash_prefill_hymba`` and ``ssd_prefill_hymba``).  Then
-   granite-moe-1b-a400m at full width (24 layers, bf16, seeded random
+   granite-moe-1b-a400m at full width (12 of 24 layers, bf16, seeded random
    weights, 32 experts, top 8, tied head): 8 requests of 128-1024 tokens,
    32 new tokens each, one-shot prefills, the same five runs as hymba's
    with the same launch counts (no ssd_prefill); one graph window ==
@@ -159,7 +161,24 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    (interactive, weight 2) and bulk (batch), under a ``VirtualClock``
    without and with the TTL governor (equal streams, sheds through clean
    spills and restores, a cap raise), then at window 4 on the wall clock
-   without and with it (per-class TTL, sheds, cap raises);
+   without and with it (per-class TTL, sheds, cap raises).  Then the
+   dense GQA models past 8 query heads per kv head (``serve_dense``; bf16,
+   seeded random weights, untied heads): starcoder2-15b at its full 40
+   layers (48 q / 4 kv heads of 128, G = 12, ungated GELU): peak memory
+   after the build, the int8 head and each run; hymba's five runs; the
+   chunked runs (a)-(c) over 768-1024 tokens sharing 512 (prefix_pass at
+   G = 12 in c); one graph window == eager; the decode-step profile beside
+   its byte bound and a 1024-token prefill beside its operation bound; a
+   4-layer f32 check.  llama-405b at full width with its depth cut to 8 of
+   126 layers (``LLAMA_LAYERS``; 6.38 GB a layer in bf16): greedy w1,
+   top-p w4, paged top-p w4 (streams equal to top-p w4's), int8 greedy
+   w4 and the grouped run (c), the same profiles, a 2-layer f32 check (42
+   GB in f32).  granite-8b at its full 36 layers: greedy w4 and paged
+   int8 greedy w4.  Their kernels were checked in phase 3 (flash_prefill
+   and flash_decode at 48/4 and 128/8 heads of 128 as at G = 5, grouped
+   decode at G = 16 at 1 and 8 rows a warp, the int8 heads at K = 6144, N
+   = 49152 and K = 16384, N = 128512), and phase 2 prints the registers
+   and spills of flash_decode's 4-rows-a-warp instances;
 5. times of each kernel, its plain version and a one-call PyTorch
    yardstick where there is one, beside the card's bound: ``ms`` and
    ``library_ms`` are device time per call with every launch queued behind
@@ -180,13 +199,15 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    at B = 1, T = 2048, hsz 256 (window 1024 beside it), flash_decode at B =
    4, lengths 700-2100, window 1024 (fixed, int8 and paged), prefix_pass
    over 4 members sharing 512 positions and w8a16_matmul at K = 3840, N =
-   262144.
+   262144; and the dense models' shapes past G = 8 (records ``*_sc2``,
+   ``*_llama``, ``times_dense``).
 
 The last lines are the card line, one JSON object of kernel records and
 ``{"ok": true, "device": {...}}``.
 """
 import copy
 import dataclasses
+import gc
 import itertools
 import json
 import os
@@ -282,6 +303,18 @@ GE_D, GE_VP = 3840, 262144          # gemma3-12b tied head [d_model, vocab]
 GE_WIN = 1024                       # gemma3-12b local layers' window
 GE_TL = (2100, 1500, 1100, 700)     # B1 lengths (new token in): 3 past the window
 GE_CAP = 2112                       # their capacity, a multiple of 4 x 16
+SC2 = "starcoder2-15b"
+SC2_QH, SC2_KH = 48, 4              # starcoder2-15b q / kv heads (G = 12)
+SC2_D, SC2_VP = 6144, 49152         # its untied head [d_model, vocab]
+LLAMA = "llama-405b"
+LL_QH, LL_KH = 128, 8               # llama-405b q / kv heads (G = 16)
+LL_D, LL_VP = 16384, 128512         # its untied head [d_model, padded vocab]
+LLAMA_LAYERS = 8                    # of 126: 6.38 GB a layer in bf16
+G8B = "granite-8b"
+DENSE_HSZ = 128                     # the head size of all three
+# earlier paths served at half their depth, to keep the script's time
+# (PERF.md section 4): mamba2 24 of 48 layers, hymba 16 of 32, moe 12 of 24
+MAMBA_LAYERS, HYMBA_LAYERS, MOE_LAYERS = 24, 16, 12
 # the MoE layer at full width, f32, card vs CPU: routes, slots and token
 # plans equal; gates differ by the f32 router product's summation order
 # (1024 terms, ~1e-7), y by three f32 matmuls (1024 and 512 terms) summed
@@ -301,6 +334,11 @@ class SmokeFailure(RuntimeError):
 def need(cond, what):
     if not cond:
         raise SmokeFailure(what)
+
+
+def stamp(what):
+    """A line with the script's time so far, before ``what``."""
+    print(f"  -- t = {time.perf_counter() - T0:.1f} s: {what}")
 
 
 def card_line() -> str:
@@ -330,8 +368,12 @@ def queued_ms(fn, iters=20) -> float:
     ``iters`` calls between two events, so the calls run back to back with
     no host time between launches (unlike ``time_ms``, which measures the
     wrapper when it is slower than the kernels).  The spin lasts three
-    times the measured enqueue time; a window whose enqueue outlasted its
-    spin is measured again with a spin twice as long."""
+    times the enqueue time of calls after a first one (whose one-time costs,
+    a library's kernel choice or a lazy init, would stretch the spin to
+    seconds); a window whose enqueue outlasted its spin is measured again
+    with a spin twice as long."""
+    fn()                # first-call costs (kernel choice, lazy init) out
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(3):
         fn()
@@ -1327,23 +1369,60 @@ def check_grouped_gemma3(dev, errs):
     leaves the shared prefix wholly (the 2100 row: its folded prefix state
     is empty, l = 0), cuts it (1500, 1100) or keeps it (700).  Grouped ==
     ungrouped bit for bit (outputs, LSEs, appended pages), and the plain
-    grouped decode within the tolerance."""
-    qh, kh, hsz, b = GE_QH, GE_KH, GE_HSZ, 4
-    gen = torch.Generator(device=dev).manual_seed(41)
-    tl_l = [2100, 1500, 1100, 700]
+    grouped decode within the tolerance (``check_grouped_at``)."""
+    check_grouped_at(dev, errs, "gemma3", GE_QH, GE_KH, GE_HSZ,
+                     [2100, 1500, 1100, 700], 32, (0, GE_WIN), 41,
+                     empty={0: [False] * 4, GE_WIN: [True, False, False,
+                                                     False]})
+    print("  grouped decode gemma3: grouped == ungrouped bit for bit, a "
+          "prefix wholly outside a member's window an exact empty partial")
+
+
+def check_grouped_llama(dev, errs):
+    """B4 and B1's grouped-suffix mode at llama-405b's 128 q / 8 kv heads of
+    128 (G = 16; ``check_grouped_at``): 4 rows sharing 512 positions at
+    lengths 700-1000, windows 0 and 1024 (a launch of fewer chunk items
+    than 4 per SM: 1 row a warp, 8 row blocks of the 64 stacked rows), and
+    4 rows sharing 4096 positions at lengths 4400-4700 (19 chunks: 8 rows a
+    warp, all 64 rows in one row block, each shared tile read once)."""
+    check_grouped_at(dev, errs, "llama", LL_QH, LL_KH, DENSE_HSZ,
+                     [1000, 900, 800, 700], 32, (0, 1024), 57)
+    check_grouped_at(dev, errs, "llama", LL_QH, LL_KH, DENSE_HSZ,
+                     [4700, 4600, 4500, 4400], 256, (0,), 58)
+    print("  grouped decode llama (G = 16): grouped == ungrouped bit for bit "
+          "at 1 and at 8 rows a warp")
+
+
+def check_grouped_at(dev, errs, label, qh, kh, hsz, tl_l, shared, windows,
+                     seed, empty=None):
+    """One group of ``len(tl_l)`` rows (lengths ``tl_l`` with the new token)
+    sharing their first ``shared`` pages of 16 (kvp 1), ``qh / kh`` heads of
+    ``hsz``, fused append, f32, bf16 and int8, at each of ``windows``:
+    prefix_pass + the grouped-suffix mode against the ungrouped paged kernel
+    bit for bit (outputs, LSEs, appended pages) and the plain grouped decode
+    within the tolerance; ``empty[window]``: which rows' folded prefix state
+    must be empty (l = 0)."""
+    b = len(tl_l)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     need_pg = [-(-t // RR) for t in tl_l]
     mp = max(need_pg)
     perm = (torch.randperm(sum(need_pg), generator=torch.Generator()
-                           .manual_seed(42)) + 1).tolist()
-    common = [perm.pop() for _ in range(32)]
+                           .manual_seed(seed + 1)) + 1).tolist()
+    common = [perm.pop() for _ in range(shared)]
     tab = torch.zeros(b, mp, dtype=torch.int32)
     for i, n in enumerate(need_pg):
-        tab[i, :n] = torch.tensor(common + [perm.pop() for _ in range(n - 32)],
+        tab[i, :n] = torch.tensor(common + [perm.pop()
+                                            for _ in range(n - shared)],
                                   dtype=torch.int32)
     tab = tab.to(dev)
     n_pool = 1 + sum(need_pg)
     as_dev = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)
-    tl, groups = as_dev(tl_l), (as_dev([0] * b), as_dev([32] * b))
+    tl, groups = as_dev(tl_l), (as_dev([0] * b), as_dev([shared] * b))
+    # the prefix pass's rows a warp, as prefix_pass.cu's launcher picks them
+    items = -(-mp * RR // CHUNK_S) * b * kh
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rw = (1 if items < 4 * sms else 2 if hsz >= 256
+          else 4 if b * qh // kh <= 32 else 8)
     for mode in ("f32", "bf16", "int8"):
         dt = torch.float32 if mode == "f32" else torch.bfloat16
         rnd = lambda *sh: torch.randn(*sh, generator=gen, device=dev).to(dt)
@@ -1355,7 +1434,7 @@ def check_grouped_gemma3(dev, errs):
                 if k in cache]
         q, kn, vn = rnd(b, qh, hsz), rnd(b, kh, hsz), rnd(b, kh, hsz)
         sc = lambda p: dict(kscale=p[2], vscale=p[3]) if len(p) == 4 else {}
-        for window in (0, 1024):
+        for window in windows:
             kw = dict(kvp=1, n_ranks=1, rank=0, rr_block=RR, window=window,
                       block_tables=tab, k_new=kn, v_new=vn)
 
@@ -1378,12 +1457,13 @@ def check_grouped_gemma3(dev, errs):
             torch.cuda.synchronize()
             eo, el = maxerr(og, op), maxerr(lg, lp)
             errs.append(eo)
-            tag = f"grouped decode gemma3 {mode} window={window}"
-            empty = [bool((fl[0, i] == 0).all()) for i in range(b)]
-            print(f"  {tag} (lengths {tl_l}, 512 shared): max err out "
-                  f"{eo:.3g} lse {el:.3g} (tol {TOL[dt]['out']:g}/"
-                  f"{TOL[dt]['lse']:g}); rows whose folded prefix state is "
-                  f"empty: {empty}")
+            tag = f"grouped decode {label} {mode} window={window}"
+            got_empty = [bool((fl[0, i] == 0).all()) for i in range(b)]
+            print(f"  {tag} (G={qh // kh}, lengths {tl_l}, {shared * RR} "
+                  f"shared; prefix_pass {items} chunk items, {rw} rows a "
+                  f"warp): max err out {eo:.3g} lse {el:.3g} (tol "
+                  f"{TOL[dt]['out']:g}/{TOL[dt]['lse']:g}); rows whose "
+                  f"folded prefix state is empty: {got_empty}")
             need(eo <= TOL[dt]["out"] and el <= TOL[dt]["lse"],
                  f"{tag}: kernel disagrees with plain")
             need(torch.equal(bits(og), bits(of))
@@ -1393,11 +1473,9 @@ def check_grouped_gemma3(dev, errs):
                      and torch.equal(bits(a[1:]), bits(d[1:]))
                      for a, c, d in zip(pg, pf, pp)),
                  f"{tag}: appended pages differ")
-            need(empty == ([True, False, False, False] if window
-                           else [False] * b),
-                 f"{tag}: the prefix pass's empty rows are {empty}")
-    print("  grouped decode gemma3: grouped == ungrouped bit for bit, a "
-          "prefix wholly outside a member's window an exact empty partial")
+            if empty is not None:
+                need(got_empty == empty[window],
+                     f"{tag}: the prefix pass's empty rows are {got_empty}")
 
 
 def check_hymba_ssd_w8(dev, errs_ssd, errs_mm):
@@ -1562,8 +1640,11 @@ def serve_full(dev):
     print(f"  head quantization (quantize_w8 of [{D_MODEL}, {VP}]) alone: "
           f"peak {(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB"
           " above what was allocated before it")
+    stamp("granite decode windows")
     runs.update(serve_windows(dev, cfg, model, runs))
+    stamp("granite chunked, prefix-shared and grouped runs")
     runs.update(serve_prefix(dev, cfg, model, runs["fp"][0]["streams"]))
+    stamp("granite host tier and tenancy")
     runs.update(serve_tier(dev, cfg, model, runs))
     del model
     torch.cuda.empty_cache()
@@ -2124,19 +2205,22 @@ def serve_windows(dev, cfg, model, runs):
 
 
 def serve_mamba(dev):
-    """mamba2-780m at full width (48 layers, bf16, seeded random weights)
-    through ``serve_demo``: 8 requests of 256-1024 tokens (multiples of
-    256, which meet the reference's prompt-length contract), 32 new tokens
-    each, max_batch 4, one-shot prefills through ssd_prefill.  The counts
-    are set to 0 just before the run and read just after it; then the
-    decode-step and prefill profiles."""
-    cfg = get_config("mamba2-780m")
+    """mamba2-780m at full width, 24 of its 48 layers (``MAMBA_LAYERS``;
+    bf16, seeded random weights) through ``serve_demo``: 8 requests of
+    256-1024 tokens (multiples of 256, which meet the reference's
+    prompt-length contract), 32 new tokens each, max_batch 4, one-shot
+    prefills through ssd_prefill.  The counts are set to 0 just before the
+    run and read just after it; then the decode-step and prefill
+    profiles."""
+    cfg = dataclasses.replace(get_config("mamba2-780m"),
+                              n_layers=MAMBA_LAYERS)
     model = init_params(cfg, 0, dtype=torch.bfloat16, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     registry.reset_launch_counts()
-    fin, summ = serve_demo("mamba2-780m", n_requests=8, prompt_len=(1, 1024),
-                           prompt_multiple=256, max_new=32, max_batch=4,
+    reqs = dict(n_requests=8, prompt_len=(1, 1024), prompt_multiple=256,
+                max_new=32, n_layers=MAMBA_LAYERS)
+    fin, summ = serve_demo("mamba2-780m", **reqs, max_batch=4,
                            dtype=torch.bfloat16, device=dev, model=model,
                            seed=0)
     counts = registry.launch_counts()
@@ -2170,8 +2254,6 @@ def serve_mamba(dev):
     prof = profile_prefill(dev, cfg, model, HelixConfig(), "ssd_",
                            "ssd_prefill")
     # the same requests with top-p sampling at window 1 and 4
-    reqs = dict(n_requests=8, prompt_len=(1, 1024), prompt_multiple=256,
-                max_new=32)
     zero = {name: 0 for name in counts}
     want = lambda steps: dict(zero, ssd_prefill=cfg.n_layers * 8)  # noqa: E731
     windows = {n: window_run(dev, "mamba2-780m", model, f"mamba2 top-p w{n}",
@@ -2236,14 +2318,21 @@ def compare_mamba(dev):
     torch.cuda.empty_cache()
 
 
-def serve_plan(dev, arch, model, label, reqs, counts):
-    """The five window runs of a model served at full width: greedy at
-    window 1; top-p (T 0.9, p 0.85, seed 7) at window 1 and 4, and at
-    window 4 from the paged pool, all three with equal streams; greedy
-    window 4 with the int8 head and the int8 KV cache.  ``counts(**kw)``
-    gives each run's expected launches (``path_counts``); the counts are
-    set to 0 just before each run; each run's peak memory is printed.
-    Returns the runs by name."""
+PLAN_RUNS = ("greedy w1", "top-p w1", "top-p w4", "paged top-p w4",
+             "int8 greedy w4")
+SHARED_RUNS = ("a paged chunked", "b + prefix_share", "c + grouped_decode")
+
+
+def serve_plan(dev, arch, model, label, reqs, counts, names=PLAN_RUNS):
+    """The window runs of a model served at full width, those of ``names``
+    (by default these five: greedy at window 1; top-p (T 0.9, p 0.85, seed
+    7) at window 1 and 4, and at window 4 from the paged pool, all three
+    with equal streams; greedy window 4 with the int8 head and the int8 KV
+    cache; also ``greedy w4`` and ``paged int8 greedy w4``, whose streams
+    must equal ``greedy w1``'s and ``int8 greedy w4``'s where those ran).
+    ``counts(**kw)`` gives each run's expected launches (``path_counts``);
+    the counts are set to 0 just before each run; each run's peak memory is
+    printed.  Returns the runs by name."""
     runs = {}
     plan = (("greedy w1", {}, counts()),
             ("top-p w1", dict(sampling=TOP_P), counts()),
@@ -2252,9 +2341,18 @@ def serve_plan(dev, arch, model, label, reqs, counts):
             ("paged top-p w4", dict(sampling=TOP_P, decode_window=WINDOW,
                                     paged_kv=True), counts(paged=True)),
             ("int8 greedy w4", dict(hx=KV8_W8, decode_window=WINDOW),
-             counts(int8=True)))
+             counts(int8=True)),
+            ("greedy w4", dict(decode_window=WINDOW), counts()),
+            ("paged int8 greedy w4", dict(hx=KV8_W8, decode_window=WINDOW,
+                                          paged_kv=True),
+             counts(int8=True, paged=True)))
+    same_as = {"top-p w4": "top-p w1", "paged top-p w4": "top-p w1",
+               "greedy w4": "greedy w1",
+               "paged int8 greedy w4": "int8 greedy w4"}
+    if "top-p w1" not in names:
+        same_as["paged top-p w4"] = "top-p w4"
     peak = 0
-    for name, kw, want in plan:
+    for name, kw, want in (p for p in plan if p[0] in names):
         torch.cuda.reset_peak_memory_stats()
         streams, summ, c = window_run(dev, arch, model, f"{label} {name}",
                                       reqs, want, seed=0, **kw)
@@ -2262,28 +2360,30 @@ def serve_plan(dev, arch, model, label, reqs, counts):
         peak = max(peak, summ["peak_gib"])
         print(f"    {label} {name} peak memory {summ['peak_gib']:.2f} GiB")
         runs[name] = {"streams": streams, "summ": summ, "counts": c}
-        if name in ("top-p w4", "paged top-p w4"):
-            need(streams == runs["top-p w1"]["streams"],
-                 f"{label} {name}: streams differ from top-p w1's")
-            print(f"    {label} {name} streams equal to top-p w1's (8 of 8)")
+        base = same_as.get(name)
+        if base in runs:
+            need(streams == runs[base]["streams"],
+                 f"{label} {name}: streams differ from {base}'s")
+            print(f"    {label} {name} streams equal to {base}'s (8 of 8)")
     print(f"  {label} peak memory over the runs {peak:.2f} GiB")
     return runs
 
 
 def serve_hymba(dev):
-    """hymba-1.5b at full width (32 layers, bf16, seeded random weights)
-    through ``serve_demo``: 8 requests of 256-1024 tokens (multiples of 64,
-    the SSD scan's prompt-length contract), 32 new tokens each, max_batch
-    4, one-shot prefills (flash_prefill at G = 5 and ssd_prefill at ds 16
-    in every layer), the runs of ``serve_plan``: layers x decode steps
-    (warm-up window included), layers x prefills.  Then one graph window
-    == eager over a full-width state, and the decode-step and prefill
-    profiles."""
-    cfg = get_config("hymba-1.5b")
+    """hymba-1.5b at full width, 16 of its 32 layers (``HYMBA_LAYERS``;
+    bf16, seeded random weights) through ``serve_demo``: 8 requests of
+    256-1024 tokens (multiples of 64, the SSD scan's prompt-length
+    contract), 32 new tokens each, max_batch 4, one-shot prefills
+    (flash_prefill at G = 5 and ssd_prefill at ds 16 in every layer), the
+    runs of ``serve_plan``: layers x decode steps (warm-up window
+    included), layers x prefills.  Then one graph window == eager over a
+    full-width state, and the decode-step and prefill profiles."""
+    cfg = dataclasses.replace(get_config("hymba-1.5b"),
+                              n_layers=HYMBA_LAYERS)
     model = init_params(cfg, 0, dtype=torch.bfloat16, device=dev)
     torch.cuda.synchronize()
     reqs = dict(n_requests=8, prompt_len=(256, 1024), prompt_multiple=64,
-                max_new=32)
+                max_new=32, n_layers=HYMBA_LAYERS)
     runs = serve_plan(dev, "hymba-1.5b", model, "hymba", reqs,
                       lambda **kw: path_counts(cfg.n_layers, 8, ssd=True,
                                                **kw))
@@ -2304,18 +2404,20 @@ def serve_hymba(dev):
 
 
 def serve_moe(dev):
-    """granite-moe-1b-a400m at full width (24 layers, bf16, seeded random
-    weights, 32 experts, top 8) through ``serve_demo``: 8 requests of
+    """granite-moe-1b-a400m at full width, 12 of its 24 layers
+    (``MOE_LAYERS``; bf16, seeded random weights, 32 experts, top 8)
+    through ``serve_demo``: 8 requests of
     128-1024 tokens, 32 new tokens each, max_batch 4, one-shot prefills
     (flash_prefill at G = 2, the MoE at capacity factor 1.25), the runs of
     ``serve_plan``: layers x decode steps (warm-up window included),
     layers x prefills.  Then one graph window == eager over a full-width
     state, the decode-step profile with the MoE FFNs' device time and
     share, and the prefill profile."""
-    cfg = get_config(MOE)
+    cfg = dataclasses.replace(get_config(MOE), n_layers=MOE_LAYERS)
     model = init_params(cfg, 0, dtype=torch.bfloat16, device=dev)
     torch.cuda.synchronize()
-    reqs = dict(n_requests=8, prompt_len=(128, 1024), max_new=32)
+    reqs = dict(n_requests=8, prompt_len=(128, 1024), max_new=32,
+                n_layers=MOE_LAYERS)
     runs = serve_plan(dev, MOE, model, "moe", reqs,
                       lambda **kw: path_counts(cfg.n_layers, 8, **kw))
     prompts = [prompt_tokens(r, cfg.vocab) for r in generate_rows(
@@ -2415,6 +2517,85 @@ def serve_gemma3(dev):
     torch.cuda.empty_cache()
     return {"runs": runs, "shared": shared, "prefill": prof,
             "decode": dict(step, bound_ms=bound), "memory": mem}
+
+
+def serve_dense(dev, arch, label, *, n_layers=0, names=PLAN_RUNS,
+                shared=SHARED_RUNS, profiles=True, graph=False):
+    """A dense GQA model at full width (its first ``n_layers`` layers when
+    given, a depth cut; bf16, seeded random weights, untied head) through
+    ``serve_demo``: peak memory after the model is built and after the int8
+    head is quantized; 8 requests of 128-1024 tokens, 32 new tokens each,
+    max_batch 4, one-shot prefills, the runs ``names`` of ``serve_plan``
+    (layers x decode steps, warm-up window included; layers x prefills),
+    each with its peak memory; the chunked runs ``shared`` of
+    ``serve_shared`` over 8 requests of 768-1024 tokens sharing their first
+    512 (prefix_pass in c); with ``graph`` one graph window == eager over a
+    full-width state; with ``profiles`` the decode-step profile beside its
+    byte bound (every weight but the embedding table once, and the K/V of
+    the 4 rows) and the profile of a 1024-token prefill beside its
+    operation bound (every product of the forward, the head over all 1024
+    positions as ``forward`` computes it, and the causal attention)."""
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    depth = (f"{cfg.n_layers} of {get_config(arch).n_layers} layers"
+             if n_layers else f"{cfg.n_layers} layers")
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, 0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    mem = {"model_gib": torch.cuda.max_memory_allocated() / 2**30}
+    torch.cuda.reset_peak_memory_stats()
+    prepare_decode_params(model, KV8_W8)        # the int8 head, in blocks
+    torch.cuda.synchronize()
+    mem["int8_head_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  {label} model ({depth}): {wbytes / 1e9:.3f} GB of bf16 "
+          f"weights; peak memory {mem['model_gib']:.2f} GiB after the build,"
+          f" {mem['int8_head_gib']:.2f} GiB while the int8 head "
+          f"[{cfg.d_model}, {cfg.padded_vocab}] was quantized in column "
+          "blocks")
+    reqs = dict(n_requests=8, prompt_len=(128, 1024), max_new=32)
+    if n_layers:
+        reqs["n_layers"] = n_layers
+    runs = serve_plan(dev, arch, model, f"{label}", reqs,
+                      lambda **kw: path_counts(cfg.n_layers, 8, **kw),
+                      names=names)
+    out = {"runs": runs, "memory": mem}
+    if shared:
+        out["shared"] = serve_shared(dev, cfg, model, (768, 1024),
+                                     label=f"{label} ", names=shared,
+                                     profile=None if profiles else False)
+    if graph:
+        prompts = [prompt_tokens(r, cfg.vocab) for r in generate_rows(
+            4, prompt_len=(700, 1000), max_tokens=1, seed=3)]
+        graph_vs_eager(dev, cfg, model, HelixConfig(), prompts)
+    if profiles:
+        tl, t = (1000, 900, 800, 700), 1024
+        step = profile_decode(dev, cfg, model, HelixConfig(), tl=tl)
+        read = wbytes - model.embed.numel() * 2
+        kv = 2 * cfg.n_layers * cfg.kv_dim * 2 * sum(tl)
+        bound = (read + kv) / HBM_BPS * 1e3
+        print(f"  {label} decode step (B=4, lengths 700-1000, {depth}): "
+              f"device {fmt_ms(step['device_ms'])} per step against its "
+              f"byte bound {bound:.4f} ms ({read / 1e9:.3f} GB of weights "
+              f"read, the embedding table not; {kv / 1e6:.1f} MB of K/V)")
+        mm = (read // 2 - cfg.d_model * (2 * cfg.n_layers + 1))
+        ops = 2 * t * mm + cfg.n_layers * 4 * cfg.q_dim * t * (t + 1) // 2
+        torch.cuda.reset_peak_memory_stats()
+        prof = profile_prefill(dev, cfg, model, HelixConfig(),
+                               "prefill_wgmma", "flash_prefill", t=t)
+        prof["bound_ms"] = ops / PEAK[torch.bfloat16] * 1e3
+        mem["prefill_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"  {label} prefill (B=1, T={t}, {depth}): device "
+              f"{fmt_ms(prof['device_ms'])} against its operation bound "
+              f"{prof['bound_ms']:.4f} ms ({ops / 1e12:.2f} TFLOP at "
+              f"{PEAK[torch.bfloat16] / 1e12:.0f} TFLOP/s); peak memory "
+              f"{mem['prefill_gib']:.2f} GiB")
+        out.update(prefill=prof, decode=dict(step, bound_ms=bound))
+    del model
+    gc.collect()          # engines and graphs that held the model
+    torch.cuda.empty_cache()
+    return out
 
 
 def profile_moe_decode(dev, cfg, model, n=5):
@@ -2696,23 +2877,28 @@ def serve_prefix(dev, cfg, model, fp_streams):
     return out
 
 
-def serve_shared(dev, cfg, model, prompt_len, label="", profile=None):
-    """The runs (a)-(c) of ``serve_prefix`` for ``cfg``: 8 requests of
-    ``prompt_len`` tokens whose first 512 are shared, budgets 16-48,
-    chunks of 256, paged, max_batch 4, kvp 1: (a) unshared, (b) with
-    prefix sharing, (c) with grouped decode as well, equal streams; the
-    launch counts layers x decode steps (grouped mode and prefix_pass in
-    c) and layers x chunks, set to 0 just before each run.  Then the
-    grouped decode step's profile (``profile_decode``'s shape arguments in
-    ``profile``).  Returns the runs by name."""
+def serve_shared(dev, cfg, model, prompt_len, label="", profile=None,
+                 names=SHARED_RUNS):
+    """The runs (a)-(c) of ``serve_prefix`` for ``cfg`` (those of
+    ``names``): 8 requests of ``prompt_len`` tokens whose first 512 are
+    shared, budgets 16-48, chunks of 256, paged, max_batch 4, kvp 1: (a)
+    unshared, (b) with prefix sharing, (c) with grouped decode as well,
+    equal streams where (a) ran; the launch counts layers x decode steps
+    (grouped mode and prefix_pass in c) and layers x chunks, set to 0 just
+    before each run.  Then the grouped decode step's profile
+    (``profile_decode``'s shape arguments in ``profile``; ``False``: none).
+    A config cut in depth (``cfg.n_layers`` below its arch's) is served
+    so.  Returns the runs by name."""
     paged = dict(paged_kv=True, n_requests=8, prompt_len=prompt_len,
                  max_new=(16, 48), shared_prefix_len=512)
+    if cfg.n_layers != get_config(cfg.name).n_layers:
+        paged["n_layers"] = cfg.n_layers
     plan = (("a paged chunked", paged),
             ("b + prefix_share", dict(paged, prefix_share=True)),
             ("c + grouped_decode", dict(paged, prefix_share=True,
                                         grouped_decode=True)))
     out = {}
-    for name, extra in plan:
+    for name, extra in (p for p in plan if p[0] in names):
         print(f"  -- {label}{name}: {extra}")
         registry.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
@@ -2748,19 +2934,20 @@ def serve_shared(dev, cfg, model, prompt_len, label="", profile=None):
              f"serve {label}{name}: launch counts {counts} != expected "
              f"{want}")
         streams = {r.rid: r.out_tokens for r in fin}
-        if name != "a paged chunked":
+        if name != "a paged chunked" and "a paged chunked" in out:
             base = out["a paged chunked"]["streams"]
             same = sum(streams[r] == base[r] for r in streams)
             print(f"  streams equal the unshared run's: {same} of 8")
             need(same == 8, f"serve {label}{name}: streams differ from "
                             "unshared")
+        if name != "a paged chunked":
             need(summ["pages_shared_peak"] > 0
                  and summ["prefix_hit_rate"] > 0,
                  f"serve {label}{name}: nothing was shared")
             need(not grouped or live > 0,
                  f"serve {label}{name}: no prefix_pass launch had a group")
         out[name] = {"counts": counts, "summ": summ, "streams": streams}
-        if grouped:
+        if grouped and profile is not False:
             profile_decode(dev, cfg, model, HelixConfig(paged_kv=True,
                                                         grouped_decode=True),
                            **(profile or {}))
@@ -3632,23 +3819,23 @@ def times_moe(dev):
     return out
 
 
-def time_prefix_gemma3(g, dev):
-    """prefix_pass's record at gemma3's shapes: one group of the 4 rows of
-    ``GE_TL`` sharing their first 512 positions (32 pages of 16), 16 q / 8
-    kv heads of 256, bf16, kvp 1, window 0 (a global layer reads the whole
-    prefix); six pool copies rotate so that every launch reads cold."""
-    b, qh, kh, hsz, shared = 4, GE_QH, GE_KH, GE_HSZ, 512
-    need_pg = [-(-x // RR) for x in GE_TL]
+def time_prefix_at(g, dev, qh, kh, hsz, tl_l, shared):
+    """prefix_pass's record over one group of the rows of ``tl_l`` sharing
+    their first ``shared`` pages of 16, ``qh / kh`` heads of ``hsz``, bf16,
+    kvp 1, window 0 (a global layer reads the whole prefix); six pool
+    copies rotate so that every launch reads cold."""
+    b = len(tl_l)
+    need_pg = [-(-x // RR) for x in tl_l]
     tab = torch.zeros(b, max(need_pg), dtype=torch.int32)
-    nxt = 33
+    nxt = shared + 1
     for i, n in enumerate(need_pg):
-        tab[i, :32] = torch.arange(1, 33)
-        tab[i, 32:n] = torch.arange(nxt, nxt + n - 32)
-        nxt += n - 32
+        tab[i, :shared] = torch.arange(1, shared + 1)
+        tab[i, shared:n] = torch.arange(nxt, nxt + n - shared)
+        nxt += n - shared
     tab = tab.to(dev)
-    tl = torch.tensor(GE_TL, dtype=torch.int32, device=dev)
+    tl = torch.tensor(tl_l, dtype=torch.int32, device=dev)
     groups = (torch.zeros(b, dtype=torch.int32, device=dev),
-              torch.full((b,), 32, dtype=torch.int32, device=dev))
+              torch.full((b,), shared, dtype=torch.int32, device=dev))
     q = torch.randn(b, qh, hsz, generator=g, device=dev).to(torch.bfloat16)
     pools = [{k: torch.randn(nxt, kh, RR, hsz, generator=g,
                              device=dev).to(torch.bfloat16)
@@ -3666,11 +3853,12 @@ def time_prefix_gemma3(g, dev):
                               iters=3, warmup=1),
           "library_ms": None,
           "library": "no single PyTorch call attends through a block table"}
-    # the shared K/V once, the members' q, and the partials of the 2
-    # chunks below the split
-    pr.update(_bound(2 * shared * kh * hsz * 2 + b * qh * hsz * 2
-                     + 2 * b * qh * (hsz + 2) * 4,
-                     4 * hsz * qh * shared * b, PEAK[torch.bfloat16]))
+    # the shared K/V once, the members' q, and the partials of the chunks
+    # below the split
+    pos = shared * RR
+    pr.update(_bound(2 * pos * kh * hsz * 2 + b * qh * hsz * 2
+                     + b * qh * (hsz + 2) * 4 * -(-pos // CHUNK_S),
+                     4 * hsz * qh * pos * b, PEAK[torch.bfloat16]))
     return pr
 
 
@@ -3692,7 +3880,8 @@ def times_gemma3(dev):
     out["flash_decode_gemma3"] = time_decode_at(d)
     out["flash_decode_gemma3_kv8"], out["flash_decode_gemma3_paged"], \
         n_pool = time_decode_modes(g, dev, d)
-    out["prefix_pass_gemma3"] = time_prefix_gemma3(g, dev)
+    out["prefix_pass_gemma3"] = time_prefix_at(g, dev, GE_QH, GE_KH, GE_HSZ,
+                                               GE_TL, 32)
     out["w8a16_matmul_gemma3"] = mm = time_w8a16_at(g, dev, GE_D, GE_VP)
     shape = (f"B=4 lengths {list(GE_TL)} cap {GE_CAP} window {GE_WIN} bf16, "
              f"{GE_QH}/{GE_KH} heads of {GE_HSZ}, fused append")
@@ -3708,6 +3897,60 @@ def times_gemma3(dev):
                                f"{GE_QH}/{GE_KH} heads of {GE_HSZ}, bf16"),
         ("w8a16_matmul_gemma3", f"M=4 K={GE_D} N={GE_VP} bf16 x, "
                                 f"{mm['ctas']} CTAs")))
+    return out
+
+
+def times_dense(dev):
+    """The kernels at the dense GQA models' shapes past G = 8, heads of 128,
+    bf16, timed as the table's rows are: for starcoder2-15b (48/4 heads, G
+    = 12; records ``*_sc2``) and llama-405b (128/8, G = 16; ``*_llama``),
+    flash_prefill at B = 1, T = 1024 causal; flash_decode at the serve
+    shape (B = 4, lengths 700-1000 with the new token, cap 1088, fused
+    append, kvp 1), fixed fp, int8 and paged; w8a16_matmul at the untied
+    head, M = 4 (K = 6144, N = 49152; K = 16384, N = 128512).  Also
+    llama's flash_decode at B = 8, S = 4096 (``b8_s4096``, the shape of
+    granite's B1 row at G = 4) and prefix_pass over 4 members sharing 4096
+    positions at lengths 4400-4700 (8 rows a warp, one row block; the
+    serve-like 512 shared at lengths 700-1000, 1 row a warp, under
+    ``serve_shape``)."""
+    g = torch.Generator(device=dev).manual_seed(59)
+    out, shapes = {}, []
+    serve = "B=4 lengths 700-1000 cap 1088 bf16"
+    for tag, qh, kh, d, vp in (("sc2", SC2_QH, SC2_KH, SC2_D, SC2_VP),
+                               ("llama", LL_QH, LL_KH, LL_D, LL_VP)):
+        heads = f"{qh}/{kh} heads of {DENSE_HSZ}"
+        out[f"flash_prefill_{tag}"] = time_prefill_at(g, dev, qh, kh,
+                                                      hsz=DENSE_HSZ)
+        dd = decode_serve_inputs(g, dev, qh, kh, hsz=DENSE_HSZ)
+        out[f"flash_decode_{tag}"] = time_decode_at(dd)
+        (out[f"flash_decode_{tag}_kv8"], out[f"flash_decode_{tag}_paged"],
+         n_pool) = time_decode_modes(g, dev, dd)
+        out[f"w8a16_matmul_{tag}"] = mm = time_w8a16_at(g, dev, d, vp)
+        shapes += [(f"flash_prefill_{tag}",
+                    f"B=1 T=1024 causal bf16, {heads}"),
+                   (f"flash_decode_{tag}", f"{serve}, {heads}, fused append"),
+                   (f"flash_decode_{tag}_kv8", "the same, int8 K/V"),
+                   (f"flash_decode_{tag}_paged", f"the same, bf16 K/V in a "
+                                                 f"{n_pool}-page pool"),
+                   (f"w8a16_matmul_{tag}", f"M=4 K={d} N={vp} bf16 x, "
+                                           f"{mm['ctas']} CTAs")]
+        del dd
+    big = time_decode_at(decode_serve_inputs(
+        g, dev, LL_QH, LL_KH, hsz=DENSE_HSZ, tl=(4096,) * 8, cap=4096))
+    out["flash_decode_llama"]["b8_s4096"] = big
+    out["prefix_pass_llama"] = time_prefix_at(
+        g, dev, LL_QH, LL_KH, DENSE_HSZ, (4700, 4600, 4500, 4400), 256)
+    out["prefix_pass_llama"]["serve_shape"] = time_prefix_at(
+        g, dev, LL_QH, LL_KH, DENSE_HSZ, (1000, 900, 800, 700), 32)
+    shapes += [("flash_decode_llama_b8", "B=8 S=4096 bf16, 128/8 heads of "
+                                         "128, fused append"),
+               ("prefix_pass_llama", "4 members sharing 4096 positions, "
+                                     "lengths 4400-4700, 128/8 heads"),
+               ("prefix_pass_llama_serve", "4 members sharing 512 "
+                                           "positions, lengths 700-1000")]
+    print_times(dict(out, flash_decode_llama_b8=big,
+                     prefix_pass_llama_serve=out["prefix_pass_llama"][
+                         "serve_shape"]), shapes)
     return out
 
 
@@ -3782,6 +4025,15 @@ def main() -> int:
                   f"{ld}")
         for ln in notes:
             print(f"    {bk.name}: {ln}")
+    print("  flash_decode's 4-rows-a-warp instances (G 9-16: starcoder2-15b, "
+          "llama-405b): registers, spill stores / loads (bytes)")
+    inst, _ = ptxas_instances(built["flash_decode"].ptxas,
+                              "Li4EEEvNS_10Decode")
+    need(inst, "no 4-rows-a-warp flash_decode instance in the build")
+    for name, regs, st, ld in inst:
+        short = name.split("decode_kernel")[-1].split("EEEvNS_")[0]
+        print(f"    flash_decode: decode_kernel{short}: {regs} registers, "
+              f"spill {st} / {ld}")
 
     print(f"== 3 kernels vs plain on the card (t = "
           f"{time.perf_counter() - T0:.1f} s)")
@@ -3803,7 +4055,16 @@ def main() -> int:
                                   "flash_decode_gemma3_kv8",
                                   "flash_decode_gemma3_paged",
                                   "prefix_pass_gemma3",
-                                  "w8a16_matmul_gemma3")}
+                                  "w8a16_matmul_gemma3",
+                                  "flash_prefill_sc2", "flash_decode_sc2",
+                                  "flash_decode_sc2_kv8",
+                                  "flash_decode_sc2_paged",
+                                  "w8a16_matmul_sc2", "flash_prefill_llama",
+                                  "flash_decode_llama",
+                                  "flash_decode_llama_kv8",
+                                  "flash_decode_llama_paged",
+                                  "prefix_pass_llama",
+                                  "w8a16_matmul_llama")}
     check_decode(dev, errs["flash_decode"])
     check_decode_kv8(dev, errs["flash_decode_kv8"])
     check_decode_paged(dev, errs["flash_decode_paged"],
@@ -3834,6 +4095,20 @@ def main() -> int:
     check_w8a16_head(dev, errs["w8a16_matmul_gemma3"],
                      torch.Generator(device=dev).manual_seed(46), GE_D,
                      GE_VP, "gemma3")
+    stamp("the kernels at starcoder2-15b's and llama-405b's heads")
+    for tag, qh, kh, seed in (("sc2", SC2_QH, SC2_KH, 50),
+                              ("llama", LL_QH, LL_KH, 52)):
+        check_prefill_group(dev, errs[f"flash_prefill_{tag}"],
+                            errs["flash_prefill_paged"], qh, kh, seed,
+                            hsz=DENSE_HSZ)
+        check_decode_group(dev, errs, qh, kh, seed + 1,
+                           f"flash_decode_{tag}", hsz=DENSE_HSZ)
+    check_grouped_llama(dev, errs["prefix_pass_llama"])
+    for tag, d, vp, seed in (("sc2", SC2_D, SC2_VP, 54),
+                             ("llama", LL_D, LL_VP, 55)):
+        check_w8a16_head(dev, errs[f"w8a16_matmul_{tag}"],
+                         torch.Generator(device=dev).manual_seed(seed), d,
+                         vp, tag)
     check_sampler(dev)
 
     print(f"== 4 (t = {time.perf_counter() - T0:.1f} s) serve granite-3-2b "
@@ -3841,20 +4116,22 @@ def main() -> int:
           "paged fp and int8, paged fp under pool pressure; decode "
           "windows; chunked, prefix-shared and grouped runs")
     runs = serve_full(dev)
+    stamp("granite 4-layer f32 checks")
     compare_paths(dev)
     paged_pre = paged_prefill_path(dev)
     print(f"== 4 (t = {time.perf_counter() - T0:.1f} s) serve mamba2-780m "
-          "(48 layers, bf16); 4-layer f32 checks")
+          f"({MAMBA_LAYERS} of 48 layers, bf16); 4-layer f32 checks")
     mamba = serve_mamba(dev)
     compare_mamba(dev)
     print(f"== 4 (t = {time.perf_counter() - T0:.1f} s) serve hymba-1.5b "
-          "(32 layers, bf16): greedy, top-p at windows 1 and 4, paged, int8 "
-          "head + int8 KV; 4-layer f32 checks")
+          f"({HYMBA_LAYERS} of 32 layers, bf16): greedy, top-p at windows 1 "
+          "and 4, paged, int8 head + int8 KV; 4-layer f32 checks")
     hymba = serve_hymba(dev)
     compare_hymba(dev)
-    print(f"== 4 (t = {time.perf_counter() - T0:.1f} s) serve {MOE} (24 "
-          "layers, bf16, 32 experts, top 8): greedy, top-p at windows 1 and "
-          "4, paged, int8 head + int8 KV; 4-layer f32 checks")
+    print(f"== 4 (t = {time.perf_counter() - T0:.1f} s) serve {MOE} "
+          f"({MOE_LAYERS} of 24 layers, bf16, 32 experts, top 8): greedy, "
+          "top-p at windows 1 and 4, paged, int8 head + int8 KV; 4-layer f32 "
+          "checks")
     moe = serve_moe(dev)
     compare_moe(dev)
     print(f"== 4 (t = {time.perf_counter() - T0:.1f} s) serve {GEMMA} (48 "
@@ -3862,23 +4139,56 @@ def main() -> int:
           "greedy, top-p at windows 1 and 4, paged, int8 head + int8 KV; "
           "chunked unshared, prefix-shared and grouped; 6-layer f32 checks")
     gemma = serve_gemma3(dev)
+    stamp("gemma3 6-layer f32 checks")
     compare_gemma3(dev)
+    plain = dict(attn_backend="ref", prefill_backend="ref",
+                 matmul_backend="ref")
+    print(f"== 4 (t = {time.perf_counter() - T0:.1f} s) serve {SC2} (40 "
+          "layers, bf16, 48 q / 4 kv heads of 128: G = 12, ungated GELU): "
+          "greedy, top-p at windows 1 and 4, paged, int8 head + int8 KV; "
+          "chunked unshared, prefix-shared and grouped; 4-layer f32 checks")
+    sc2 = serve_dense(dev, SC2, "starcoder2", graph=True)
+    compare_small(dev, SC2, 56, plain, "starcoder2")
+    print(f"== 4 (t = {time.perf_counter() - T0:.1f} s) serve {LLAMA} at "
+          f"full width, its depth cut to {LLAMA_LAYERS} of 126 layers (bf16, "
+          "128 q / 8 kv heads of 128: G = 16): greedy w1, top-p w4, paged "
+          "top-p w4, int8 greedy w4, grouped (c); 2-layer f32 checks")
+    llama = serve_dense(dev, LLAMA, "llama", n_layers=LLAMA_LAYERS,
+                        names=("greedy w1", "top-p w4", "paged top-p w4",
+                               "int8 greedy w4"),
+                        shared=("c + grouped_decode",))
+    compare_small(dev, LLAMA, 57, plain, "llama", n_layers=2)
+    print(f"== 4 (t = {time.perf_counter() - T0:.1f} s) serve {G8B} (36 "
+          "layers, bf16, 32 q / 8 kv heads of 128): greedy w4, paged int8 "
+          "greedy w4")
+    serve_dense(dev, G8B, "granite-8b", names=("greedy w4",
+                                                "paged int8 greedy w4"),
+                shared=(), profiles=False)
 
     print(f"== 5 times (t = {time.perf_counter() - T0:.1f} s)")
     timed = times(dev)
+    stamp("ssd_prefill times")
     timed["ssd_prefill"] = times_ssd(dev)
     timed["ssd_prefill"]["mamba2_prefill"] = mamba["prefill"]
+    stamp("hymba kernel times")
     timed.update(times_hymba(dev))
     timed["flash_prefill_hymba"]["hymba_prefill"] = \
         hymba["prefill"]["flash_prefill"]
     timed["ssd_prefill_hymba"]["hymba_prefill"] = \
         hymba["prefill"]["ssd_prefill"]
+    stamp("granite-moe kernel times")
     timed.update(times_moe(dev))
     timed["flash_prefill_moe"]["moe_prefill"] = moe["prefill"]
     timed["flash_decode_moe"]["moe_decode_step"] = moe["decode"]
+    stamp("gemma3 kernel times")
     timed.update(times_gemma3(dev))
     timed["flash_prefill_gemma3"]["gemma3_prefill"] = gemma["prefill"]
     timed["flash_decode_gemma3"]["gemma3_decode_step"] = gemma["decode"]
+    stamp("the dense models' kernel times")
+    timed.update(times_dense(dev))
+    for tag, run in (("sc2", sc2), ("llama", llama)):
+        timed[f"flash_prefill_{tag}"][f"{tag}_prefill"] = run["prefill"]
+        timed[f"flash_decode_{tag}"][f"{tag}_decode_step"] = run["decode"]
 
     # launches: each kernel's count in the run of the path it serves
     fp, int8 = runs["fp"][0]["counts"], runs["int8"][0]["counts"]
@@ -3920,6 +4230,18 @@ def main() -> int:
         "prefix_pass_gemma3":
             gemma["shared"]["c + grouped_decode"]["counts"]["prefix_pass"],
         "w8a16_matmul_gemma3": ge["int8 greedy w4"]["w8a16_matmul"]})
+    for tag, run in (("sc2", sc2), ("llama", llama)):
+        rc = {name: r["counts"] for name, r in run["runs"].items()}
+        launches.update({
+            f"flash_prefill_{tag}": rc["greedy w1"]["flash_prefill"],
+            f"flash_decode_{tag}": rc["greedy w1"]["flash_decode"],
+            f"flash_decode_{tag}_kv8":
+                rc["int8 greedy w4"]["flash_decode_kv8"],
+            f"flash_decode_{tag}_paged":
+                rc["paged top-p w4"]["flash_decode_paged"],
+            f"w8a16_matmul_{tag}": rc["int8 greedy w4"]["w8a16_matmul"]})
+    launches["prefix_pass_llama"] = \
+        llama["shared"]["c + grouped_decode"]["counts"]["prefix_pass"]
     decode_src = ("src/repro_torch/csrc/flash_decode.cu",
                   "src/repro/kernels/flash_decode/kernel.py:417")
     prefill_src = ("src/repro_torch/csrc/flash_prefill.cu",
@@ -3951,7 +4273,16 @@ def main() -> int:
                "prefix_pass_gemma3": ("src/repro_torch/csrc/prefix_pass.cu",
                                       "src/repro/kernels/flash_decode/"
                                       "kernel.py:702"),
-               "w8a16_matmul_gemma3": mm_src}
+               "w8a16_matmul_gemma3": mm_src,
+               "prefix_pass_llama": ("src/repro_torch/csrc/prefix_pass.cu",
+                                     "src/repro/kernels/flash_decode/"
+                                     "kernel.py:702")}
+    for tag in ("sc2", "llama"):
+        sources.update({f"flash_prefill_{tag}": prefill_src,
+                        f"flash_decode_{tag}": decode_src,
+                        f"flash_decode_{tag}_kv8": decode_src,
+                        f"flash_decode_{tag}_paged": decode_src,
+                        f"w8a16_matmul_{tag}": mm_src})
     records = []
     for name, (src, replaces) in sources.items():
         need(launches[name] > 0, f"{name}: no launch on its main path")

@@ -1,7 +1,7 @@
 """Architecture configs of the port: only the fields its serving paths read
-(dense GQA, local:global windowed attention, pure SSM, the attention + SSM
-hybrid and the mixture of experts), plus ``get_config``.  Mirrors
-``repro/configs/base.py``."""
+(dense GQA with a gated or an ungated FFN, local:global windowed attention,
+pure SSM, the attention + SSM hybrid and the mixture of experts), plus
+``get_config``.  Mirrors ``repro/configs/base.py``."""
 from __future__ import annotations
 
 import dataclasses
@@ -32,7 +32,7 @@ class ArchConfig:
     d_ff: int
     vocab: int
     head_dim: int = 0           # 0 -> d_model // n_heads
-    act: str = "silu"           # gated FFN: silu | gelu_gated (tanh GELU)
+    act: str = "silu"           # silu, gelu_gated (gated: w3) | gelu (ungated)
     rope_theta: float = 10_000.0
     tie_embeddings: bool = False
     use_rope: bool = True       # False -> sinusoidal positions on the input
@@ -151,8 +151,32 @@ GEMMA3_12B = ArchConfig(
     act="gelu_gated", local_window=1024, local_ratio=5, tie_embeddings=True,
     softcap=30.0)
 
+# starcoder2-15b [dense] — arXiv:2402.19173: GQA 48 q / 4 kv heads of 128
+# (G = 12), ungated GELU MLP (no w3), untied head.  As in the JAX package:
+# no biases, RMSNorm and a RoPE base of 1e4 (the published model has biases,
+# LayerNorm and a base of 1e5).
+STARCODER2_15B = ArchConfig(
+    name="starcoder2-15b", family="dense", n_layers=40, d_model=6144,
+    n_heads=48, n_kv_heads=4, d_ff=24_576, vocab=49_152, act="gelu")
+
+# granite-8b [dense] — arXiv:2405.04324 (granite-8b-code): llama layout, GQA
+# 32 q / 8 kv heads of 128, gated SiLU, untied head.  As in the JAX package:
+# no biases and a RoPE base of 1e4, not the published checkpoint's own.
+GRANITE_8B = ArchConfig(
+    name="granite-8b", family="dense", n_layers=36, d_model=4096,
+    n_heads=32, n_kv_heads=8, d_ff=14_336, vocab=49_152)
+
+# llama-405b [dense] — the paper's dense model (Llama 3.1 405B): GQA 128 q /
+# 8 kv heads of 128 (G = 16), gated SiLU, untied head.  As in the JAX
+# package: a RoPE base of 1e4 and no RoPE scaling (the published model has
+# a base of 5e5 and llama-3.1's scaling).
+LLAMA_405B = ArchConfig(
+    name="llama-405b", family="dense", n_layers=126, d_model=16_384,
+    n_heads=128, n_kv_heads=8, d_ff=53_248, vocab=128_256)
+
 _CONFIGS = {c.name: c for c in (GRANITE_3_2B, MAMBA2_780M, HYMBA_1_5B,
-                                GRANITE_MOE_1B_A400M, GEMMA3_12B)}
+                                GRANITE_MOE_1B_A400M, GEMMA3_12B,
+                                STARCODER2_15B, GRANITE_8B, LLAMA_405B)}
 
 
 def get_config(name: str) -> ArchConfig:

@@ -35,6 +35,14 @@
 // so the ring has its floor of 3 stages and the CTA 212,496 bytes of
 // shared memory, one CTA an SM.
 //
+// Rows.  One CTA holds all G query rows of its kv head, so each K/V tile is
+// read once for the whole group: RW rows a warp, 1 for G <= 4, 2 for G <= 8
+// and 4 for G <= 16 (starcoder2's G = 12, llama's 16), the last only at
+// head sizes up to 128 (at 256 a row holds 8 dims a lane, and 4 rows a warp
+// would not fit the registers).  A warp's rows past G are not computed at
+// all (Rows::n), and each row's arithmetic is the same at any RW
+// (decode_tile.cuh), so every bit-exact invariant holds at any G.
+//
 // Bound: decode reads every K/V byte of the valid span once and does
 // ~4*G*hsz flops per slot, far below Hopper's ~295 flop/byte ridge, so it is
 // bound by bytes (3.35 TB/s).  The design keeps K/V in their storage type in
@@ -85,7 +93,8 @@ namespace {
 using namespace decode_tile;
 constexpr int NT = 128;     // threads per CTA (4 warps)
 constexpr int NW = NT / 32;
-constexpr int MAXG = 8;   // query heads per kv head held by one CTA
+constexpr int MAXG = 16;      // query heads per kv head held by one CTA
+constexpr int MAXG_256 = 8;   // the same at head size 256 (2 rows a warp)
 constexpr int CPC_MAX = 2;  // chunks one CTA may sweep
 
 struct DecodeArgs {
@@ -146,13 +155,13 @@ __device__ __forceinline__ float quantize_row(const float* x, float* q, int lane
   return s;
 }
 
-// Shared memory of one CTA: the ring, then q, the warps' p scratch, the
-// chunk's row offsets and the int8 append's rows.
+// Shared memory of one CTA: the ring, then q (the NW * RW rows it holds),
+// the warps' p scratch, the chunk's row offsets and the int8 append's rows.
 template <typename KT, int HSZ, int RW>
 struct Smem {
   using L = Layout<KT, HSZ>;
   static constexpr int Q = L::RING_BYTES;
-  static constexpr int PW = Q + MAXG * HSZ * 4;
+  static constexpr int PW = Q + NW * RW * HSZ * 4;
   static constexpr int ROFF = PW + NW * RW * TS * 4;
   static constexpr int NEWQ = ROFF + CPC_MAX * CH * 8;  // int8 rows [2][HSZ]
   static constexpr int NSC = NEWQ + 2 * HSZ;          // [2] f32 (+ pad)
@@ -376,7 +385,13 @@ cudaError_t launch(DecodeArgs& a, cudaStream_t stream) {
 
 template <typename T, typename KT, int HSZ>
 cudaError_t launch_rw(DecodeArgs& a, cudaStream_t stream) {
-  return a.G <= NW ? launch<T, KT, HSZ, 1>(a, stream) : launch<T, KT, HSZ, 2>(a, stream);
+  if (a.G <= NW) return launch<T, KT, HSZ, 1>(a, stream);
+  if (a.G <= 2 * NW) return launch<T, KT, HSZ, 2>(a, stream);
+  if constexpr (HSZ <= 128) {
+    return launch<T, KT, HSZ, 4>(a, stream);
+  } else {
+    return cudaErrorInvalidValue;   // G > MAXG_256: refused by the launcher
+  }
 }
 
 template <typename T, typename KT>
@@ -413,7 +428,8 @@ struct DecodeParams {
 
 extern "C" int flash_decode_launch(DecodeParams* p, void* stream) {
   const int G = p->G, block_s = p->block_s, s_loc = p->s_loc;
-  if (G < 1 || G > MAXG || block_s % TS != 0 || block_s < TS || p->B * p->Kh == 0
+  if (G < 1 || G > (p->hsz > 128 ? MAXG_256 : MAXG) || block_s % TS != 0 || block_s < TS
+      || p->B * p->Kh == 0
       || p->n_ranks < 1 || s_loc < 1 || p->ws == nullptr
       || (p->quant && (p->kscale == nullptr || p->vscale == nullptr))
       || (p->tables != nullptr && (p->max_pages < 1 || p->ps < 1

@@ -51,7 +51,8 @@ counter_paged = build.Launches()   # the launches in paged mode among them
 counter_grouped = build.Launches()  # ... in the grouped-suffix mode among them
 counter_prefix = build.Launches()   # launches of the prefix_pass kernel
 last_launch = {"chunks_per_cta": 1}  # the decode kernel's last grid choice
-MAX_G = 8                   # query heads per KV head the kernel holds
+MAX_G = 16                  # query heads per KV head the kernel holds
+MAX_G_256 = 8               # the same at head size 256
 HSZ = (32, 64, 128, 256)    # head sizes the kernel is compiled for
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -562,10 +563,12 @@ def _decode_plan(q, k, v, kscale, vscale, k_new, block_tables, groups,
                              f"{tuple(k.shape[:3])}")
     elif not (k.dtype == v.dtype == q.dtype):
         raise ValueError(f"q/k/v dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
-    if hsz not in HSZ or g > MAX_G or block_s % TILE_S:
+    max_g = MAX_G_256 if hsz > 128 else MAX_G
+    if hsz not in HSZ or g > max_g or block_s % TILE_S:
         raise ValueError(f"flash_decode kernel takes hsz in {HSZ}, "
-                         f"Qh/Kh <= {MAX_G} and block_s % {TILE_S} == 0 "
-                         f"(got hsz {hsz}, G {g}, block_s {block_s})")
+                         f"Qh/Kh <= {MAX_G} ({MAX_G_256} at hsz 256) and "
+                         f"block_s % {TILE_S} == 0 (got hsz {hsz}, G {g}, "
+                         f"block_s {block_s})")
     ps = k.shape[2] // n_ranks
     max_pages = block_tables.shape[1] if paged else 0
     s_loc = max_pages * ps if paged else ps

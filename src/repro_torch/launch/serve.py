@@ -61,6 +61,14 @@ reference.  ``serve_steps`` is ``serve_demo`` one engine step at a time: a
 generator that hands the engine back between steps, where a caller may
 ``preempt`` a request.
 
+``--arch starcoder2-15b`` (48 q / 4 kv heads of 128, G = 12, an ungated
+GELU FFN), ``--arch granite-8b`` and ``--arch llama-405b`` (the paper's
+dense model, 128 q / 8 kv heads, G = 16) serve the dense path with every
+flag above.  ``--layers N`` keeps the first N layers of the config, a depth
+cut: llama-405b's 126 layers hold ~6.4 GB each in bf16, so one 80 GB card
+serves it at full width with its depth cut (8 layers and both of its
+embedding tables: ~59 GB).
+
 ``--arch granite-moe-1b-a400m`` serves the mixture of experts: every FFN
 routes each token to 8 of 32 experts (capacity factor 1.25 in the prefill,
 4 in the decode steps, where nothing is dropped).  Capacity routing mixes
@@ -128,8 +136,8 @@ def serve_demo(arch: str = "granite-3-2b", **kw):
 
 
 def serve_steps(arch: str = "granite-3-2b", *, reduced: bool = False,
-               n_requests: int = 8, prompt_len=32, max_new=16,
-               max_batch: int = 8, hx: HelixConfig | None = None,
+               n_layers: int = 0, n_requests: int = 8, prompt_len=32,
+               max_new=16, max_batch: int = 8, hx: HelixConfig | None = None,
                kvp: int | None = None,
                attn_backend: str | None = None,
                prefill_backend: str | None = None,
@@ -159,6 +167,8 @@ def serve_steps(arch: str = "granite-3-2b", *, reduced: bool = False,
     ``prompt_multiple`` (port only: ``prompt_len=(1, 1024),
     prompt_multiple=256`` draws 256, 512, 768 or 1024 uniformly, lengths
     the SSM prefill's chunking takes).
+    ``n_layers`` > 0 keeps the config's first that-many layers (a depth
+    cut, port only: llama-405b at full width on one card).
     ``model`` (a ``Transformer`` on ``device``) overrides the seeded random
     weights, e.g. weights carried over with ``convert.params_from_jax``.
     ``hx`` defaults to ``HelixConfig()`` (``cuda`` kernels, fused append,
@@ -205,6 +215,8 @@ def serve_steps(arch: str = "granite-3-2b", *, reduced: bool = False,
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     overrides = {k: v for k, v in (("kvp", kvp),
                                    ("attn_backend", attn_backend),
                                    ("prefill_backend", prefill_backend),
@@ -325,6 +337,9 @@ def main(argv=None):
     ap.add_argument("--arch", default="granite-3-2b", choices=list_archs())
     ap.add_argument("--reduced", action="store_true",
                     help="tiny same-family config (tests, CPU runs)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="keep the config's first N layers, a depth cut "
+                         "(0: all)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)
@@ -431,9 +446,9 @@ def main(argv=None):
         print(backend_table())
         return
     _, summary = serve_demo(
-        args.arch, reduced=args.reduced, n_requests=args.requests,
-        prompt_len=args.prompt_len, max_new=args.max_new,
-        max_batch=args.max_batch, kvp=args.kvp,
+        args.arch, reduced=args.reduced, n_layers=args.layers,
+        n_requests=args.requests, prompt_len=args.prompt_len,
+        max_new=args.max_new, max_batch=args.max_batch, kvp=args.kvp,
         attn_backend=args.attn_backend, prefill_backend=args.prefill_backend,
         matmul_backend=args.matmul_backend, ssd_backend=args.ssd_backend,
         lm_head_w8=args.lm_head_w8 or None,

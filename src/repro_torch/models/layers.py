@@ -20,7 +20,10 @@ def _gelu_tanh(x):
 
 
 def activation(name: str):
-    return {"silu": F.silu, "gelu_gated": _gelu_tanh}[name]
+    """The FFN's activation: ``silu``; ``gelu`` (ungated) and ``gelu_gated``
+    both the tanh form, as ``jax.nn.gelu``'s default."""
+    return {"silu": F.silu, "gelu": _gelu_tanh,
+            "gelu_gated": _gelu_tanh}[name]
 
 
 def softcap(x, cap: float):

@@ -7,13 +7,13 @@ Parameter names and shapes follow the reference's pytree, with the stacked
 ``layers`` leaves split per layer: ``embed [Vp, d]``, ``ln_f [d]``,
 ``layers.{i}.ln1``, ``layers.{i}.attn.{wq [d, Qh*hsz], wk, wv [d, Kh*hsz],
 wo [Qh*hsz, d]}``, ``layers.{i}.ln2``, ``layers.{i}.ffn.{w1, w3 [d, f],
-w2 [f, d]}``; an SSM layer holds ``ln1`` and ``layers.{i}.ssm.*``
-(``models/ssm.SSMParams``) and no ``ln2``/``ffn`` (``d_ff = 0``); a
-hybrid layer holds ``attn`` and ``ssm`` together, both fed the same normed
-input, and adds ``0.5 * (a_out + s_out)``; an MoE layer holds ``ln2`` and
-``layers.{i}.moe.{router [d, E], w1, w3 [E, d, Fe], w2 [E, Fe, d]}``
-(``models/moe.MoEParams``), beside ``ffn`` when the config also has a
-``d_ff``.  Projections are ``x @ w``.
+w2 [f, d]}`` (no ``w3`` in an ungated ``gelu`` FFN); an SSM layer holds
+``ln1`` and ``layers.{i}.ssm.*`` (``models/ssm.SSMParams``) and no
+``ln2``/``ffn`` (``d_ff = 0``); a hybrid layer holds ``attn`` and ``ssm``
+together, both fed the same normed input, and adds ``0.5 * (a_out +
+s_out)``; an MoE layer holds ``ln2`` and ``layers.{i}.moe.{router [d, E],
+w1, w3 [E, d, Fe], w2 [E, Fe, d]}`` (``models/moe.MoEParams``), beside
+``ffn`` when the config also has a ``d_ff``.  Projections are ``x @ w``.
 Tied models take their logits from ``embed.T``; untied ones hold
 ``lm_head [d, Vp]``; a config's ``softcap`` caps them before the vocab
 mask.  Windowed archs (gemma3) attend over ``layer_windows(cfg)[i]``
@@ -52,11 +52,15 @@ class Attention(nn.Module):
 
 
 class FFN(nn.Module):
+    """``w1``, ``w2`` and, for the gated activations, ``w3`` (the reference's
+    ``_init_ffn``: an ungated ``gelu`` FFN has no ``w3``)."""
+
     def __init__(self, cfg: ArchConfig):
         super().__init__()
         self.w1 = _param(cfg.d_model, cfg.d_ff)
         self.w2 = _param(cfg.d_ff, cfg.d_model)
-        self.w3 = _param(cfg.d_model, cfg.d_ff)
+        if cfg.act != "gelu":
+            self.w3 = _param(cfg.d_model, cfg.d_ff)
 
 
 class DecoderLayer(nn.Module):
@@ -211,8 +215,12 @@ def _attn_block(cfg: ArchConfig, ap: Attention, h, *, q_offset,
 
 
 def ffn_block(cfg: ArchConfig, fp: FFN, h):
-    """Gated FFN: act(h @ w1) * (h @ w3) @ w2."""
-    return (activation(cfg.act)(h @ fp.w1) * (h @ fp.w3)) @ fp.w2
+    """The FFN: act(h @ w1) * (h @ w3) @ w2 when gated, else act(h @ w1) @
+    w2 (no ``w3``)."""
+    y = activation(cfg.act)(h @ fp.w1)
+    if hasattr(fp, "w3"):
+        y = y * (h @ fp.w3)
+    return y @ fp.w2
 
 
 def ffn_delta(cfg: ArchConfig, lp: DecoderLayer, h2, *, capacity_factor):

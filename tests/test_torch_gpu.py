@@ -246,12 +246,25 @@ def test_grouped_decode_kernels_at_hsz256_on_card(h100, quant):
     _grouped_case(h100, quant, hsz=256, qh=16, seed=33)
 
 
-def _grouped_case(h100, quant, *, hsz, qh, seed):
+@pytest.mark.gpu
+@pytest.mark.parametrize("reach", [1, 40], ids=["short", "long"])
+@pytest.mark.parametrize("qh", [96, 128], ids=["g12", "g16"])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_grouped_decode_kernels_at_g12_g16_on_card(h100, quant, qh, reach):
+    """The grouped decode's case at 96 or 128 q / 8 kv heads of 128 (G =
+    12 and 16): the prefix pass stacks 3 members x G rows; at lengths 40x
+    longer (2000-4800 at kvp 1, 30 chunks a rank) its launch is large enough to hold all
+    rows in one row block of 8 rows a warp, at the short ones it spreads
+    them over blocks of 1 row a warp.  Bit for bit as in the G = 4 case."""
+    _grouped_case(h100, quant, hsz=128, qh=qh, seed=qh + reach, reach=reach)
+
+
+def _grouped_case(h100, quant, *, hsz, qh, seed, reach=1):
     g = torch.Generator(device=h100).manual_seed(seed)
     for kvp in (1, 2):
-        page, mp = kvp * RR, 12
+        page, mp = kvp * RR, 12 * reach
         tl = torch.tensor([100, 90, 50, 120], dtype=torch.int32,
-                          device=h100) * kvp
+                          device=h100) * kvp * reach
         tab = torch.zeros(4, mp, dtype=torch.int32)
         nxt = 6
         for b in range(4):
@@ -448,10 +461,26 @@ def test_prefill_kernel_at_groups_not_dividing_64_on_card(h100, dtype, g):
     and paged vs the plain version at windows 0 and 64 with per-request
     offsets and lengths, paged == fixed bit for bit, and rows of 4 chunk
     calls == the same rows of one call, bit for bit."""
-    gen = torch.Generator(device=h100).manual_seed(20 + g)
+    _prefill_group_case(h100, dtype, g, kh=5, hsz=64, seed=20 + g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", [(48, 4), (128, 8)], ids=["g12", "g16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_prefill_kernel_at_g12_g16_on_card(h100, dtype, heads):
+    """flash_prefill at starcoder2-15b's 48 q / 4 kv heads (G = 12: 5
+    positions and 4 dead rows a block) and llama-405b's 128 / 8 (G = 16: 4
+    positions), heads of 128: the checks of the G = 3-7 case."""
+    qh, kh = heads
+    _prefill_group_case(h100, dtype, qh // kh, kh=kh, hsz=128, seed=qh)
+
+
+def _prefill_group_case(h100, dtype, g, *, kh, hsz, seed):
+    gen = torch.Generator(device=h100).manual_seed(seed)
     rnd = lambda *sh: torch.randn(*sh, generator=gen,
                                   device=h100).to(dtype)
-    b, t, kh, hsz, page = 2, 256, 5, 64, 16
+    b, t, page = 2, 256, 16
     q, k, v = rnd(b, t, kh * g, hsz), rnd(b, t, kh, hsz), rnd(b, t, kh, hsz)
     offs = torch.tensor([0, 9], dtype=torch.int32, device=h100)
     lens = torch.tensor([256, 201], dtype=torch.int32, device=h100)
@@ -507,6 +536,35 @@ def test_decode_kernel_at_hsz256_on_card(h100, quant, paged, window):
     fp and int8."""
     _decode_group_case(h100, quant, paged, g=2, kh=8, seed=34, hsz=256,
                        window=window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", [(48, 4), (128, 8)], ids=["g12", "g16"])
+@pytest.mark.parametrize("paged", [False, True], ids=["fixed", "paged"])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_decode_kernel_at_g12_g16_on_card(h100, quant, paged, heads):
+    """flash_decode at starcoder2-15b's 48 q / 4 kv heads (G = 12: 3 of 4
+    rows a warp) and llama-405b's 128 / 8 (G = 16: 4 rows a warp), heads of
+    128, kvp 2, with the fused append and windows 0 and 100: kernel vs
+    plain (f32), the appended rows bit for bit, fixed and paged, fp and
+    int8."""
+    qh, kh = heads
+    for window in (0, 100):
+        _decode_group_case(h100, quant, paged, g=qh // kh, kh=kh, seed=qh,
+                           hsz=128, window=window)
+
+
+@pytest.mark.gpu
+def test_decode_kernel_refuses_g16_at_hsz256_on_card(h100):
+    """At head size 256 the kernel holds at most 8 query heads per kv head:
+    G = 16 raises a ValueError that names the limit and launches nothing
+    (no fall back to the plain version)."""
+    q = torch.zeros(1, 16, 256, device=h100)
+    k = torch.zeros(1, 1, 64, 256, device=h100)
+    registry.reset_launch_counts()
+    with pytest.raises(ValueError, match="8 at hsz 256"):
+        flash_decode_shards(q, k, k.clone(), 10, kvp=1)
+    assert registry.launch_counts()["flash_decode"] == 0
 
 
 def _decode_group_case(h100, quant, paged, *, g, kh, seed, hsz=64,
