@@ -163,7 +163,7 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    spills and restores, a cap raise), then at window 4 on the wall clock
    without and with it (per-class TTL, sheds, cap raises).  Then the
    dense GQA models past 8 query heads per kv head (``serve_dense``; bf16,
-   seeded random weights, untied heads): starcoder2-15b at its full 40
+   seeded random weights, untied heads): starcoder2-15b at 20 of its 40
    layers (48 q / 4 kv heads of 128, G = 12, ungated GELU): peak memory
    after the build, the int8 head and each run; hymba's five runs; the
    chunked runs (a)-(c) over 768-1024 tokens sharing 512 (prefix_pass at
@@ -178,7 +178,27 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    and flash_decode at 48/4 and 128/8 heads of 128 as at G = 5, grouped
    decode at G = 16 at 1 and 8 rows a warp, the int8 heads at K = 6144, N
    = 49152 and K = 16384, N = 128512), and phase 2 prints the registers
-   and spills of flash_decode's 4-rows-a-warp instances;
+   and spills of flash_decode's 4-rows-a-warp instances.  Then the two
+   families the engine refuses, through the step functions
+   (``make_prefill_step``, ``build_serve_step``, eager
+   ``build_serve_multistep``; ``step_serve``), counts zeroed just before
+   each run and equal to layers x calls in every kernel mode:
+   whisper-base at full width and depth (6 encoder + 6 decoder layers, 8
+   heads of 64, bf16, seeded random weights): 4 rows of 1500 frame
+   embeddings and 64 prompt tokens, 64 greedy tokens a row, fp and int8
+   head at windows 1 and 4 (window 4 == 1 token for token); the encoder
+   and the cross-attention in B2's non-causal mode, the decode step's
+   cross-attention in B1's contiguous layout; the decode-step profile
+   beside its byte bound; an f32 check at full depth (kernel vs plain, kvp
+   4 vs 1, fp and int8).  phi-3-vision-4.2b at full width and depth (32
+   layers, 32 MHA heads of 96, ~7.6 GB of bf16): 4 rows of 256 patch
+   embeddings + 512 tokens, 32 greedy tokens a row: fp at windows 1 and 4
+   and from a paged pool at window 4 (equal streams), the int8 KV cache,
+   the int8 head; the step profile; a 4-layer f32 check.  Their kernels
+   were checked in phase 3: B2 non-causal at T = S = 1500 and cross at T
+   = 64 over S = 1500 (with kv lengths), B1 contiguous at kvp 1 and 4
+   (pruned == dense), B2 and B1 at head size 96 as at G = 5, the int8
+   heads; phase 2 prints the hsz-96 instances' registers and spills;
 5. times of each kernel, its plain version and a one-call PyTorch
    yardstick where there is one, beside the card's bound: ``ms`` and
    ``library_ms`` are device time per call with every launch queued behind
@@ -200,7 +220,11 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    4, lengths 700-2100, window 1024 (fixed, int8 and paged), prefix_pass
    over 4 members sharing 512 positions and w8a16_matmul at K = 3840, N =
    262144; and the dense models' shapes past G = 8 (records ``*_sc2``,
-   ``*_llama``, ``times_dense``).
+   ``*_llama``, ``times_dense``); and the whisper and phi-3 shapes
+   (``times_encdec_vlm``): B1 contiguous at B = 4, 1500 frames; B2
+   non-causal at T = S = 1500 and cross at T = 64, S = 1500; B2 at head
+   size 96, B = 1, T = 768; B1 at head size 96 fp, int8 and paged at the
+   serve shape and at B = 8, S = 4096; B3 at both heads.
 
 The last lines are the card line, one JSON object of kernel records and
 ``{"ok": true, "device": {...}}``.
@@ -312,9 +336,19 @@ LL_D, LL_VP = 16384, 128512         # its untied head [d_model, padded vocab]
 LLAMA_LAYERS = 8                    # of 126: 6.38 GB a layer in bf16
 G8B = "granite-8b"
 DENSE_HSZ = 128                     # the head size of all three
+WHISPER = "whisper-base"
+WH_H, WH_HSZ = 8, 64                # whisper-base MHA heads of 64
+WH_D, WH_VP = 512, 52224            # its untied head [d_model, padded vocab]
+WH_S_ENC = 1500                     # 30 s of audio after the conv front end
+WH_T, WH_NEW = 64, 64               # decoder prompt tokens, new tokens a row
+PHI3 = "phi-3-vision-4.2b"
+PH_H, PH_HSZ = 32, 96               # phi-3-vision MHA heads of 96
+PH_D, PH_VP = 3072, 32256           # its untied head [d_model, padded vocab]
+PH_P, PH_TEXT, PH_NEW = 256, 512, 32  # patch positions, text tokens, new
 # earlier paths served at half their depth, to keep the script's time
-# (PERF.md section 4): mamba2 24 of 48 layers, hymba 16 of 32, moe 12 of 24
-MAMBA_LAYERS, HYMBA_LAYERS, MOE_LAYERS = 24, 16, 12
+# (PERF.md section 4): mamba2 24 of 48 layers, hymba 16 of 32, moe 12 of
+# 24, starcoder2 20 of 40 (granite-8b and llama-405b run its kernels too)
+MAMBA_LAYERS, HYMBA_LAYERS, MOE_LAYERS, SC2_LAYERS = 24, 16, 12, 20
 # the MoE layer at full width, f32, card vs CPU: routes, slots and token
 # plans equal; gates differ by the f32 router product's summation order
 # (1024 terms, ~1e-7), y by three f32 matmuls (1024 and 512 terms) summed
@@ -322,6 +356,9 @@ MAMBA_LAYERS, HYMBA_LAYERS, MOE_LAYERS = 24, 16, 12
 ROUTE_TOL = 1e-6
 MOE_TOL = 2e-5
 KV8_W8 = HelixConfig(kv_cache_bits=8, lm_head_w8=True)
+# the mode counters only the enc-dec path moves, 0 in every other run
+NO_ENCDEC = {"flash_decode_contiguous": 0, "flash_prefill_noncausal": 0,
+             "flash_prefill_cross": 0}
 GRANITE_LAYERS = 40                 # granite-3-2b
 WINDOW = 4                          # decode window of phase 4's window runs
 TOP_P = sampling.SamplingParams("top_p", temperature=0.9, top_p=0.85, seed=7)
@@ -1573,7 +1610,8 @@ def serve_full(dev):
                 "flash_decode_grouped": 0, "prefix_pass": 0,
                 "flash_prefill": cfg.n_layers * len(fin),
                 "flash_prefill_paged": 0,
-                "w8a16_matmul": steps if int8 else 0, "ssd_prefill": 0}
+                "w8a16_matmul": steps if int8 else 0, "ssd_prefill": 0,
+                **NO_ENCDEC}
         ttl = summ["ttl_s"]
         print(f"  {len(fin)} requests finished, prompts "
               f"{sorted(len(r.prompt) for r in fin)}; "
@@ -2163,7 +2201,7 @@ def path_counts(layers, prefills, *, int8=False, paged=False, ssd=False):
         "flash_decode_grouped": 0, "prefix_pass": 0,
         "flash_prefill": layers * prefills, "flash_prefill_paged": 0,
         "w8a16_matmul": steps if int8 else 0,
-        "ssd_prefill": layers * prefills if ssd else 0}
+        "ssd_prefill": layers * prefills if ssd else 0, **NO_ENCDEC}
 
 
 def serve_windows(dev, cfg, model, runs):
@@ -2671,17 +2709,19 @@ def route_flips(tag, calls, base, layers):
 
 
 def compare_small(dev, arch, seed, plain, label, n_layers=4, t=256,
-                  s_cap=512):
+                  s_cap=512, extra=None):
     """An ``n_layers``-layer f32 model of ``arch`` at full width: prefill
-    (``t`` tokens) + 4 decode steps, the kernel path against the plain path
-    (``plain`` backends, ``ref``, on the card), kvp 4 against kvp 1, fp and
-    with the int8 head and KV cache: logits within LOGIT_TOL x max(1,
-    |logits|) and the same greedy tokens; an MoE's routes equal in every
-    layer and step."""
+    (``t`` tokens, and the batch leaves ``extra(cfg, g)`` makes: frame or
+    patch embeddings) + 4 decode steps, the kernel path against the plain
+    path (``plain`` backends, ``ref``, on the card), kvp 4 against kvp 1,
+    fp and with the int8 head and KV cache: logits within LOGIT_TOL x
+    max(1, |logits|) and the same greedy tokens; an MoE's routes equal in
+    every layer and step."""
     cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
     model = init_params(cfg, 1, dtype=torch.float32, device=dev)
     g = torch.Generator(device=dev).manual_seed(seed)
     toks = torch.randint(0, cfg.vocab, (1, t), generator=g, device=dev)
+    batch = {"tokens": toks, **(extra(cfg, g) if extra else {})}
     runs, routes = {}, {}
     for name, hx in (("kernel kvp=1", HelixConfig(kvp=1)),
                      ("plain kvp=1", HelixConfig(kvp=1, **plain)),
@@ -2694,7 +2734,7 @@ def compare_small(dev, arch, seed, plain, label, n_layers=4, t=256,
         prepare_decode_params(model, hx)
         with RouteLog() as log:
             logits, state = make_prefill_step(cfg, hx, s_cap=s_cap)(
-                model, {"tokens": toks})
+                model, batch)
             if hx.kv_cache_bits == 8:
                 state = quantize_decode_state(state)
             state["total_len"] = torch.full((1,), t, dtype=torch.int32,
@@ -2918,7 +2958,7 @@ def serve_shared(dev, cfg, model, prompt_len, label="", profile=None,
                 "prefix_pass": cfg.n_layers * steps if grouped else 0,
                 "flash_prefill": cfg.n_layers * summ["prefill_calls"],
                 "flash_prefill_paged": 0, "w8a16_matmul": 0,
-                "ssd_prefill": 0}
+                "ssd_prefill": 0, **NO_ENCDEC}
         live = summ["grouped_steps"] * cfg.n_layers
         print(f"  {len(fin)} requests, prompts "
               f"{sorted(len(r.prompt) for r in fin)}, {summ['n_tokens']} "
@@ -3011,7 +3051,8 @@ def chunked_vs_oneshot(dev, cfg, model, fp_streams):
     want = {"flash_decode": cfg.n_layers * steps, "flash_decode_kv8": 0,
             "flash_decode_paged": 0, "flash_decode_grouped": 0,
             "prefix_pass": 0, "flash_prefill": cfg.n_layers * calls,
-            "flash_prefill_paged": 0, "w8a16_matmul": 0, "ssd_prefill": 0}
+            "flash_prefill_paged": 0, "w8a16_matmul": 0, "ssd_prefill": 0,
+            **NO_ENCDEC}
     print(f"  {steps} decode steps, {calls} prefill chunks; launches "
           f"{counts} (expected {want})")
     need(counts == want, f"(d) launch counts {counts} != expected {want}")
@@ -3954,6 +3995,436 @@ def times_dense(dev):
     return out
 
 
+# ------------------------------------------ whisper-base, phi-3-vision
+def check_encdec_modes(dev, errs):
+    """B2's non-causal and cross modes and B1's contiguous layout at
+    whisper-base's shapes (8 MHA heads of 64), f32 and bf16, against the
+    plain versions: the encoder's self-attention (B = 4, T = S = 1500, not a
+    multiple of the 64-row blocks), the decoder's cross-attention (T = 64
+    over S = 1500; and with per-row kv lengths), and the decode step's
+    cross-attention over the static K/V in kvp contiguous shards (B = 4,
+    1500 valid slots, kvp 1 and 4), pruned == dense bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(60)
+    b, s, h, hsz = 4, WH_S_ENC, WH_H, WH_HSZ
+    lens = torch.tensor([s, s - s // 15, s - s // 6, s - s // 4],
+                        dtype=torch.int32, device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        rnd = lambda *sh: torch.randn(*sh, generator=g, device=dev).to(dt)
+        k, v = rnd(b, s, h, hsz), rnd(b, s, h, hsz)
+        for name, t, seq_lens in (("flash_prefill_noncausal", s, None),
+                                  ("flash_prefill_cross", WH_T, None),
+                                  ("flash_prefill_cross", WH_T, lens)):
+            q = rnd(b, t, h, hsz)
+            got = flash_prefill(q, k, v, causal=False, seq_lens=seq_lens)
+            want = flash_prefill_ref(q, k, v, causal=False,
+                                     seq_lens=seq_lens)
+            torch.cuda.synchronize()
+            e = maxerr(got, want)
+            errs[name].append(e)
+            tag = (f"prefill non-causal {str(dt)[6:]} B={b} T={t} S={s}"
+                   + (" with kv lengths" if seq_lens is not None else ""))
+            print(f"  {tag}: max err {e:.3g} (tol {TOL[dt]['out']:g})")
+            need(e <= TOL[dt]["out"], f"{tag}: kernel disagrees with plain")
+        q = rnd(b, h, hsz)
+        kc, vc = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        tl = torch.tensor(s, dtype=torch.int32, device=dev)
+        for kvp in (1, 4):
+            kw = dict(kvp=kvp, n_ranks=kvp, rank=0, rr_block=RR, window=0,
+                      contiguous=True, slot_offset=0, k_new=None, v_new=None)
+            o1, l1 = flash_decode_shards(q, kc, vc, tl, **kw)
+            o0, l0 = flash_decode_shards(q, kc, vc, tl, prune=False, **kw)
+            o2, l2 = flash_decode_shards_plain(
+                q, kc, vc, tl, scale=hsz ** -0.5,
+                block_s=kernel_block_s(512, s // kvp), **kw)
+            torch.cuda.synchronize()
+            eo, el = maxerr(o1, o2), maxerr(l1, l2)
+            errs["flash_decode_contiguous"].append(eo)
+            tag = f"decode contiguous {str(dt)[6:]} B={b} S={s} kvp={kvp}"
+            print(f"  {tag}: max err out {eo:.3g} lse {el:.3g} (tol "
+                  f"{TOL[dt]['out']:g}/{TOL[dt]['lse']:g}); pruned == dense")
+            need(eo <= TOL[dt]["out"] and el <= TOL[dt]["lse"],
+                 f"{tag}: kernel disagrees with plain")
+            need(torch.equal(bits(o1), bits(o0)) and torch.equal(l1, l0),
+                 f"{tag}: pruned != dense")
+
+
+def whisper_batch(cfg, g, dev, b=4, t=WH_T):
+    """Seeded decoder prompts [b, t] and frame embeddings [b, 1500, d]."""
+    return {"tokens": torch.randint(0, cfg.vocab, (b, t), generator=g,
+                                    device=dev),
+            "enc_frames": torch.randn(b, WH_S_ENC, cfg.d_model, generator=g,
+                                      device=dev)}
+
+
+def phi3_batch(cfg, g, dev, b=4, t=PH_P + PH_TEXT):
+    """Seeded prompts [b, t] whose first 256 positions the patch embeddings
+    [b, 256, d] replace."""
+    return {"tokens": torch.randint(0, cfg.vocab, (b, t), generator=g,
+                                    device=dev),
+            "patch_embeds": torch.randn(b, PH_P, cfg.d_model, generator=g,
+                                        device=dev)}
+
+
+def cast_batch(batch, dtype):
+    return {k: v if k == "tokens" else v.to(dtype) for k, v in batch.items()}
+
+
+def step_counts(cfg, steps, *, int8=False, kv8=False, paged=False):
+    """The launches of one prefill of a batch and ``steps`` decode steps
+    through the step functions: flash_prefill once a layer (the encoder's
+    and every decoder layer's cross-attention non-causal too),
+    flash_decode once a layer a step (and once more for the
+    cross-attention, in the contiguous layout), w8a16_matmul once a step
+    with the int8 head."""
+    enc, lay = cfg.enc_layers, cfg.n_layers
+    cross = lay if cfg.is_encdec else 0
+    return {"flash_decode": (lay + cross) * steps,
+            "flash_decode_kv8": lay * steps if kv8 else 0,
+            "flash_decode_paged": lay * steps if paged else 0,
+            "flash_decode_grouped": 0, "prefix_pass": 0,
+            "flash_decode_contiguous": cross * steps,
+            "flash_prefill": enc + lay + cross, "flash_prefill_paged": 0,
+            "flash_prefill_noncausal": enc + cross,
+            "flash_prefill_cross": cross,
+            "w8a16_matmul": steps if int8 else 0, "ssd_prefill": 0}
+
+
+def step_serve(dev, cfg, model, batch, label, *, new, hx=None, window=1,
+               kv8=False, paged=False):
+    """One run through the step functions the reference serves these
+    families with (its engine cannot): ``make_prefill_step`` over the
+    batch (its K/V quantized with ``kv8``, moved into a pool under a
+    shuffled table with ``paged``), then ``new - 1`` greedy decode steps,
+    one ``serve_step`` each at window 1, else ``build_serve_multistep``
+    windows (eager; the last window's budget the steps left).  Counts set
+    to 0 just before; launches must equal ``step_counts``.  Prints TTFT
+    (the prefill's host wall, synchronized), the decode's host wall per
+    step, tok/s and its device time per step between CUDA events (launch
+    gaps in).  Returns ``{"streams" [B, new], "counts", "figures"}``."""
+    hx = hx or HelixConfig()
+    b, t = batch["tokens"].shape
+    cap = cache_capacity(t + new, hx.kvp, hx.rr_block)
+    steps = new - 1 if window == 1 else -(-(new - 1) // window) * window
+    registry.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = make_prefill_step(cfg, hx, s_cap=cap)(model, batch)
+    cur = torch.argmax(logits[:, :cfg.vocab], -1).to(torch.int32)
+    torch.cuda.synchronize()
+    ttft = time.perf_counter() - t0
+    if kv8:
+        state = quantize_decode_state(state)
+    if paged:
+        page = hx.kvp * hx.rr_block
+        full = torch.full((b,), cap, dtype=torch.int32)
+        tab, n_pool = shuffled_tables(torch.Generator().manual_seed(61),
+                                      full, page, cap // page)
+        state = state_to_paged(state, tab, n_pool, hx.kvp, page)
+    state["total_len"] = torch.full((b,), t, dtype=torch.int32, device=dev)
+    out = [cur]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t1 = time.perf_counter()
+    start.record()
+    if window == 1:
+        step = build_serve_step(cfg, hx)
+        for _ in range(new - 1):
+            cur, state = step(model, state, cur)
+            out.append(cur)
+    else:
+        multi = build_serve_multistep(cfg, hx, window=window)
+        eos = torch.full((b,), -1, dtype=torch.int32, device=dev)
+        forced = torch.zeros(b, window, dtype=torch.int32, device=dev)
+        n_forced = torch.zeros(b, dtype=torch.int32, device=dev)
+        left = new - 1
+        while left > 0:
+            budgets = torch.full((b,), min(window, left), dtype=torch.int32,
+                                 device=dev)
+            block, cur, state = multi(model, state, cur, budgets, eos,
+                                      forced, n_forced)
+            out += list(block[:, :min(window, left)].unbind(1))
+            left -= window
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = registry.launch_counts()
+    streams = torch.stack(out, 1).cpu()
+    need(streams.shape == (b, new) and int(streams.min()) >= 0
+         and int(streams.max()) < cfg.vocab,
+         f"{label}: streams {tuple(streams.shape)} outside [0, vocab)")
+    need(int(state["total_len"].min()) == t + new - 1,
+         f"{label}: total_len {state['total_len'].tolist()}")
+    want = step_counts(cfg, steps, int8=hx.lm_head_w8, kv8=kv8, paged=paged)
+    fig = {"ttft_ms": ttft * 1e3, "host_ms_per_step": wall / steps * 1e3,
+           "tok_s": b * (new - 1) / wall,
+           "events_ms_per_step": start.elapsed_time(end) / steps}
+    print(f"  {label}: B={b} T={t}, {new} tokens a row ({steps} decode "
+          f"steps{'' if window == 1 else f' in windows of {window}'}): "
+          f"TTFT {fig['ttft_ms']:.2f} ms, decode host wall "
+          f"{fig['host_ms_per_step']:.3f} ms/step, {fig['tok_s']:.1f} tok/s,"
+          f" events {fig['events_ms_per_step']:.3f} ms/step")
+    print(f"    launches {counts}")
+    need(counts == want, f"{label}: launch counts {counts} != {want}")
+    return {"streams": streams, "counts": counts, "figures": fig}
+
+
+def profile_steps(dev, cfg, model, batch, hx, label, n=5):
+    """Host wall and device kernel time of one decode step through
+    ``build_serve_step`` after a prefill of ``batch`` and 3 warm-up steps,
+    from torch.profiler over ``n`` steps (kernel and copy rows only)."""
+    from torch.profiler import ProfilerActivity, profile
+    b, t = batch["tokens"].shape
+    logits, state = make_prefill_step(cfg, hx, s_cap=cache_capacity(
+        t + n + 4, hx.kvp, hx.rr_block))(model, batch)
+    state["total_len"] = torch.full((b,), t, dtype=torch.int32, device=dev)
+    step = build_serve_step(cfg, hx)
+    tok = torch.argmax(logits[:, :cfg.vocab], -1).to(torch.int32)
+    for _ in range(3):
+        tok, state = step(model, state, tok)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            tok, state = step(model, state, tok)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n * 1e3
+    rows = prof.key_averages()
+    dev_us = lambda e: getattr(e, "self_device_time_total", 0)
+    device = sum(dev_us(e) for e in rows
+                 if not e.key.startswith("aten::")) / n / 1e3
+    calls = sum(e.count for e in rows if DECODE_KERNELS[0] in e.key)
+    b1 = (sum(dev_us(e) for e in rows if any(k in e.key
+                                               for k in DECODE_KERNELS))
+          / max(calls, 1) / 1e3)
+    ops = sum(e.count for e in rows if e.key.startswith("aten::")) / n
+    out = {"wall_ms": wall, "device_ms": device if device > 0 else None,
+           "flash_decode_ms_per_call": b1 if calls else None}
+    print(f"  {label} decode step profile (B={b}, T={t}): host wall "
+          f"{wall:.2f} ms/step, device kernels {fmt_ms(out['device_ms'])} "
+          f"per step ({ops:.0f} aten ops/step; flash_decode "
+          f"{fmt_ms(out['flash_decode_ms_per_call'])} a call, "
+          f"{calls / n:.0f} calls a step)")
+    return out
+
+
+def step_bytes(cfg, model, b, t):
+    """Bytes one decode step must read: every decoder weight it multiplies
+    by (not the embedding table, the encoder, or the cross-attention's wk
+    and wv, which the prefill used), once; the K/V of ``b`` rows of ``t``
+    positions; the cross K/V of an enc-dec arch.  bf16 throughout."""
+    skip = ("embed", "enc.", "xattn.wk", "xattn.wv")
+    w = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+            if not any(n.startswith(k) or k in n for k in skip))
+    if cfg.tie_embeddings:
+        w += model.embed.numel() * model.embed.element_size()
+    kv = 2 * cfg.n_layers * b * t * cfg.kv_dim * 2
+    xkv = (2 * cfg.n_layers * b * WH_S_ENC * cfg.kv_dim * 2
+           if cfg.is_encdec else 0)
+    return w, kv, xkv
+
+
+def serve_step_runs(dev, arch, label, batch_fn, *, new, runs, same_as,
+                    profile_batch=None):
+    """``arch`` at full width and depth (bf16, seeded random weights):
+    memory after the build and after the int8 head is quantized; the runs
+    ``runs`` (label -> ``step_serve`` keywords, ``int8`` meaning the int8
+    head) over the batch ``batch_fn`` makes, each run's streams equal to
+    those of the run ``same_as`` names; the decode-step profile beside its
+    byte bound.  Returns the runs and the profile."""
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, 0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    mem = {"model_gib": torch.cuda.max_memory_allocated() / 2**30}
+    prepare_decode_params(model, KV8_W8)
+    torch.cuda.synchronize()
+    mem["int8_head_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  {label} model: {wbytes / 1e9:.3f} GB of bf16 weights; peak "
+          f"memory {mem['model_gib']:.2f} GiB after the build, "
+          f"{mem['int8_head_gib']:.2f} GiB with the int8 head")
+    g = torch.Generator(device=dev).manual_seed(62)
+    batch = cast_batch(batch_fn(cfg, g, dev), torch.bfloat16)
+    out = {}
+    for name, kw in runs.items():
+        kw = dict(kw)
+        hx = HelixConfig(lm_head_w8=kw.pop("int8", False))
+        if kw.get("paged"):
+            hx = dataclasses.replace(hx, paged_kv=True)
+        if kw.get("kv8"):
+            hx = dataclasses.replace(hx, kv_cache_bits=8)
+        torch.cuda.reset_peak_memory_stats()
+        out[name] = step_serve(dev, cfg, model, batch, f"{label} {name}",
+                               new=new, hx=hx, **kw)
+        out[name]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        base = same_as.get(name)
+        if base in out:
+            need(torch.equal(out[name]["streams"], out[base]["streams"]),
+                 f"{label} {name}: streams differ from {base}'s")
+            print(f"    {label} {name} streams equal to {base}'s, token for "
+                  f"token ({out[name]['streams'].numel()} tokens); peak "
+                  f"memory {out[name]['peak_gib']:.2f} GiB")
+        else:
+            print(f"    {label} {name} peak memory "
+                  f"{out[name]['peak_gib']:.2f} GiB")
+    b, t = batch["tokens"].shape
+    prof = profile_steps(dev, cfg, model, profile_batch or batch,
+                         HelixConfig(), label)
+    w, kv, xkv = step_bytes(cfg, model, b, t + new)
+    prof["bound_ms"] = (w + kv + xkv) / HBM_BPS * 1e3
+    print(f"  {label} decode step byte bound {prof['bound_ms']:.4f} ms: "
+          f"{w / 1e9:.4f} GB of weights, {kv / 1e6:.1f} MB of K/V"
+          + (f", {xkv / 1e6:.1f} MB of cross K/V" if xkv else "")
+          + f"; device {fmt_ms(prof['device_ms'])} is "
+          + ("not measured" if prof["device_ms"] is None
+             else f"{prof['device_ms'] / prof['bound_ms']:.2f}x it"))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"runs": out, "profile": prof, "memory": mem}
+
+
+WH_RUNS = {"fp w1": {}, "fp w4": dict(window=WINDOW),
+           "int8 head w1": dict(int8=True),
+           "int8 head w4": dict(int8=True, window=WINDOW)}
+PH_RUNS = {"fp w1": {}, "fp w4": dict(window=WINDOW),
+           "paged fp w4": dict(window=WINDOW, paged=True),
+           "int8 KV w1": dict(kv8=True),
+           "int8 head w1": dict(int8=True)}
+
+
+def serve_whisper(dev):
+    """whisper-base at full width and depth (6 encoder and 6 decoder
+    layers, bf16, seeded random weights): 4 rows of 1500 frame embeddings
+    and 64 prompt tokens, 64 greedy tokens a row, through the step
+    functions: fp and int8 head at windows 1 and 4, window 4 == window 1
+    token for token."""
+    return serve_step_runs(dev, WHISPER, "whisper", whisper_batch, new=WH_NEW,
+                           runs=WH_RUNS,
+                           same_as={"fp w4": "fp w1",
+                                    "int8 head w4": "int8 head w1"})
+
+
+def serve_phi3(dev):
+    """phi-3-vision-4.2b at full width and depth (32 layers, 32 MHA heads
+    of 96, bf16, seeded random weights, ~7.6 GB): 4 rows of 256 patch
+    embeddings + 512 text tokens, 32 greedy tokens a row, through the step
+    functions: fp at windows 1 and 4, fp from a paged pool at window 4
+    (equal streams), the int8 KV cache (``quantize_decode_state`` on the
+    prefill's state) and the int8 head."""
+    return serve_step_runs(dev, PHI3, "phi-3-vision", phi3_batch, new=PH_NEW,
+                           runs=PH_RUNS,
+                           same_as={"fp w4": "fp w1", "paged fp w4": "fp w1"})
+
+
+def compare_whisper(dev):
+    """whisper-base at full width and depth in f32 (``compare_small``): 1500
+    frames and 64 tokens, prefill + 4 decode steps."""
+    compare_small(dev, WHISPER, 63, dict(attn_backend="ref",
+                                         prefill_backend="ref",
+                                         matmul_backend="ref"), "whisper",
+                  n_layers=6, t=WH_T, s_cap=128,
+                  extra=lambda cfg, g: {
+                      "enc_frames": whisper_batch(cfg, g, dev, b=1)[
+                          "enc_frames"]})
+
+
+def compare_phi3(dev):
+    """4 layers of phi-3-vision at full width in f32 (``compare_small``):
+    256 patches + 128 tokens, prefill + 4 decode steps."""
+    compare_small(dev, PHI3, 64, dict(attn_backend="ref",
+                                      prefill_backend="ref",
+                                      matmul_backend="ref"), "phi-3-vision",
+                  t=PH_P + 128, s_cap=448,
+                  extra=lambda cfg, g: {
+                      "patch_embeds": phi3_batch(cfg, g, dev, b=1)[
+                          "patch_embeds"]})
+
+
+def times_encdec_vlm(dev):
+    """The new kernel modes and head size 96, bf16, timed as the table's
+    rows are: B1 contiguous at whisper's cross shape (B = 4, 8 heads of 64,
+    1500 frames, kvp 1; SDPA with a length mask); B2 non-causal (B = 4, T
+    = S = 1500; SDPA without a mask) and cross (T = 64 over S = 1500); B2
+    at head size 96 (B = 1, T = 768, 32/32 heads, causal; SDPA
+    ``is_causal``); B1 at head size 96 fp, int8 and paged at the serve
+    shape (B = 4, lengths 700-1000, 32/32 heads) and at B = 8, S = 4096;
+    B3 at whisper's head (K = 512, N = 52224) and phi-3's (K = 3072, N =
+    32256), M = 4."""
+    g = torch.Generator(device=dev).manual_seed(65)
+    dt, es = torch.bfloat16, 2
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(dt)
+    b, s, h, hsz = 4, WH_S_ENC, WH_H, WH_HSZ
+    out, shapes = {}, []
+    q, k, v = rnd(b, h, hsz), rnd(b, h, s, hsz), rnd(b, h, s, hsz)
+    tl = torch.tensor(s, dtype=torch.int32, device=dev)
+    kw = dict(kvp=1, n_ranks=1, rank=0, rr_block=RR, window=0,
+              contiguous=True, slot_offset=0, k_new=None, v_new=None)
+    mask = (torch.arange(s, device=dev) < tl)[None, None, None].expand(
+        b, 1, 1, s)
+    fn = lambda: flash_decode_shards(q, k, v, tl, **kw)
+    con = {**timed(fn), "device_ms": device_ms(fn, DECODE_KERNELS),
+           "plain_ms": time_ms(lambda: flash_decode_shards_plain(
+               q, k, v, tl, scale=hsz ** -0.5,
+               block_s=kernel_block_s(512, s), **kw), iters=3, warmup=1),
+           "library_ms": queued_ms(lambda: F.scaled_dot_product_attention(
+               q[:, :, None], k, v, attn_mask=mask)),
+           "library": "sdpa with a mask of the length"}
+    con.update(_bound(2 * b * h * s * hsz * es + 2 * b * h * hsz * es
+                      + b * h * 4, 4 * b * h * hsz * s, PEAK[dt]))
+    out["flash_decode_contiguous"] = con
+    shapes.append(("flash_decode_contiguous",
+                   f"B={b} S_enc={s} kvp 1, {h} heads of {hsz} bf16"))
+    kp, vp = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    for name, t in (("flash_prefill_noncausal", s),
+                    ("flash_prefill_cross", WH_T)):
+        qp = rnd(b, t, h, hsz)
+        pre = {**timed(lambda: flash_prefill(qp, kp, vp, causal=False)),
+               "plain_ms": time_ms(lambda: flash_prefill_ref(
+                   qp, kp, vp, causal=False), iters=10),
+               "library_ms": queued_ms(lambda: F.scaled_dot_product_attention(
+                   qp.transpose(1, 2), kp.transpose(1, 2),
+                   vp.transpose(1, 2))),
+               "library": "sdpa without a mask"}
+        pre.update(_bound((2 * b * t * h * hsz + 2 * b * s * h * hsz) * es,
+                          4 * b * h * hsz * t * s, PEAK[dt]))
+        out[name] = pre
+        shapes.append((name, f"B={b} T={t} S={s} non-causal bf16, {h} heads "
+                             f"of {hsz}"))
+    out["flash_prefill_phi3"] = time_prefill_at(g, dev, PH_H, PH_H,
+                                                t=PH_P + PH_TEXT, hsz=PH_HSZ)
+    heads = f"{PH_H}/{PH_H} heads of {PH_HSZ}"
+    shapes.append(("flash_prefill_phi3", f"B=1 T={PH_P + PH_TEXT} causal "
+                                         f"bf16, {heads}"))
+    for tag, tlens, cap in (("", (1000, 900, 800, 700), 1088),
+                            ("_b8", (4096,) * 8, 4096)):
+        dd = decode_serve_inputs(g, dev, PH_H, PH_H, hsz=PH_HSZ, tl=tlens,
+                                 cap=cap)
+        recs = (time_decode_at(dd),) + time_decode_modes(g, dev, dd)[:2]
+        shape = ("B=4 lengths 700-1000 cap 1088" if not tag
+                 else "B=8 S=4096") + f", {heads}, fused append"
+        for mode, rec in zip(("", "_kv8", "_paged"), recs):
+            name = f"flash_decode_phi3{mode}"
+            if tag:
+                out[name]["b8_s4096"] = rec
+            else:
+                out[name] = rec
+            out[name + tag] = rec
+            shapes.append((name + tag, shape + {"": " bf16",
+                                                "_kv8": ", int8 K/V",
+                                                "_paged": ", bf16 paged"}[mode]))
+        del dd
+    for name, d, vp_ in (("w8a16_matmul_whisper", WH_D, WH_VP),
+                         ("w8a16_matmul_phi3", PH_D, PH_VP)):
+        out[name] = mm = time_w8a16_at(g, dev, d, vp_)
+        shapes.append((name, f"M=4 K={d} N={vp_} bf16 x, {mm['ctas']} CTAs"))
+    print_times(out, shapes)
+    for name in [n for n in out if n.endswith("_b8")]:
+        del out[name]
+    return out
+
+
 def rotating(fns):
     """One callable that calls ``fns`` in turn."""
     it = itertools.cycle(fns)
@@ -4034,6 +4505,19 @@ def main() -> int:
         short = name.split("decode_kernel")[-1].split("EEEvNS_")[0]
         print(f"    flash_decode: decode_kernel{short}: {regs} registers, "
               f"spill {st} / {ld}")
+    print("  the hsz 96 instances (phi-3-vision): registers, spill stores / "
+          "loads (bytes)")
+    for bk in built.values():
+        inst, _ = ptxas_instances(bk.ptxas, "Li96E")
+        for name, regs, st, ld in inst:
+            short = re.sub(r"^\d+", "", name.split("_cu_")[-1][8:])
+            print(f"    {bk.name}: {short.split('EvNS_')[0]}: {regs} "
+                  f"registers, spill {st} / {ld}")
+    need(any(ptxas_instances(bk.ptxas, "Li96E")[0]
+             for bk in built.values()), "no hsz 96 instance in the build")
+    print("  (the build holds the decode tiles' swizzle to a permutation of "
+          "each row's 16-byte units at every instantiated (type, head size):"
+          " a static_assert in decode_tile.cuh's Ring)")
 
     print(f"== 3 kernels vs plain on the card (t = "
           f"{time.perf_counter() - T0:.1f} s)")
@@ -4064,7 +4548,15 @@ def main() -> int:
                                   "flash_decode_llama_kv8",
                                   "flash_decode_llama_paged",
                                   "prefix_pass_llama",
-                                  "w8a16_matmul_llama")}
+                                  "w8a16_matmul_llama",
+                                  "flash_prefill_noncausal",
+                                  "flash_prefill_cross",
+                                  "flash_decode_contiguous",
+                                  "flash_prefill_phi3", "flash_decode_phi3",
+                                  "flash_decode_phi3_kv8",
+                                  "flash_decode_phi3_paged",
+                                  "w8a16_matmul_whisper",
+                                  "w8a16_matmul_phi3")}
     check_decode(dev, errs["flash_decode"])
     check_decode_kv8(dev, errs["flash_decode_kv8"])
     check_decode_paged(dev, errs["flash_decode_paged"],
@@ -4109,6 +4601,18 @@ def main() -> int:
         check_w8a16_head(dev, errs[f"w8a16_matmul_{tag}"],
                          torch.Generator(device=dev).manual_seed(seed), d,
                          vp, tag)
+    stamp("the kernels at whisper-base's and phi-3-vision's shapes")
+    check_encdec_modes(dev, errs)
+    check_prefill_group(dev, errs["flash_prefill_phi3"],
+                        errs["flash_prefill_paged"], PH_H, PH_H, 66,
+                        hsz=PH_HSZ, t=PH_P + PH_TEXT)
+    check_decode_group(dev, errs, PH_H, PH_H, 67, "flash_decode_phi3",
+                       hsz=PH_HSZ)
+    for tag, d, vp, seed in (("whisper", WH_D, WH_VP, 68),
+                             ("phi3", PH_D, PH_VP, 69)):
+        check_w8a16_head(dev, errs[f"w8a16_matmul_{tag}"],
+                         torch.Generator(device=dev).manual_seed(seed), d,
+                         vp, tag)
     check_sampler(dev)
 
     print(f"== 4 (t = {time.perf_counter() - T0:.1f} s) serve granite-3-2b "
@@ -4143,11 +4647,13 @@ def main() -> int:
     compare_gemma3(dev)
     plain = dict(attn_backend="ref", prefill_backend="ref",
                  matmul_backend="ref")
-    print(f"== 4 (t = {time.perf_counter() - T0:.1f} s) serve {SC2} (40 "
-          "layers, bf16, 48 q / 4 kv heads of 128: G = 12, ungated GELU): "
-          "greedy, top-p at windows 1 and 4, paged, int8 head + int8 KV; "
-          "chunked unshared, prefix-shared and grouped; 4-layer f32 checks")
-    sc2 = serve_dense(dev, SC2, "starcoder2", graph=True)
+    print(f"== 4 (t = {time.perf_counter() - T0:.1f} s) serve {SC2} "
+          f"({SC2_LAYERS} of 40 layers, bf16, 48 q / 4 kv heads of 128: G = "
+          "12, ungated GELU): greedy, top-p at windows 1 and 4, paged, int8 "
+          "head + int8 KV; chunked unshared, prefix-shared and grouped; "
+          "4-layer f32 checks")
+    sc2 = serve_dense(dev, SC2, "starcoder2", n_layers=SC2_LAYERS,
+                      graph=True)
     compare_small(dev, SC2, 56, plain, "starcoder2")
     print(f"== 4 (t = {time.perf_counter() - T0:.1f} s) serve {LLAMA} at "
           f"full width, its depth cut to {LLAMA_LAYERS} of 126 layers (bf16, "
@@ -4164,6 +4670,18 @@ def main() -> int:
     serve_dense(dev, G8B, "granite-8b", names=("greedy w4",
                                                 "paged int8 greedy w4"),
                 shared=(), profiles=False)
+    print(f"== 4 (t = {time.perf_counter() - T0:.1f} s) serve {WHISPER} (6 "
+          "encoder + 6 decoder layers, bf16, 8 heads of 64, 1500 frames) "
+          "through the step functions: fp and int8 head at windows 1 and 4;"
+          " full-depth f32 checks")
+    whisper = serve_whisper(dev)
+    compare_whisper(dev)
+    print(f"== 4 (t = {time.perf_counter() - T0:.1f} s) serve {PHI3} (32 "
+          "layers, bf16, 32 MHA heads of 96, 256 patches + 512 tokens) "
+          "through the step functions: fp w1 and w4, paged w4, int8 KV, "
+          "int8 head; 4-layer f32 checks")
+    phi3 = serve_phi3(dev)
+    compare_phi3(dev)
 
     print(f"== 5 times (t = {time.perf_counter() - T0:.1f} s)")
     timed = times(dev)
@@ -4189,6 +4707,11 @@ def main() -> int:
     for tag, run in (("sc2", sc2), ("llama", llama)):
         timed[f"flash_prefill_{tag}"][f"{tag}_prefill"] = run["prefill"]
         timed[f"flash_decode_{tag}"][f"{tag}_decode_step"] = run["decode"]
+    stamp("whisper and phi-3-vision kernel times")
+    timed.update(times_encdec_vlm(dev))
+    timed["flash_decode_contiguous"]["whisper_decode_step"] = \
+        whisper["profile"]
+    timed["flash_decode_phi3"]["phi3_decode_step"] = phi3["profile"]
 
     # launches: each kernel's count in the run of the path it serves
     fp, int8 = runs["fp"][0]["counts"], runs["int8"][0]["counts"]
@@ -4242,6 +4765,19 @@ def main() -> int:
             f"w8a16_matmul_{tag}": rc["int8 greedy w4"]["w8a16_matmul"]})
     launches["prefix_pass_llama"] = \
         llama["shared"]["c + grouped_decode"]["counts"]["prefix_pass"]
+    wh = {name: r["counts"] for name, r in whisper["runs"].items()}
+    ph = {name: r["counts"] for name, r in phi3["runs"].items()}
+    launches.update({
+        "flash_prefill_noncausal": wh["fp w1"]["flash_prefill_noncausal"]
+        - wh["fp w1"]["flash_prefill_cross"],
+        "flash_prefill_cross": wh["fp w1"]["flash_prefill_cross"],
+        "flash_decode_contiguous": wh["fp w1"]["flash_decode_contiguous"],
+        "w8a16_matmul_whisper": wh["int8 head w1"]["w8a16_matmul"],
+        "flash_prefill_phi3": ph["fp w1"]["flash_prefill"],
+        "flash_decode_phi3": ph["fp w1"]["flash_decode"],
+        "flash_decode_phi3_kv8": ph["int8 KV w1"]["flash_decode_kv8"],
+        "flash_decode_phi3_paged": ph["paged fp w4"]["flash_decode_paged"],
+        "w8a16_matmul_phi3": ph["int8 head w1"]["w8a16_matmul"]})
     decode_src = ("src/repro_torch/csrc/flash_decode.cu",
                   "src/repro/kernels/flash_decode/kernel.py:417")
     prefill_src = ("src/repro_torch/csrc/flash_prefill.cu",
@@ -4277,6 +4813,15 @@ def main() -> int:
                "prefix_pass_llama": ("src/repro_torch/csrc/prefix_pass.cu",
                                      "src/repro/kernels/flash_decode/"
                                      "kernel.py:702")}
+    sources.update({"flash_prefill_noncausal": prefill_src,
+                    "flash_prefill_cross": prefill_src,
+                    "flash_decode_contiguous": decode_src,
+                    "w8a16_matmul_whisper": mm_src,
+                    "flash_prefill_phi3": prefill_src,
+                    "flash_decode_phi3": decode_src,
+                    "flash_decode_phi3_kv8": decode_src,
+                    "flash_decode_phi3_paged": decode_src,
+                    "w8a16_matmul_phi3": mm_src})
     for tag in ("sc2", "llama"):
         sources.update({f"flash_prefill_{tag}": prefill_src,
                         f"flash_decode_{tag}": decode_src,

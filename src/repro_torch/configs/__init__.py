@@ -1,7 +1,8 @@
 """Architecture configs of the port: only the fields its serving paths read
 (dense GQA with a gated or an ungated FFN, local:global windowed attention,
-pure SSM, the attention + SSM hybrid and the mixture of experts), plus
-``get_config``.  Mirrors ``repro/configs/base.py``."""
+pure SSM, the attention + SSM hybrid, the mixture of experts, the
+encoder-decoder and the vision-language stub), plus ``get_config``.
+Mirrors ``repro/configs/base.py``."""
 from __future__ import annotations
 
 import dataclasses
@@ -24,7 +25,7 @@ class MoEConfig:
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                 # dense | ssm | hybrid | moe in this port
+    family: str                 # dense | ssm | hybrid | moe | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -48,6 +49,14 @@ class ArchConfig:
     ssm_expand: int = 2
     ssm_ngroups: int = 1
     moe: MoEConfig | None = None  # routed experts beside or instead of d_ff
+    # encoder-decoder (whisper): a bidirectional encoder of enc_layers over
+    # frame embeddings, cross-attention in every decoder layer
+    is_encdec: bool = False
+    enc_layers: int = 0
+    enc_seq_ratio: int = 1      # encoder frames per decoder token in shapes
+    # vlm stub front end: patch embeddings replace the first vision_patches
+    # token embeddings
+    vision_patches: int = 0
 
     @property
     def hsz(self) -> int:
@@ -90,24 +99,28 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family variant for CPU tests (the reference's
-        ``ArchConfig.reduced`` rule for the dense, windowed, SSM, hybrid and
-        MoE families: one whole local:global period and a window of at most
-        32 for windowed archs, else 2 layers; at most 8 experts, top at most
-        2, expert ``d_ff`` 64 and a capacity factor of 8, so that reduced
-        prefills drop no token)."""
+        ``ArchConfig.reduced`` rule: one whole local:global period and a
+        window of at most 32 for windowed archs, else 2 layers; at most 8
+        experts, top at most 2, expert ``d_ff`` 64 and a capacity factor of
+        8, so that reduced prefills drop no token; at most 2 encoder layers
+        and 8 patches; the vlm family keeps MHA)."""
         moe = self.moe and dataclasses.replace(
             self.moe, n_experts=min(self.moe.n_experts, 8),
             topk=min(self.moe.topk, 2), d_ff=64, capacity_factor=8.0)
+        n_heads = min(self.n_heads, 4)
         return dataclasses.replace(
             self, name=self.name + "-reduced",
             n_layers=(self.local_ratio + 1 if self.local_ratio
                       else min(self.n_layers, 2)), d_model=128,
-            n_heads=min(self.n_heads, 4),
-            n_kv_heads=min(self.n_kv_heads, 2), head_dim=32,
+            n_heads=n_heads,
+            n_kv_heads=(n_heads if self.family == "vlm"
+                        else min(self.n_kv_heads, 2)), head_dim=32,
             d_ff=256 if self.d_ff else 0, vocab=512,
             ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
             ssm_headdim=32 if self.has_ssm else self.ssm_headdim, moe=moe,
-            local_window=min(self.local_window, 32))
+            local_window=min(self.local_window, 32),
+            enc_layers=min(self.enc_layers, 2),
+            vision_patches=min(self.vision_patches, 8))
 
 
 # granite-3-2b [dense] — GQA, hf:ibm-granite/granite-3.0-2b-base.
@@ -174,9 +187,29 @@ LLAMA_405B = ArchConfig(
     name="llama-405b", family="dense", n_layers=126, d_model=16_384,
     n_heads=128, n_kv_heads=8, d_ff=53_248, vocab=128_256)
 
+# whisper-base [audio] — encoder-decoder, arXiv:2212.04356: 6 encoder and 6
+# decoder layers, MHA 8 heads of 64, ungated GELU, sinusoidal positions (no
+# RoPE), untied head.  As in the JAX package: the conv audio front end is a
+# stub (callers pass frame embeddings [B, S_enc, d_model]) and every norm is
+# an RMSNorm without biases.
+WHISPER_BASE = ArchConfig(
+    name="whisper-base", family="audio", n_layers=6, d_model=512, n_heads=8,
+    n_kv_heads=8, d_ff=2048, vocab=51_865, act="gelu", use_rope=False,
+    is_encdec=True, enc_layers=6, enc_seq_ratio=1)
+
+# phi-3-vision-4.2b [vlm] — hf:microsoft/Phi-3-vision-128k-instruct: the
+# phi-3-mini backbone, MHA 32 heads of 96, gated SiLU, untied head.  As in
+# the JAX package: the CLIP tower is a stub (callers pass 256 patch
+# embeddings [B, P, d_model], which replace the first P token embeddings),
+# one RoPE base of 1e4 and no su-scaling.
+PHI_3_VISION_4_2B = ArchConfig(
+    name="phi-3-vision-4.2b", family="vlm", n_layers=32, d_model=3072,
+    n_heads=32, n_kv_heads=32, d_ff=8192, vocab=32_064, vision_patches=256)
+
 _CONFIGS = {c.name: c for c in (GRANITE_3_2B, MAMBA2_780M, HYMBA_1_5B,
                                 GRANITE_MOE_1B_A400M, GEMMA3_12B,
-                                STARCODER2_15B, GRANITE_8B, LLAMA_405B)}
+                                STARCODER2_15B, GRANITE_8B, LLAMA_405B,
+                                WHISPER_BASE, PHI_3_VISION_4_2B)}
 
 
 def get_config(name: str) -> ArchConfig:

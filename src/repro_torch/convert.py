@@ -11,7 +11,9 @@ the ``layers/ssm/*`` leaves (``w_in``, ``conv_w``, ``conv_b``, ``A_log``,
 ``D``, ``dt_bias``, ``norm_w``, ``w_out``), a hybrid layer both its
 ``attn`` and ``ssm`` leaves; an MoE layer its ``layers/moe/*`` leaves
 (``router``, ``w1``, ``w3``, ``w2``); an untied model takes ``lm_head``
-[d, Vp]; a ``dtype`` leaves the four the reference keeps in f32
+[d, Vp]; an enc-dec model its decoder layers' ``lnx`` and ``xattn/*``
+leaves and the encoder's ``enc/layers/*`` (stacked ``[enc_layers, ...]``)
+and ``enc/ln_f``; a ``dtype`` leaves the four the reference keeps in f32
 (``A_log``, ``D``, ``dt_bias`` and the MoE ``router``) in f32.
 """
 from __future__ import annotations
@@ -44,17 +46,17 @@ def params_from_jax(params_np: dict, cfg: ArchConfig, *, dtype=None,
     head = [params_np.pop(k, None) for k in ("lm_head_q8", "lm_head_scale")]
     if (head[0] is None) != (head[1] is None):
         raise KeyError("lm_head_q8 and lm_head_scale come as a pair")
+    stacks = (("layers.", cfg.n_layers), ("enc.layers.", cfg.enc_layers))
     for name, leaf in _flatten(params_np):
         leaf = np.asarray(leaf)
-        if name.startswith("layers."):
-            rest = name[len("layers."):]
-            if leaf.shape[0] != cfg.n_layers:
-                raise ValueError(f"{name}: leading dim {leaf.shape[0]} != "
-                                 f"{cfg.n_layers} layers")
-            targets = [(f"layers.{i}.{rest}", leaf[i])
-                       for i in range(cfg.n_layers)]
-        else:
-            targets = [(name, leaf)]
+        targets = [(name, leaf)]
+        for prefix, n in stacks:
+            if name.startswith(prefix):
+                if leaf.shape[0] != n:
+                    raise ValueError(f"{name}: leading dim {leaf.shape[0]} "
+                                     f"!= {n} layers")
+                rest = name[len(prefix):]
+                targets = [(f"{prefix}{i}.{rest}", leaf[i]) for i in range(n)]
         for tname, arr in targets:
             if tname not in ours:
                 raise KeyError(f"reference leaf {name!r} has no port "

@@ -31,9 +31,15 @@
 //
 // Layout in shared memory.  K/V tiles stay in their storage type (f32,
 // bf16, or int8 with f32 per-slot scales in a separate array) and are
-// converted at use.  A tile is TS rows of HSZ elements; its 16-byte units
-// are XOR-swizzled per row (swz) so that the 32 lanes of a warp, one slot
-// each, read one unit of 32 different rows without bank conflicts.
+// converted at use.  A tile is TS rows of HSZ elements; its RV 16-byte
+// units are permuted per row (swz) so that the 32 lanes of a warp, one
+// slot each, read one unit of 32 different rows without bank conflicts.
+// The units in whole groups of 8 are XORed with row & 7 inside their
+// group; a tail of T < 8 units (RV = 2, 4; 6 for int8 at head size 96;
+// the last 4 of bf16's 12 at 96) is XORed inside itself when T is a power
+// of two and rotated by one every 4 rows otherwise, so each 8 lanes read 8
+// distinct bank groups at every RV built, and swz stays inside the row.
+// Layout::swz_ok checks the permutation at compile time for each layout.
 #pragma once
 #include "common.cuh"
 
@@ -119,8 +125,25 @@ struct Layout {
   static constexpr int NS0 = 32768 / STAGE_BYTES;
   static constexpr int NS = NS0 < 3 ? 3 : (NS0 > CPT ? CPT : NS0);
   static constexpr int RING_BYTES = NS * STAGE_BYTES;
-  __device__ static __forceinline__ int swz(int row, int u) {
-    return RV >= 8 ? (u ^ (row & 7)) : (u ^ ((row * RV / 8) % RV));
+  static constexpr int G8 = RV / 8 * 8;             // units in groups of 8
+  static constexpr int T = RV - G8;                 // the tail's units
+  __host__ __device__ static constexpr int swz(int row, int u) {
+    return u < G8 ? (u ^ (row & 7))
+           : (T & (T - 1)) == 0 ? G8 + ((u - G8) ^ ((row * T / 8) % T))
+                                : G8 + (u - G8 + ((row >> 2) & 1)) % T;
+  }
+  // swz maps each row's units [0, RV) onto themselves, one to one
+  static constexpr bool swz_ok() {
+    if (RV < 1 || RV > 64 || RV * VN != HSZ) return false;
+    for (int row = 0; row < TS; ++row) {
+      unsigned long long seen = 0;
+      for (int u = 0; u < RV; ++u) {
+        const int w = swz(row, u);
+        if (w < 0 || w >= RV || ((seen >> w) & 1)) return false;
+        seen |= 1ull << w;
+      }
+    }
+    return true;
   }
 };
 
@@ -135,6 +158,7 @@ struct Layout {
 template <typename KT, int HSZ, int NT>
 struct Ring {
   using L = Layout<KT, HSZ>;
+  static_assert(L::swz_ok(), "swz must permute each row's 16-byte units");
   static constexpr int UNITS = TS * L::RV;   // 16-byte units per K (or V) tile
   static constexpr int UPT = (UNITS + NT - 1) / NT;
   KT* ks;              // [NS][ELEMS]
@@ -209,12 +233,26 @@ struct Rows {
 
 // Load this lane's DPL dims of row j of a V tile as floats.  Dims of
 // different 16-byte units sit at different swizzled places, so DPL beyond
-// one unit (f32 at hsz 256: 8 dims, two units) loads unit by unit.
+// one unit (f32 at hsz 256: 8 dims, two units) loads unit by unit, and a
+// DPL that does not divide the unit (3 at hsz 96: a lane's dims may
+// straddle two units) element by element, each through its own unit.
 template <typename KT, int HSZ>
 __device__ __forceinline__ void load_dims(const KT* vt, int j, int lane, float* f) {
   using L = Layout<KT, HSZ>;
   constexpr int DPL = L::DPL;
   const int d0 = lane * DPL;
+  if constexpr (L::VN % DPL != 0 && DPL < L::VN) {
+#pragma unroll
+    for (int d = 0; d < DPL; ++d) {
+      const int e = d0 + d;
+      const KT x = vt[j * HSZ + L::swz(j, e / L::VN) * L::VN + e % L::VN];
+      if constexpr (std::is_same<KT, int8_t>::value)
+        f[d] = __uint_as_float(0x4B000000u | (uint32_t)((uint8_t)x ^ 0x80u)) - 8388736.0f;
+      else
+        f[d] = to_f(x);
+    }
+    return;
+  }
   if constexpr (DPL > L::VN) {
     constexpr int UPL = DPL / L::VN;   // whole units per lane
 #pragma unroll

@@ -35,6 +35,11 @@
 // so the ring has its floor of 3 stages and the CTA 212,496 bytes of
 // shared memory, one CTA an SM.
 //
+// Head size 96 (phi-3-vision): a lane holds 3 dims, which may straddle two
+// 16-byte units, so load_dims reads them element by element; a bf16 row has
+// 12 units and an int8 row 6, so the swizzle permutes a tail of units that
+// is not a group of 8 (decode_tile.cuh); 4 rows a warp as at 128.
+//
 // Rows.  One CTA holds all G query rows of its kv head, so each K/V tile is
 // read once for the whole group: RW rows a warp, 1 for G <= 4, 2 for G <= 8
 // and 4 for G <= 16 (starcoder2's G = 12, llama's 16), the last only at
@@ -399,6 +404,7 @@ cudaError_t launch_hsz(DecodeArgs& a, int hsz, cudaStream_t stream) {
   switch (hsz) {
     case 32: return launch_rw<T, KT, 32>(a, stream);
     case 64: return launch_rw<T, KT, 64>(a, stream);
+    case 96: return launch_rw<T, KT, 96>(a, stream);
     case 128: return launch_rw<T, KT, 128>(a, stream);
     case 256: return launch_rw<T, KT, 256>(a, stream);
     default: return cudaErrorInvalidValue;

@@ -46,11 +46,22 @@
 // registers and O += P V runs as wgmma with P from registers and V from
 // shared memory (transposed B, one m64n64 product per 64-column panel of
 // hsz).  The epilogue writes O / l in f32 -> bf16, zeros where l == 0.
-// hsz 32 is zero-padded to one panel.  The two products and the softmax
-// run in turn inside the warpgroup; the ~4 blocks on each SM overlap one
-// another's.  (Issuing the next S before the softmax, so that P V runs
-// under it, made ptxas serialize every wgmma (C7514: accumulators read
-// while another wgmma is in flight) and was no faster.)
+// The two products and the softmax run in turn inside the warpgroup; the
+// ~4 blocks on each SM overlap one another's.  (Issuing the next S before
+// the softmax, so that P V runs under it, made ptxas serialize every wgmma
+// (C7514: accumulators read while another wgmma is in flight) and was no
+// faster.)
+//
+// Shared tiles hold whole 64-column panels: hsz 32 is zero-padded to one
+// and hsz 96 (phi-3-vision) to two (HP = 128, chunks 12-15 of each row
+// zero-filled by the copies).  S = Q K^T runs over the HSZ / 16 k-steps
+// that hold data (6 at 96), not over the padding.  P V runs one m64n64
+// product per panel, at 96 the second over 32 zero columns that the
+// epilogue does not store.  That keeps one accumulator shape (32 f32 a
+// thread a panel) and the 64-column swizzled panel the descriptors of
+// every head size read; an m64n96 product would save those 25% of P V's
+// products but need a 48-register fragment and a V tile laid across one
+// and a half panels.
 //
 // f32 (prefill_kernel): both products on the CUDA cores in f32 with 4x4
 // register tiles from shared memory; TF32 would lose the f32 parity checks.
@@ -336,13 +347,15 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// s = Q K^T (one commit group): Q and the K tile are [64][HP] in 64-column
-// panels; each k16 step advances 32 bytes inside a panel's swizzled rows.
-template <int HP>
+// s = Q K^T (one commit group) over the first KD columns: Q and the K tile
+// are [64][HP] in 64-column panels; each k16 step advances 32 bytes inside
+// a panel's swizzled rows.
+template <int KD>
 __device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t sq, uint32_t sk) {
   constexpr uint32_t PANEL_BYTES = ROWS * 64 * 2;
+  static_assert(KD % 16 == 0, "whole k16 steps");
 #pragma unroll
-  for (int kk = 0; kk < HP / 16; ++kk) {
+  for (int kk = 0; kk < KD / 16; ++kk) {
     const uint32_t off = (kk / 4) * PANEL_BYTES + (kk % 4) * 32;
     wgmma_ss(s, sw128_desc(sq + off), sw128_desc(sk + off), kk > 0);
   }
@@ -354,14 +367,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// HSZ: head size (32, 64, 128, 256); HP: columns held in shared memory (a
-// multiple of the 64-column panel; hsz 32 is zero-padded).  At 256 a
+// HSZ: head size (32, 64, 96, 128, 256); HP: columns held in shared memory
+// (HSZ rounded up to the 64-column panel; hsz 32 and 96 are zero-padded).  At 256 a
 // thread holds 128 f32 of O (4 panels of 32) beside S's 32 and P's 16
 // packed words: 219 registers, no spill and no serialized wgmma (ptxas,
 // CUDA 12.8), and 164,864 bytes of shared memory (Q, K[2], V[2]).
 template <int HSZ>
 __global__ void __launch_bounds__(WG) prefill_wgmma(PrefillArgs a) {
-  constexpr int HP = HSZ < PANEL ? PANEL : HSZ;
+  constexpr int HP = (HSZ + PANEL - 1) / PANEL * PANEL;
   constexpr int NP = HP / PANEL;               // panels
   constexpr int CH = HP / 8;                   // 16-byte chunks per row
   constexpr int CHV = HSZ / 8;                 // chunks holding data
@@ -461,7 +474,7 @@ __global__ void __launch_bounds__(WG) prefill_wgmma(PrefillArgs a) {
     // S = Q K^T
     fence_regs(s);
     wgmma_fence();
-    issue_qk<HP>(s, sq, sk(st));
+    issue_qk<HSZ>(s, sq, sk(st));
     wgmma_wait<0>();
     fence_regs(s);
 
@@ -560,7 +573,7 @@ cudaError_t launch(const PrefillArgs& a, cudaStream_t stream) {
   const int bq = ROWS / a.G;
   dim3 grid((a.T + bq - 1) / bq, a.Kh, a.B);
   if constexpr (sizeof(T) == 2) {
-    constexpr int HP = HSZ < PANEL ? PANEL : HSZ;
+    constexpr int HP = (HSZ + PANEL - 1) / PANEL * PANEL;
     const size_t smem = 1024 + (size_t)ROWS * HP * 2 * 5;   // Q, K[2], V[2]
     cudaError_t err = allow_smem(prefill_wgmma<HSZ>, smem);
     if (err != cudaSuccess) return err;
@@ -579,6 +592,7 @@ cudaError_t launch_hsz(const PrefillArgs& a, int hsz, cudaStream_t stream) {
   switch (hsz) {
     case 32: return launch<T, 32>(a, stream);
     case 64: return launch<T, 64>(a, stream);
+    case 96: return launch<T, 96>(a, stream);
     case 128: return launch<T, 128>(a, stream);
     case 256: return launch<T, 256>(a, stream);
     default: return cudaErrorInvalidValue;

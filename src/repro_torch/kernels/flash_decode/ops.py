@@ -49,11 +49,15 @@ counter = build.Launches()         # every launch of the kernel
 counter_kv8 = build.Launches()     # the launches in int8 mode among them
 counter_paged = build.Launches()   # the launches in paged mode among them
 counter_grouped = build.Launches()  # ... in the grouped-suffix mode among them
+counter_contiguous = build.Launches()  # ... in the contiguous layout among them
 counter_prefix = build.Launches()   # launches of the prefix_pass kernel
 last_launch = {"chunks_per_cta": 1}  # the decode kernel's last grid choice
 MAX_G = 16                  # query heads per KV head the kernel holds
 MAX_G_256 = 8               # the same at head size 256
-HSZ = (32, 64, 128, 256)    # head sizes the kernel is compiled for
+HSZ = (32, 64, 96, 128, 256)    # head sizes the decode kernel is built for
+# prefix_pass is not built at head size 96: grouped decode needs chunked
+# prefill, which no head-size-96 arch runs (phi-3-vision is a vlm)
+PREFIX_HSZ = (32, 64, 128, 256)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _WS: dict = {}              # (name, device) -> cached workspace tensor
@@ -658,6 +662,7 @@ def _launch(q, k, v, total_len, *, kvp, n_ranks, rank, rr_block, window, scale,
     counter_kv8.n += kscale is not None
     counter_paged.n += block_tables is not None
     counter_grouped.n += groups is not None
+    counter_contiguous.n += bool(contiguous)
     return out, lse
 
 
@@ -696,9 +701,9 @@ def _launch_prefix(q, k, v, kscale, vscale, tl, tl0, tables, gid, gnp, *,
            scale)
     plan = _PLANS.get(key)
     if plan is None:
-        if hsz not in HSZ:
-            raise ValueError(f"prefix_pass kernel takes hsz in {HSZ} (got "
-                             f"{hsz})")
+        if hsz not in PREFIX_HSZ:
+            raise ValueError(f"prefix_pass kernel takes hsz in {PREFIX_HSZ}"
+                             f" (got {hsz})")
         ps = k.shape[2] // n_ranks
         st_nc = chunk_count(tables.shape[1] * ps)
         plan = _PLANS[key] = _Plan(

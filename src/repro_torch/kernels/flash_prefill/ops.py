@@ -22,10 +22,12 @@ from repro_torch.kernels.flash_prefill.ref import (flash_prefill_paged_ref,
 
 counter = build.Launches()          # every launch
 counter_paged = build.Launches()    # paged-mode launches among them
+counter_noncausal = build.Launches()  # non-causal launches among them
+counter_cross = build.Launches()    # ... of which S != T (cross-attention)
 ROWS = 64                   # query rows per kernel block: 64 // G positions
 #                             x the G heads of a kv head, the rest dead
 BK = 64                     # keys per kernel kv tile
-HSZ = (32, 64, 128, 256)
+HSZ = (32, 64, 96, 128, 256)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -107,4 +109,7 @@ def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0,
     counter.n += 1
     if paged:
         counter_paged.n += 1
+    if not causal:
+        counter_noncausal.n += 1
+        counter_cross.n += s != t
     return out

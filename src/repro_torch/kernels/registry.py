@@ -54,18 +54,24 @@ def _counters():
     return {"flash_decode": dec.counter, "flash_decode_kv8": dec.counter_kv8,
             "flash_decode_paged": dec.counter_paged,
             "flash_decode_grouped": dec.counter_grouped,
+            "flash_decode_contiguous": dec.counter_contiguous,
             "prefix_pass": dec.counter_prefix,
             "flash_prefill": pre.counter,
             "flash_prefill_paged": pre.counter_paged,
+            "flash_prefill_noncausal": pre.counter_noncausal,
+            "flash_prefill_cross": pre.counter_cross,
             "w8a16_matmul": mm, "ssd_prefill": ssd}
 
 
 def launch_counts() -> dict[str, int]:
     """Launches of each ported kernel so far in this process
     (``flash_decode_kv8`` / ``flash_decode_paged`` /
-    ``flash_decode_grouped``: the int8-mode / paged / grouped-suffix
-    launches among ``flash_decode``'s; ``flash_prefill_paged``: the paged
-    launches among ``flash_prefill``'s)."""
+    ``flash_decode_grouped`` / ``flash_decode_contiguous``: the int8-mode /
+    paged / grouped-suffix / contiguous-layout launches among
+    ``flash_decode``'s; ``flash_prefill_paged`` / ``flash_prefill_noncausal``:
+    the paged / non-causal launches among ``flash_prefill``'s, and
+    ``flash_prefill_cross`` the non-causal ones whose kv length differs from
+    the query length)."""
     return {name: c.n for name, c in _counters().items()}
 
 

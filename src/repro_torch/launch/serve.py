@@ -75,6 +75,13 @@ routes each token to 8 of 32 experts (capacity factor 1.25 in the prefill,
 the whole prompt, so ``--chunk-tokens`` falls back to one-shot prefill and
 ``--prefix-share`` raises, as in the reference; ``--paged-kv``,
 ``--lm-head-w8``, ``--sampling`` and ``--decode-window`` work.
+
+``--arch whisper-base`` and ``--arch phi-3-vision-4.2b`` are refused with
+a ``ValueError`` before any weight is made: the engine serves no enc-dec or
+vlm arch (``serving/engine.check_servable``).  Serve them through
+``models/model_zoo.make_prefill_step`` and ``build_serve_step`` /
+``build_serve_multistep`` with ``enc_frames`` or ``patch_embeds`` in the
+batch.
 """
 from __future__ import annotations
 
@@ -96,6 +103,7 @@ from repro_torch.models.model_zoo import (build_serve_multistep,
                                           make_prefill_step)
 from repro_torch.models.transformer import init_params
 from repro_torch.serving import DecodeEngine, Request
+from repro_torch.serving.engine import check_servable
 from repro_torch.serving.metrics import VirtualClock
 from repro_torch.serving.sampling import SAMPLING_KINDS, SamplingParams
 from repro_torch.serving.scheduler import POLICIES
@@ -215,6 +223,7 @@ def serve_steps(arch: str = "granite-3-2b", *, reduced: bool = False,
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    check_servable(cfg)
     if n_layers:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     overrides = {k: v for k, v in (("kvp", kvp),

@@ -1,5 +1,6 @@
 """Helix decode step (port of the reference's ``models/decode_model.py``,
-dense attention layers, pure-SSM layers, hybrid layers and MoE FFNs).
+dense attention layers, pure-SSM layers, hybrid layers, MoE FFNs and the
+enc-dec cross-attention).
 
 ``build_serve_step(cfg, hx)`` returns
 
@@ -48,6 +49,13 @@ idle rows included, as one group at ``moe.decode_capacity_factor``.  With
 distinct top-k experts per row and that factor of 4, ``cap = int(4 *
 ceil(B * k / E) + 0.5) >= B`` slots per expert at every B, so no
 assignment is dropped and no row's output depends on another row's.
+
+Enc-dec archs (whisper): the state also holds the static cross K/V
+``xk``/``xv`` [L, B, Kh, S_enc_pad, hsz] and ``enc_len`` from
+``make_prefill_step``; after its self-attention each layer cross-attends
+over them with ``helix_attention(..., contiguous=True)`` (the encoder's
+frames split into kvp contiguous shards; q not rotated, no append), and
+every step passes them on unchanged.  Archs without RoPE rotate nothing.
 
 Token decision: the argmax, or, when the state holds the sampler's leaves
 (``core/kvcache.sampling_leaf_shapes``), ``serving/sampling.sample_tokens``
@@ -151,9 +159,10 @@ def _build_step_logits(cfg: ArchConfig, hx: HelixConfig):
         q = (h @ ap.wq).reshape(b, cfg.n_heads, cfg.hsz)
         kn = (h @ ap.wk).reshape(b, cfg.n_kv_heads, cfg.hsz)
         vn = (h @ ap.wv).reshape(b, cfg.n_kv_heads, cfg.hsz)
-        pos = (tl_attn - 1)[:, None]                          # [B, 1]
-        q = apply_rope(q[:, None], pos, cfg.rope_theta)[:, 0]
-        kn = apply_rope(kn[:, None], pos, cfg.rope_theta)[:, 0]
+        if cfg.use_rope:
+            pos = (tl_attn - 1)[:, None]                      # [B, 1]
+            q = apply_rope(q[:, None], pos, cfg.rope_theta)[:, 0]
+            kn = apply_rope(kn[:, None], pos, cfg.rope_theta)[:, 0]
         if fused:
             out = helix_attention(hx, q, kc, vc, tl_attn, window=window,
                                   kscale=ks, vscale=vs, k_new=kn, v_new=vn,
@@ -168,10 +177,21 @@ def _build_step_logits(cfg: ArchConfig, hx: HelixConfig):
             out = helix_attention(hx, q, kc, vc, tl_attn, window=window,
                                   kscale=ks, vscale=vs, block_tables=tables,
                                   groups=groups)
-        wo = ap.wo
+        return out_proj(out, ap.wo)
+
+    def out_proj(out, wo):
+        """The post-attention projection; wo's rows padded to the padded
+        all-to-all width (the pad lanes of ``out`` are zeros)."""
         if o_dim != wo.shape[0]:
             wo = torch.nn.functional.pad(wo, (0, 0, 0, o_dim - wo.shape[0]))
         return out @ wo
+
+    def cross_phase(ap, h, xk, xv, enc_len):
+        """Cross-attention over the static encoder K/V [B, Kh, S_enc_pad,
+        hsz] in the contiguous layout, ``enc_len`` frames valid."""
+        q = (h @ ap.wq).reshape(h.shape[0], cfg.n_heads, cfg.hsz)
+        return out_proj(helix_attention(hx, q, xk, xv, enc_len,
+                                        contiguous=True), ap.wo)
 
     def ssm_phase(sp, h, state, i, advance):
         conv, ssm = state["ssm_conv"][i], state["ssm_state"][i]
@@ -209,6 +229,10 @@ def _build_step_logits(cfg: ArchConfig, hx: HelixConfig):
             if cfg.has_ssm:
                 s_out = ssm_phase(lp.ssm, h, state, i, advance)
             x = x + mix_block_outputs(cfg, a_out, s_out)
+            if cfg.is_encdec:
+                x = x + cross_phase(lp.xattn, rms_norm(x, lp.lnx),
+                                    state["xk"][i], state["xv"][i],
+                                    state["enc_len"])
             if cfg.d_ff or cfg.moe:
                 x = x + ffn_delta(cfg, lp, rms_norm(x, lp.ln2),
                                   capacity_factor=decode_cf)[0]

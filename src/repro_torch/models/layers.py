@@ -68,3 +68,10 @@ def sinusoidal_at(pos, dim: int):
     (sin half, then cos half)."""
     t = pos[..., None].float() * _inv_timescales(dim, pos.device)
     return torch.cat([torch.sin(t), torch.cos(t)], dim=-1)
+
+
+def sinusoidal_positions(length: int, dim: int, device=None):
+    """Whisper-style sinusoidal embeddings of positions ``0 .. length - 1``
+    [length, dim] f32: ``sinusoidal_at`` over an arange, so the two agree
+    bit for bit at equal positions."""
+    return sinusoidal_at(torch.arange(length, device=device), dim)

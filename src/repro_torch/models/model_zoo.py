@@ -12,7 +12,9 @@ from repro_torch.core.kvcache import cache_capacity
 from repro_torch.core.sharding import HelixConfig
 from repro_torch.models.decode_model import (  # noqa: F401
     build_serve_multistep, build_serve_step)
+from repro_torch.models.encdec import cross_kv
 from repro_torch.models.transformer import chunked_prefill_supported, forward
+from repro_torch.utils import round_up
 
 __all__ = ["prefill_cache_to_rr", "make_prefill_step", "build_serve_step",
            "build_serve_multistep",
@@ -35,20 +37,39 @@ def prefill_cache_to_rr(cfg: ArchConfig, hx: HelixConfig, kc_raw, vc_raw,
     return out[0], out[1]
 
 
+def _forward_kwargs(cfg: ArchConfig, batch: dict) -> dict:
+    """The batch's extra inputs ``forward`` takes: ``patch_embeds`` for a
+    vlm arch, ``enc_frames`` for an enc-dec one (the reference's
+    ``_forward_kwargs``; a missing leaf is a ``KeyError``)."""
+    kw = {}
+    if cfg.vision_patches:
+        kw["patch_embeds"] = batch["patch_embeds"]
+    if cfg.is_encdec:
+        kw["enc_frames"] = batch["enc_frames"]
+    return kw
+
+
 def make_prefill_step(cfg: ArchConfig, hx: HelixConfig,
                       s_cap: int | None = None):
     """Build ``prefill_step(model, batch) -> (last_logits [B, Vp], state)``:
     the one-shot prefill (``hx.prefill_backend`` routes its attention,
     ``hx.ssd_backend`` its SSD scan) and the handoff of its caches into the
     round-robin layout; SSM and hybrid archs hand over their ``ssm_conv``/
-    ``ssm_state`` leaves as they are (a hybrid's state holds both kinds)."""
+    ``ssm_state`` leaves as they are (a hybrid's state holds both kinds).
+    ``batch`` holds ``tokens`` [B, T] and, for a vlm arch, ``patch_embeds``
+    [B, P, d]; for an enc-dec arch ``enc_frames`` [B, S_enc, d], and the
+    state then carries the static cross K/V ``xk``/``xv`` [L, B, Kh,
+    S_enc_pad, hsz] (``encdec.cross_kv`` transposed, zero-padded to a
+    multiple of ``hx.kvp``: each rank holds a contiguous shard) and
+    ``enc_len`` (int32, S_enc)."""
 
     def prefill_step(model, batch):
         tokens = batch["tokens"]
         b, t = tokens.shape
         logits, extras = forward(cfg, model, tokens, return_cache=True,
                                  prefill_backend=hx.prefill_backend,
-                                 ssd_backend=hx.ssd_backend)
+                                 ssd_backend=hx.ssd_backend,
+                                 **_forward_kwargs(cfg, batch))
         state = {"total_len": torch.tensor(t, dtype=torch.int32,
                                            device=tokens.device)}
         if cfg.has_attention:
@@ -58,6 +79,15 @@ def make_prefill_step(cfg: ArchConfig, hx: HelixConfig,
         if cfg.has_ssm:
             state["ssm_conv"] = extras["ssm_conv"]
             state["ssm_state"] = extras["ssm_state"]
+        if cfg.is_encdec:
+            s_enc = extras["enc_out"].shape[1]
+            pad = round_up(s_enc, hx.kvp) - s_enc
+            for key, x in zip(("xk", "xv"),
+                              cross_kv(cfg, model.layers, extras["enc_out"])):
+                state[key] = torch.nn.functional.pad(
+                    x.transpose(2, 3), (0, 0, 0, pad)).contiguous()
+            state["enc_len"] = torch.tensor(s_enc, dtype=torch.int32,
+                                            device=tokens.device)
         return logits[:, -1], state
 
     return prefill_step

@@ -1,7 +1,7 @@
-"""Dense GQA, pure-SSM, hybrid and mixture-of-experts decoders: parameters,
-seeded init and the prefill forward (port of the reference's
-``models/transformer.py``, dense (global or local:global windowed),
-pure-SSM, hybrid and MoE paths).
+"""Dense GQA, pure-SSM, hybrid, mixture-of-experts, encoder-decoder and
+vision-language decoders: parameters, seeded init and the prefill forward
+(port of the reference's ``models/transformer.py``: its dense (global or
+local:global windowed), pure-SSM, hybrid, MoE, enc-dec and vlm paths).
 
 Parameter names and shapes follow the reference's pytree, with the stacked
 ``layers`` leaves split per layer: ``embed [Vp, d]``, ``ln_f [d]``,
@@ -21,6 +21,15 @@ positions in layer i (0: global).  The int8 lm_head of the decode step
 (``decode_model.prepare_decode_params``) is held in the buffers
 ``lm_head_q8`` [d, Vp] int8 and ``lm_head_scale`` [Vp] f32, ``None`` until
 prepared.
+
+Encoder-decoder archs (whisper) add ``enc.layers.{i}`` (``enc_layers``
+layers of ``ln1``, ``attn``, ``ln2``, ``ffn``, no cross-attention) and
+``enc.ln_f``, and give every decoder layer ``lnx`` and ``xattn.{wq, wk,
+wv, wo}`` (cross-attention over the encoder's output, after the
+self-attention and before the FFN); they have no RoPE: the encoder adds
+sinusoidal positions to its frames, the decoder to its token embeddings.
+Vlm archs (phi-3-vision) take ``patch_embeds`` [B, P, d] that replace the
+first P token embeddings (``models/encdec.py`` holds the encoder).
 """
 from __future__ import annotations
 
@@ -34,7 +43,8 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import prefill_attention
 from repro_torch.models.layers import (activation, apply_rope, rms_norm,
-                                       sinusoidal_at, softcap)
+                                       sinusoidal_at, sinusoidal_positions,
+                                       softcap)
 
 
 def _param(*shape):
@@ -65,16 +75,20 @@ class FFN(nn.Module):
 
 class DecoderLayer(nn.Module):
     """The reference's ``_init_layer`` structure: ``ln1``, then ``attn``
-    and/or ``ssm``, then ``ln2`` when ``d_ff`` or ``moe``, ``ffn`` when
-    ``d_ff`` and ``moe`` when ``moe``."""
+    and/or ``ssm``, then ``lnx`` and ``xattn`` with ``with_cross`` (the
+    decoder layers of an enc-dec arch), then ``ln2`` when ``d_ff`` or
+    ``moe``, ``ffn`` when ``d_ff`` and ``moe`` when ``moe``."""
 
-    def __init__(self, cfg: ArchConfig):
+    def __init__(self, cfg: ArchConfig, with_cross: bool = False):
         super().__init__()
         self.ln1 = _param(cfg.d_model)
         if cfg.has_attention:
             self.attn = Attention(cfg)
         if cfg.has_ssm:
             self.ssm = ssm_lib.SSMParams(cfg)
+        if with_cross:
+            self.lnx = _param(cfg.d_model)
+            self.xattn = Attention(cfg)
         if cfg.d_ff or cfg.moe:
             self.ln2 = _param(cfg.d_model)
         if cfg.d_ff:
@@ -83,13 +97,24 @@ class DecoderLayer(nn.Module):
             self.moe = moe_lib.MoEParams(cfg.moe, cfg.d_model)
 
 
-FAMILIES = ("dense", "ssm", "hybrid", "moe")
+class Encoder(nn.Module):
+    """An enc-dec arch's encoder: ``enc_layers`` layers without
+    cross-attention and the final norm ``ln_f``."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__()
+        self.layers = nn.ModuleList(DecoderLayer(cfg)
+                                    for _ in range(cfg.enc_layers))
+        self.ln_f = _param(cfg.d_model)
+
+
+FAMILIES = ("dense", "ssm", "hybrid", "moe", "audio", "vlm")
 
 
 class Transformer(nn.Module):
-    """Parameter container of a dense, pure-SSM, hybrid or MoE decoder; the
-    forward passes are the functions ``forward`` (prefill) and
-    ``decode_model.build_serve_step``."""
+    """Parameter container of a dense, pure-SSM, hybrid, MoE, enc-dec or
+    vlm decoder; the forward passes are the functions ``forward``
+    (prefill) and ``decode_model.build_serve_step``."""
 
     def __init__(self, cfg: ArchConfig):
         super().__init__()
@@ -99,10 +124,12 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.embed = _param(cfg.padded_vocab, cfg.d_model)
         self.ln_f = _param(cfg.d_model)
-        self.layers = nn.ModuleList(DecoderLayer(cfg)
+        self.layers = nn.ModuleList(DecoderLayer(cfg, cfg.is_encdec)
                                     for _ in range(cfg.n_layers))
         if not cfg.tie_embeddings:
             self.lm_head = _param(cfg.d_model, cfg.padded_vocab)
+        if cfg.is_encdec:
+            self.enc = Encoder(cfg)
         self.register_buffer("lm_head_q8", None)
         self.register_buffer("lm_head_scale", None)
 
@@ -138,9 +165,10 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.float32,
                 device="cuda") -> Transformer:
     """Seeded random weights made on ``device`` with a ``torch.Generator``:
     the reference's distributions (normal, fan-in scaled, the untied
-    ``lm_head`` too; out-projections scaled down by sqrt(2L); embeddings
-    0.02; norm gains 0; SSM leaves by ``ssm.init_ssm``, MoE leaves by
-    ``moe.init_moe``), not its values (``jax.random`` streams differ;
+    ``lm_head`` too; out-projections scaled down by sqrt(2L), L the
+    decoder's layers, in the encoder too; embeddings 0.02; norm gains 0;
+    SSM leaves by ``ssm.init_ssm``, MoE leaves by ``moe.init_moe``), not
+    its values (``jax.random`` streams differ;
     ``convert.params_from_jax`` carries reference weights over exactly)."""
     with torch.device("meta"):
         model = Transformer(cfg)
@@ -185,33 +213,55 @@ def layer_windows(cfg: ArchConfig) -> list[int]:
 
 
 def _attn_block(cfg: ArchConfig, ap: Attention, h, *, q_offset,
-                backend: str, kv_buffer=None, window: int = 0):
-    """Projections, RoPE, attention and out-projection of one layer
-    (``window`` > 0: sliding-window attention over that many positions).
-    ``q_offset`` is an int or a [B] tensor: the global position of each
-    row's first token.  ``kv_buffer`` (chunked prefill): a pair of carry
-    buffers ``[B, S_buf, Kh, hsz]`` holding the K/V of positions
+                backend: str, kv_buffer=None, window: int = 0,
+                causal: bool = True, kv_override=None):
+    """Projections, RoPE (archs with ``use_rope``), attention and
+    out-projection of one layer (``window`` > 0: sliding-window attention
+    over that many positions; ``causal=False``: every query sees every
+    key).  ``q_offset`` is an int or a [B] tensor: the global position of
+    each row's first token.  ``kv_buffer`` (chunked prefill): a pair of
+    carry buffers ``[B, S_buf, Kh, hsz]`` holding the K/V of positions
     ``[0, q_offset)``; the chunk's rows are written into them **in place**
     at ``[q_offset, q_offset + T)`` per row and attention runs over the
-    whole buffer (causal masking hides its unfilled tail).  Returns the
-    layer output and the (K, V) the attention read."""
+    whole buffer (causal masking hides its unfilled tail).
+    ``kv_override`` (cross-attention): the (K, V) ``[B, S, Kh, hsz]`` to
+    attend over; only q is projected, and not rotated.  Returns the layer
+    output and the (K, V) the attention read."""
     b, t, _ = h.shape
     q = (h @ ap.wq).reshape(b, t, cfg.n_heads, cfg.hsz)
-    k = (h @ ap.wk).reshape(b, t, cfg.n_kv_heads, cfg.hsz)
-    v = (h @ ap.wv).reshape(b, t, cfg.n_kv_heads, cfg.hsz)
-    off = torch.as_tensor(q_offset, dtype=torch.int64, device=h.device)
-    pos = torch.arange(t, device=h.device)[None, :] + off.reshape(-1, 1)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
-    if kv_buffer is not None:
-        kbuf, vbuf = kv_buffer
-        rows = torch.arange(b, device=h.device)[:, None]
-        kbuf[rows, pos.expand(b, t)] = k.to(kbuf.dtype)
-        vbuf[rows, pos.expand(b, t)] = v.to(vbuf.dtype)
-        k, v = kbuf, vbuf
-    out = prefill_attention(q, k, v, causal=True, window=window,
+    if kv_override is not None:
+        k, v = kv_override
+    else:
+        k = (h @ ap.wk).reshape(b, t, cfg.n_kv_heads, cfg.hsz)
+        v = (h @ ap.wv).reshape(b, t, cfg.n_kv_heads, cfg.hsz)
+        off = torch.as_tensor(q_offset, dtype=torch.int64, device=h.device)
+        pos = torch.arange(t, device=h.device)[None, :] + off.reshape(-1, 1)
+        if cfg.use_rope:
+            q = apply_rope(q, pos, cfg.rope_theta)
+            k = apply_rope(k, pos, cfg.rope_theta)
+        if kv_buffer is not None:
+            kbuf, vbuf = kv_buffer
+            rows = torch.arange(b, device=h.device)[:, None]
+            kbuf[rows, pos.expand(b, t)] = k.to(kbuf.dtype)
+            vbuf[rows, pos.expand(b, t)] = v.to(vbuf.dtype)
+            k, v = kbuf, vbuf
+    out = prefill_attention(q, k, v, causal=causal, window=window,
                             q_offset=q_offset, backend=backend)
     return out.reshape(b, t, cfg.q_dim) @ ap.wo, (k, v)
+
+
+def cross_attn_block(cfg: ArchConfig, lp: DecoderLayer, x, enc_out, *,
+                     backend: str):
+    """A decoder layer's cross-attention update from ``x`` [B, T, d] over
+    the encoder's output ``enc_out`` [B, S_enc, d]: its K/V projected by
+    ``xattn``, attention non-causal (T != S_enc in general)."""
+    b, s = enc_out.shape[:2]
+    kx = (enc_out @ lp.xattn.wk).reshape(b, s, cfg.n_kv_heads, cfg.hsz)
+    vx = (enc_out @ lp.xattn.wv).reshape(b, s, cfg.n_kv_heads, cfg.hsz)
+    out, _ = _attn_block(cfg, lp.xattn, rms_norm(x, lp.lnx), q_offset=0,
+                         backend=backend, causal=False,
+                         kv_override=(kx, vx))
+    return out
 
 
 def ffn_block(cfg: ArchConfig, fp: FFN, h):
@@ -243,8 +293,9 @@ def chunked_prefill_supported(cfg: ArchConfig) -> bool:
     """Whether ``cfg`` can prefill in prefix-attending chunks bit-exactly:
     every cross-position interaction must be causal attention (the
     reference's rule: dense yes; SSM, hybrid and MoE no, since a scan or a
-    capacity-routed dispatch mixes the whole sequence; the engine falls
-    back to one-shot prefill for them)."""
+    capacity-routed dispatch mixes the whole sequence; enc-dec and vlm no,
+    since the encoder's frames or the patches need the whole prompt up
+    front; the engine falls back to one-shot prefill for them)."""
     return cfg.family == "dense"
 
 
@@ -266,7 +317,8 @@ def head_weight(model: Transformer):
 @torch.no_grad()
 def forward(cfg: ArchConfig, model: Transformer, tokens, *,
             return_cache: bool = False, prefill_backend: str = "cuda",
-            ssd_backend: str = "cuda", q_offset=0, prefix_state=None):
+            ssd_backend: str = "cuda", q_offset=0, prefix_state=None,
+            enc_frames=None, patch_embeds=None):
     """Full-sequence forward.  tokens [B, T] int -> (logits [B, T, Vp],
     extras); with ``return_cache`` extras holds ``kcache``/``vcache``
     [L, B, T, Kh, hsz] (post-RoPE K and V of every attention layer) and
@@ -286,17 +338,41 @@ def forward(cfg: ArchConfig, model: Transformer, tokens, *,
     offset per row: ragged packing).  The chunk's K/V rows are written into
     the buffers in place, attention runs over each whole buffer, and
     extras' kcache/vcache are the buffers themselves, bit for bit those of
-    the one-shot prefill when ``S_buf`` is its length."""
+    the one-shot prefill when ``S_buf`` is its length.
+
+    Enc-dec archs: ``enc_frames`` [B, S_enc, d] (required) go through
+    ``encdec.encode``; the decoder adds ``sinusoidal_positions(T)`` to its
+    embeddings and every layer cross-attends to the encoder's output,
+    which extras hold as ``enc_out`` [B, S_enc, d].  ``patch_embeds`` [B,
+    P, d] (vlm archs) replace the first P token embeddings; a prompt of
+    fewer than P tokens is refused."""
     if prefix_state is not None and not (return_cache
                                          and chunked_prefill_supported(cfg)):
         raise ValueError("chunked prefill needs return_cache=True and a "
                          "chunked_prefill_supported arch")
+    if cfg.is_encdec and enc_frames is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: forward needs "
+                         "enc_frames [B, S_enc, d_model]")
     x = model.embed[tokens]
-    if not cfg.use_rope:
+    if patch_embeds is not None:
+        p = patch_embeds.shape[1]
+        if tokens.shape[1] < p:
+            raise ValueError(f"{cfg.name}: a prompt of {tokens.shape[1]} "
+                             f"tokens is shorter than its {p} patch "
+                             "positions")
+        x = torch.cat([patch_embeds.to(x.dtype), x[:, p:]], dim=1)
+    if not cfg.use_rope and not cfg.is_encdec:
         off = torch.as_tensor(q_offset, dtype=torch.int64, device=x.device)
         pos = torch.arange(tokens.shape[1], device=x.device)[None, :] \
             + off.reshape(-1, 1)
         x = x + sinusoidal_at(pos, cfg.d_model).to(x.dtype)
+    enc_out = None
+    if cfg.is_encdec:
+        # imported here: encdec imports this module's blocks
+        from repro_torch.models.encdec import encode
+        enc_out = encode(cfg, model.enc, enc_frames, backend=prefill_backend)
+        x = x + sinusoidal_positions(tokens.shape[1], cfg.d_model,
+                                     x.device)[None].to(x.dtype)
     kcs, vcs, convs, ssms, auxs = [], [], [], [], []
     a_out = s_out = None            # the output a layer lacks
     windows = layer_windows(cfg)
@@ -318,6 +394,9 @@ def forward(cfg: ArchConfig, model: Transformer, tokens, *,
                 convs.append(st.conv)
                 ssms.append(st.ssm)
         x = x + mix_block_outputs(cfg, a_out, s_out)
+        if enc_out is not None:
+            x = x + cross_attn_block(cfg, lp, x, enc_out,
+                                     backend=prefill_backend)
         if cfg.d_ff or cfg.moe:
             delta, aux = ffn_delta(cfg, lp, rms_norm(x, lp.ln2),
                                    capacity_factor=None)
@@ -336,4 +415,6 @@ def forward(cfg: ArchConfig, model: Transformer, tokens, *,
     if convs:
         extras.update(ssm_conv=torch.stack(convs),
                       ssm_state=torch.stack(ssms))
+    if enc_out is not None:
+        extras["enc_out"] = enc_out
     return logits, extras

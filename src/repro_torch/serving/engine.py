@@ -84,6 +84,13 @@ step may lower the batch cap and shed the youngest decoding batch request
 through the spill.  With a
 ``VirtualClock`` as ``clock`` every latency is the cost model's, so runs
 replay exactly.
+
+Enc-dec (whisper) and vlm (phi-3-vision) archs are refused at
+construction (``check_servable``): their prefill needs per-request
+``enc_frames`` or ``patch_embeds``, which a ``Request`` does not carry.
+They are served through ``make_prefill_step`` and ``build_serve_step`` /
+``build_serve_multistep``.  The reference's engine builds for them and
+fails with a ``KeyError`` at its first prefill.
 """
 from __future__ import annotations
 
@@ -117,6 +124,18 @@ from repro_torch.serving.tier import (HostPageStore, device_planes,
                                       host_planes)
 
 __all__ = ["DecodeEngine", "Request"]
+
+
+def check_servable(cfg: ArchConfig) -> None:
+    """Raise ``ValueError`` for the archs the engine does not serve: enc-dec
+    and vlm, whose prefill takes inputs besides the prompt's tokens."""
+    if cfg.is_encdec or cfg.vision_patches:
+        need = "enc_frames" if cfg.is_encdec else "patch_embeds"
+        raise ValueError(
+            f"the engine does not serve the {cfg.family} family ({cfg.name}):"
+            f" its prefill needs {need} beside the tokens, which a Request "
+            "does not carry; serve it through model_zoo.make_prefill_step "
+            "and build_serve_step / build_serve_multistep")
 
 
 class DecodeEngine:
@@ -159,6 +178,7 @@ class DecodeEngine:
                  fault_plan=None, tenants=None,
                  slo_ttl_s: float | None = None):
         device = torch.device(device)
+        check_servable(cfg)
         if (host_pages or session_kv) and not hx.paged_kv:
             raise ValueError("the host KV tier (host_pages / session_kv) "
                              "needs hx.paged_kv: spill and restore go by "

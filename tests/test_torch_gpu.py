@@ -20,6 +20,11 @@ head, flash_decode at G = 5, the SSD scan at ds 16, the untied int8 head)
 hold the same tolerances; two full-width hymba layers agree with the plain
 path within 1e-3 x max(1, |logits|) (f32 matmuls of width 1600-6482 and
 the 32256-row head over summation-order differences of ~1e-6).
+whisper-base's and phi-3-vision's kernel modes (flash_prefill non-causal
+at T = S and at T != S, head sizes 64 and 96; flash_decode's contiguous
+layout and head size 96 in every mode) hold the same tolerances, and two
+full-width layers of each model agree with the plain path within 1e-3 x
+max(1, |logits|).
 granite-moe-1b-a400m's shapes (flash_prefill and flash_decode at G = 2)
 hold the same tolerances; its MoE layer at full width routes, slots and
 plans every token on the card as on the CPU, its output within 2e-5 x
@@ -127,7 +132,9 @@ def test_serve_on_card_matches_cpu_and_counts_launches(h100):
                       "flash_decode_grouped": 0, "prefix_pass": 0,
                       "flash_prefill": cfg.n_layers * 5,
                       "flash_prefill_paged": 0, "w8a16_matmul": 0,
-                      "ssd_prefill": 0}
+                      "ssd_prefill": 0, "flash_decode_contiguous": 0,
+                      "flash_prefill_noncausal": 0,
+                      "flash_prefill_cross": 0}
 
 
 @pytest.mark.gpu
@@ -387,7 +394,7 @@ PREFILL_TOL = {torch.float32: 2e-5, torch.bfloat16: 1.6e-2}
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hsz", [32, 64, 128, 256])
+@pytest.mark.parametrize("hsz", [32, 64, 96, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_prefill_kernel_fixed_and_paged_on_card(h100, dtype, hsz):
@@ -905,3 +912,150 @@ def test_preempt_restore_between_graph_windows_on_card(h100):
     runner = eng.window_runner
     assert runner.captures == 1 and runner.replays == eng.decode_syncs
     assert streams == base
+
+
+# ------------------------------------------ whisper-base, phi-3-vision
+@pytest.mark.gpu
+@pytest.mark.parametrize("hsz", [64, 96])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_prefill_kernel_noncausal_and_cross_on_card(h100, dtype, hsz):
+    """flash_prefill non-causal: the encoder's self-attention at T = S =
+    150 and the decoder's cross-attention at T = 40 over S = 150 (neither a
+    multiple of the 64-row blocks), with per-row kv lengths, against the
+    plain version."""
+    g = torch.Generator(device=h100).manual_seed(hsz)
+    rnd = lambda *sh: torch.randn(*sh, generator=g, device=h100).to(dtype)
+    lens = torch.tensor([150, 97], dtype=torch.int32, device=h100)
+    for t in (150, 40):
+        q, k, v = rnd(2, t, 8, hsz), rnd(2, 150, 8, hsz), rnd(2, 150, 8, hsz)
+        for seq_lens in (None, lens):
+            got = flash_prefill(q, k, v, causal=False, seq_lens=seq_lens)
+            want = flash_prefill_ref(q, k, v, causal=False,
+                                     seq_lens=seq_lens)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, atol=PREFILL_TOL[dtype],
+                                       rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 100])
+@pytest.mark.parametrize("paged", [False, True], ids=["fixed", "paged"])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_decode_kernel_at_hsz96_on_card(h100, quant, paged, window):
+    """flash_decode at phi-3-vision's head size 96 (8 MHA heads, G = 1),
+    kvp 2, with the fused append and windows 0 and 100: kernel vs plain
+    (f32), the appended rows bit for bit, fixed and paged, fp and int8."""
+    _decode_group_case(h100, quant, paged, g=1, kh=8, seed=96, hsz=96,
+                       window=window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kvp", [1, 4])
+@pytest.mark.parametrize("hsz", [64, 96])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_decode_kernel_contiguous_on_card(h100, dtype, hsz, kvp):
+    """flash_decode's contiguous layout (the cross-attention's static K/V,
+    rank r holding slots [r * s_loc, (r + 1) * s_loc)) over 1500 valid of
+    1504 slots, B = 4, 8 heads: kernel vs plain, pruned == dense bit for
+    bit."""
+    g = torch.Generator(device=h100).manual_seed(7 * kvp + hsz)
+    rnd = lambda *sh: torch.randn(*sh, generator=g, device=h100).to(dtype)
+    q, k, v = rnd(4, 8, hsz), rnd(4, 8, 1504, hsz), rnd(4, 8, 1504, hsz)
+    tl = torch.tensor(1500, dtype=torch.int32, device=h100)
+    kw = dict(kvp=kvp, n_ranks=kvp, rank=0, rr_block=RR, window=0,
+              contiguous=True, slot_offset=0, k_new=None, v_new=None)
+    o1, l1 = flash_decode_shards(q, k, v, tl, **kw)
+    o0, l0 = flash_decode_shards(q, k, v, tl, prune=False, **kw)
+    o2, l2 = flash_decode_shards_plain(
+        q, k, v, tl, scale=hsz ** -0.5,
+        block_s=kernel_block_s(512, 1504 // kvp), **kw)
+    torch.cuda.synchronize()
+    tol = TOL_DECODE[dtype]
+    torch.testing.assert_close(o1, o2, atol=tol, rtol=0)
+    torch.testing.assert_close(l1, l2, atol=ATOL, rtol=RTOL)
+    assert torch.equal(o1, o0) and torch.equal(l1, l0)
+
+
+TOL_DECODE = {torch.float32: ATOL, torch.bfloat16: 1.6e-2}
+
+
+@pytest.mark.gpu
+def test_prefix_pass_refuses_hsz96_on_card(h100):
+    """prefix_pass is not built at head size 96 and says so (ValueError),
+    launching nothing."""
+    q = torch.zeros(2, 8, 96, device=h100)
+    k = torch.zeros(3, 8, 16, 96, device=h100)
+    tab = torch.tensor([[1], [2]], dtype=torch.int32, device=h100)
+    gid = torch.zeros(2, dtype=torch.int32, device=h100)
+    registry.reset_launch_counts()
+    with pytest.raises(ValueError, match="prefix_pass kernel takes hsz"):
+        prefix_pass(q, k, k.clone(), 16, tab, gid, gid + 1, kvp=1)
+    assert registry.launch_counts()["prefix_pass"] == 0
+
+
+def _two_layer_paths(h100, arch, batch_fn, t):
+    """Two layers of ``arch`` at full width, f32: prefill and 2 decode steps
+    through the kernels against the plain path on the card."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    if cfg.is_encdec:
+        cfg = dataclasses.replace(cfg, enc_layers=2)
+    model = init_params(cfg, 1, dtype=torch.float32, device=h100)
+    batch = batch_fn(cfg, torch.Generator(device=h100).manual_seed(4))
+    plain = HelixConfig(attn_backend="ref", prefill_backend="ref")
+    runs = {}
+    for name, hx in (("kernel", HelixConfig()), ("plain", plain),
+                     ("kernel kvp=4", HelixConfig(kvp=4))):
+        registry.reset_launch_counts()
+        logits, state = make_prefill_step(cfg, hx, s_cap=t + 64)(model,
+                                                                 batch)
+        state["total_len"] = torch.full((2,), t, dtype=torch.int32,
+                                        device=h100)
+        step = build_serve_step(cfg, hx, return_logits=True)
+        cur = torch.argmax(logits[:, :cfg.vocab], -1).to(torch.int32)
+        out = [logits]
+        for _ in range(2):
+            (cur, lg), state = step(model, state, cur)
+            out.append(lg)
+        torch.cuda.synchronize()
+        runs[name] = (torch.stack(out)[..., :cfg.vocab],
+                      registry.launch_counts())
+    ref = runs["plain"][0]
+    for name in ("kernel", "kernel kvp=4"):
+        got = runs[name][0]
+        assert (got - ref).abs().max().item() <= 1e-3 * max(
+            1.0, ref.abs().max().item()), name
+        assert torch.equal(got.argmax(-1), ref.argmax(-1)), name
+    assert sum(runs["plain"][1].values()) == 0
+    return runs["kernel"][1]
+
+
+@pytest.mark.gpu
+def test_whisper_two_layers_kernel_path_matches_plain_path_on_card(h100):
+    """whisper-base at full width, 2 encoder and 2 decoder layers, f32, 2
+    rows of 1500 frames and 64 tokens: kernel path (B2 non-causal in the
+    encoder and the cross-attention, B2 causal, B1 fused and contiguous)
+    and kvp 4 against the plain path; launches: B2 2 + 2 + 2, B1 2 x 2
+    layers x 2 steps."""
+    def batch(cfg, g):
+        return {"tokens": torch.randint(0, cfg.vocab, (2, 64), generator=g,
+                                        device=h100),
+                "enc_frames": torch.randn(2, 1500, cfg.d_model, generator=g,
+                                          device=h100)}
+    counts = _two_layer_paths(h100, "whisper-base", batch, 64)
+    assert (counts["flash_prefill"], counts["flash_decode"]) == (6, 8)
+
+
+@pytest.mark.gpu
+def test_phi3_two_layers_kernel_path_matches_plain_path_on_card(h100):
+    """phi-3-vision at full width, 2 layers, f32 (heads of 96), 2 rows of
+    256 patches + 64 tokens: kernel path and kvp 4 against the plain path;
+    launches: B2 once a layer, B1 once a layer a step."""
+    def batch(cfg, g):
+        return {"tokens": torch.randint(0, cfg.vocab, (2, 320), generator=g,
+                                        device=h100),
+                "patch_embeds": torch.randn(2, 256, cfg.d_model, generator=g,
+                                            device=h100)}
+    counts = _two_layer_paths(h100, "phi-3-vision-4.2b", batch, 320)
+    assert (counts["flash_prefill"], counts["flash_decode"]) == (2, 4)
