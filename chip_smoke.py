@@ -125,8 +125,9 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    vs plain and kvp 4 vs 1, fp and int8, with every layer's routes equal
    between the compared runs (a token routed otherwise is printed with
    its distance from a tie, and fails the run).  Then gemma3-12b at full
-   width (48 layers: 40 local of a 1024-token window, 8 global; head size
-   256, softcap 30, bf16, seeded random weights, tied head): peak memory
+   width, 24 of its 48 layers (20 local of a 1024-token
+   window, 4 global; head size 256, softcap 30, bf16, seeded random
+   weights, tied head): peak memory
    after the build and after the int8 head is quantized; 8 requests of
    1024-2048 tokens, 32 new tokens each, one-shot prefills, hymba's five
    runs with their launch counts and each run's peak memory; the chunked
@@ -199,6 +200,23 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    = 64 over S = 1500 (with kv lengths), B1 contiguous at kvp 1 and 4
    (pruned == dense), B2 and B1 at head size 96 as at G = 5, the int8
    heads; phase 2 prints the hsz-96 instances' registers and spills;
+4b. helix ranks (``helix_ranks``): B1 per rank (``n_ranks=1, rank=k``)
+   == shard k of the emulated one-launch call bit for bit at B = 8, S =
+   4096, KVP 2 and 4; then ``launch/ranks.spawn`` worlds of 2 and 4 gloo
+   ranks sharing the card (KVP 2; KVP 4, then KVP 2 x TPA 2 over the same
+   processes): ``helix_attention(group=)`` == the emulated call bit for
+   bit at HOP-B 1 and 2 on every rank; full-width granite-3-2b through
+   the engine across the ranks (4 requests of 1024 tokens, 32 new), its
+   streams held to the emulated run at the same KVP by the near-tie rule
+   (prefill logits recorded, so token 0 is judged too), the same streams
+   and logits on every rank, HOP-B 2 == 1 bit for bit, launches layers x
+   steps x chunks (B1) and layers x prefills (B2) on each rank; TTL p50,
+   host ms per step, collectives per step and their host ms, labelled
+   gloo-staged on one card; ``serve_demo(world=2, dist_backend="gloo")``
+   (8 new tokens: the recorded run's first 8); an NCCL group of one
+   rank == the emulated kvp 1 path bit for bit (its prefill's last logits
+   == the single-process ``forward(last_only=True)``'s).  ``--ranks-only`` runs
+   phases 1, 2 and 4b alone;
 5. times of each kernel, its plain version and a one-call PyTorch
    yardstick where there is one, beside the card's bound: ``ms`` and
    ``library_ms`` are device time per call with every launch queued behind
@@ -251,8 +269,9 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.dist import HelixGroup  # noqa: E402
 from repro_torch.core.helix import (append_kv, append_kv_quant,  # noqa: E402
-                                    quantize_kv_token)
+                                    helix_attention, quantize_kv_token)
 from repro_torch.core.kvcache import (cache_capacity,  # noqa: E402
                                       init_decode_state, page_positions,
                                       quantize_decode_state, state_to_paged)
@@ -274,6 +293,7 @@ from repro_torch.kernels.w8a16_matmul import (quantize_w8,  # noqa: E402
                                               w8a16_matmul, w8a16_matmul_ref)
 from repro_torch.kernels.w8a16_matmul.ops import (  # noqa: E402
     blocks as w8a16_blocks)
+from repro_torch.launch import ranks  # noqa: E402
 from repro_torch.launch.serve import (generate_rows,  # noqa: E402
                                      prompt_tokens, serve_demo,
                                      serve_steps)
@@ -282,6 +302,7 @@ from repro_torch.models.decode_model import prepare_decode_params  # noqa: E402
 from repro_torch.models.model_zoo import (  # noqa: E402
     build_serve_multistep, build_serve_step, finalize_chunked_prefill,
     init_prefill_buffers, make_chunk_prefill_step, make_prefill_step)
+from repro_torch.models.shard import shard_model  # noqa: E402
 from repro_torch.models.transformer import (forward,  # noqa: E402
                                             init_params, layer_windows)
 from repro_torch.serving import sampling  # noqa: E402
@@ -347,8 +368,10 @@ PH_D, PH_VP = 3072, 32256           # its untied head [d_model, padded vocab]
 PH_P, PH_TEXT, PH_NEW = 256, 512, 32  # patch positions, text tokens, new
 # earlier paths served at half their depth, to keep the script's time
 # (PERF.md section 4): mamba2 24 of 48 layers, hymba 16 of 32, moe 12 of
-# 24, starcoder2 20 of 40 (granite-8b and llama-405b run its kernels too)
+# 24, starcoder2 20 of 40 (granite-8b and llama-405b run its kernels too),
+# gemma3 24 of 48 (4 whole local:global periods; since the ranks phase)
 MAMBA_LAYERS, HYMBA_LAYERS, MOE_LAYERS, SC2_LAYERS = 24, 16, 12, 20
+GEMMA_LAYERS = 24
 # the MoE layer at full width, f32, card vs CPU: routes, slots and token
 # plans equal; gates differ by the f32 router product's summation order
 # (1024 terms, ~1e-7), y by three f32 matmuls (1024 and 512 terms) summed
@@ -1770,19 +1793,24 @@ class TierHook:
             eng.chunk_step = chunk
 
 
-def near_ties(tag, base, base_logits, streams, logits):
+def near_ties(tag, base, base_logits, streams, logits, *,
+              judge_first=False):
     """Streams of two routes to the same K/V held as ``chunked_vs_oneshot``
     holds chunked against one-shot: the first tokens equal, the logits
     behind every token up to a request's first differing token within
     BF16_LOGIT_TOL, so a stream may part only at a near-tie; each parting
-    is printed with the baseline's logit gap between the two tokens."""
+    is printed with the baseline's logit gap between the two tokens.  With
+    ``judge_first`` (two routes whose prefills differ too, their logits
+    recorded under token 0) the first tokens are held by the same near-tie
+    rule as the others."""
     same, flips, worst, n_cmp = 0, [], 0.0, 0
     for rid, a in base.items():
         b = streams[rid]
         first = next((i for i in range(min(len(a), len(b))) if a[i] != b[i]),
                      None)
         same += first is None and a == b
-        need(first is None or first >= 1,
+        need(first is None or first >= 1
+             or judge_first and (rid, 0) in base_logits,
              f"{tag} rid {rid}: the first tokens differ")
         upto = len(a) if first is None else first + 1
         for j in range(upto):
@@ -2489,9 +2517,9 @@ def serve_moe(dev):
 
 
 def serve_gemma3(dev):
-    """gemma3-12b at full width (48 layers: 40 local of a 1024-token
-    window, 8 global; bf16, seeded random weights, head size 256, softcap
-    30, tied head) through ``serve_demo``: 8 requests of 1024-2048 tokens,
+    """gemma3-12b at full width, 24 of its 48 layers (``GEMMA_LAYERS``: 20
+    local of a 1024-token window, 4 global; bf16, seeded random weights,
+    head size 256, softcap 30, tied head) through ``serve_demo``: 8 requests of 1024-2048 tokens,
     32 new tokens each, max_batch 4, one-shot prefills, so every decode
     runs past the window; the runs of ``serve_plan`` (layers x decode
     steps, warm-up window included; layers x prefills).  Then the chunked
@@ -2503,7 +2531,7 @@ def serve_gemma3(dev):
     the profile of a 2048-token prefill beside its operation bound.  Peak
     memory after the model is built, after the int8 head is quantized and
     after each run."""
-    cfg = get_config(GEMMA)
+    cfg = dataclasses.replace(get_config(GEMMA), n_layers=GEMMA_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     model = init_params(cfg, 0, dtype=torch.bfloat16, device=dev)
     torch.cuda.synchronize()
@@ -2517,7 +2545,8 @@ def serve_gemma3(dev):
           f"memory {mem['model_gib']:.2f} GiB after the build, "
           f"{mem['int8_head_gib']:.2f} GiB while the int8 head "
           f"[{GE_D}, {GE_VP}] was quantized in column blocks")
-    reqs = dict(n_requests=8, prompt_len=(1024, 2048), max_new=32)
+    reqs = dict(n_requests=8, prompt_len=(1024, 2048), max_new=32,
+                n_layers=GEMMA_LAYERS)
     runs = serve_plan(dev, GEMMA, model, "gemma3", reqs,
                       lambda **kw: path_counts(cfg.n_layers, 8, **kw))
     shared = serve_shared(dev, cfg, model, (1024, 1536), label="gemma3 ",
@@ -2994,12 +3023,31 @@ def serve_shared(dev, cfg, model, prompt_len, label="", profile=None,
     return out
 
 
-def recorded_run(dev, cfg, model, prompts, chunk):
+def recording_prefill(cfg, prefill, prompts, firsts):
+    """``prefill`` keeping each one-shot prefill's last logits row (CPU)
+    in ``firsts`` under the rid of its prompt; ``prefill`` itself when
+    ``firsts`` is None."""
+    if firsts is None:
+        return prefill
+    rids = {tuple(p): i for i, p in enumerate(prompts)}
+
+    def step(model_, batch):
+        last, state = prefill(model_, batch)
+        firsts[rids[tuple(batch["tokens"][0].tolist())]] = \
+            last[0, :cfg.vocab].cpu()
+        return last, state
+
+    return step
+
+
+def recorded_run(dev, cfg, model, prompts, chunk, hx=None, firsts=None):
     """The fp path's engine over ``prompts`` (32 tokens each, max_batch 4,
     the fixed layout), one-shot (``chunk`` 0) or chunked, with a decode
-    step that keeps each decoding request's logits row.  Returns (streams,
-    logits by rid, prefill calls, decode steps)."""
-    hx = HelixConfig()
+    step that keeps each decoding request's logits row; ``hx`` defaults to
+    ``HelixConfig()``; ``firsts`` (a dict, one-shot) receives each
+    request's prefill logits by rid.  Returns (streams, logits by rid,
+    prefill calls, decode steps)."""
+    hx = hx or HelixConfig()
     logits: dict[int, list] = {}
     inner = build_serve_step(cfg, hx, return_logits=True)
     holder = {}
@@ -3012,7 +3060,8 @@ def recorded_run(dev, cfg, model, prompts, chunk):
         return nxt, state
 
     eng = DecodeEngine(
-        cfg, model, step, make_prefill_step(cfg, hx), max_batch=4,
+        cfg, model, step, recording_prefill(cfg, make_prefill_step(cfg, hx),
+                                            prompts, firsts), max_batch=4,
         max_seq=max(len(p) for p in prompts) + 33, hx=hx,
         dtype=torch.bfloat16, device=dev, chunk_tokens=chunk,
         chunk_prefill_step=make_chunk_prefill_step(cfg, hx) if chunk
@@ -4425,6 +4474,315 @@ def times_encdec_vlm(dev):
     return out
 
 
+# ------------------------------------------------------- phase 4b: ranks
+HELIX_B, HELIX_S = 8, 4096          # B1's per-rank check (granite's heads)
+HELIX_LAYOUTS = {2: ((2, 1),), 4: ((4, 1), (2, 2))}   # world -> (kvp, tpa)
+HELIX_HOPB = (1, 2)
+# the serve runs' HOP-B chunk counts by layout: both where HOP-B 2 is held
+# against 1 (one layout a world), one where only the streams are held
+HELIX_SERVE_HOPB = {(2, 1): (1, 2), (4, 1): (1,), (2, 2): (1, 2)}
+HELIX_DEMO_NEW = 8                  # serve_demo(world=2): the streams' head
+HELIX_PROMPT, HELIX_NEW = 1024, 32
+
+
+def check_rank_decode(dev):
+    """Each per-rank B1 launch (``n_ranks=1, rank=k``, fused append) ==
+    shard k of the emulated one-launch call, bit for bit: outputs, LSEs
+    and the appended caches, at KVP 2 and 4, bf16."""
+    g = torch.Generator(device=dev).manual_seed(80)
+    b, s = HELIX_B, HELIX_S
+    tl = torch.randint(s // 2, s + 1, (b,), generator=g, device=dev,
+                       dtype=torch.int32)
+    rnd = lambda *sh: torch.randn(*sh, generator=g, device=dev).to(  # noqa
+        torch.bfloat16)
+    q, kn, vn = rnd(b, QH, HSZ), rnd(b, KH, HSZ), rnd(b, KH, HSZ)
+    k, v = rnd(b, KH, s, HSZ), rnd(b, KH, s, HSZ)
+    for kvp in (2, 4):
+        s_loc = s // kvp
+        ke, ve = k.clone(), v.clone()
+        out, lse = flash_decode_shards(q, ke, ve, tl, kvp=kvp, n_ranks=kvp,
+                                       rank=0, rr_block=RR, k_new=kn,
+                                       v_new=vn)
+        for r in range(kvp):
+            sl = slice(r * s_loc, (r + 1) * s_loc)
+            kr, vr = k[:, :, sl].clone(), v[:, :, sl].clone()
+            o, l_ = flash_decode_shards(q, kr, vr, tl, kvp=kvp, n_ranks=1,
+                                        rank=r, rr_block=RR, k_new=kn,
+                                        v_new=vn)
+            need(torch.equal(bits(o[0]), bits(out[r]))
+                 and torch.equal(bits(l_[0]), bits(lse[r]))
+                 and torch.equal(bits(kr), bits(ke[:, :, sl]))
+                 and torch.equal(bits(vr), bits(ve[:, :, sl])),
+                 f"B1 rank {r} of kvp {kvp} differs from the emulated shard")
+        print(f"  B1 per rank (n_ranks=1, rank=k) == the emulated launch's "
+              f"shard bit for bit: kvp {kvp}, B {b}, S {s}, lengths "
+              f"{tl.tolist()}, fused append (outputs, LSEs, caches)")
+
+
+def rank_attention(g):
+    """On one rank: ``helix_attention(group=)`` at HOP-B 1 and 2 against
+    the emulated call at the same KVP over the same (seeded) inputs, bit
+    for bit, slices and appended shards.  Returns the checks' flags."""
+    dev = g.device
+    gen = torch.Generator(device=dev).manual_seed(81)
+    b, s = HELIX_B, HELIX_S
+    tl = torch.randint(s // 2, s + 1, (b,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    rnd = lambda *sh: torch.randn(*sh, generator=gen, device=dev).to(  # noqa
+        torch.bfloat16)
+    q, kn, vn = rnd(b, QH, HSZ), rnd(b, KH, HSZ), rnd(b, KH, HSZ)
+    k, v = rnd(b, KH, s, HSZ), rnd(b, KH, s, HSZ)
+    ke, ve = k.clone(), v.clone()
+    want = helix_attention(HelixConfig(kvp=g.kvp), q, ke, ve, tl, k_new=kn,
+                           v_new=vn)
+    qh, kh, s_loc = QH // g.tpa, KH // g.tpa, s // g.kvp
+    heads, slots = slice(g.t * kh, (g.t + 1) * kh), slice(g.k * s_loc,
+                                                          (g.k + 1) * s_loc)
+    sl = qh * HSZ // g.kvp
+    start = g.t * qh * HSZ + g.k * sl
+    flags = {}
+    hx = HelixConfig(kvp=g.kvp, tpa=g.tpa)
+    for hopb in HELIX_HOPB:
+        kl = k[:, heads, slots].contiguous()
+        vl = v[:, heads, slots].contiguous()
+        out = helix_attention(hx, q[:, g.t * qh:(g.t + 1) * qh].contiguous(),
+                              kl, vl, tl, k_new=kn[:, heads].contiguous(),
+                              v_new=vn[:, heads].contiguous(), group=g,
+                              hopb_chunks=hopb)
+        flags[hopb] = (torch.equal(bits(out), bits(want[:, start:start + sl]))
+                       and torch.equal(bits(kl), bits(ke[:, heads, slots]))
+                       and torch.equal(bits(vl), bits(ve[:, heads, slots])))
+    return flags
+
+
+def rank_recorded_run(g, cfg, model, prompts, hopb):
+    """``recorded_run`` on one rank: the engine across the ranks over
+    ``prompts``, a decode step that keeps each decoding request's logits
+    row; each decode step's collectives (calls and host ms) and host ms."""
+    hx = HelixConfig(kvp=g.kvp, tpa=g.tpa)
+    inner = build_serve_step(cfg, hx, return_logits=True, group=g,
+                             hopb_chunks=hopb)
+    logits, steps, holder = {}, [], {}
+
+    def step(model_, state, tokens):
+        c0, h0, t0 = dict(g.calls), dict(g.host_ms), time.perf_counter()
+        (nxt, lg), state = inner(model_, state, tokens)
+        steps.append((time.perf_counter() - t0,
+                      {k: g.calls[k] - c0[k] for k in c0},
+                      sum(g.host_ms[k] - h0[k] for k in h0)))
+        for i, r in enumerate(holder["engine"].slots):
+            if r is not None and r.state == DECODE:
+                logits.setdefault(r.rid, []).append(lg[i, :cfg.vocab])
+        return nxt, state
+
+    firsts = {}
+    prefill = recording_prefill(cfg, make_prefill_step(cfg, hx, group=g),
+                                prompts, firsts)
+    eng = DecodeEngine(cfg, model, step, prefill,
+                       max_batch=4, max_seq=HELIX_PROMPT + HELIX_NEW + 1,
+                       hx=hx, dtype=torch.bfloat16, device=g.device, group=g)
+    holder["engine"] = eng
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=HELIX_NEW)
+            for i, p in enumerate(prompts)]
+    registry.reset_launch_counts()
+    for r in reqs:
+        eng.submit(r)
+    while eng.pending():
+        eng.step()
+    torch.cuda.synchronize(g.device)
+    counts = registry.launch_counts()
+    lg = {rid: torch.stack(x).cpu() for rid, x in logits.items()}
+    n = len(steps)
+    return {"streams": {r.rid: r.out_tokens for r in reqs},
+            "logits": lg if g.rank == 0 else None,
+            "firsts": firsts if g.rank == 0 else None,
+            "fingerprint": sum(int(bits(x).long().sum()) for x in lg.values()),
+            "counts": counts, "steps": eng.decode_syncs,
+            "prefills": eng.prefill_calls,
+            "ttl_p50_ms": eng.metrics.summary()["ttl_s"]["p50"] * 1e3,
+            "host_ms_step": sum(s[0] for s in steps) / n * 1e3,
+            "calls_step": {k: sum(s[1][k] for s in steps) / n
+                           for k in steps[0][1]},
+            "coll_ms_step": sum(s[2] for s in steps) / n}
+
+
+def helix_rank_job(group, prompts):
+    """One rank of a gloo world sharing the card: for each layout of the
+    world (the group's, then KVP 2 x TPA 2 over the same 4 processes),
+    ``rank_attention`` and full-width granite-3-2b served at each HOP-B."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("granite-3-2b")
+    out = []
+    for kvp, tpa in HELIX_LAYOUTS[group.world]:
+        g = group if (kvp, tpa) == (group.kvp, group.tpa) else HelixGroup(
+            kvp, tpa, device=group.device)
+        full = init_params(cfg, 0, dtype=torch.bfloat16, device=g.device)
+        model = shard_model(full, cfg, g)
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+        out.append({"layout": (kvp, tpa), "attn": rank_attention(g),
+                    "serve": {h: rank_recorded_run(g, cfg, model, prompts, h)
+                              for h in HELIX_SERVE_HOPB[kvp, tpa]}})
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def nccl_one_job(group, prompts):
+    """NCCL at world 1: the rank prefill and one decode step over the
+    rank's share (the whole model) against the emulated kvp = 1 path on
+    the same weights and tokens: caches and step logits bit for bit; the
+    prefill's last logits bit for bit against the single-process
+    ``forward(last_only=True)`` (the head over the last position, as the
+    rank prefill takes it; the emulated prefill's head runs over every
+    position, and its error is printed)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("granite-3-2b")
+    dev = group.device
+    full = init_params(cfg, 0, dtype=torch.bfloat16, device=dev)
+    toks = torch.tensor(prompts, dtype=torch.int64, device=dev)
+    hx = HelixConfig()
+    l0, st = make_prefill_step(cfg, hx)(full, {"tokens": toks})
+    nxt = torch.argmax(l0[:, :cfg.vocab], dim=-1).to(torch.int32)
+    model = shard_model(full, cfg, group)
+    r0, rst = make_prefill_step(cfg, hx, group=group)(model, {"tokens": toks})
+    f0 = forward(cfg, full, toks, prefill_backend=hx.prefill_backend,
+                 last_only=True)[0][:, -1]
+    caches = all(torch.equal(bits(st[k]), bits(rst[k]))
+                 for k in ("kcache", "vcache"))
+    (_, l1), st = build_serve_step(cfg, hx, return_logits=True)(full, st, nxt)
+    (_, r1), rst = build_serve_step(cfg, hx, return_logits=True,
+                                    group=group)(model, rst, nxt)
+    torch.cuda.synchronize(dev)
+    return {"backend": group.backend, "caches": caches,
+            "step": torch.equal(bits(l1), bits(r1)),
+            "appended": all(torch.equal(bits(st[k]), bits(rst[k]))
+                            for k in ("kcache", "vcache")),
+            "prefill": torch.equal(bits(f0), bits(r0)),
+            "prefill_err": maxerr(l0, r0), "calls": dict(group.calls)}
+
+
+def by_token(logits, firsts):
+    """Logits keyed ``(rid, token)``: the prefill's under token 0, decode
+    step j's under token j + 1, all on the CPU."""
+    out = {(rid, 0): x for rid, x in firsts.items()}
+    out.update({(rid, j + 1): x.cpu() for rid, xs in logits.items()
+                for j, x in enumerate(xs)})
+    return out
+
+
+def helix_ranks(dev):
+    """Phase 4b (module doc): Helix across ranks."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_rank_decode(dev)
+    cfg = get_config("granite-3-2b")
+    rows = generate_rows(4, prompt_len=HELIX_PROMPT, max_tokens=HELIX_NEW,
+                         seed=0)
+    prompts = [prompt_tokens(r, cfg.vocab) for r in rows]
+    model = init_params(cfg, 0, dtype=torch.bfloat16, device=dev)
+    base = {}
+    for kvp in (2, 4):
+        firsts = {}
+        s, lg, _, _ = recorded_run(dev, cfg, model, prompts, 0,
+                                   hx=HelixConfig(kvp=kvp), firsts=firsts)
+        base[kvp] = (s, by_token(lg, firsts))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = card_line()
+    figures = {}
+    for world in HELIX_LAYOUTS:
+        stamp(f"{world} ranks over gloo on the one card")
+        t0 = time.perf_counter()
+        res = ranks.spawn(world, helix_rank_job, prompts, backend="gloo",
+                          device=dev, timeout_s=600)
+        print(f"  {world} ranks spawned, ran and joined in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for li, (kvp, tpa) in enumerate(HELIX_LAYOUTS[world]):
+            lay = [r[li] for r in res]
+            tag = f"world {world} (kvp {kvp} x tpa {tpa})"
+            for hopb in HELIX_HOPB:
+                need(all(x["attn"][hopb] for x in lay),
+                     f"{tag}: helix_attention at HOP-B {hopb} differs from "
+                     "the emulated call")
+            print(f"  {tag}: helix_attention == the emulated call bit for "
+                  f"bit on every rank at HOP-B {HELIX_HOPB} (B {HELIX_B}, "
+                  f"S {HELIX_S}, bf16, fused append)")
+            runs = {h: [x["serve"][h] for x in lay]
+                    for h in HELIX_SERVE_HOPB[kvp, tpa]}
+            for hopb, per in runs.items():
+                r0 = per[0]
+                need(all(p["streams"] == r0["streams"]
+                         and p["fingerprint"] == r0["fingerprint"]
+                         for p in per),
+                     f"{tag} HOP-B {hopb}: ranks hold other streams or logits")
+                for r, p in enumerate(per):
+                    want = {"flash_decode": cfg.n_layers * p["steps"] * hopb,
+                            "flash_prefill": cfg.n_layers * p["prefills"]}
+                    got = {k: p["counts"][k] for k in want}
+                    need(got == want and p["counts"]["flash_decode_kv8"] == 0
+                         and p["counts"]["flash_decode_paged"] == 0,
+                         f"{tag} rank {r} HOP-B {hopb}: launches {got} != "
+                         f"{want}")
+                near_ties(f"{tag} HOP-B {hopb} vs the emulated kvp {kvp} run",
+                          base[kvp][0], base[kvp][1], r0["streams"],
+                          by_token(r0["logits"], r0["firsts"]),
+                          judge_first=True)
+                print(f"    HOP-B {hopb}: launches per rank flash_decode "
+                      f"{cfg.n_layers} layers x {r0['steps']} steps x "
+                      f"{hopb} chunks, flash_prefill {cfg.n_layers} x "
+                      f"{r0['prefills']}; gloo-staged on one card (not "
+                      f"Helix's TTL): TTL p50 {r0['ttl_p50_ms']:.2f} ms, "
+                      f"host {r0['host_ms_step']:.2f} ms per decode step, "
+                      f"collectives per step {r0['calls_step']} holding the "
+                      f"host {r0['coll_ms_step']:.2f} ms ({card})")
+                figures[f"{kvp}x{tpa} h{hopb}"] = r0
+            if len(runs) == 1:
+                continue
+            a, b_ = runs[1][0], runs[2][0]
+            need(a["streams"] == b_["streams"] and all(
+                torch.equal(bits(a["logits"][rid]), bits(b_["logits"][rid]))
+                for rid in a["logits"]),
+                f"{tag}: HOP-B 2 differs from HOP-B 1")
+            print(f"  {tag}: HOP-B 2 == HOP-B 1 bit for bit (streams and "
+                  "every decode logit)")
+    stamp("serve_demo(world=2, dist_backend='gloo'), the user's entry point")
+    fin, summ = serve_demo("granite-3-2b", world=2, dist_backend="gloo",
+                           n_requests=4, prompt_len=HELIX_PROMPT,
+                           max_new=HELIX_DEMO_NEW, max_batch=4,
+                           dtype=torch.bfloat16, device=dev)
+    need({r.rid: r.out_tokens for r in fin}
+         == {rid: s[:HELIX_DEMO_NEW]
+             for rid, s in figures["2x1 h1"]["streams"].items()},
+         "serve_demo(world=2) streams differ from the recorded 2-rank run")
+    want = {"flash_decode": cfg.n_layers * summ["decode_syncs"],
+            "flash_prefill": cfg.n_layers * summ["prefill_calls"]}
+    got = [{k: c[k] for k in want} for c in summ["rank_launches"]]
+    need(all(g == want for g in got),
+         f"serve_demo(world=2) launches {got} != {want} per rank")
+    print(f"  serve_demo(world=2), {HELIX_DEMO_NEW} new tokens a request: "
+          "streams == the recorded 2-rank run's first "
+          f"{HELIX_DEMO_NEW} tokens; launches per rank {got}; TTL p50 "
+          f"{summ['ttl_s']['p50'] * 1e3:.2f} ms (gloo-staged on one card, "
+          f"{card})")
+    stamp("NCCL at world 1")
+    (one,) = ranks.spawn(1, nccl_one_job, prompts, backend="nccl",
+                         device=dev, timeout_s=300)
+    need(one["caches"] and one["step"] and one["appended"]
+         and one["prefill"],
+         f"NCCL world 1 differs from the emulated kvp 1 path: {one}")
+    print(f"  NCCL ({one['backend']}) world 1: prefill caches, the decode "
+          f"step's logits and its appended caches == the emulated kvp 1 "
+          f"path bit for bit; the prefill's last logits == the single-"
+          f"process forward(last_only=True) bit for bit (within "
+          f"{one['prefill_err']:.3g} of the emulated prefill's, whose head "
+          f"runs over every position); collectives {one['calls']}")
+    return figures
+
+
 def rotating(fns):
     """One callable that calls ``fns`` in turn."""
     it = itertools.cycle(fns)
@@ -4518,6 +4876,13 @@ def main() -> int:
     print("  (the build holds the decode tiles' swizzle to a permutation of "
           "each row's 16-byte units at every instantiated (type, head size):"
           " a static_assert in decode_tile.cuh's Ring)")
+
+    if sys.argv[1:] == ["--ranks-only"]:
+        print(f"== 4b helix ranks (t = {time.perf_counter() - T0:.1f} s)")
+        helix_ranks(dev)
+        print(f"  done at t = {time.perf_counter() - T0:.1f} s")
+        print(card)
+        return 0
 
     print(f"== 3 kernels vs plain on the card (t = "
           f"{time.perf_counter() - T0:.1f} s)")
@@ -4638,8 +5003,9 @@ def main() -> int:
           "checks")
     moe = serve_moe(dev)
     compare_moe(dev)
-    print(f"== 4 (t = {time.perf_counter() - T0:.1f} s) serve {GEMMA} (48 "
-          "layers, bf16, 40 local of a 1024-token window, head size 256): "
+    print(f"== 4 (t = {time.perf_counter() - T0:.1f} s) serve {GEMMA} "
+          f"({GEMMA_LAYERS} of 48 layers, bf16, 20 local of a 1024-token "
+          "window, head size 256): "
           "greedy, top-p at windows 1 and 4, paged, int8 head + int8 KV; "
           "chunked unshared, prefix-shared and grouped; 6-layer f32 checks")
     gemma = serve_gemma3(dev)
@@ -4682,6 +5048,11 @@ def main() -> int:
           "int8 head; 4-layer f32 checks")
     phi3 = serve_phi3(dev)
     compare_phi3(dev)
+    print(f"== 4b helix ranks (t = {time.perf_counter() - T0:.1f} s): B1 "
+          "per rank == the emulated shard; helix_attention and granite-3-2b "
+          "over 2 and 4 gloo ranks on the card (KVP 2, KVP 4, KVP 2 x TPA 2,"
+          " HOP-B 1 and 2); NCCL at world 1")
+    helix_ranks(dev)
 
     print(f"== 5 times (t = {time.perf_counter() - T0:.1f} s)")
     timed = times(dev)

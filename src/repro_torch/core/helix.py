@@ -26,9 +26,21 @@ backend runs the prefix pass and the decode kernel's grouped-suffix mode;
 the ``ref`` backend ignores the grouping, which is the oracle's semantics
 (grouped == ungrouped).
 
-Not ported: HOP-B batch chunking, ``torch.distributed``, and the
-reference's sliding-window cache-slice fast path (the decode kernel's
-block pruning covers it).
+Across ranks (``group``, a ``core/dist.HelixGroup``): each process is one
+rank ``(t, k)`` of a ``kvp x tpa`` grid and holds its local shard ``[B,
+Kh/tpa, s_loc, hsz]`` of the heads of TPA group t.  It attends over it with
+one kernel launch (``flash_decode_shards(n_ranks=1, rank=k)``; the fused
+append writes only on the rank that owns the new position), cuts the padded
+flat ``Qh/tpa * hsz`` dim into ``[kvp, B, sl]`` fragments, sends them
+through one all-to-all over its KVP subgroup, all-gathers the LSEs there and
+combines its ``[B, sl]`` slice: the reference's ``shard_map`` region.
+HOP-B (``hopb_chunks > 1``, B divisible by it) splits the batch: chunk i's
+all-to-all and all-gather are in flight while chunk i+1 attends, and the
+chunks are combined in order after their waits.
+
+Not ported: the multi-rank paged, int8 and contiguous modes, and the
+reference's sliding-window cache-slice fast path (the decode kernel's block
+pruning covers it).
 
 Caches (and scales) are updated **in place** (``append_kv``,
 ``append_kv_quant`` and the fused append), where the reference returns new
@@ -92,8 +104,11 @@ def _local_attend(q, k, v, total_len, rank, *, kvp, rr_block, window,
 def helix_attention(hx: HelixConfig, q, kcache, vcache, total_len, *,
                     window: int = 0, contiguous: bool = False,
                     kscale=None, vscale=None, k_new=None, v_new=None,
-                    block_tables=None, groups=None):
-    """Exact KVP-sharded decode attention, emulated on one card.
+                    block_tables=None, groups=None, group=None,
+                    hopb_chunks: int = 1):
+    """Exact KVP-sharded decode attention, emulated on one card, or across
+    ranks with ``group`` (``helix_attention_ranks``; ``hopb_chunks`` is
+    read there only).
 
     q [B, Qh, hsz]; kcache/vcache [B, Kh, S_cap, hsz] (S_cap = kvp * s_loc,
     rank r's shard at slots ``[r*s_loc, (r+1)*s_loc)``); ``total_len`` an
@@ -107,6 +122,17 @@ def helix_attention(hx: HelixConfig, q, kcache, vcache, total_len, *,
     the grouped decode's ``(group_id, group_np)`` [B] int32 pair.
     Returns [B, helix_out_dim(Qh*hsz, kvp)] in q.dtype.
     """
+    if group is not None:
+        if contiguous or kscale is not None or block_tables is not None:
+            raise ValueError("across ranks helix_attention takes the fixed "
+                             "fp layout (contiguous, int8 and paged are not "
+                             "ported)")
+        return helix_attention_ranks(hx, group, q, kcache, vcache, total_len,
+                                     window=window, k_new=k_new, v_new=v_new,
+                                     hopb_chunks=hopb_chunks)
+    if hx.tpa != 1:
+        raise ValueError(f"tpa={hx.tpa} needs a rank group (the emulated "
+                         "path is pure KVP)")
     b, qh, hsz = q.shape
     kvp = hx.kvp
     if block_tables is not None and contiguous:
@@ -154,6 +180,64 @@ def helix_attention(hx: HelixConfig, q, kcache, vcache, total_len, *,
                         max=qh - 1)
     out = combine_fragments(frags, lses, heads.reshape(kvp, sl))
     return out.reshape(b, d_pad)
+
+
+def _attend_rank(hx: HelixConfig, k: int, q, kcache, vcache, total_len, *,
+                 window, k_new, v_new):
+    """KVP rank k's partial attention over its local shard: ``(out [B, Qh,
+    hsz], lse [B, Qh])``; one kernel launch on the ``cuda`` backend."""
+    if hx.attn_backend == "cuda":
+        outs, lses = flash_decode_shards(
+            q, kcache, vcache, total_len, kvp=hx.kvp, n_ranks=1, rank=k,
+            rr_block=hx.rr_block, window=window, block_s=hx.attn_block_s,
+            k_new=k_new, v_new=v_new, prune=hx.prune_blocks)
+        return outs[0], lses[0]
+    if k_new is not None:
+        raise ValueError("fused append requires the cuda backend")
+    return _local_attend(q, kcache, vcache, total_len, k, kvp=hx.kvp,
+                         rr_block=hx.rr_block, window=window,
+                         contiguous=False)
+
+
+def helix_attention_ranks(hx: HelixConfig, group, q, kcache, vcache,
+                          total_len, *, window: int = 0, k_new=None,
+                          v_new=None, hopb_chunks: int = 1):
+    """Helix decode attention of one rank (module doc).  q [B, Qh/tpa, hsz]
+    (the rank's TPA heads); kcache/vcache [B, Kh/tpa, s_loc, hsz], the
+    rank's shard; ``total_len`` an int or [B] tensor of global lengths
+    including the new token; ``k_new``/``v_new`` [B, Kh/tpa, hsz]: the
+    fused append.  Returns the rank's slice [B, sl] of the flat dim padded
+    to ``helix_out_dim(Qh/tpa * hsz, kvp)``, ``sl`` = that / kvp: flat
+    positions ``[k*sl, (k+1)*sl)`` of TPA group t's heads."""
+    b, qh, hsz = q.shape
+    kvp = group.kvp
+    if (hx.kvp, hx.tpa) != (kvp, group.tpa):
+        raise ValueError(f"hx is kvp {hx.kvp} x tpa {hx.tpa}, the group "
+                         f"{kvp} x {group.tpa}")
+    d_flat = qh * hsz
+    d_pad = helix_out_dim(d_flat, kvp)
+    sl = d_pad // kvp
+    heads = torch.clamp(torch.arange(d_pad, device=q.device) // hsz,
+                        max=qh - 1).reshape(kvp, sl)[group.k]
+    chunks = hopb_chunks if hopb_chunks > 1 and b % hopb_chunks == 0 else 1
+    bc = b // chunks
+    tl = torch.as_tensor(total_len, dtype=torch.int32,
+                         device=q.device).reshape(-1).expand(b)
+    pending = []
+    for i in range(chunks):
+        rows = slice(i * bc, (i + 1) * bc)
+        out, lse = _attend_rank(
+            hx, group.k, q[rows], kcache[rows], vcache[rows], tl[rows],
+            window=window, k_new=None if k_new is None else k_new[rows],
+            v_new=None if v_new is None else v_new[rows])
+        flat = torch.nn.functional.pad(out.reshape(bc, d_flat),
+                                       (0, d_pad - d_flat))
+        frags = flat.reshape(bc, kvp, sl).transpose(0, 1)   # [dst, B, sl]
+        # chunk i's collectives fly while chunk i+1 attends (HOP-B)
+        pending.append((group.all_to_all(frags, async_op=True),
+                        group.all_gather(lse, async_op=True)))
+    outs = [combine_fragments(f.wait(), l.wait(), heads) for f, l in pending]
+    return outs[0] if chunks == 1 else torch.cat(outs)
 
 
 def paged_slot_of_position(pos, block_tables, *, kvp: int, rr_block: int,

@@ -140,8 +140,9 @@ def sampling_leaf_shapes(batch: int) -> dict[str, tuple[int, ...]]:
 def decode_state_shapes(cfg: ArchConfig, batch: int, seq_len: int, kvp: int,
                         rr_block: int = 16, kv_bits: int = 16,
                         pool_blocks: int = 0, max_pages: int = 0,
-                        grouped: bool = False,
-                        sampling: bool = False) -> dict[str, tuple[int, ...]]:
+                        grouped: bool = False, sampling: bool = False,
+                        tpa: int = 1,
+                        local: bool = False) -> dict[str, tuple[int, ...]]:
     """Shape of every decode-state leaf.  Attention archs: ``kcache``/
     ``vcache``; ``pool_blocks > 0`` makes them pool planes ``[L,
     pool_blocks, Kh, page, hsz]`` beside ``block_tables [batch, max_pages]``
@@ -166,6 +167,9 @@ def decode_state_shapes(cfg: ArchConfig, batch: int, seq_len: int, kvp: int,
     if pool_blocks > 0:
         kv = (cfg.n_layers, pool_blocks, cfg.n_kv_heads,
               page_positions(kvp, rr_block), cfg.hsz)
+    elif local:
+        kv = (cfg.n_layers, batch, cfg.n_kv_heads // tpa,
+              cache_capacity(seq_len, kvp, rr_block) // kvp, cfg.hsz)
     else:
         kv = (cfg.n_layers, batch, cfg.n_kv_heads,
               cache_capacity(seq_len, kvp, rr_block), cfg.hsz)
@@ -184,14 +188,17 @@ def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int, kvp: int,
                       device="cuda", total_len: int = 0,
                       kv_bits: int = 16, pool_blocks: int = 0,
                       max_pages: int = 0, grouped: bool = False,
-                      sampling: bool = False) -> dict:
+                      sampling: bool = False, tpa: int = 1,
+                      local: bool = False) -> dict:
     """Zero-initialised decode state on ``device`` (``kv_bits=8``: int8
     caches and f32 scale planes; ``pool_blocks > 0``: the paged layout, with
     every table row parked on the sink page 0; ``grouped``: every row its
     own group of no shared page, which decodes as ungrouped; ``sampling``:
-    the sampler's leaves, zeros, which decode greedily)."""
+    the sampler's leaves, zeros, which decode greedily; ``local``: one
+    rank's shard of a ``kvp x tpa`` grid)."""
     shapes = decode_state_shapes(cfg, batch, seq_len, kvp, rr_block, kv_bits,
-                                 pool_blocks, max_pages, grouped, sampling)
+                                 pool_blocks, max_pages, grouped, sampling,
+                                 tpa, local)
     types = {**SAMPLING_TYPES, "kcache": torch.int8 if kv_bits == 8 else dtype,
              "kscale": torch.float32, "block_tables": torch.int32,
              "group_id": torch.int32, "group_np": torch.int32,

@@ -1,21 +1,28 @@
 """The port's Helix configuration (counterpart of the reference's
-``core/sharding.py`` ``HelixConfig``).
+``core/sharding.py`` ``HelixConfig`` and ``default_helix_config``).
 
-There are no mesh axes: ``kvp`` is an integer, and KVP ranks are emulated on
-one card (``core/helix.py``).  Backends are ``ref`` (plain PyTorch) or
-``cuda`` (the hand-written kernels; on CPU tensors their wrappers take the
-plain version).
+There are no mesh axes: ``kvp`` and ``tpa`` are integers.  Without a rank
+group the KVP ranks are emulated on one card (``core/helix.py``) and
+``tpa`` must be 1.  With one (``core/dist.HelixGroup``) the ``kvp * tpa``
+processes are the ranks, numbered ``rank = t * kvp + k`` for TPA index t
+(the query/KV head group) and KVP index k (the sequence shard): the
+tpa-major, kvp-minor order of the reference's ``helix_attention`` out spec,
+which every sharded weight and every collective follows.  Backends are
+``ref`` (plain PyTorch) or ``cuda`` (the hand-written kernels; on CPU
+tensors their wrappers take the plain version).
 """
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.kernels.registry import BACKENDS
+from repro_torch.utils import round_up
 
 
 @dataclasses.dataclass(frozen=True)
 class HelixConfig:
     kvp: int = 1                 # KV-parallel width (ranks over the sequence)
+    tpa: int = 1                 # attention TP width (ranks over KV heads)
     rr_block: int = 16           # round-robin block of positions (§2.3)
     attn_block_s: int = 512      # flash_decode S-block (clamped to the shard)
     attn_backend: str = "cuda"   # flash_decode family
@@ -38,5 +45,78 @@ class HelixConfig:
             if getattr(self, field) not in BACKENDS:
                 raise ValueError(f"{field}={getattr(self, field)!r}; choose "
                                  f"from {BACKENDS}")
-        if self.kvp < 1 or self.rr_block < 1:
-            raise ValueError(f"kvp and rr_block must be >= 1 ({self})")
+        if self.kvp < 1 or self.tpa < 1 or self.rr_block < 1:
+            raise ValueError(f"kvp, tpa and rr_block must be >= 1 ({self})")
+
+    @property
+    def world(self) -> int:
+        """Ranks of the attention phase, re-used as TP = world after it."""
+        return self.kvp * self.tpa
+
+
+@dataclasses.dataclass(frozen=True)
+class RankLayout:
+    """One rank's place in a ``kvp x tpa`` grid: ``rank = t * kvp + k``."""
+    rank: int
+    kvp: int
+    tpa: int = 1
+
+    def __post_init__(self):
+        if not 0 <= self.rank < self.kvp * self.tpa:
+            raise ValueError(f"rank {self.rank} outside a {self.kvp} x "
+                             f"{self.tpa} grid")
+
+    @property
+    def world(self) -> int:
+        return self.kvp * self.tpa
+
+    @property
+    def t(self) -> int:
+        """TPA index: the rank's group of query and KV heads."""
+        return self.rank // self.kvp
+
+    @property
+    def k(self) -> int:
+        """KVP index: the rank's shard of the sequence (slot) axis."""
+        return self.rank % self.kvp
+
+
+def default_helix_config(cfg, world: int, model: int = 1) -> HelixConfig:
+    """The reference's rule over a ``(world / model, model)`` mesh: TPA =
+    ``model`` when the arch has at least that many KV heads (TPA <= K),
+    else pure KVP over every rank; KVP = world / TPA."""
+    if world < 1 or model < 1 or world % model:
+        raise ValueError(f"a mesh of {world} ranks has no axis of {model}")
+    tpa = model if cfg.n_kv_heads >= model else 1
+    return HelixConfig(kvp=world // tpa, tpa=tpa)
+
+
+def local_config(cfg, tpa: int):
+    """``cfg`` with the head counts of one TPA group (head size kept): the
+    shapes of a rank's attention."""
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // tpa,
+                               n_kv_heads=cfg.n_kv_heads // tpa,
+                               head_dim=cfg.hsz)
+
+
+def check_ranks(cfg, hx: HelixConfig) -> None:
+    """Raise ``ValueError`` for what the multi-rank path does not take:
+    archs other than dense attention with a dense FFN (SSM, hybrid, MoE,
+    enc-dec, vlm); a TPA that does not divide the KV and the query heads;
+    a flat head dim that needs padding under TPA (the reference allows the
+    pad in pure-KVP mode only); a ``d_ff`` that does not split over every
+    rank (the reference's '2d' FFN fallback is not ported)."""
+    if cfg.family != "dense":
+        raise ValueError(f"across ranks the port serves the dense family "
+                         f"({cfg.name} is {cfg.family})")
+    if cfg.n_kv_heads % hx.tpa or cfg.n_heads % hx.tpa:
+        raise ValueError(f"tpa={hx.tpa} must divide {cfg.name}'s "
+                         f"{cfg.n_heads} query and {cfg.n_kv_heads} KV heads")
+    q_loc = cfg.n_heads // hx.tpa * cfg.hsz
+    if hx.tpa > 1 and round_up(q_loc, hx.kvp) != q_loc:
+        raise ValueError(f"tpa={hx.tpa}: the flat head dim {q_loc} does not "
+                         f"split over kvp={hx.kvp} (padding is pure-KVP only)")
+    if cfg.d_ff % hx.world:
+        raise ValueError(f"d_ff={cfg.d_ff} does not split over {hx.world} "
+                         "ranks; the reference's '2d' FFN fallback is not "
+                         "ported")

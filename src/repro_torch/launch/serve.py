@@ -76,6 +76,21 @@ the whole prompt, so ``--chunk-tokens`` falls back to one-shot prefill and
 ``--prefix-share`` raises, as in the reference; ``--paged-kv``,
 ``--lm-head-w8``, ``--sampling`` and ``--decode-window`` work.
 
+Helix across ranks: ``--nproc N [--tpa T] [--hopb-chunks C]
+--dist-backend nccl|gloo`` serves with N processes, one rank each of a
+``KVP x TPA`` grid (KVP = N / T; T falls back to 1 when the arch has
+fewer than T KV heads, the reference's rule): every rank runs the same
+engine on the same requests with its share of the weights
+(``models/shard.py``) and its KV shard; attention is Helix's (one all-to-all per layer, HOP-B over C
+batch chunks), the out-projection, the FFN and the head are TP over all N.
+``nccl`` needs one card per rank; ``gloo`` runs ranks that share one card
+(their collectives staged through host memory) or run on the CPU
+(``--device cpu``).  The kernels are built once, here, before the ranks
+start; rank 0's summary is printed, with ``world``, ``kvp``, ``tpa``,
+``hopb_chunks`` and every rank's ``launches`` and ``collectives``.  Dense
+archs with the fixed fp KV cache and one-shot greedy prefill only: every
+other option raises ``ValueError`` (``serving/engine.check_rank_engine``).
+
 ``--arch whisper-base`` and ``--arch phi-3-vision-4.2b`` are refused with
 a ``ValueError`` before any weight is made: the engine serves no enc-dec or
 vlm arch (``serving/engine.check_servable``).  Serve them through
@@ -94,16 +109,21 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, list_archs
-from repro_torch.core.sharding import HelixConfig
-from repro_torch.kernels.registry import BACKENDS, backend_table
+from repro_torch.core.sharding import HelixConfig, default_helix_config
+from repro_torch.kernels import build
+from repro_torch.kernels.registry import (BACKENDS, backend_table,
+                                          launch_counts,
+                                          reset_launch_counts)
+from repro_torch.launch import ranks
 from repro_torch.models.model_zoo import (build_serve_multistep,
                                           build_serve_step,
                                           chunked_prefill_supported,
                                           make_chunk_prefill_step,
                                           make_prefill_step)
+from repro_torch.models.shard import shard_model
 from repro_torch.models.transformer import init_params
 from repro_torch.serving import DecodeEngine, Request
-from repro_torch.serving.engine import check_servable
+from repro_torch.serving.engine import check_rank_engine, check_servable
 from repro_torch.serving.metrics import VirtualClock
 from repro_torch.serving.sampling import SAMPLING_KINDS, SamplingParams
 from repro_torch.serving.scheduler import POLICIES
@@ -131,16 +151,119 @@ def generate_rows(n: int, *, prompt_len, max_tokens, seed: int = 0):
         max_tokens=_span(max_tokens)),), seed=seed)
 
 
-def serve_demo(arch: str = "granite-3-2b", **kw):
+def serve_demo(arch: str = "granite-3-2b", *, world: int = 1, tpa: int = 1,
+               hopb_chunks: int = 1, dist_backend: str | None = None,
+               init_method: str | None = None, **kw):
     """Serve ``n_requests`` synthetic prompts through the engine, to the
-    end.  Returns ``(finished Requests, metrics summary)``; the arguments
-    are ``serve_steps``'s."""
+    end.  Returns ``(finished Requests, metrics summary)``; the other
+    arguments are ``serve_steps``'s.
+
+    ``world`` > 1 (or a ``dist_backend``): ``world`` ranks of a ``KVP x
+    TPA`` grid, HOP-B over ``hopb_chunks`` (module doc).  ``tpa`` is the
+    attention TP width asked for; the reference's rule
+    (``core/sharding.default_helix_config``) keeps it when the arch has at
+    least that many KV heads, else serves pure KVP over every rank; KVP =
+    ``world`` / TPA.  The ranks are started by ``launch/ranks.spawn``
+    through ``init_method`` (default: a fresh ``file://`` rendezvous).  ``dist_backend`` is ``nccl`` or
+    ``gloo``; it defaults to gloo on the CPU and must be given on CUDA.
+    The kernels are built here before the ranks start.  A ``model`` must be
+    on the CPU; each rank takes its share.  Raises when a rank fails or the
+    ranks' streams differ; returns rank 0's requests and summary, with
+    ``rank_launches`` and ``rank_collectives`` of every rank."""
+    if world > 1 or dist_backend is not None:
+        return _serve_world(arch, world, tpa, hopb_chunks, dist_backend,
+                            init_method, kw)
     steps = serve_steps(arch, **kw)
     while True:
         try:
             next(steps)
         except StopIteration as done:
             return done.value
+
+
+def _serve_world(arch, world, tpa, hopb_chunks, backend, init_method, kw):
+    device = torch.device(kw.get("device", "cuda"))
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("serve_demo runs on CUDA and found no CUDA device "
+                           "(pass device='cpu' for the plain PyTorch path)")
+    if backend is None:
+        if device.type == "cuda":
+            raise ValueError("world > 1 on CUDA: choose dist_backend 'nccl' "
+                             "(one card per rank) or 'gloo' (ranks sharing "
+                             "a card)")
+        backend = "gloo"
+    cfg = _config(arch, kw.get("reduced", False), kw.get("n_layers", 0))
+    grid = default_helix_config(cfg, world, tpa)
+    if kw.get("kvp") not in (None, grid.kvp):
+        raise ValueError(f"kvp={kw['kvp']}: across ranks kvp is world / tpa")
+    hx = _helix(kw.get("hx"), _overrides(kw), kvp=grid.kvp, tpa=grid.tpa)
+    check_rank_engine(cfg, hx, **{k: kw[k] for k in (
+        "chunk_tokens", "prefix_share", "decode_window", "host_pages",
+        "session_kv", "fault_plan", "tenants") if k in kw},
+        sampling=kw.get("sampling"),
+        slo_ttl_s=kw.get("slo_ttl_ms") or None)
+    if kw.get("traffic", "batch") != "batch":
+        raise ValueError("across ranks arrivals are batch only (the traffic "
+                         "models pace arrivals by each rank's steps)")
+    ranks.check_backend(world, backend, device)
+    if device.type == "cuda":
+        build.build_all()                   # once, before the ranks start
+    log = kw.pop("log", print)
+    res = ranks.spawn(world, _serve_rank, arch, hopb_chunks, kw, tpa=hx.tpa,
+                      backend=backend, device=device,
+                      init_method=init_method)
+    streams = [{r.rid: r.out_tokens for r in fin} for fin, _ in res]
+    if any(s != streams[0] for s in streams[1:]):
+        raise RuntimeError("the ranks' token streams differ")
+    finished, summary = res[0]
+    summary["rank_launches"] = [s.pop("launches") for _, s in res]
+    summary["rank_collectives"] = [s.pop("collectives") for _, s in res]
+    log(f"[serve] {world} ranks (kvp {hx.kvp} x tpa {hx.tpa}, {backend}, "
+        f"hopb {hopb_chunks}): {len(finished)} requests, "
+        f"{summary['n_tokens']} tokens in {summary['wall_s']:.2f}s")
+    return finished, summary
+
+
+def _serve_rank(group, arch, hopb_chunks, kw):
+    """One rank of ``serve_demo(world=...)``: ``serve_steps`` with the
+    group, its launch counts and collectives in the summary."""
+    kw = dict(kw, device=group.device, log=lambda *a: None)
+    reset_launch_counts()
+    group.reset_stats()
+    steps = serve_steps(arch, group=group, hopb_chunks=hopb_chunks, **kw)
+    while True:
+        try:
+            next(steps)
+        except StopIteration as done:
+            finished, summary = done.value
+            break
+    summary.update(world=group.world, kvp=group.kvp, tpa=group.tpa,
+                   hopb_chunks=hopb_chunks, launches=launch_counts(),
+                   collectives={"calls": dict(group.calls),
+                                "host_ms": dict(group.host_ms)})
+    return finished, summary
+
+
+def _config(arch, reduced, n_layers):
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    check_servable(cfg)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    return cfg
+
+
+def _overrides(kw) -> dict:
+    """The ``HelixConfig`` fields ``serve_steps``' arguments override."""
+    return {k: kw.get(k) for k in ("kvp", "attn_backend", "prefill_backend",
+                                   "matmul_backend", "ssd_backend",
+                                   "lm_head_w8", "paged_kv", "grouped_decode")
+            if kw.get(k) is not None}
+
+
+def _helix(hx, overrides, **fields) -> HelixConfig:
+    return dataclasses.replace(hx or HelixConfig(), **{**overrides, **fields})
 
 
 def serve_steps(arch: str = "granite-3-2b", *, reduced: bool = False,
@@ -163,7 +286,8 @@ def serve_steps(arch: str = "granite-3-2b", *, reduced: bool = False,
                tenants=None, slo_ttl_ms: float = 0.0, virtual_clock=False,
                host_pages: int = 0, session_kv: bool = False,
                fault_plan=None, turns: int = 1, dtype=torch.float32,
-               device="cuda", model=None, seed: int = 0, log=print):
+               device="cuda", model=None, seed: int = 0, log=print,
+               group=None, hopb_chunks: int = 1):
     """``serve_demo`` one engine step at a time: a generator that yields
     the ``DecodeEngine`` before each engine step, after that step's
     arrivals are submitted, and returns ``(finished Requests, metrics
@@ -215,29 +339,29 @@ def serve_steps(arch: str = "granite-3-2b", *, reduced: bool = False,
     its whole conversation so far plus ``prompt_len`` fresh tokens (the
     top of a range), drawn from the same generator as the reference's;
     ``turn2_ttft_s`` is the mean TTFT of the later turns.
+
+    ``group`` (a ``core/dist.HelixGroup``): this process is one rank of
+    ``serve_demo(world=...)``; ``hx`` takes the group's ``kvp`` and
+    ``tpa``, the whole model (``model`` or the seeded one) is cut to the
+    rank's share (``shard_model``) and the engine's steps run across the
+    ranks, HOP-B over ``hopb_chunks``.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("serve_demo runs on CUDA and found no CUDA device "
                            "(pass device='cpu' for the plain PyTorch path)")
-    cfg = get_config(arch)
-    if reduced:
-        cfg = cfg.reduced()
-    check_servable(cfg)
-    if n_layers:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    overrides = {k: v for k, v in (("kvp", kvp),
-                                   ("attn_backend", attn_backend),
-                                   ("prefill_backend", prefill_backend),
-                                   ("matmul_backend", matmul_backend),
-                                   ("ssd_backend", ssd_backend),
-                                   ("lm_head_w8", lm_head_w8),
-                                   ("paged_kv", paged_kv),
-                                   ("grouped_decode", grouped_decode))
-                 if v is not None}
-    hx = dataclasses.replace(hx or HelixConfig(), **overrides)
+    cfg = _config(arch, reduced, n_layers)
+    ranked = ({} if group is None else
+              dict(kvp=group.kvp, tpa=group.tpa))
+    hx = _helix(hx, _overrides(dict(
+        kvp=kvp, attn_backend=attn_backend, prefill_backend=prefill_backend,
+        matmul_backend=matmul_backend, ssd_backend=ssd_backend,
+        lm_head_w8=lm_head_w8, paged_kv=paged_kv,
+        grouped_decode=grouped_decode)), **ranked)
     if model is None:
         model = init_params(cfg, seed, dtype=dtype, device=device)
+    if group is not None:
+        model = shard_model(model.to(device), cfg, group)
     if isinstance(tenants, str):
         tenants = parse_tenants(tenants)
     if trace is not None:
@@ -268,7 +392,9 @@ def serve_steps(arch: str = "granite-3-2b", *, reduced: bool = False,
         sp = SamplingParams(kind=sampling, temperature=temperature,
                             top_k=top_k, top_p=top_p, seed=seed)
     engine = DecodeEngine(
-        cfg, model, build_serve_step(cfg, hx), make_prefill_step(cfg, hx),
+        cfg, model,
+        build_serve_step(cfg, hx, group=group, hopb_chunks=hopb_chunks),
+        make_prefill_step(cfg, hx, group=group),
         max_batch=max_batch, max_seq=max_seq, hx=hx, dtype=dtype,
         device=device, sched_policy=sched_policy, pool_blocks=pool_blocks,
         chunk_tokens=chunk_tokens if chunked else 0,
@@ -282,7 +408,7 @@ def serve_steps(arch: str = "granite-3-2b", *, reduced: bool = False,
                  if tenants else None),
         slo_ttl_s=slo_ttl_ms / 1e3 if slo_ttl_ms else None,
         clock=(VirtualClock() if virtual_clock is True
-               else virtual_clock or time.monotonic))
+               else virtual_clock or time.monotonic), group=group)
     rng = np.random.default_rng(seed)
     shared = rng.integers(0, cfg.vocab, shared_prefix_len).tolist()
     pending = requests_from_trace(rows, cfg.vocab, shared_prefix=shared)
@@ -358,6 +484,19 @@ def main(argv=None):
                          "one chunk per engine step (0: one-shot prefill)")
     ap.add_argument("--kvp", type=int, default=1,
                     help="KV-parallel ranks, emulated on one card")
+    ap.add_argument("--nproc", type=int, default=1,
+                    help="ranks (processes) of Helix across ranks: KVP = "
+                         "nproc / tpa")
+    ap.add_argument("--tpa", type=int, default=1,
+                    help="attention TP width across ranks, kept when the "
+                         "arch has that many KV heads, else pure KVP (the "
+                         "reference's rule)")
+    ap.add_argument("--hopb-chunks", type=int, default=1,
+                    help="HOP-B: batch chunks whose all-to-all overlaps the "
+                         "next chunk's attention")
+    ap.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                    help="collectives across ranks: nccl (one card per "
+                         "rank) or gloo (ranks sharing a card, or the CPU)")
     ap.add_argument("--sched-policy", default="fcfs", choices=POLICIES)
     ap.add_argument("--attn-backend", default=None, choices=BACKENDS)
     ap.add_argument("--prefill-backend", default=None, choices=BACKENDS)
@@ -454,10 +593,16 @@ def main(argv=None):
     if args.list_backends:
         print(backend_table())
         return
+    ranked = {}
+    if args.nproc > 1 or args.dist_backend:
+        ranked = dict(world=args.nproc, tpa=args.tpa,
+                      hopb_chunks=args.hopb_chunks,
+                      dist_backend=args.dist_backend)
     _, summary = serve_demo(
-        args.arch, reduced=args.reduced, n_layers=args.layers,
+        args.arch, **ranked, reduced=args.reduced, n_layers=args.layers,
         n_requests=args.requests, prompt_len=args.prompt_len,
-        max_new=args.max_new, max_batch=args.max_batch, kvp=args.kvp,
+        max_new=args.max_new, max_batch=args.max_batch,
+        kvp=None if ranked else args.kvp,
         attn_backend=args.attn_backend, prefill_backend=args.prefill_backend,
         matmul_backend=args.matmul_backend, ssd_backend=args.ssd_backend,
         lm_head_w8=args.lm_head_w8 or None,

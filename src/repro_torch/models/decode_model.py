@@ -61,6 +61,16 @@ Token decision: the argmax, or, when the state holds the sampler's leaves
 (``core/kvcache.sampling_leaf_shapes``), ``serving/sampling.sample_tokens``
 with each row's policy; ``serve_step`` then advances ``sample_idx`` by one.
 
+Across ranks (``build_serve_step(cfg, hx, group=, hopb_chunks=)``, dense
+archs, fixed fp caches, fused append): ``model`` is the rank's
+``models/shard.shard_model`` share and ``state`` its local caches ``[L, B,
+Kh/tpa, S_cap/kvp, hsz]``.  Each layer projects QKV on the rank's heads,
+rotates, runs ``helix_attention(group=)`` (the fused append on the owner
+rank, one all-to-all and one LSE all-gather, HOP-B over ``hopb_chunks``),
+multiplies its flat slice by its ``wo`` rows and all-reduces, then the TP
+FFN and a second all-reduce; the head's vocab columns are all-gathered, so
+every rank holds the same logits and takes the same greedy token.
+
 ``build_serve_multistep(cfg, hx, window=N)`` runs N steps of the same core
 in one call with per-row budgets, EOS and forced tokens carried as masks
 (the reference's ``lax.scan`` window, a Python loop here): on the card the
@@ -73,17 +83,17 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.core.helix import (append_kv, append_kv_quant,
-                                    fuse_append_applicable, helix_attention,
-                                    helix_out_dim)
-from repro_torch.core.sharding import HelixConfig
+                                    fuse_append_applicable, helix_attention)
+from repro_torch.core.sharding import (HelixConfig, check_ranks,
+                                       local_config)
 from repro_torch.kernels.w8a16_matmul import (quantize_w8, w8a16_matmul,
                                               w8a16_matmul_ref)
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (apply_rope, rms_norm, sinusoidal_at,
                                        softcap)
 from repro_torch.models.transformer import (ffn_delta, head_weight,
-                                            layer_windows, mix_block_outputs,
-                                            vocab_mask)
+                                            layer_windows,
+                                            mix_block_outputs, vocab_mask)
 
 
 HEAD_BLOCK = 32768      # head columns quantized at a time
@@ -142,23 +152,31 @@ def _next_token(logits, state):
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-def _build_step_logits(cfg: ArchConfig, hx: HelixConfig):
+def _build_step_logits(cfg: ArchConfig, hx: HelixConfig, group=None,
+                       hopb_chunks: int = 1):
     """``step_logits(model, state, tokens, advance=None) -> logits [B, Vp]``
     (caches in ``state`` appended in place; SSM leaves updated in place, and
     with ``advance`` [B] bool only on its rows: the others keep theirs, as
-    the reference's window holds a frozen row)."""
+    the reference's window holds a frozen row).  With ``group`` one rank's
+    step (module doc): attention on ``local_config``'s heads through
+    ``helix_attention(group=)``, HOP-B over ``hopb_chunks``, the
+    out-projection's and the FFN's partial sums all-reduced, the head's
+    vocab columns all-gathered."""
     kv8 = hx.kv_cache_bits == 8
     decode_cf = cfg.moe.decode_capacity_factor if cfg.moe else None
     fused = fuse_append_applicable(hx, quant=kv8, paged=hx.paged_kv)
-    o_dim = helix_out_dim(cfg.q_dim, hx.kvp)
+    acfg, reduce = cfg, (lambda y: y)       # the attention's heads, the TP sum
+    if group is not None:
+        check_rank_step(cfg, hx)
+        acfg, reduce = local_config(cfg, hx.tpa), group.all_reduce
 
     windows = layer_windows(cfg)
 
     def attn_phase(ap, h, kc, vc, ks, vs, tl_attn, tables, groups, window):
         b = h.shape[0]
-        q = (h @ ap.wq).reshape(b, cfg.n_heads, cfg.hsz)
-        kn = (h @ ap.wk).reshape(b, cfg.n_kv_heads, cfg.hsz)
-        vn = (h @ ap.wv).reshape(b, cfg.n_kv_heads, cfg.hsz)
+        q = (h @ ap.wq).reshape(b, acfg.n_heads, acfg.hsz)
+        kn = (h @ ap.wk).reshape(b, acfg.n_kv_heads, acfg.hsz)
+        vn = (h @ ap.wv).reshape(b, acfg.n_kv_heads, acfg.hsz)
         if cfg.use_rope:
             pos = (tl_attn - 1)[:, None]                      # [B, 1]
             q = apply_rope(q[:, None], pos, cfg.rope_theta)[:, 0]
@@ -166,7 +184,8 @@ def _build_step_logits(cfg: ArchConfig, hx: HelixConfig):
         if fused:
             out = helix_attention(hx, q, kc, vc, tl_attn, window=window,
                                   kscale=ks, vscale=vs, k_new=kn, v_new=vn,
-                                  block_tables=tables, groups=groups)
+                                  block_tables=tables, groups=groups,
+                                  group=group, hopb_chunks=hopb_chunks)
         else:
             if kv8:
                 append_kv_quant(kc, vc, ks, vs, kn, vn, tl_attn, kvp=hx.kvp,
@@ -177,13 +196,15 @@ def _build_step_logits(cfg: ArchConfig, hx: HelixConfig):
             out = helix_attention(hx, q, kc, vc, tl_attn, window=window,
                                   kscale=ks, vscale=vs, block_tables=tables,
                                   groups=groups)
-        return out_proj(out, ap.wo)
+        return reduce(out_proj(out, ap.wo))
 
     def out_proj(out, wo):
         """The post-attention projection; wo's rows padded to the padded
-        all-to-all width (the pad lanes of ``out`` are zeros)."""
-        if o_dim != wo.shape[0]:
-            wo = torch.nn.functional.pad(wo, (0, 0, 0, o_dim - wo.shape[0]))
+        all-to-all width (the pad lanes of ``out`` are zeros; a rank's
+        ``wo`` rows are its slice's, padded already)."""
+        if out.shape[-1] != wo.shape[0]:
+            wo = torch.nn.functional.pad(
+                wo, (0, 0, 0, out.shape[-1] - wo.shape[0]))
         return out @ wo
 
     def cross_phase(ap, h, xk, xv, enc_len):
@@ -234,20 +255,38 @@ def _build_step_logits(cfg: ArchConfig, hx: HelixConfig):
                                     state["xk"][i], state["xv"][i],
                                     state["enc_len"])
             if cfg.d_ff or cfg.moe:
-                x = x + ffn_delta(cfg, lp, rms_norm(x, lp.ln2),
-                                  capacity_factor=decode_cf)[0]
+                x = x + reduce(ffn_delta(cfg, lp, rms_norm(x, lp.ln2),
+                                         capacity_factor=decode_cf)[0])
         x = rms_norm(x, model.ln_f)
-        return (softcap(head_matmul(hx, model, x), cfg.softcap)
+        logits = head_matmul(hx, model, x)
+        if group is not None:
+            logits = group.all_gather_cols(logits)[:, :cfg.padded_vocab]
+        return (softcap(logits, cfg.softcap)
                 + vocab_mask(cfg, x.dtype, x.device))
 
     return step_logits
 
 
+def check_rank_step(cfg: ArchConfig, hx: HelixConfig) -> None:
+    """Raise ``ValueError`` for a ``HelixConfig`` the multi-rank decode
+    step does not take: only the fixed fp caches with the fused append."""
+    check_ranks(cfg, hx)
+    if hx.kv_cache_bits != 16 or hx.paged_kv or hx.lm_head_w8:
+        raise ValueError("across ranks the decode step takes the fixed fp "
+                         "KV cache and the fp head (int8 and paged are not "
+                         "ported)")
+    if not fuse_append_applicable(hx):
+        raise ValueError("across ranks the decode step fuses the KV append "
+                         "(attn_backend 'cuda', fuse_append)")
+
+
 def build_serve_step(cfg: ArchConfig, hx: HelixConfig, *,
-                     return_logits: bool = False):
+                     return_logits: bool = False, group=None,
+                     hopb_chunks: int = 1):
     """Build one autoregressive Helix decode step for ``cfg`` (state from
-    ``make_prefill_step`` or ``core/kvcache.init_decode_state``)."""
-    step_logits = _build_step_logits(cfg, hx)
+    ``make_prefill_step`` or ``core/kvcache.init_decode_state``); with
+    ``group`` one rank's step (module doc), HOP-B over ``hopb_chunks``."""
+    step_logits = _build_step_logits(cfg, hx, group, hopb_chunks)
 
     def serve_step(model, state, tokens):
         """tokens [B] int32 -> (next_tokens [B] int32, new state)."""

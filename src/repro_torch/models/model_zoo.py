@@ -9,7 +9,7 @@ import torch
 from repro_torch.configs import ArchConfig
 from repro_torch.core.helix import prefill_to_rr_layout
 from repro_torch.core.kvcache import cache_capacity
-from repro_torch.core.sharding import HelixConfig
+from repro_torch.core.sharding import HelixConfig, check_ranks, local_config
 from repro_torch.models.decode_model import (  # noqa: F401
     build_serve_multistep, build_serve_step)
 from repro_torch.models.encdec import cross_kv
@@ -50,7 +50,7 @@ def _forward_kwargs(cfg: ArchConfig, batch: dict) -> dict:
 
 
 def make_prefill_step(cfg: ArchConfig, hx: HelixConfig,
-                      s_cap: int | None = None):
+                      s_cap: int | None = None, group=None):
     """Build ``prefill_step(model, batch) -> (last_logits [B, Vp], state)``:
     the one-shot prefill (``hx.prefill_backend`` routes its attention,
     ``hx.ssd_backend`` its SSD scan) and the handoff of its caches into the
@@ -61,21 +61,41 @@ def make_prefill_step(cfg: ArchConfig, hx: HelixConfig,
     state then carries the static cross K/V ``xk``/``xv`` [L, B, Kh,
     S_enc_pad, hsz] (``encdec.cross_kv`` transposed, zero-padded to a
     multiple of ``hx.kvp``: each rank holds a contiguous shard) and
-    ``enc_len`` (int32, S_enc)."""
+    ``enc_len`` (int32, S_enc).
+
+    With ``group`` (dense archs): one rank's prefill over its
+    ``shard_model`` share (``forward(group=)``: attention on its TPA heads,
+    the out-projection and the FFN in TP with an all-reduce each, the last
+    position's vocab-parallel logits all-gathered); its caches go through
+    ``prefill_cache_to_rr`` and the rank keeps its slots ``[k*s_loc,
+    (k+1)*s_loc)`` of its heads, ``s_loc = cap / kvp``."""
+    acfg = cfg                      # the shapes of the caches' heads
+    if group is not None:
+        check_ranks(cfg, hx)
+        if (hx.kvp, hx.tpa) != (group.kvp, group.tpa):
+            raise ValueError(f"hx is kvp {hx.kvp} x tpa {hx.tpa}, the group "
+                             f"{group.kvp} x {group.tpa}")
+        acfg = local_config(cfg, hx.tpa)
 
     def prefill_step(model, batch):
         tokens = batch["tokens"]
         b, t = tokens.shape
         logits, extras = forward(cfg, model, tokens, return_cache=True,
                                  prefill_backend=hx.prefill_backend,
-                                 ssd_backend=hx.ssd_backend,
+                                 ssd_backend=hx.ssd_backend, group=group,
+                                 last_only=group is not None,
                                  **_forward_kwargs(cfg, batch))
         state = {"total_len": torch.tensor(t, dtype=torch.int32,
                                            device=tokens.device)}
         if cfg.has_attention:
             cap = s_cap or cache_capacity(t, hx.kvp, hx.rr_block)
-            state["kcache"], state["vcache"] = prefill_cache_to_rr(
-                cfg, hx, extras["kcache"], extras["vcache"], t, cap)
+            kc, vc = prefill_cache_to_rr(acfg, hx, extras["kcache"],
+                                         extras["vcache"], t, cap)
+            if group is not None:           # the rank's slots
+                s_loc = cap // hx.kvp
+                kc, vc = (c[..., group.k * s_loc:(group.k + 1) * s_loc, :]
+                          .contiguous() for c in (kc, vc))
+            state["kcache"], state["vcache"] = kc, vc
         if cfg.has_ssm:
             state["ssm_conv"] = extras["ssm_conv"]
             state["ssm_state"] = extras["ssm_state"]

@@ -39,6 +39,8 @@ import torch
 from torch import nn
 
 from repro_torch.configs import ArchConfig
+from repro_torch.core.helix import helix_out_dim
+from repro_torch.core.sharding import local_config
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import prefill_attention
@@ -214,7 +216,7 @@ def layer_windows(cfg: ArchConfig) -> list[int]:
 
 def _attn_block(cfg: ArchConfig, ap: Attention, h, *, q_offset,
                 backend: str, kv_buffer=None, window: int = 0,
-                causal: bool = True, kv_override=None):
+                causal: bool = True, kv_override=None, group=None):
     """Projections, RoPE (archs with ``use_rope``), attention and
     out-projection of one layer (``window`` > 0: sliding-window attention
     over that many positions; ``causal=False``: every query sees every
@@ -225,8 +227,13 @@ def _attn_block(cfg: ArchConfig, ap: Attention, h, *, q_offset,
     at ``[q_offset, q_offset + T)`` per row and attention runs over the
     whole buffer (causal masking hides its unfilled tail).
     ``kv_override`` (cross-attention): the (K, V) ``[B, S, Kh, hsz]`` to
-    attend over; only q is projected, and not rotated.  Returns the layer
-    output and the (K, V) the attention read."""
+    attend over; only q is projected, and not rotated.  ``group`` (a
+    ``core/dist.HelixGroup``; ``cfg`` then holds one TPA group's heads,
+    ``core/sharding.local_config``): one rank's block over its
+    ``models/shard.shard_model`` share, its flat slice ``[k*sl, (k+1)*sl)``
+    of the output (padded to ``helix_out_dim``) times its ``wo`` rows,
+    all-reduced over the ranks.  Returns the layer output and the (K, V)
+    the attention read."""
     b, t, _ = h.shape
     q = (h @ ap.wq).reshape(b, t, cfg.n_heads, cfg.hsz)
     if kv_override is not None:
@@ -247,7 +254,13 @@ def _attn_block(cfg: ArchConfig, ap: Attention, h, *, q_offset,
             k, v = kbuf, vbuf
     out = prefill_attention(q, k, v, causal=causal, window=window,
                             q_offset=q_offset, backend=backend)
-    return out.reshape(b, t, cfg.q_dim) @ ap.wo, (k, v)
+    out = out.reshape(b, t, cfg.q_dim)
+    if group is None:
+        return out @ ap.wo, (k, v)
+    sl = helix_out_dim(cfg.q_dim, group.kvp) // group.kvp
+    out = torch.nn.functional.pad(out, (0, sl * group.kvp - cfg.q_dim))
+    out = out[..., group.k * sl:(group.k + 1) * sl]
+    return group.all_reduce(out @ ap.wo), (k, v)
 
 
 def cross_attn_block(cfg: ArchConfig, lp: DecoderLayer, x, enc_out, *,
@@ -310,7 +323,11 @@ def mix_block_outputs(cfg: ArchConfig, a_out, s_out):
 
 def head_weight(model: Transformer):
     """The logits matmul's weight [d, Vp]: ``lm_head`` when the model is
-    untied, else ``embed.T``."""
+    untied, else ``embed.T``; a tied rank share's (``models/shard.py``)
+    vocab columns ``head_rows.T``."""
+    rows = getattr(model, "head_rows", None)
+    if rows is not None:
+        return rows.T
     return model.embed.T if model.cfg.tie_embeddings else model.lm_head
 
 
@@ -318,7 +335,8 @@ def head_weight(model: Transformer):
 def forward(cfg: ArchConfig, model: Transformer, tokens, *,
             return_cache: bool = False, prefill_backend: str = "cuda",
             ssd_backend: str = "cuda", q_offset=0, prefix_state=None,
-            enc_frames=None, patch_embeds=None):
+            enc_frames=None, patch_embeds=None, group=None,
+            last_only: bool = False):
     """Full-sequence forward.  tokens [B, T] int -> (logits [B, T, Vp],
     extras); with ``return_cache`` extras holds ``kcache``/``vcache``
     [L, B, T, Kh, hsz] (post-RoPE K and V of every attention layer) and
@@ -345,7 +363,15 @@ def forward(cfg: ArchConfig, model: Transformer, tokens, *,
     embeddings and every layer cross-attends to the encoder's output,
     which extras hold as ``enc_out`` [B, S_enc, d].  ``patch_embeds`` [B,
     P, d] (vlm archs) replace the first P token embeddings; a prompt of
-    fewer than P tokens is refused."""
+    fewer than P tokens is refused.
+
+    ``last_only``: logits [B, 1, Vp] of the last position only.  ``group``
+    (a ``core/dist.HelixGroup``, dense archs that pass
+    ``core/sharding.check_ranks``): one rank's forward over its
+    ``models/shard.shard_model`` share: attention on its TPA group's heads
+    (the caches hold them, ``[L, B, T, Kh/tpa, hsz]``), the out-projection
+    and the FFN in TP with an all-reduce each, the head's vocab columns
+    all-gathered, so every rank holds the same logits."""
     if prefix_state is not None and not (return_cache
                                          and chunked_prefill_supported(cfg)):
         raise ValueError("chunked prefill needs return_cache=True and a "
@@ -353,6 +379,9 @@ def forward(cfg: ArchConfig, model: Transformer, tokens, *,
     if cfg.is_encdec and enc_frames is None:
         raise ValueError(f"{cfg.name} is an encoder-decoder: forward needs "
                          "enc_frames [B, S_enc, d_model]")
+    acfg, reduce = cfg, (lambda y: y)       # the attention's heads, the TP sum
+    if group is not None:
+        acfg, reduce = local_config(cfg, group.tpa), group.all_reduce
     x = model.embed[tokens]
     if patch_embeds is not None:
         p = patch_embeds.shape[1]
@@ -381,9 +410,10 @@ def forward(cfg: ArchConfig, model: Transformer, tokens, *,
         if cfg.has_attention:
             buf = (None if prefix_state is None else
                    (prefix_state["kcache"][i], prefix_state["vcache"][i]))
-            a_out, (k, v) = _attn_block(cfg, lp.attn, h, q_offset=q_offset,
+            a_out, (k, v) = _attn_block(acfg, lp.attn, h, q_offset=q_offset,
                                         backend=prefill_backend,
-                                        kv_buffer=buf, window=windows[i])
+                                        kv_buffer=buf, window=windows[i],
+                                        group=group)
             if return_cache:
                 kcs.append(k)
                 vcs.append(v)
@@ -400,11 +430,14 @@ def forward(cfg: ArchConfig, model: Transformer, tokens, *,
         if cfg.d_ff or cfg.moe:
             delta, aux = ffn_delta(cfg, lp, rms_norm(x, lp.ln2),
                                    capacity_factor=None)
-            x = x + delta
+            x = x + reduce(delta)
             if aux is not None:
                 auxs.append(aux)
-    x = rms_norm(x, model.ln_f)
-    logits = (softcap(x @ head_weight(model), cfg.softcap)
+    x = rms_norm(x[:, -1:] if last_only else x, model.ln_f)
+    logits = x @ head_weight(model)
+    if group is not None:
+        logits = group.all_gather_cols(logits)[..., :cfg.padded_vocab]
+    logits = (softcap(logits, cfg.softcap)
               + vocab_mask(cfg, x.dtype, x.device))
     extras = {"aux_loss": torch.stack(auxs).sum()} if auxs else {}
     if prefix_state is not None:

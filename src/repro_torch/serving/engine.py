@@ -85,6 +85,18 @@ through the spill.  With a
 ``VirtualClock`` as ``clock`` every latency is the cost model's, so runs
 replay exactly.
 
+Across ranks (``group``, a ``core/dist.HelixGroup``): every rank runs the
+same engine on the same requests (SPMD), with its ``shard_model`` share as
+``model``, its local caches in the state and ``serve_step`` /
+``prefill_step`` built with the same group; the logits are all-gathered,
+so every rank takes the same tokens and the same decisions.  The
+constructor refuses, with ``ValueError``, what this path leaves out: the
+paged pool, chunked prefill, prefix sharing, grouped decode, the int8 KV
+cache and head, sampling, decode windows > 1, the host tier, and every
+decision a rank would read off its own clock (tenancy's fair queue, the
+TTL governor), where ranks could part and hang each other; non-dense archs
+are refused too.
+
 Enc-dec (whisper) and vlm (phi-3-vision) archs are refused at
 construction (``check_servable``): their prefill needs per-request
 ``enc_frames`` or ``patch_embeds``, which a ``Request`` does not carry.
@@ -107,7 +119,8 @@ from repro_torch.core.kvcache import (cache_capacity, cache_to_pages,
                                       scatter_pool_pages)
 from repro_torch.core.sharding import HelixConfig
 from repro_torch.kernels import registry
-from repro_torch.models.decode_model import prepare_decode_params
+from repro_torch.models.decode_model import (check_rank_step,
+                                             prepare_decode_params)
 from repro_torch.models.model_zoo import (chunked_prefill_supported,
                                           finalize_chunked_prefill,
                                           init_prefill_buffers)
@@ -138,6 +151,29 @@ def check_servable(cfg: ArchConfig) -> None:
             "and build_serve_step / build_serve_multistep")
 
 
+def check_rank_engine(cfg: ArchConfig, hx: HelixConfig, *, chunk_tokens=0,
+                      prefix_share=False, sampling=None, decode_window=1,
+                      host_pages=0, session_kv=False, fault_plan=None,
+                      tenants=None, slo_ttl_s=None) -> None:
+    """Raise ``ValueError`` for an engine option the multi-rank path does
+    not take (module doc), and for what its decode step refuses."""
+    check_rank_step(cfg, hx)
+    refused = {"chunk_tokens (chunked prefill)": chunk_tokens,
+               "prefix_share": prefix_share,
+               "hx.grouped_decode": hx.grouped_decode,
+               "sampling": sampling is not None,
+               "decode_window > 1": decode_window > 1,
+               "the host tier (host_pages, session_kv, fault_plan)":
+                   host_pages or session_kv or fault_plan is not None,
+               "tenants (a fair queue read off each rank's clock)": tenants,
+               "slo_ttl_s (the TTL governor reads each rank's clock)":
+                   slo_ttl_s is not None}
+    named = [name for name, on in refused.items() if on]
+    if named:
+        raise ValueError("across ranks the engine does not take "
+                         + ", ".join(named))
+
+
 class DecodeEngine:
     """Continuous-batching decode engine (see module doc).
 
@@ -162,7 +198,9 @@ class DecodeEngine:
     when there is one.  ``tenants`` (``TenantConfig``s) arms the fair
     queue, ``slo_ttl_s`` (seconds) the TTL governor; ``clock`` is the
     metrics clock (a ``VirtualClock`` is advanced by the engine's
-    work)."""
+    work).  ``group`` (a ``core/dist.HelixGroup``): this engine is one
+    rank of the multi-rank path (module doc); ``model`` is the rank's
+    share and the steps are built with the same group."""
 
     def __init__(self, cfg: ArchConfig, model, serve_step: Callable,
                  prefill_step: Callable, *, max_batch: int, max_seq: int,
@@ -176,9 +214,16 @@ class DecodeEngine:
                  serve_multistep: Callable | None = None,
                  host_pages: int = 0, session_kv: bool = False,
                  fault_plan=None, tenants=None,
-                 slo_ttl_s: float | None = None):
+                 slo_ttl_s: float | None = None, group=None):
         device = torch.device(device)
         check_servable(cfg)
+        if group is not None:
+            check_rank_engine(cfg, hx, chunk_tokens=chunk_tokens,
+                              prefix_share=prefix_share, sampling=sampling,
+                              decode_window=decode_window,
+                              host_pages=host_pages, session_kv=session_kv,
+                              fault_plan=fault_plan, tenants=tenants,
+                              slo_ttl_s=slo_ttl_s)
         if (host_pages or session_kv) and not hx.paged_kv:
             raise ValueError("the host KV tier (host_pages / session_kv) "
                              "needs hx.paged_kv: spill and restore go by "
@@ -230,6 +275,9 @@ class DecodeEngine:
         self.dtype = dtype
         self.max_batch = max_batch
         self.kvp, self.rr = hx.kvp, hx.rr_block
+        self.group = group
+        # KVP shards a state row holds: all of them, or the rank's own
+        self.shards = self.kvp if group is None else 1
         self.cap = cache_capacity(max_seq, self.kvp, self.rr)
         self.kv8 = hx.kv_cache_bits == 8
         self.paged = hx.paged_kv
@@ -251,7 +299,8 @@ class DecodeEngine:
                                        pool_blocks=self.pool_blocks,
                                        max_pages=self.max_pages,
                                        grouped=self.grouped,
-                                       sampling=sampling is not None)
+                                       sampling=sampling is not None,
+                                       tpa=hx.tpa, local=group is not None)
         # per-request lengths: [B]; empty slots keep 0
         self.state["total_len"] = torch.zeros(max_batch, dtype=torch.int32,
                                               device=device)
@@ -832,14 +881,14 @@ class DecodeEngine:
                 dst = self.state[key][:, slot]
                 row[key] = torch.zeros(dst.shape, dtype=torch.float32,
                                        device=dst.device)
-                _copy_rr(pstate[key][:, 0], row[key], self.kvp)
+                _copy_rr(pstate[key][:, 0], row[key], self.shards)
             q = quantize_decode_state(row)
             for key in ("kcache", "vcache", "kscale", "vscale"):
                 self.state[key][:, slot] = q[key]
         elif "kcache" in pstate:
             for key in ("kcache", "vcache"):
                 _copy_rr(pstate[key][:, 0], self.state[key][:, slot],
-                         self.kvp)
+                         self.shards)
         for key in ("ssm_conv", "ssm_state"):
             if key in pstate:
                 self.state[key][:, slot] = pstate[key][:, 0]

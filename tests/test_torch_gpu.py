@@ -58,7 +58,7 @@ from repro_torch.launch.serve import serve_demo
 from repro_torch.models import moe
 from repro_torch.models.model_zoo import (build_serve_multistep,
                                           build_serve_step, make_prefill_step)
-from repro_torch.models.transformer import init_params
+from repro_torch.models.transformer import forward, init_params
 from repro_torch.configs import get_config
 from repro_torch.serving import sampling
 from repro_torch.serving.graph import WindowRunner
@@ -1059,3 +1059,68 @@ def test_phi3_two_layers_kernel_path_matches_plain_path_on_card(h100):
                                             device=h100)}
     counts = _two_layer_paths(h100, "phi-3-vision-4.2b", batch, 320)
     assert (counts["flash_prefill"], counts["flash_decode"]) == (2, 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kvp", [2, 4])
+def test_rank_decode_launch_equals_emulated_shard_on_card(h100, kvp):
+    """Helix across ranks: each rank's B1 launch (``n_ranks=1, rank=k``,
+    fused append) equals shard k of the emulated one-launch call bit for
+    bit, outputs, LSEs and appended caches, bf16 at granite's heads."""
+    g = torch.Generator(device=h100).manual_seed(90 + kvp)
+    b, s = 4, 1024
+    tl = torch.tensor([s, 700, 513, 1], dtype=torch.int32, device=h100)
+    rnd = lambda *sh: torch.randn(*sh, generator=g, device=h100).to(  # noqa
+        torch.bfloat16)
+    q, kn, vn = rnd(b, 32, 64), rnd(b, 8, 64), rnd(b, 8, 64)
+    k, v = rnd(b, 8, s, 64), rnd(b, 8, s, 64)
+    ke, ve = k.clone(), v.clone()
+    out, lse = flash_decode_shards(q, ke, ve, tl, kvp=kvp, n_ranks=kvp,
+                                   rank=0, rr_block=RR, k_new=kn, v_new=vn)
+    s_loc = s // kvp
+    for r in range(kvp):
+        sl = slice(r * s_loc, (r + 1) * s_loc)
+        kr, vr = k[:, :, sl].clone(), v[:, :, sl].clone()
+        o, l_ = flash_decode_shards(q, kr, vr, tl, kvp=kvp, n_ranks=1,
+                                    rank=r, rr_block=RR, k_new=kn, v_new=vn)
+        torch.cuda.synchronize()
+        assert torch.equal(o[0], out[r]) and torch.equal(l_[0], lse[r])
+        assert torch.equal(kr, ke[:, :, sl]) and torch.equal(vr, ve[:, :, sl])
+
+
+@pytest.mark.gpu
+def test_nccl_world_one_step_equals_emulated_step_on_card(h100, tmp_path):
+    """The group API over an NCCL group of one rank (this process):
+    reduced granite-3-2b's rank prefill caches and decode-step logits
+    equal the emulated kvp = 1 path's bit for bit, and its prefill logits
+    the single-process ``forward(last_only=True)``'s."""
+    import torch.distributed as dist
+
+    from repro_torch.core.dist import HelixGroup, init_ranks
+    from repro_torch.models.shard import shard_model
+    cfg = get_config("granite-3-2b").reduced()
+    model = init_params(cfg, 0, dtype=torch.float32, device=h100)
+    toks = torch.randint(0, cfg.vocab, (2, 40), device=h100,
+                         generator=torch.Generator(device=h100).manual_seed(3))
+    hx = HelixConfig()
+    l0, st = make_prefill_step(cfg, hx)(model, {"tokens": toks})
+    nxt = torch.argmax(l0[:, :cfg.vocab], dim=-1).to(torch.int32)
+    init_ranks(0, 1, backend="nccl",
+               init_method=f"file://{tmp_path / 'rendezvous'}")
+    try:
+        group = HelixGroup(1, device=h100)
+        local = shard_model(model, cfg, group)
+        r0, rst = make_prefill_step(cfg, hx, group=group)(local,
+                                                          {"tokens": toks})
+        assert all(torch.equal(st[k], rst[k]) for k in ("kcache", "vcache"))
+        assert torch.equal(r0, forward(cfg, model, toks,
+                                       last_only=True)[0][:, -1])
+        (_, l1), st = build_serve_step(cfg, hx, return_logits=True)(
+            model, st, nxt)
+        (_, r1), rst = build_serve_step(cfg, hx, return_logits=True,
+                                        group=group)(local, rst, nxt)
+        torch.cuda.synchronize()
+        assert torch.equal(l1, r1)
+        assert group.calls["all_reduce"] == 4 * cfg.n_layers
+    finally:
+        dist.destroy_process_group()
