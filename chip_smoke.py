@@ -203,20 +203,48 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
 4b. helix ranks (``helix_ranks``): B1 per rank (``n_ranks=1, rank=k``)
    == shard k of the emulated one-launch call bit for bit at B = 8, S =
    4096, KVP 2 and 4; then ``launch/ranks.spawn`` worlds of 2 and 4 gloo
-   ranks sharing the card (KVP 2; KVP 4, then KVP 2 x TPA 2 over the same
-   processes): ``helix_attention(group=)`` == the emulated call bit for
-   bit at HOP-B 1 and 2 on every rank; full-width granite-3-2b through
+   ranks sharing the card (KVP 2; KVP 2 x TPA 2; KVP 4 is left out for
+   the script's time): ``helix_attention(group=)`` == the emulated call
+   bit for bit at HOP-B 1 and 2 on every rank; full-width granite-3-2b through
    the engine across the ranks (4 requests of 1024 tokens, 32 new), its
    streams held to the emulated run at the same KVP by the near-tie rule
    (prefill logits recorded, so token 0 is judged too), the same streams
-   and logits on every rank, HOP-B 2 == 1 bit for bit, launches layers x
-   steps x chunks (B1) and layers x prefills (B2) on each rank; TTL p50,
+   and logits on every rank, HOP-B 2 == 1 bit for bit at KVP 2 x TPA 2
+   (the KVP 2 run at HOP-B 1 only, for the script's time), launches
+   layers x steps x chunks (B1) and layers x prefills (B2) on each rank; TTL p50,
    host ms per step, collectives per step and their host ms, labelled
    gloo-staged on one card; ``serve_demo(world=2, dist_backend="gloo")``
    (8 new tokens: the recorded run's first 8); an NCCL group of one
    rank == the emulated kvp 1 path bit for bit (its prefill's last logits
-   == the single-process ``forward(last_only=True)``'s).  ``--ranks-only`` runs
-   phases 1, 2 and 4b alone;
+   == the single-process ``forward(last_only=True)``'s);
+4c. MoE across ranks (``moe_ranks``): granite-moe-1b-a400m at full width
+   and depth (24 layers) served in one process at KVP 2 as the baseline,
+   its logits and each token's routes kept (``route_run``);
+   arctic-480b at full width, 2 of its 35 layers (``ARCTIC_LAYERS``; 128
+   experts, top 2, a dense residual FFN, 56 q / 8 kv heads of 128, G =
+   7; its kernels checked in phase 3: B2 and B1 at 56/8 heads of 128,
+   fixed and paged, fp and int8, kvp 1 and 4, B3 at its head) in one
+   process (``serve_arctic``): greedy w1, top-p w4, paged top-p
+   w4 (== top-p w4), int8 KV + int8 head greedy w4, each with its peak
+   memory, the decode-step profile beside its byte bound (every expert
+   read), a prefill profile and its baseline as granite-moe's; a 1-layer
+   f32 check at full width (``compare_small``: kernel vs plain, kvp 4 vs
+   1, fp and int8, routes equal); then both archs over 2 and 4 gloo ranks
+   sharing the card (KVP 2 x EP 2; KVP 2 x TPA 2, EP 2 x TPF 2), each rank
+   drawing only its share (``init_rank_params``, smaller than the whole
+   model; its bytes and peak memory printed), in bf16 (the serving runs;
+   their divergence from the bf16 single-process run printed: see
+   ``moe_ranks``) and in f32 (granite-moe at 12 layers, arctic at 1):
+   streams and logits equal on every rank; the f32 runs held to the f32
+   single-process run by the near-tie rule with routes (``route_ties``:
+   up to a request's first route flip, token 0's prompt positions
+   included, the logits within LOGIT_TOL and the tokens equal or parting
+   at a logit near-tie; that flip at a router near-tie, within
+   ROUTE_TIE), each flip and parting printed; launches B1 layers
+   x steps and B2 layers x prefills on each rank, 1 all-to-all, 1 LSE
+   all-gather and 2 all-reduces a layer a step and 1 head all-gather
+   (HOP-B 1: HOP-B 2 == 1 is held in 4b).
+   ``--ranks-only`` runs phases 1, 2, 4b and 4c alone;
 5. times of each kernel, its plain version and a one-call PyTorch
    yardstick where there is one, beside the card's bound: ``ms`` and
    ``library_ms`` are device time per call with every launch queued behind
@@ -242,11 +270,15 @@ Needs one sm_90 card (H100).  Phases, each fatal on failure:
    (``times_encdec_vlm``): B1 contiguous at B = 4, 1500 frames; B2
    non-causal at T = S = 1500 and cross at T = 64, S = 1500; B2 at head
    size 96, B = 1, T = 768; B1 at head size 96 fp, int8 and paged at the
-   serve shape and at B = 8, S = 4096; B3 at both heads.
+   serve shape and at B = 8, S = 4096; B3 at both heads; and the
+   arctic-480b shapes (records ``*_arctic``, ``times_arctic``): B2 at G =
+   7, B1 at 56/8 heads of 128 (fp, int8, paged at the serve shape; fp at
+   B = 8, S = 4096), B3 at its head (K = 7168, N = 32256).
 
 The last lines are the card line, one JSON object of kernel records and
 ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -302,9 +334,11 @@ from repro_torch.models.decode_model import prepare_decode_params  # noqa: E402
 from repro_torch.models.model_zoo import (  # noqa: E402
     build_serve_multistep, build_serve_step, finalize_chunked_prefill,
     init_prefill_buffers, make_chunk_prefill_step, make_prefill_step)
-from repro_torch.models.shard import shard_model  # noqa: E402
-from repro_torch.models.transformer import (forward,  # noqa: E402
-                                            init_params, layer_windows)
+from repro_torch.models.shard import (init_rank_params,  # noqa: E402
+                                      shard_model)
+from repro_torch.models.transformer import (Transformer,  # noqa: E402
+                                            forward, init_params,
+                                            layer_windows)
 from repro_torch.serving import sampling  # noqa: E402
 from repro_torch.serving.engine import DecodeEngine  # noqa: E402
 from repro_torch.serving.graph import WindowRunner  # noqa: E402
@@ -366,6 +400,10 @@ PHI3 = "phi-3-vision-4.2b"
 PH_H, PH_HSZ = 32, 96               # phi-3-vision MHA heads of 96
 PH_D, PH_VP = 3072, 32256           # its untied head [d_model, padded vocab]
 PH_P, PH_TEXT, PH_NEW = 256, 512, 32  # patch positions, text tokens, new
+ARCTIC = "arctic-480b"
+AR_QH, AR_KH = 56, 8                # arctic-480b q / kv heads of 128 (G = 7)
+AR_D, AR_VP = 7168, 32256           # its untied head [d_model, padded vocab]
+ARCTIC_LAYERS = 2                   # of 35: 27.3 GB a layer in bf16
 # earlier paths served at half their depth, to keep the script's time
 # (PERF.md section 4): mamba2 24 of 48 layers, hymba 16 of 32, moe 12 of
 # 24, starcoder2 20 of 40 (granite-8b and llama-405b run its kernels too),
@@ -1219,8 +1257,7 @@ def check_moe_ffn(dev):
     cfg = get_config(MOE)
     m = cfg.moe
     card = moe_lib.MoEParams(m, cfg.d_model).to(dev)
-    moe_lib.init_moe(card, m, cfg.d_model,
-                     torch.Generator(device=dev).manual_seed(31))
+    moe_lib.init_moe(card, m, cfg.d_model, 31)
     cpu = copy.deepcopy(card).cpu()
     g = torch.Generator(device=dev).manual_seed(32)
     for t, cf in ((4, m.decode_capacity_factor), (1024, m.capacity_factor)):
@@ -2718,6 +2755,46 @@ class RouteLog:
         moe_lib.route = self._route
 
 
+class RouteTap(RouteLog):
+    """A ``RouteLog`` that files the routes behind each token by ``(rid,
+    token)``: every layer's experts ``[L, n, k]`` and gaps ``[L, n]`` of
+    the ``n`` rows that made it (a decode step's slot, n = 1; for token 0
+    every position of the prompt's one-shot prefill), on the CPU.
+    ``mark()`` before a step, ``file(n0, key, rows)`` after it,
+    ``drop(n0)`` when the step's rows are filed."""
+
+    def __init__(self):
+        super().__init__()
+        self.by_token = {}
+
+    def mark(self):
+        return len(self.calls)
+
+    def file(self, n0, key, rows):
+        calls = self.calls[n0:]
+        self.by_token[key] = (
+            torch.stack([idx[rows] for idx, _ in calls]).cpu(),
+            torch.stack([gap[rows] for _, gap in calls]).float().cpu())
+
+    def drop(self, n0):
+        del self.calls[n0:]
+
+    def prefill(self, prefill, prompts):
+        """``prefill`` filing each one-shot prefill's positions under
+        ``(rid, 0)``."""
+        rids = {tuple(p): i for i, p in enumerate(prompts)}
+
+        def step(model_, batch):
+            n0 = self.mark()
+            out = prefill(model_, batch)
+            self.file(n0, (rids[tuple(batch["tokens"][0].tolist())], 0),
+                      slice(None))
+            self.drop(n0)
+            return out
+
+        return step
+
+
 def route_flips(tag, calls, base, layers):
     """The routes of two runs, call by call (prefill then steps, ``layers``
     calls each): prints each token whose experts differ, where and by how
@@ -4044,6 +4121,41 @@ def times_dense(dev):
     return out
 
 
+def times_arctic(dev):
+    """The kernels at arctic-480b's shapes, 56/8 heads of 128 (G = 7),
+    bf16, timed as the table's rows are (records ``*_arctic``):
+    flash_prefill at B = 1, T = 1024 causal; flash_decode at the serve
+    shape (B = 4, lengths 700-1000 with the new token, cap 1088, fused
+    append, kvp 1), fixed fp, int8 and paged, and fp at B = 8, S = 4096
+    (``b8_s4096``); w8a16_matmul at the untied head, M = 4, K = 7168, N =
+    32256."""
+    g = torch.Generator(device=dev).manual_seed(77)
+    heads = f"{AR_QH}/{AR_KH} heads of {DENSE_HSZ}"
+    out = {"flash_prefill_arctic": time_prefill_at(g, dev, AR_QH, AR_KH,
+                                                   hsz=DENSE_HSZ)}
+    dd = decode_serve_inputs(g, dev, AR_QH, AR_KH, hsz=DENSE_HSZ)
+    out["flash_decode_arctic"] = time_decode_at(dd)
+    (out["flash_decode_arctic_kv8"], out["flash_decode_arctic_paged"],
+     n_pool) = time_decode_modes(g, dev, dd)
+    del dd
+    big = time_decode_at(decode_serve_inputs(
+        g, dev, AR_QH, AR_KH, hsz=DENSE_HSZ, tl=(4096,) * 8, cap=4096))
+    out["flash_decode_arctic"]["b8_s4096"] = big
+    out["w8a16_matmul_arctic"] = mm = time_w8a16_at(g, dev, AR_D, AR_VP)
+    print_times(dict(out, flash_decode_arctic_b8=big), (
+        ("flash_prefill_arctic", f"B=1 T=1024 causal bf16, {heads}"),
+        ("flash_decode_arctic", "B=4 lengths 700-1000 cap 1088 bf16, "
+                                f"{heads}, fused append"),
+        ("flash_decode_arctic_kv8", "the same, int8 K/V"),
+        ("flash_decode_arctic_paged", f"the same, bf16 K/V in a {n_pool}-"
+                                      "page pool"),
+        ("flash_decode_arctic_b8", f"B=8 S=4096 bf16, {heads}, fused "
+                                   "append"),
+        ("w8a16_matmul_arctic", f"M=4 K={AR_D} N={AR_VP} bf16 x, "
+                                f"{mm['ctas']} CTAs")))
+    return out
+
+
 # ------------------------------------------ whisper-base, phi-3-vision
 def check_encdec_modes(dev, errs):
     """B2's non-causal and cross modes and B1's contiguous layout at
@@ -4476,11 +4588,13 @@ def times_encdec_vlm(dev):
 
 # ------------------------------------------------------- phase 4b: ranks
 HELIX_B, HELIX_S = 8, 4096          # B1's per-rank check (granite's heads)
-HELIX_LAYOUTS = {2: ((2, 1),), 4: ((4, 1), (2, 2))}   # world -> (kvp, tpa)
+# world -> (kvp, tpa); KVP 4 at world 4 left out for the script's time
+# (phase 4c), KVP 2 x TPA 2 kept
+HELIX_LAYOUTS = {2: ((2, 1),), 4: ((2, 2),)}
 HELIX_HOPB = (1, 2)
-# the serve runs' HOP-B chunk counts by layout: both where HOP-B 2 is held
-# against 1 (one layout a world), one where only the streams are held
-HELIX_SERVE_HOPB = {(2, 1): (1, 2), (4, 1): (1,), (2, 2): (1, 2)}
+# the serve runs' HOP-B chunk counts by layout: HOP-B 2 held against 1 at
+# KVP 2 x TPA 2 (not at KVP 2, for the script's time)
+HELIX_SERVE_HOPB = {(2, 1): (1,), (2, 2): (1, 2)}
 HELIX_DEMO_NEW = 8                  # serve_demo(world=2): the streams' head
 HELIX_PROMPT, HELIX_NEW = 1024, 32
 
@@ -4555,40 +4669,52 @@ def rank_attention(g):
     return flags
 
 
-def rank_recorded_run(g, cfg, model, prompts, hopb):
+def rank_recorded_run(g, cfg, model, prompts, hopb, dtype=torch.bfloat16):
     """``recorded_run`` on one rank: the engine across the ranks over
     ``prompts``, a decode step that keeps each decoding request's logits
-    row; each decode step's collectives (calls and host ms) and host ms."""
-    hx = HelixConfig(kvp=g.kvp, tpa=g.tpa)
+    row; each decode step's collectives (calls and host ms) and host ms;
+    for an MoE arch each token's routes (``RouteTap``; on rank 0 in the
+    result)."""
+    hx = HelixConfig(kvp=g.kvp, tpa=g.tpa, ep=g.ep)
     inner = build_serve_step(cfg, hx, return_logits=True, group=g,
                              hopb_chunks=hopb)
     logits, steps, holder = {}, [], {}
+    tap = RouteTap() if cfg.moe else None
 
     def step(model_, state, tokens):
         c0, h0, t0 = dict(g.calls), dict(g.host_ms), time.perf_counter()
+        n0 = tap.mark() if tap else 0
         (nxt, lg), state = inner(model_, state, tokens)
         steps.append((time.perf_counter() - t0,
                       {k: g.calls[k] - c0[k] for k in c0},
                       sum(g.host_ms[k] - h0[k] for k in h0)))
         for i, r in enumerate(holder["engine"].slots):
             if r is not None and r.state == DECODE:
-                logits.setdefault(r.rid, []).append(lg[i, :cfg.vocab])
+                xs = logits.setdefault(r.rid, [])
+                if tap:
+                    tap.file(n0, (r.rid, len(xs) + 1), slice(i, i + 1))
+                xs.append(lg[i, :cfg.vocab])
+        if tap:
+            tap.drop(n0)
         return nxt, state
 
     firsts = {}
     prefill = recording_prefill(cfg, make_prefill_step(cfg, hx, group=g),
                                 prompts, firsts)
+    if tap:
+        prefill = tap.prefill(prefill, prompts)
     eng = DecodeEngine(cfg, model, step, prefill,
                        max_batch=4, max_seq=HELIX_PROMPT + HELIX_NEW + 1,
-                       hx=hx, dtype=torch.bfloat16, device=g.device, group=g)
+                       hx=hx, dtype=dtype, device=g.device, group=g)
     holder["engine"] = eng
     reqs = [Request(rid=i, prompt=p, max_new_tokens=HELIX_NEW)
             for i, p in enumerate(prompts)]
     registry.reset_launch_counts()
-    for r in reqs:
-        eng.submit(r)
-    while eng.pending():
-        eng.step()
+    with tap or contextlib.nullcontext():
+        for r in reqs:
+            eng.submit(r)
+        while eng.pending():
+            eng.step()
     torch.cuda.synchronize(g.device)
     counts = registry.launch_counts()
     lg = {rid: torch.stack(x).cpu() for rid, x in logits.items()}
@@ -4603,7 +4729,8 @@ def rank_recorded_run(g, cfg, model, prompts, hopb):
             "host_ms_step": sum(s[0] for s in steps) / n * 1e3,
             "calls_step": {k: sum(s[1][k] for s in steps) / n
                            for k in steps[0][1]},
-            "coll_ms_step": sum(s[2] for s in steps) / n}
+            "coll_ms_step": sum(s[2] for s in steps) / n,
+            "routes": tap.by_token if tap and g.rank == 0 else None}
 
 
 def helix_rank_job(group, prompts):
@@ -4684,7 +4811,8 @@ def helix_ranks(dev):
     prompts = [prompt_tokens(r, cfg.vocab) for r in rows]
     model = init_params(cfg, 0, dtype=torch.bfloat16, device=dev)
     base = {}
-    for kvp in (2, 4):
+    for kvp in sorted({k for lays in HELIX_LAYOUTS.values()
+                       for k, _ in lays}):
         firsts = {}
         s, lg, _, _ = recorded_run(dev, cfg, model, prompts, 0,
                                    hx=HelixConfig(kvp=kvp), firsts=firsts)
@@ -4697,7 +4825,8 @@ def helix_ranks(dev):
     for world in HELIX_LAYOUTS:
         stamp(f"{world} ranks over gloo on the one card")
         t0 = time.perf_counter()
-        res = ranks.spawn(world, helix_rank_job, prompts, backend="gloo",
+        res = ranks.spawn(world, helix_rank_job, prompts,
+                          tpa=HELIX_LAYOUTS[world][0][1], backend="gloo",
                           device=dev, timeout_s=600)
         print(f"  {world} ranks spawned, ran and joined in "
               f"{time.perf_counter() - t0:.1f} s")
@@ -4781,6 +4910,308 @@ def helix_ranks(dev):
           f"{one['prefill_err']:.3g} of the emulated prefill's, whose head "
           f"runs over every position); collectives {one['calls']}")
     return figures
+
+
+# ------------------------------------------- phase 4c: MoE across ranks
+# world -> (kvp, tpa, ep): default_helix_config at model 1 and 2
+MOE_RANK_LAYOUTS = {2: (2, 1, 2), 4: (2, 2, 2)}
+# f32 rank runs against the single-process run: logits within LOGIT_TOL
+# up to a request's first route flip, and that flip a router near-tie:
+# the k-th and (k+1)-th probabilities within ROUTE_TIE (the rank path
+# moves a layer's input by f32 rounding, ~1e-7 relative)
+ROUTE_TIE = 1e-5
+# the f32 rank runs' depth: granite-moe 12 of 24 (the script's time),
+# arctic 1 layer (56.3 GB)
+MOE_F32_LAYERS = {MOE: 12, ARCTIC: 1}
+
+
+def route_run(dev, cfg, model, prompts, hx, dtype):
+    """The single-process baseline of a rank run: the engine over
+    ``prompts`` (``HELIX_NEW`` tokens each, max_batch 4, the fixed
+    layout, caches in ``dtype``) with the prefill's and every decode
+    step's logits and routes kept by token (``RouteTap``).  Returns
+    (streams, logits by token, routes by token)."""
+    logits, firsts, holder = {}, {}, {}
+    inner = build_serve_step(cfg, hx, return_logits=True)
+    tap = RouteTap()
+
+    def step(model_, state, tokens):
+        n0 = tap.mark()
+        (nxt, lg), state = inner(model_, state, tokens)
+        for i, r in enumerate(holder["engine"].slots):
+            if r is not None and r.state == DECODE:
+                xs = logits.setdefault(r.rid, [])
+                tap.file(n0, (r.rid, len(xs) + 1), slice(i, i + 1))
+                xs.append(lg[i, :cfg.vocab].cpu())
+        tap.drop(n0)
+        return nxt, state
+
+    prefill = tap.prefill(recording_prefill(cfg, make_prefill_step(cfg, hx),
+                                            prompts, firsts), prompts)
+    eng = DecodeEngine(cfg, model, step, prefill, max_batch=4,
+                       max_seq=HELIX_PROMPT + HELIX_NEW + 1, hx=hx,
+                       dtype=dtype, device=dev)
+    holder["engine"] = eng
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=HELIX_NEW)
+            for i, p in enumerate(prompts)]
+    with tap:
+        for r in reqs:
+            eng.submit(r)
+        while eng.pending():
+            eng.step()
+    return ({r.rid: r.out_tokens for r in reqs}, by_token(logits, firsts),
+            tap.by_token)
+
+
+def first_flip(b_routes, routes, rid, j):
+    """The first route of token j of request ``rid`` whose set of experts
+    differs between two runs (an order within the top k that differs
+    only reorders a sum): ``(token, layer, gap)``, the earliest layer with
+    a difference and the largest baseline router gap among the rows that
+    differ there (a flip at the earliest layer has no earlier flip behind
+    it); None when every route is equal."""
+    bi, bg = b_routes[rid, j]
+    diff = (bi.sort(-1).values
+            != routes[rid, j][0].sort(-1).values).any(-1)   # [L, n]
+    layers = diff.any(-1).nonzero().flatten()
+    if not len(layers):
+        return None
+    lay = int(layers[0])
+    return (j, lay, float(bg[lay][diff[lay]].max()))
+
+
+def route_ties(tag, base, streams, logits, routes, *, tol=None, tie=None):
+    """Two MoE runs, request by request, token by token (token 0: the
+    routes of every prompt position): the routes of every layer, the
+    logits, the tokens.  Up to a request's first route flip the logits
+    must agree within ``tol`` and the tokens be equal
+    or part at a logit near-tie (within 2 x ``tol``, as ``near_ties``);
+    that first flip must be a router near-tie, its baseline gap between
+    the k-th and (k+1)-th probability within ``tie``.  After a flip or a
+    parting nothing is judged (the inputs differ: a capacity-routed
+    prefill reassigns the slots of later tokens).  ``tol=None``: printed,
+    not judged (bf16: see ``moe_ranks``)."""
+    b_streams, b_logits, b_routes = base
+    report, worst, n_cmp = [], 0.0, 0
+    for rid, a in b_streams.items():
+        b = streams[rid]
+        flip = part = None
+        for j in range(min(len(a), len(b))):
+            flip = first_flip(b_routes, routes, rid, j)
+            if flip:
+                break
+            n_cmp += 1
+            want = b_logits[rid, j]
+            worst = max(worst, maxerr(want, logits[rid, j]))
+            if a[j] != b[j]:
+                part = (j, float(want[a[j]] - want[b[j]]))
+                break
+        report.append((rid, flip, part))
+    judged = "" if tol is None else f" (tol {tol:g})"
+    print(f"  {tag}: streams equal {sum(streams[r] == a for r, a in b_streams.items())}"
+          f" of {len(b_streams)}; logits compared at {n_cmp} tokens before "
+          f"any route flip or parting, max err {worst:.4g}{judged}; per "
+          "request (rid, first route flip (token, "
+          "layer, baseline router gap), parting before it (token, logit "
+          f"gap)): {report}")
+    if tol is None:
+        return
+    need(worst <= tol, f"{tag}: logits beyond the tolerance ({worst:.4g})")
+    need(all(p is None or abs(p[1]) <= 2 * tol for _, _, p in report),
+         f"{tag}: a stream parted away from a near-tie: {report}")
+    need(all(f is None or f[2] <= tie for _, f, _ in report),
+         f"{tag}: a route flipped away from a router near-tie: {report}")
+
+
+def moe_rank_job(group, plan):
+    """One rank of a gloo world sharing the card: for each ``(arch,
+    layers, prompts, dtype)`` of ``plan``, the rank's share drawn by
+    ``init_rank_params`` (its bytes and the peak memory after), then
+    ``rank_recorded_run`` (its peak memory); the share is freed before
+    the next entry."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    dev = group.device
+    for arch, layers, prompts, dtype in plan:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        model = init_rank_params(cfg, group, 0, dtype=dtype, device=dev)
+        torch.cuda.synchronize(dev)
+        res = {"init_s": time.perf_counter() - t0,
+               "share_gb": sum(p.numel() * p.element_size()
+                               for p in model.parameters()) / 1e9,
+               "init_peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+        torch.cuda.reset_peak_memory_stats(dev)
+        res["serve"] = rank_recorded_run(group, cfg, model, prompts, 1, dtype)
+        res["serve"]["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        out.append(res)
+        del model
+    return out
+
+
+def serve_arctic(dev, prompts):
+    """arctic-480b at full width, ``ARCTIC_LAYERS`` of its 35 layers (bf16,
+    seeded random weights, 128 experts, top 2, a dense residual FFN,
+    untied head) in one process: the model's bytes and peak memory; 8
+    requests of 128-1024 tokens, 32 new, through ``serve_plan``'s greedy
+    w1, top-p w4, paged top-p w4 (its streams equal to top-p w4's) and
+    int8 greedy w4 (layers x steps and layers x prefills each, peak memory
+    each); the decode-step profile beside its byte bound (every weight but
+    the embedding table, the experts all read by the batched products, and
+    the K/V of the 4 rows); a 1024-token prefill profile; then the
+    baseline of the rank runs (``route_run`` at KVP 2 over ``prompts``)."""
+    cfg = dataclasses.replace(get_config(ARCTIC), n_layers=ARCTIC_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, 0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    expert_bytes = sum(getattr(lp.moe, w).numel() * 2 for lp in model.layers
+                       for w in ("w1", "w2", "w3"))
+    print(f"  arctic model ({cfg.n_layers} of 35 layers): {wbytes / 1e9:.3f} "
+          f"GB of weights, {expert_bytes / 1e9:.3f} GB of them experts; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          "after the build (each expert drawn alone)")
+    reqs = dict(n_requests=8, prompt_len=(128, 1024), max_new=32,
+                n_layers=ARCTIC_LAYERS)
+    runs = serve_plan(dev, ARCTIC, model, "arctic", reqs,
+                      lambda **kw: path_counts(cfg.n_layers, 8, **kw),
+                      names=("greedy w1", "top-p w4", "paged top-p w4",
+                             "int8 greedy w4"))
+    tl = (1000, 900, 800, 700)
+    step = profile_decode(dev, cfg, model, HelixConfig(), tl=tl)
+    read = wbytes - model.embed.numel() * 2
+    kv = 2 * cfg.n_layers * cfg.kv_dim * 2 * sum(tl)
+    bound = (read + kv) / HBM_BPS * 1e3
+    print(f"  arctic decode step (B=4, lengths 700-1000, {cfg.n_layers} "
+          f"layers): device {fmt_ms(step['device_ms'])} per step against its "
+          f"byte bound {bound:.4f} ms ({read / 1e9:.3f} GB of weights read, "
+          f"the batched expert products reading all {cfg.moe.n_experts} "
+          f"experts; {kv / 1e6:.1f} MB of K/V)")
+    prof = profile_prefill(dev, cfg, model, HelixConfig(), "prefill_wgmma",
+                           "flash_prefill")
+    stamp("arctic-480b's single-process baseline of the rank runs (KVP 2)")
+    base = route_run(dev, cfg, model, prompts, HelixConfig(kvp=2),
+                   torch.bfloat16)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"runs": runs, "prefill": prof, "decode": dict(step, bound_ms=bound),
+            "base": base}
+
+
+def moe_baseline(dev, arch, layers, prompts, dtype):
+    """``route_run`` at KVP 2 over a freshly drawn ``arch`` of ``layers``
+    layers in ``dtype`` (seed 0, the ranks' weights), freed after."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    model = init_params(cfg, 0, dtype=dtype, device=dev)
+    base = route_run(dev, cfg, model, prompts, HelixConfig(kvp=2), dtype)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return base
+
+
+def moe_ranks(dev):
+    """Phase 4c (module doc): MoE across ranks.  The bf16 runs are the
+    serving runs (timings, memory, ranks bit-equal, launches,
+    collectives); their divergence from the bf16 single-process run is
+    printed, not judged: bf16 rounding in the rank path's order flips
+    router near-ties, and a flip in a capacity-routed prefill (factor
+    1.25) reassigns the slots of every later token of its experts, so
+    whole layers part (seen on the card: logits 3.0 apart at token 0).
+    The f32 runs are held
+    to the f32 single-process run by ``route_ties``."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = card_line()
+    rows = generate_rows(4, prompt_len=HELIX_PROMPT, max_tokens=HELIX_NEW,
+                         seed=0)
+    bf16, f32 = torch.bfloat16, torch.float32
+    layers = {(MOE, bf16): 24, (MOE, f32): MOE_F32_LAYERS[MOE],
+              (ARCTIC, bf16): ARCTIC_LAYERS, (ARCTIC, f32):
+                  MOE_F32_LAYERS[ARCTIC]}
+    prompts = {a: [prompt_tokens(r, get_config(a).vocab) for r in rows]
+               for a in (MOE, ARCTIC)}
+    base = {}
+    for dt in (bf16, f32):
+        stamp(f"{MOE}'s single-process baseline of the rank runs "
+              f"({layers[MOE, dt]} layers, {str(dt)[6:]}, KVP 2)")
+        base[MOE, dt] = moe_baseline(dev, MOE, layers[MOE, dt], prompts[MOE],
+                                     dt)
+    stamp(f"{ARCTIC} in one process ({ARCTIC_LAYERS} of 35 layers, full "
+          "width)")
+    arctic = serve_arctic(dev, prompts[ARCTIC])
+    base[ARCTIC, bf16] = arctic.pop("base")
+    stamp(f"{ARCTIC} 1-layer f32 checks (full width)")
+    compare_small(dev, ARCTIC, 76, dict(attn_backend="ref",
+                                        prefill_backend="ref",
+                                        matmul_backend="ref"), "arctic",
+                  n_layers=1)
+    stamp(f"{ARCTIC}'s f32 single-process baseline of the rank runs "
+          f"({layers[ARCTIC, f32]} layer, KVP 2)")
+    base[ARCTIC, f32] = moe_baseline(dev, ARCTIC, layers[ARCTIC, f32],
+                                     prompts[ARCTIC], f32)
+    whole_gb = {}
+    for (a, dt), n in layers.items():
+        with torch.device("meta"):
+            whole_gb[a, dt] = sum(p.numel() for p in Transformer(
+                dataclasses.replace(get_config(a), n_layers=n)).parameters()
+            ) * dt.itemsize / 1e9
+    for world, (kvp, tpa, ep) in MOE_RANK_LAYOUTS.items():
+        plan = [(a, n, prompts[a], dt) for (a, dt), n in layers.items()]
+        stamp(f"{world} gloo ranks on the one card: kvp {kvp} x tpa {tpa}, "
+              f"ep {ep} x tpf {world // ep}")
+        t0 = time.perf_counter()
+        res = ranks.spawn(world, moe_rank_job, plan, tpa=tpa, ep=ep,
+                          backend="gloo", device=dev, timeout_s=900)
+        print(f"  {world} ranks spawned, ran and joined in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for ai, (arch, n, _, dt) in enumerate(plan):
+            tag = (f"{arch} {str(dt)[6:]} {n} layers, world {world} (kvp "
+                   f"{kvp} x tpa {tpa}, ep {ep} x tpf {world // ep})")
+            per = [r[ai] for r in res]
+            for r, x in enumerate(per):
+                need(x["share_gb"] < whole_gb[arch, dt],
+                     f"{tag} rank {r}: a share of {x['share_gb']:.3f} GB")
+                print(f"    {tag} rank {r}: share {x['share_gb']:.3f} GB of "
+                      f"the whole {whole_gb[arch, dt]:.3f} GB (drawn in "
+                      f"{x['init_s']:.1f} s, peak {x['init_peak_gib']:.2f} "
+                      f"GiB); serve peak {x['serve']['peak_gib']:.2f} GiB")
+            runs = [x["serve"] for x in per]
+            r0 = runs[0]
+            need(all(p["streams"] == r0["streams"]
+                     and p["fingerprint"] == r0["fingerprint"] for p in runs),
+                 f"{tag}: ranks hold other streams or logits")
+            want_calls = {"all_to_all": n, "all_gather": n + 1,
+                          "all_reduce": 2 * n}
+            for r, p in enumerate(runs):
+                want = {"flash_decode": n * p["steps"],
+                        "flash_prefill": n * p["prefills"]}
+                got = {k: p["counts"][k] for k in want}
+                need(got == want and p["counts"]["flash_decode_kv8"] == 0
+                     and p["counts"]["flash_decode_paged"] == 0,
+                     f"{tag} rank {r}: launches {got} != {want}")
+                need(p["calls_step"] == want_calls,
+                     f"{tag} rank {r}: collectives per step "
+                     f"{p['calls_step']} != {want_calls}")
+            judge = dict(tol=LOGIT_TOL, tie=ROUTE_TIE) if dt == f32 else {}
+            route_ties(f"{tag} vs the single-process kvp {kvp} run"
+                       f"{'' if judge else ' (printed)'}", base[arch, dt],
+                       r0["streams"], by_token(r0["logits"], r0["firsts"]),
+                       r0["routes"], **judge)
+            print(f"    launches per rank flash_decode {n} layers x "
+                  f"{r0['steps']} steps, flash_prefill {n} x "
+                  f"{r0['prefills']}; collectives per step {r0['calls_step']}"
+                  " (1 all-to-all, 1 LSE all-gather and 2 all-reduces a "
+                  "layer, 1 head all-gather); gloo-staged on one card (not "
+                  f"Helix's TTL): TTL p50 {r0['ttl_p50_ms']:.2f} ms, host "
+                  f"{r0['host_ms_step']:.2f} ms per decode step, the "
+                  f"collectives holding it {r0['coll_ms_step']:.2f} ms "
+                  f"({card})")
+    return arctic
 
 
 def rotating(fns):
@@ -4880,6 +5311,8 @@ def main() -> int:
     if sys.argv[1:] == ["--ranks-only"]:
         print(f"== 4b helix ranks (t = {time.perf_counter() - T0:.1f} s)")
         helix_ranks(dev)
+        print(f"== 4c MoE ranks (t = {time.perf_counter() - T0:.1f} s)")
+        moe_ranks(dev)
         print(f"  done at t = {time.perf_counter() - T0:.1f} s")
         print(card)
         return 0
@@ -4921,7 +5354,12 @@ def main() -> int:
                                   "flash_decode_phi3_kv8",
                                   "flash_decode_phi3_paged",
                                   "w8a16_matmul_whisper",
-                                  "w8a16_matmul_phi3")}
+                                  "w8a16_matmul_phi3",
+                                  "flash_prefill_arctic",
+                                  "flash_decode_arctic",
+                                  "flash_decode_arctic_kv8",
+                                  "flash_decode_arctic_paged",
+                                  "w8a16_matmul_arctic")}
     check_decode(dev, errs["flash_decode"])
     check_decode_kv8(dev, errs["flash_decode_kv8"])
     check_decode_paged(dev, errs["flash_decode_paged"],
@@ -4966,6 +5404,15 @@ def main() -> int:
         check_w8a16_head(dev, errs[f"w8a16_matmul_{tag}"],
                          torch.Generator(device=dev).manual_seed(seed), d,
                          vp, tag)
+    stamp("the kernels at arctic-480b's heads (56/8 of 128, G = 7)")
+    check_prefill_group(dev, errs["flash_prefill_arctic"],
+                        errs["flash_prefill_paged"], AR_QH, AR_KH, 73,
+                        hsz=DENSE_HSZ)
+    check_decode_group(dev, errs, AR_QH, AR_KH, 74, "flash_decode_arctic",
+                       hsz=DENSE_HSZ)
+    check_w8a16_head(dev, errs["w8a16_matmul_arctic"],
+                     torch.Generator(device=dev).manual_seed(75), AR_D,
+                     AR_VP, "arctic")
     stamp("the kernels at whisper-base's and phi-3-vision's shapes")
     check_encdec_modes(dev, errs)
     check_prefill_group(dev, errs["flash_prefill_phi3"],
@@ -5050,9 +5497,16 @@ def main() -> int:
     compare_phi3(dev)
     print(f"== 4b helix ranks (t = {time.perf_counter() - T0:.1f} s): B1 "
           "per rank == the emulated shard; helix_attention and granite-3-2b "
-          "over 2 and 4 gloo ranks on the card (KVP 2, KVP 4, KVP 2 x TPA 2,"
+          "over 2 and 4 gloo ranks on the card (KVP 2, KVP 2 x TPA 2,"
           " HOP-B 1 and 2); NCCL at world 1")
     helix_ranks(dev)
+    print(f"== 4c MoE ranks (t = {time.perf_counter() - T0:.1f} s): "
+          f"{MOE} (24 layers) single-process baseline; {ARCTIC} "
+          f"({ARCTIC_LAYERS} of 35 layers, full width) greedy w1, top-p w4, "
+          "paged top-p w4, int8 greedy w4, 1-layer f32 checks; both over 2 "
+          "and 4 gloo ranks on the card (KVP 2 x EP 2; KVP 2 x TPA 2, EP 2 x "
+          "TPF 2), each rank drawing its own share")
+    arctic = moe_ranks(dev)
 
     print(f"== 5 times (t = {time.perf_counter() - T0:.1f} s)")
     timed = times(dev)
@@ -5078,6 +5532,10 @@ def main() -> int:
     for tag, run in (("sc2", sc2), ("llama", llama)):
         timed[f"flash_prefill_{tag}"][f"{tag}_prefill"] = run["prefill"]
         timed[f"flash_decode_{tag}"][f"{tag}_decode_step"] = run["decode"]
+    stamp("arctic-480b kernel times")
+    timed.update(times_arctic(dev))
+    timed["flash_prefill_arctic"]["arctic_prefill"] = arctic["prefill"]
+    timed["flash_decode_arctic"]["arctic_decode_step"] = arctic["decode"]
     stamp("whisper and phi-3-vision kernel times")
     timed.update(times_encdec_vlm(dev))
     timed["flash_decode_contiguous"]["whisper_decode_step"] = \
@@ -5149,6 +5607,14 @@ def main() -> int:
         "flash_decode_phi3_kv8": ph["int8 KV w1"]["flash_decode_kv8"],
         "flash_decode_phi3_paged": ph["paged fp w4"]["flash_decode_paged"],
         "w8a16_matmul_phi3": ph["int8 head w1"]["w8a16_matmul"]})
+    ar = {name: r["counts"] for name, r in arctic["runs"].items()}
+    launches.update({
+        "flash_prefill_arctic": ar["greedy w1"]["flash_prefill"],
+        "flash_decode_arctic": ar["greedy w1"]["flash_decode"],
+        "flash_decode_arctic_kv8": ar["int8 greedy w4"]["flash_decode_kv8"],
+        "flash_decode_arctic_paged":
+            ar["paged top-p w4"]["flash_decode_paged"],
+        "w8a16_matmul_arctic": ar["int8 greedy w4"]["w8a16_matmul"]})
     decode_src = ("src/repro_torch/csrc/flash_decode.cu",
                   "src/repro/kernels/flash_decode/kernel.py:417")
     prefill_src = ("src/repro_torch/csrc/flash_prefill.cu",
@@ -5193,7 +5659,7 @@ def main() -> int:
                     "flash_decode_phi3_kv8": decode_src,
                     "flash_decode_phi3_paged": decode_src,
                     "w8a16_matmul_phi3": mm_src})
-    for tag in ("sc2", "llama"):
+    for tag in ("sc2", "llama", "arctic"):
         sources.update({f"flash_prefill_{tag}": prefill_src,
                         f"flash_decode_{tag}": decode_src,
                         f"flash_decode_{tag}_kv8": decode_src,

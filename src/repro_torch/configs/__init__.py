@@ -206,8 +206,16 @@ PHI_3_VISION_4_2B = ArchConfig(
     name="phi-3-vision-4.2b", family="vlm", n_layers=32, d_model=3072,
     n_heads=32, n_kv_heads=32, d_ff=8192, vocab=32_064, vision_patches=256)
 
+# arctic-480b [moe] — hf:Snowflake/snowflake-arctic-base: GQA 56 q / 8 kv
+# heads of 128, every layer a dense residual FFN (d_ff 4864) beside a
+# mixture of 128 experts of d_ff 4864 with top-2 routing, untied head.
+ARCTIC_480B = ArchConfig(
+    name="arctic-480b", family="moe", n_layers=35, d_model=7168, n_heads=56,
+    n_kv_heads=8, d_ff=4864, vocab=32_000,
+    moe=MoEConfig(n_experts=128, topk=2, d_ff=4864))
+
 _CONFIGS = {c.name: c for c in (GRANITE_3_2B, MAMBA2_780M, HYMBA_1_5B,
-                                GRANITE_MOE_1B_A400M, GEMMA3_12B,
+                                GRANITE_MOE_1B_A400M, ARCTIC_480B, GEMMA3_12B,
                                 STARCODER2_15B, GRANITE_8B, LLAMA_405B,
                                 WHISPER_BASE, PHI_3_VISION_4_2B)}
 

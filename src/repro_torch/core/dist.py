@@ -10,7 +10,9 @@ gets a timeout (``TIMEOUT_S``), so a rank that diverges fails its peers
 instead of hanging them.
 
 ``HelixGroup`` holds one rank's place in the ``kvp x tpa`` grid
-(``core/sharding.RankLayout``: ``rank = t * kvp + k``), its KVP subgroup
+(``core/sharding.RankLayout``: ``rank = t * kvp + k``; with ``ep`` also
+its place among an MoE's experts, which need no collective of their
+own), its KVP subgroup
 (the ``kvp`` ranks that share t) and the whole group, and offers the
 collectives of the decode and prefill steps: ``all_to_all`` over the KVP
 subgroup (the attention fragments), ``all_gather`` (the LSEs over the
@@ -73,13 +75,14 @@ class HelixGroup:
     group must be initialised (``init_ranks``) with ``kvp * tpa`` ranks;
     ``device`` is the rank's device (where its results go)."""
 
-    def __init__(self, kvp: int, tpa: int = 1, *, device):
+    def __init__(self, kvp: int, tpa: int = 1, *, device, ep: int = 1):
         world = dist.get_world_size()
         if kvp * tpa != world:
             raise ValueError(f"kvp {kvp} x tpa {tpa} != world {world}")
-        self.layout = RankLayout(dist.get_rank(), kvp, tpa)
+        self.layout = RankLayout(dist.get_rank(), kvp, tpa, ep)
         self.rank, self.kvp, self.tpa, self.world = (self.layout.rank, kvp,
                                                      tpa, world)
+        self.ep = ep
         self.t, self.k = self.layout.t, self.layout.k
         self.device = torch.device(device)
         self.backend = dist.get_backend()

@@ -1,6 +1,6 @@
 """Process launch of the multi-rank Helix path.
 
-``spawn(world, fn, *args, tpa=, backend=, device=)`` starts one process per
+``spawn(world, fn, *args, tpa=, ep=, backend=, device=)`` starts one process per
 rank with the ``spawn`` start method (never fork: the parent may hold a CUDA
 context).  Each process joins the process group through the rendezvous
 (``init_method``; by default a fresh ``file://`` path under the temporary
@@ -55,13 +55,14 @@ def check_backend(world: int, backend: str, device) -> None:
                          f"{torch.cuda.device_count()} cards); use gloo")
 
 
-def _entry(rank, world, tpa, backend, init_method, device, fn, args, out):
+def _entry(rank, world, tpa, ep, backend, init_method, device, fn, args,
+           out):
     try:
         dev = rank_device(rank, backend, device)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         init_ranks(rank, world, backend=backend, init_method=init_method)
-        group = HelixGroup(world // tpa, tpa, device=dev)
+        group = HelixGroup(world // tpa, tpa, device=dev, ep=ep)
         # pickled here: the queue would share tensors through file
         # descriptors that close when this process exits
         out.put((rank, True, pickle.dumps(fn(group, *args))))
@@ -73,12 +74,12 @@ def _entry(rank, world, tpa, backend, init_method, device, fn, args, out):
             dist.destroy_process_group()
 
 
-def spawn(world: int, fn, *args, tpa: int = 1, backend: str, device,
-          init_method: str | None = None, timeout_s: float = 900.0):
-    """Run ``fn(group, *args)`` on ``world`` ranks (module doc); returns
-    the results in rank order."""
-    if world % tpa:
-        raise ValueError(f"tpa={tpa} does not divide world={world}")
+def spawn(world: int, fn, *args, tpa: int = 1, ep: int = 1, backend: str,
+          device, init_method: str | None = None, timeout_s: float = 900.0):
+    """Run ``fn(group, *args)`` on ``world`` ranks (module doc; ``ep``: the
+    groups' expert-parallel width); returns the results in rank order."""
+    if world % tpa or world % ep:
+        raise ValueError(f"tpa={tpa} and ep={ep} must divide world={world}")
     check_backend(world, backend, device)
     tmp = None
     if init_method is None:
@@ -87,7 +88,8 @@ def spawn(world: int, fn, *args, tpa: int = 1, backend: str, device,
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
     procs = [ctx.Process(target=_entry, args=(
-        r, world, tpa, backend, init_method, str(device), fn, args, out))
+        r, world, tpa, ep, backend, init_method, str(device), fn, args,
+        out))
         for r in range(world)]
     results, error = {}, None
     deadline = time.monotonic() + timeout_s

@@ -75,6 +75,10 @@ routes each token to 8 of 32 experts (capacity factor 1.25 in the prefill,
 the whole prompt, so ``--chunk-tokens`` falls back to one-shot prefill and
 ``--prefix-share`` raises, as in the reference; ``--paged-kv``,
 ``--lm-head-w8``, ``--sampling`` and ``--decode-window`` work.
+``--arch arctic-480b`` (128 experts, top 2, beside a dense residual FFN
+of d_ff 4864 in every layer; 56 q / 8 kv heads of 128) serves the same
+way; its experts hold 26.8 GB a layer in bf16, so one 80 GB card takes 2
+of its 35 layers (``--layers 2``).
 
 Helix across ranks: ``--nproc N [--tpa T] [--hopb-chunks C]
 --dist-backend nccl|gloo`` serves with N processes, one rank each of a
@@ -87,9 +91,13 @@ batch chunks), the out-projection, the FFN and the head are TP over all N.
 (their collectives staged through host memory) or run on the CPU
 (``--device cpu``).  The kernels are built once, here, before the ranks
 start; rank 0's summary is printed, with ``world``, ``kvp``, ``tpa``,
-``hopb_chunks`` and every rank's ``launches`` and ``collectives``.  Dense
-archs with the fixed fp KV cache and one-shot greedy prefill only: every
-other option raises ``ValueError`` (``serving/engine.check_rank_engine``).
+``ep``, ``hopb_chunks`` and every rank's ``launches`` and
+``collectives``.  Dense and MoE archs (an MoE's experts in EP x TPF, EP =
+N / T, e.g. ``--arch arctic-480b --layers 2 --nproc 4 --tpa 2
+--dist-backend gloo``; each rank draws only its share of the seeded
+weights) with the fixed fp KV cache and one-shot greedy prefill only:
+every other option raises ``ValueError``
+(``serving/engine.check_rank_engine``).
 
 ``--arch whisper-base`` and ``--arch phi-3-vision-4.2b`` are refused with
 a ``ValueError`` before any weight is made: the engine serves no enc-dec or
@@ -120,7 +128,7 @@ from repro_torch.models.model_zoo import (build_serve_multistep,
                                           chunked_prefill_supported,
                                           make_chunk_prefill_step,
                                           make_prefill_step)
-from repro_torch.models.shard import shard_model
+from repro_torch.models.shard import init_rank_params, shard_model
 from repro_torch.models.transformer import init_params
 from repro_torch.serving import DecodeEngine, Request
 from repro_torch.serving.engine import check_rank_engine, check_servable
@@ -196,7 +204,8 @@ def _serve_world(arch, world, tpa, hopb_chunks, backend, init_method, kw):
     grid = default_helix_config(cfg, world, tpa)
     if kw.get("kvp") not in (None, grid.kvp):
         raise ValueError(f"kvp={kw['kvp']}: across ranks kvp is world / tpa")
-    hx = _helix(kw.get("hx"), _overrides(kw), kvp=grid.kvp, tpa=grid.tpa)
+    hx = _helix(kw.get("hx"), _overrides(kw), kvp=grid.kvp, tpa=grid.tpa,
+                ep=grid.ep)
     check_rank_engine(cfg, hx, **{k: kw[k] for k in (
         "chunk_tokens", "prefix_share", "decode_window", "host_pages",
         "session_kv", "fault_plan", "tenants") if k in kw},
@@ -210,7 +219,7 @@ def _serve_world(arch, world, tpa, hopb_chunks, backend, init_method, kw):
         build.build_all()                   # once, before the ranks start
     log = kw.pop("log", print)
     res = ranks.spawn(world, _serve_rank, arch, hopb_chunks, kw, tpa=hx.tpa,
-                      backend=backend, device=device,
+                      ep=hx.ep, backend=backend, device=device,
                       init_method=init_method)
     streams = [{r.rid: r.out_tokens for r in fin} for fin, _ in res]
     if any(s != streams[0] for s in streams[1:]):
@@ -218,7 +227,8 @@ def _serve_world(arch, world, tpa, hopb_chunks, backend, init_method, kw):
     finished, summary = res[0]
     summary["rank_launches"] = [s.pop("launches") for _, s in res]
     summary["rank_collectives"] = [s.pop("collectives") for _, s in res]
-    log(f"[serve] {world} ranks (kvp {hx.kvp} x tpa {hx.tpa}, {backend}, "
+    log(f"[serve] {world} ranks (kvp {hx.kvp} x tpa {hx.tpa}, ep {hx.ep}, "
+        f"{backend}, "
         f"hopb {hopb_chunks}): {len(finished)} requests, "
         f"{summary['n_tokens']} tokens in {summary['wall_s']:.2f}s")
     return finished, summary
@@ -238,6 +248,7 @@ def _serve_rank(group, arch, hopb_chunks, kw):
             finished, summary = done.value
             break
     summary.update(world=group.world, kvp=group.kvp, tpa=group.tpa,
+                   ep=group.ep,
                    hopb_chunks=hopb_chunks, launches=launch_counts(),
                    collectives={"calls": dict(group.calls),
                                 "host_ms": dict(group.host_ms)})
@@ -342,9 +353,11 @@ def serve_steps(arch: str = "granite-3-2b", *, reduced: bool = False,
 
     ``group`` (a ``core/dist.HelixGroup``): this process is one rank of
     ``serve_demo(world=...)``; ``hx`` takes the group's ``kvp`` and
-    ``tpa``, the whole model (``model`` or the seeded one) is cut to the
-    rank's share (``shard_model``) and the engine's steps run across the
-    ranks, HOP-B over ``hopb_chunks``.
+    ``tpa`` (and ``ep``), ``model`` is cut to the rank's share
+    (``shard_model``) or, without one, the rank draws its share of the
+    seeded weights alone (``init_rank_params``: no rank holds the whole
+    model), and the engine's steps run across the ranks, HOP-B over
+    ``hopb_chunks``.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -352,15 +365,19 @@ def serve_steps(arch: str = "granite-3-2b", *, reduced: bool = False,
                            "(pass device='cpu' for the plain PyTorch path)")
     cfg = _config(arch, reduced, n_layers)
     ranked = ({} if group is None else
-              dict(kvp=group.kvp, tpa=group.tpa))
+              dict(kvp=group.kvp, tpa=group.tpa, ep=group.ep))
     hx = _helix(hx, _overrides(dict(
         kvp=kvp, attn_backend=attn_backend, prefill_backend=prefill_backend,
         matmul_backend=matmul_backend, ssd_backend=ssd_backend,
         lm_head_w8=lm_head_w8, paged_kv=paged_kv,
         grouped_decode=grouped_decode)), **ranked)
-    if model is None:
-        model = init_params(cfg, seed, dtype=dtype, device=device)
-    if group is not None:
+    if group is None:
+        if model is None:
+            model = init_params(cfg, seed, dtype=dtype, device=device)
+    elif model is None:
+        model = init_rank_params(cfg, group, seed, dtype=dtype,
+                                 device=device)
+    else:
         model = shard_model(model.to(device), cfg, group)
     if isinstance(tenants, str):
         tenants = parse_tenants(tenants)

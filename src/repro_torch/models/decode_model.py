@@ -62,13 +62,15 @@ Token decision: the argmax, or, when the state holds the sampler's leaves
 with each row's policy; ``serve_step`` then advances ``sample_idx`` by one.
 
 Across ranks (``build_serve_step(cfg, hx, group=, hopb_chunks=)``, dense
-archs, fixed fp caches, fused append): ``model`` is the rank's
+and MoE archs, fixed fp caches, fused append): ``model`` is the rank's
 ``models/shard.shard_model`` share and ``state`` its local caches ``[L, B,
 Kh/tpa, S_cap/kvp, hsz]``.  Each layer projects QKV on the rank's heads,
 rotates, runs ``helix_attention(group=)`` (the fused append on the owner
 rank, one all-to-all and one LSE all-gather, HOP-B over ``hopb_chunks``),
 multiplies its flat slice by its ``wo`` rows and all-reduces, then the TP
-FFN and a second all-reduce; the head's vocab columns are all-gathered, so
+FFN (an MoE's: its experts' partial sum over EP x TPF, plus its dense
+residual's TP partial) and a second all-reduce; the head's vocab columns
+are all-gathered, so
 every rank holds the same logits and takes the same greedy token.
 
 ``build_serve_multistep(cfg, hx, window=N)`` runs N steps of the same core
@@ -269,7 +271,8 @@ def _build_step_logits(cfg: ArchConfig, hx: HelixConfig, group=None,
 
 def check_rank_step(cfg: ArchConfig, hx: HelixConfig) -> None:
     """Raise ``ValueError`` for a ``HelixConfig`` the multi-rank decode
-    step does not take: only the fixed fp caches with the fused append."""
+    step does not take (``check_ranks``'s refusals, and all but the fixed
+    fp caches with the fused append)."""
     check_ranks(cfg, hx)
     if hx.kv_cache_bits != 16 or hx.paged_kv or hx.lm_head_w8:
         raise ValueError("across ranks the decode step takes the fixed fp "

@@ -63,7 +63,7 @@ def make_prefill_step(cfg: ArchConfig, hx: HelixConfig,
     multiple of ``hx.kvp``: each rank holds a contiguous shard) and
     ``enc_len`` (int32, S_enc).
 
-    With ``group`` (dense archs): one rank's prefill over its
+    With ``group`` (dense and MoE archs): one rank's prefill over its
     ``shard_model`` share (``forward(group=)``: attention on its TPA heads,
     the out-projection and the FFN in TP with an all-reduce each, the last
     position's vocab-parallel logits all-gathered); its caches go through
@@ -72,9 +72,10 @@ def make_prefill_step(cfg: ArchConfig, hx: HelixConfig,
     acfg = cfg                      # the shapes of the caches' heads
     if group is not None:
         check_ranks(cfg, hx)
-        if (hx.kvp, hx.tpa) != (group.kvp, group.tpa):
-            raise ValueError(f"hx is kvp {hx.kvp} x tpa {hx.tpa}, the group "
-                             f"{group.kvp} x {group.tpa}")
+        if (hx.kvp, hx.tpa, hx.ep) != (group.kvp, group.tpa, group.ep):
+            raise ValueError(f"hx is kvp {hx.kvp} x tpa {hx.tpa} (ep "
+                             f"{hx.ep}), the group {group.kvp} x {group.tpa} "
+                             f"(ep {group.ep})")
         acfg = local_config(cfg, hx.tpa)
 
     def prefill_step(model, batch):

@@ -10,6 +10,15 @@ which lets the decode step run inside a CUDA graph.  The expert products
 are batched matrix products over all ``E`` experts (the reference computes
 them outside any Pallas kernel too).
 
+Across ranks (``core/sharding``: EP x TPF) a rank's ``MoEParams`` hold
+the experts ``[first, first + E/EP)`` and, of each, the FFN columns of its
+TPF slice; ``router`` stays whole.  ``moe_ffn`` then routes every token
+with the whole router (every rank gets the same routes and the same
+plan), runs only its own experts' slots and returns the rank's partial
+sum, zero where another rank's experts hold a choice: the sum over the
+ranks is the layer's output.  ``init_moe`` draws each expert's leaves
+from a stream of their own, so a rank draws only its share.
+
 The router stays f32 in a bf16 model: its logits are ``x.float() @ router``
 and the softmax runs in f32.  The top k is taken with a stable descending
 sort, so on equal probabilities the lower expert index comes first, as with
@@ -28,7 +37,9 @@ from repro_torch.utils import cdiv
 
 class MoEParams(nn.Module):
     """``router`` [H, E] (f32 in any model), ``w1``/``w3`` [E, H, Fe],
-    ``w2`` [E, Fe, H]."""
+    ``w2`` [E, Fe, H]; a rank's share (module doc) holds ``E/EP`` experts
+    from ``first`` and ``Fe/TPF`` columns from ``col0`` of each (plain
+    attributes, 0 for the whole layer)."""
 
     def __init__(self, moe: MoEConfig, d_model: int):
         super().__init__()
@@ -37,20 +48,54 @@ class MoEParams(nn.Module):
         self.w1 = nn.Parameter(torch.empty(e, h, fe), requires_grad=False)
         self.w3 = nn.Parameter(torch.empty(e, h, fe), requires_grad=False)
         self.w2 = nn.Parameter(torch.empty(e, fe, h), requires_grad=False)
+        self.first = self.col0 = 0
 
 
 # the leaf the reference keeps in f32 whatever the model's dtype
 F32_LEAVES = ("router",)
+# stream keys of the leaves (``stream_seed``)
+LEAF_KEYS = {"router": 0, "w1": 1, "w3": 2, "w2": 3}
+_M64 = (1 << 64) - 1
+
+
+def stream_seed(*keys: int) -> int:
+    """A 63-bit generator seed for the stream keyed by ``keys`` (ints >=
+    0): splitmix64 folded over them."""
+    x = 0
+    for key in keys:
+        x = (x ^ key) + 0x9E3779B97F4A7C15 & _M64
+        x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9 & _M64
+        x = (x ^ (x >> 27)) * 0x94D049BB133111EB & _M64
+        x ^= x >> 31
+    return x >> 1
 
 
 @torch.no_grad()
-def init_moe(mp: MoEParams, moe: MoEConfig, d_model: int, gen) -> MoEParams:
+def init_moe(mp: MoEParams, moe: MoEConfig, d_model: int, seed: int,
+             layer: int = 0) -> MoEParams:
     """The reference's distributions (``init_moe``), in place: router
     normal x 0.02, ``w1``/``w3`` x H^-0.5, ``w2`` x Fe^-0.5 (no depth
-    factor); drawn in f32 from ``gen`` and cast to each leaf's dtype."""
-    for p, std in ((mp.router, 0.02), (mp.w1, d_model ** -0.5),
-                   (mp.w3, d_model ** -0.5), (mp.w2, moe.d_ff ** -0.5)):
-        p.copy_(torch.randn(p.shape, generator=gen, device=p.device) * std)
+    factor).  The router is drawn whole from the stream ``(seed, layer,
+    router)``, each expert's ``[H, Fe]`` (``w2``: ``[Fe, H]``) from the
+    stream ``(seed, layer, leaf, expert)``, in f32 on the leaf's device;
+    a share (``mp.first``, ``mp.col0``) keeps its experts' columns of
+    those draws, cast to the leaf's dtype: the bits of the same slice of
+    the whole layer's leaves."""
+    dev = mp.w1.device
+
+    def draw(name, expert, shape, std):
+        gen = torch.Generator(device=dev).manual_seed(
+            stream_seed(seed, layer, LEAF_KEYS[name], expert))
+        return torch.randn(shape, generator=gen, device=dev).mul_(std)
+
+    h, fe = d_model, moe.d_ff
+    mp.router.copy_(draw("router", 0, (h, moe.n_experts), 0.02))
+    cols = slice(mp.col0, mp.col0 + mp.w1.shape[2])
+    for j in range(mp.w1.shape[0]):
+        e = mp.first + j
+        mp.w1[j].copy_(draw("w1", e, (h, fe), h ** -0.5)[:, cols])
+        mp.w3[j].copy_(draw("w3", e, (h, fe), h ** -0.5)[:, cols])
+        mp.w2[j].copy_(draw("w2", e, (fe, h), fe ** -0.5)[cols])
     return mp
 
 
@@ -137,24 +182,33 @@ def moe_ffn(mp: MoEParams, x, moe: MoEConfig, act,
 
     ``groups`` splits T into groups that dispatch on their own (each with
     its own capacity).  Expert outputs are multiplied by their gates in
-    the model's dtype and summed over the k choices."""
+    the model's dtype and summed over the k choices.  Over a rank's share
+    (``mp.first``, ``mp.w1.shape[0]`` experts; module doc) ``y`` is the
+    rank's partial sum: the plan is the whole layer's, the slots of the
+    other ranks' experts are not computed and their choices read zero
+    rows; ``aux_loss`` is the whole layer's."""
     t, h = x.shape
     cf = capacity_factor or moe.capacity_factor
     r = route(mp.router, x, moe)
     if t % groups:
         raise ValueError(f"{t} tokens do not split into {groups} groups")
     g, tg, k, e = groups, t // groups, moe.topk, moe.n_experts
+    e0, ne = mp.first, mp.w1.shape[0]          # the experts held here
     cap = capacity(tg, moe, cf)
     eig = r.expert_idx.reshape(g, tg, k)
     gag = r.gates.reshape(g, tg, k)
     slot_of, tok_of = _dispatch_plans(eig, e, cap)
+    tok_of = tok_of[:, e0 * cap:(e0 + ne) * cap]
     xe = torch.take_along_dim(_pad_row(x.reshape(g, tg, h)),
-                              tok_of.long()[..., None], dim=1)  # [G, E*C, H]
-    xe = xe.reshape(g, e, cap, h).transpose(0, 1).reshape(e, g * cap, h)
+                              tok_of.long()[..., None], dim=1)  # [G, ne*C, H]
+    xe = xe.reshape(g, ne, cap, h).transpose(0, 1).reshape(ne, g * cap, h)
     ye = expert_ffn(mp, xe, act)
-    ye = ye.reshape(e, g, cap, h).transpose(0, 1).reshape(g, e * cap, h)
-    src = eig.long() * cap + torch.clamp(slot_of, max=cap - 1)
-    src = torch.where(slot_of < cap, src, e * cap)         # dropped -> zero
+    ye = ye.reshape(ne, g, cap, h).transpose(0, 1).reshape(g, ne * cap, h)
+    loc = eig.long() - e0
+    src = loc * cap + torch.clamp(slot_of, max=cap - 1)
+    # dropped, or another rank's expert -> the zero row
+    here = (slot_of < cap) & (loc >= 0) & (loc < ne)
+    src = torch.where(here, src, ne * cap)
     yk = torch.take_along_dim(_pad_row(ye), src.reshape(g, tg * k, 1), dim=1)
     yk = yk.reshape(g, tg, k, h)
     y = torch.sum(yk * gag[..., None].to(ye.dtype), dim=2)

@@ -169,32 +169,41 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.float32,
     the reference's distributions (normal, fan-in scaled, the untied
     ``lm_head`` too; out-projections scaled down by sqrt(2L), L the
     decoder's layers, in the encoder too; embeddings 0.02; norm gains 0;
-    SSM leaves by ``ssm.init_ssm``, MoE leaves by ``moe.init_moe``), not
-    its values (``jax.random`` streams differ;
-    ``convert.params_from_jax`` carries reference weights over exactly)."""
+    SSM leaves by ``ssm.init_ssm``, MoE leaves by ``moe.init_moe``, each
+    expert from its own stream keyed by ``seed`` and the layer), not its
+    values (``jax.random`` streams differ; ``convert.params_from_jax``
+    carries reference weights over exactly).  ``models/shard
+    .init_rank_params`` draws one rank's share of the same weights."""
     with torch.device("meta"):
         model = Transformer(cfg)
     model = cast_params(model, device=device, dtype=dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
-    depth = 1.0 / math.sqrt(2 * cfg.n_layers)
     for name, p in model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if ".ssm." in name or ".moe." in name:
-            continue
-        if leaf.startswith("ln"):
-            p.zero_()
-            continue
-        if name == "embed":
-            std = 0.02
-        else:
-            std = p.shape[0] ** -0.5 * (depth if leaf in ("wo", "w2") else 1.0)
-        p.copy_(torch.randn(p.shape, generator=gen, device=device).mul_(std))
-    for lp in model.layers:
+        if ".ssm." not in name and ".moe." not in name:
+            p.copy_(draw_leaf(cfg, name, p.shape, gen))
+    for i, lp in enumerate(model.layers):
         if cfg.has_ssm:
             ssm_lib.init_ssm(lp.ssm, cfg, gen)
         if cfg.moe:
-            moe_lib.init_moe(lp.moe, cfg.moe, cfg.d_model, gen)
+            moe_lib.init_moe(lp.moe, cfg.moe, cfg.d_model, seed, layer=i)
     return model
+
+
+def draw_leaf(cfg: ArchConfig, name: str, shape, gen):
+    """``init_params``' f32 draw of the leaf ``name`` (a
+    ``named_parameters`` name, not an SSM or MoE leaf) from ``gen``, on
+    its device: zeros for a norm gain (no draw), else a normal draw
+    scaled as the module doc says.  The leaves draw in
+    ``named_parameters`` order, one after the other from one stream."""
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf.startswith("ln"):
+        return torch.zeros(shape, device=gen.device)
+    if name == "embed":
+        std = 0.02
+    else:
+        depth = 1.0 / math.sqrt(2 * cfg.n_layers)
+        std = shape[0] ** -0.5 * (depth if leaf in ("wo", "w2") else 1.0)
+    return torch.randn(shape, generator=gen, device=gen.device).mul_(std)
 
 
 def vocab_mask(cfg: ArchConfig, dtype, device):
@@ -366,12 +375,14 @@ def forward(cfg: ArchConfig, model: Transformer, tokens, *,
     fewer than P tokens is refused.
 
     ``last_only``: logits [B, 1, Vp] of the last position only.  ``group``
-    (a ``core/dist.HelixGroup``, dense archs that pass
+    (a ``core/dist.HelixGroup``, dense and MoE archs that pass
     ``core/sharding.check_ranks``): one rank's forward over its
     ``models/shard.shard_model`` share: attention on its TPA group's heads
     (the caches hold them, ``[L, B, T, Kh/tpa, hsz]``), the out-projection
-    and the FFN in TP with an all-reduce each, the head's vocab columns
-    all-gathered, so every rank holds the same logits."""
+    and the FFN in TP with an all-reduce each (an MoE layer's experts in
+    EP x TPF, their partial sum added to the dense residual's before the
+    one all-reduce), the head's vocab columns all-gathered, so every rank
+    holds the same logits."""
     if prefix_state is not None and not (return_cache
                                          and chunked_prefill_supported(cfg)):
         raise ValueError("chunked prefill needs return_cache=True and a "

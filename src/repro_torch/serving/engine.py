@@ -94,8 +94,8 @@ constructor refuses, with ``ValueError``, what this path leaves out: the
 paged pool, chunked prefill, prefix sharing, grouped decode, the int8 KV
 cache and head, sampling, decode windows > 1, the host tier, and every
 decision a rank would read off its own clock (tenancy's fair queue, the
-TTL governor), where ranks could part and hang each other; non-dense archs
-are refused too.
+TTL governor), where ranks could part and hang each other; archs other
+than the dense and MoE families are refused too.
 
 Enc-dec (whisper) and vlm (phi-3-vision) archs are refused at
 construction (``check_servable``): their prefill needs per-request

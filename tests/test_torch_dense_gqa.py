@@ -238,10 +238,12 @@ def _decode_case(g, kh, kvp, mode, seed):
 
 @pytest.mark.parametrize("kvp", [1, 4])
 @pytest.mark.parametrize("mode", ["fixed", "paged", "int8", "paged-int8"])
-@pytest.mark.parametrize("heads", [(24, 2), (32, 2)], ids=["g12", "g16"])
+@pytest.mark.parametrize("heads", [(24, 2), (32, 2), (14, 2)],
+                         ids=["g12", "g16", "g7"])
 def test_flash_decode_plain_g12_g16_matches_reference_kernel(heads, mode,
                                                              kvp):
-    """B1's plain version at G = 12 and 16, heads of 128, fused append, kvp
+    """B1's plain version at G = 12 and 16 (and arctic-480b's 7), heads of
+    128, fused append, kvp
     1 and 4 (rank by rank on the reference's side), fixed and paged, fp and
     int8, against the reference's interpreted kernel: outputs and LSEs
     within 2e-5, the appended caches exact (int8: the payloads; the scales
@@ -346,9 +348,11 @@ def test_prefix_pass_plain_g16_matches_reference_kernel(window):
     assert float(l[0, 2].abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("heads", [(48, 4), (32, 2)], ids=["g12", "g16"])
+@pytest.mark.parametrize("heads", [(48, 4), (32, 2), (28, 4)],
+                         ids=["g12", "g16", "g7"])
 def test_flash_prefill_plain_g12_g16_matches_reference(heads):
-    """B2's plain version at G = 12 and 16, heads of 128, causal, one-shot
+    """B2's plain version at G = 12 and 16 (and arctic-480b's 7), heads of
+    128, causal, one-shot
     and at per-row offsets and lengths, against the reference's oracle, and
     one-shot against the reference's interpreted kernel (blocks of 8)."""
     qh, kh = heads

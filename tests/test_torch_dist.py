@@ -380,7 +380,9 @@ REFUSALS = {
     "tenants": dict(tenants={"a": None}),
     "governor": dict(slo_ttl_s=0.1),
     "ssm arch": dict(arch="mamba2-780m"),
-    "moe arch": dict(arch="granite-moe-1b-a400m"),
+    # MoE serves across ranks; an EP that does not divide the ranks not
+    "moe arch": dict(arch="granite-moe-1b-a400m",
+                     hx=HelixConfig(kvp=2, ep=3)),
 }
 
 
